@@ -1,0 +1,11 @@
+"""sgg_torch — the PyTorch/CUDA port of ``sgg`` for NVIDIA Hopper.
+
+A package of its own beside ``sgg``: it imports torch and numpy, never JAX,
+and nothing of ``sgg``. Module names mirror ``sgg``'s. Ported so far: the
+generate path on precomputed features (config, vocab, shards, the
+attention-LSTM generator, the flax weight converter, the K-sample sampler on
+the hand-written CUDA ``fused_decode`` kernel, recall@k, and
+``python -m sgg_torch.cli.generate``).
+"""
+
+__version__ = "0.1.0"

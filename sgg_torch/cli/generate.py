@@ -1,0 +1,210 @@
+"""Sample scene graphs from a port workdir, optionally scoring recall@k.
+
+Port of ``sgg/cli/generate.py`` on the fused decode kernel: read the workdir
+(config, vocab, generator weights), draw K noise samples per test image (one
+``fused_decode`` launch per draw and batch), dedupe and rank the triples by
+frequency, write the scene graphs as JSON.
+
+  python -m sgg_torch.cli.generate --workdir W --num-samples 50 \\
+      --batch-size 64 --recall-k 50 [--ema] [--device cpu]
+
+It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
+there. The XLA decode, ``--rank logp|freq_logp``, ``--top-k``/``--top-p`` and
+temperatures other than 1 come with a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from sgg_torch.config import Config
+from sgg_torch.data import TripleDataset, Vocab, list_shards, synthetic_dataset
+from sgg_torch.eval.recall import corpus_recall
+from sgg_torch.eval.sampler import (
+    assemble_scene_graphs,
+    device_put_features,
+    make_fused_sampler,
+)
+from sgg_torch.kernels.build import load_library
+from sgg_torch.train.checkpoint import load_generator, load_workdir
+
+_LATER = "is not ported yet; a later slice of the port brings it"
+
+
+def resolve_device(name: str) -> torch.device:
+    """``cuda`` (the default) or ``cpu``; never falls back silently."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass --device cpu to run on the CPU"
+        )
+    return torch.device(name)
+
+
+def load_dataset(cfg: Config, split: str = "train"):
+    """(dataset, vocab) from cfg.data.source for precomputed-feature configs,
+    as ``sgg.cli.common.load_dataset``: ``split='test'`` reads the held-out
+    shards under ``data_dir/test`` when they exist."""
+    d = cfg.data
+    if cfg.model.encoder != "precomputed":
+        raise NotImplementedError(
+            f"encoder {cfg.model.encoder!r} {_LATER} (only precomputed features)"
+        )
+    if d.source == "shards" and split == "test":
+        test_dir = os.path.join(d.data_dir, "test")
+        if list_shards(test_dir):
+            vocab_path = d.vocab_path or os.path.join(d.data_dir, "vocab.json")
+            return TripleDataset.from_shards(list_shards(test_dir)), Vocab.load(vocab_path)
+    if d.source == "synthetic":
+        data = synthetic_dataset(
+            num_images=d.num_synthetic_images, regions=d.regions,
+            feat_dim=d.feat_dim, seed=cfg.train.seed,
+        )
+        return TripleDataset(features=data["features"], triples=data["triples"]), data["vocab"]
+    if d.source == "shards":
+        if not d.data_dir:
+            raise ValueError("data.source=shards requires data.data_dir")
+        shards = list_shards(d.data_dir)
+        if not shards:
+            raise FileNotFoundError(f"no feature shards in {d.data_dir}")
+        vocab_path = d.vocab_path or os.path.join(d.data_dir, "vocab.json")
+        return TripleDataset.from_shards(shards), Vocab.load(vocab_path)
+    raise ValueError(f"unsupported data.source {d.source!r} (synthetic or shards)")
+
+
+def _refuse_unported(args) -> str | None:
+    if args.decode != "fused":
+        return f"--decode {args.decode} {_LATER}"
+    if args.rank != "freq":
+        return f"--rank {args.rank} {_LATER}"
+    if args.top_k or args.top_p is not None:
+        return f"--top-k/--top-p {_LATER}"
+    if args.temperature is not None and args.temperature != 1.0:
+        return f"--temperature other than 1.0 {_LATER}"
+    return None
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--workdir", required=True, help="run directory")
+    p.add_argument("--out", default=None, help="output JSON path (default: workdir/scene_graphs.json)")
+    p.add_argument("--num-samples", type=int, default=50, help="noise draws per image")
+    p.add_argument("--temperature", type=float, default=None,
+                   help="sampling temperature; only 1.0 is ported")
+    p.add_argument("--top-p", type=float, default=None, help="not ported yet")
+    p.add_argument("--top-k", type=int, default=0, help="not ported yet")
+    p.add_argument("--rank", default="freq", choices=["freq", "freq_logp", "logp"],
+                   help="triple order; only freq (sample count) is ported")
+    p.add_argument("--num-images", type=int, default=None, help="limit images")
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--recall-k", type=int, default=None, help="also report recall@k vs ground truth")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--split", default="test", choices=["train", "test"],
+                   help="evaluate on held-out shards when available (default)")
+    p.add_argument("--decode", default="fused", choices=["xla", "fused"],
+                   help="decode path; only the fused CUDA kernel is ported")
+    p.add_argument("--ema", action="store_true", help="sample from the EMA generator weights")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="run on the card (default) or on the CPU")
+    args = p.parse_args(argv)
+    refusal = _refuse_unported(args)
+    if refusal:
+        print(f"[sgg.generate] {refusal}", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+
+    cfg, vocab = load_workdir(args.workdir)
+    cfg.model.vocab_size = len(vocab)
+    ds, _ = load_dataset(cfg, split=args.split)
+    n_images = min(args.num_images or len(ds), len(ds))
+
+    ckpt = load_generator(args.workdir)
+    if ckpt is None:
+        print(f"[sgg.generate] no generator weights in {args.workdir}", file=sys.stderr)
+        return 1
+    print(f"[sgg.generate] restored step {ckpt['step']}", flush=True)
+    g_params = ckpt["g_params"]
+    if args.ema:
+        if ckpt["g_ema"] is None:
+            print("[sgg.generate] --ema: checkpoint has no EMA weights "
+                  "(train with train.ema_decay > 0)", file=sys.stderr)
+            return 1
+        g_params = ckpt["g_ema"]
+    g_params = {k: v.to(device) for k, v in g_params.items()}
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    dtype = cfg.model.dtype
+
+    # Device-resident path: upload the whole feature set once and gather each
+    # batch by index on the device.
+    B = args.batch_size
+    device_resident = ds.features.nbytes <= cfg.data.device_resident_max_bytes
+    t_up = 0.0
+    sampler = make_fused_sampler(
+        cfg, step_mask=vocab.step_mask(), num_samples=args.num_samples,
+        tau=args.temperature, indexed=device_resident,
+    )
+    if device_resident:
+        t0 = time.perf_counter()
+        feats_dev = device_put_features(ds.features, device, dtype)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_up = time.perf_counter() - t0
+
+    # Dispatch batch i+1 before reading batch i back: the launches queue on
+    # the device while the host assembles the previous batch's graphs.
+    def dispatch(lo):
+        idx = np.arange(lo, min(lo + B, n_images))
+        if device_resident:
+            pad_idx = (
+                np.concatenate([idx, np.repeat(idx[-1:], B - len(idx))])
+                if len(idx) < B else idx
+            )
+            return idx, sampler(g_params, feats_dev, pad_idx, generator)
+        feats = ds.features[idx]
+        if feats.shape[0] < B:  # pad to the batch shape
+            pad = np.repeat(feats[-1:], B - feats.shape[0], axis=0)
+            feats = np.concatenate([feats, pad], axis=0)
+        return idx, sampler(g_params, torch.from_numpy(feats).to(device), generator)
+
+    graphs, gen_triples, gt_triples = [], [], []
+    n_sampled = 0
+    starts = list(range(0, n_images, B))
+    if device.type == "cuda":  # build and load the kernel outside the timing
+        load_library()
+    t0 = time.perf_counter()
+    pending = dispatch(starts[0]) if starts else None
+    for pos in range(len(starts)):
+        idx, fut = pending
+        pending = dispatch(starts[pos + 1]) if pos + 1 < len(starts) else None
+        tokens = fut.cpu().numpy()  # [B, K, 3], the sync point
+        gs, ids = assemble_scene_graphs(tokens[: len(idx)], vocab, idx)
+        graphs.extend(gs)
+        gen_triples.extend(ids)
+        gt_triples.extend([tuple(map(int, t)) for t in ds.triples[i]] for i in idx)
+        n_sampled += len(idx) * tokens.shape[1]
+    dt = time.perf_counter() - t0
+
+    out_path = args.out or os.path.join(args.workdir, "scene_graphs.json")
+    with open(out_path, "w") as f:
+        json.dump({"num_images": n_images, "scene_graphs": graphs}, f, indent=2)
+    triples_per_sec = n_sampled / dt if dt > 0 else 0.0
+    up = f" (+{t_up:.2f}s one-time feature upload)" if t_up else ""
+    print(
+        f"[sgg.generate] {n_images} images, {n_sampled} triples in {dt:.2f}s "
+        f"({triples_per_sec:.0f} triples/sec){up} → {out_path}",
+        flush=True,
+    )
+    if args.recall_k:
+        r = corpus_recall(gen_triples, gt_triples, k=args.recall_k)
+        print(f"[sgg.generate] recall@{args.recall_k} = {r:.4f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,207 @@
+"""Dataclass configuration, mirroring ``sgg/config.py`` without JAX.
+
+Every field of the reference dataclasses is kept, with its default, so that a
+workdir ``config.json`` written by ``sgg`` training loads unchanged. Fields
+that only a later slice of the port reads (training, encoders, the mesh) are
+carried as plain data. Dtype strings map to torch dtypes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class ModelConfig:
+    vocab_size: int = 1024  # overwritten from the vocab at load time
+    encoder: str = "precomputed"  # precomputed | vgg19 | resnet50 | vit_b16
+    decoder: str = "lstm"  # lstm | transformer
+    hidden: int = 512
+    embed_dim: int = 256
+    attn_dim: int = 256
+    noise_dim: int = 128
+    critic_hidden: int = 512
+    critic_layers: int = 3
+    num_heads: int = 8
+    num_layers: int = 4
+    mlp_ratio: int = 4
+    compute_dtype: str = "float32"  # float32 | bfloat16
+    use_pallas: bool = False
+    sp_mode: str = ""
+    pp_microbatches: int = 0
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    vit_dim: int = 768
+    vit_layers: int = 12
+    vit_heads: int = 12
+    quant: str = ""
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+
+@dataclass
+class DataConfig:
+    regions: int = 196  # 14x14 VGG conv5 grid
+    feat_dim: int = 512
+    image_size: int = 224
+    source: str = "synthetic"  # synthetic | shards | vg
+    loader: str = "custom"
+    grain_workers: int = 0
+    data_dir: str = ""
+    vocab_path: str = ""
+    num_synthetic_images: int = 1024
+    max_triples_per_image: int = 32
+    test_fraction: float = 0.1
+    device_resident: bool = True
+    # Generate uploads the whole feature set once when it is at most this big.
+    device_resident_max_bytes: int = 4_000_000_000
+    rotate_subsets: bool = True
+    rotation_min_steps: int = 0
+    feature_store_int8: bool = False
+    predicate_balance: float = 0.0
+    max_images: int = 0
+    split_seed: int = 0
+
+
+@dataclass
+class TrainConfig:
+    batch_size: int = 32
+    n_critic: int = 5
+    gp_lambda: float = 10.0
+    drift: float = 0.0
+    g_lr: float = 1e-4
+    d_lr: float = 1e-4
+    beta1: float = 0.5
+    beta2: float = 0.9
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    lr_final_frac: float = 0.0
+    grad_clip: float = 0.0
+    moe_aux_coef: float = 0.01
+    grad_accum: int = 1
+    total_steps: int = 100_000
+    seed: int = 0
+    tau0: float = 1.0
+    tau_min: float = 0.5
+    tau_anneal: float = 0.0
+    hard: bool = True
+    estimator: str = "gumbel"
+    rl_entropy: float = 0.0
+    train_encoder: bool = False
+    enc_lr: float = 1e-5
+    critic_unroll: int = 8
+    steps_per_dispatch: int = 1
+    eval_every: int = 0
+    eval_images: int = 256
+    eval_samples: int = 50
+    eval_k: int = 50
+    log_every: int = 50
+    checkpoint_every: int = 1000
+    max_checkpoints: int = 3
+    ema_decay: float = 0.0
+    host_rss_exit_gb: float = 0.0
+    stall_exit_sec: float = 900.0
+
+
+@dataclass
+class MeshConfig:
+    data: int = -1
+    model: int = 1
+    seq: int = 1
+    expert: int = 1
+    partition: str = "auto"
+    fsdp: bool = False
+
+
+@dataclass
+class Config:
+    name: str = "default"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    workdir: str = "/tmp/sgg_workdir"
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        return cls(
+            name=d.get("name", "default"),
+            model=ModelConfig(**d.get("model", {})),
+            data=DataConfig(**d.get("data", {})),
+            train=TrainConfig(**d.get("train", {})),
+            mesh=MeshConfig(**d.get("mesh", {})),
+            workdir=d.get("workdir", "/tmp/sgg_workdir"),
+        )
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        return cls.from_dict(json.loads(s))
+
+    def override(self, assignments: list[str]) -> "Config":
+        """Apply ``section.field=value`` overrides (typed via existing value)."""
+        cfg = Config.from_dict(json.loads(self.to_json()))
+        for a in assignments:
+            path, _, raw = a.partition("=")
+            parts = path.strip().split(".")
+            obj: Any = cfg
+            for p in parts[:-1]:
+                obj = getattr(obj, p)
+            old = getattr(obj, parts[-1])
+            if isinstance(old, bool):
+                val: Any = raw.strip().lower() in ("1", "true", "yes")
+            elif isinstance(old, int):
+                val = int(raw)
+            elif isinstance(old, float):
+                val = float(raw)
+            else:
+                val = raw
+            setattr(obj, parts[-1], val)
+        return cfg
+
+
+def _cfg_vg1k() -> Config:
+    """VG 1k-image subset, precomputed VGG-19 features, batch 32."""
+    c = Config(name="vg1k")
+    c.data.num_synthetic_images = 1024
+    c.train.batch_size = 32
+    return c
+
+
+def _cfg_smoke() -> Config:
+    """Tiny shapes for tests."""
+    c = Config(name="smoke")
+    c.model.hidden = 32
+    c.model.embed_dim = 16
+    c.model.attn_dim = 16
+    c.model.noise_dim = 8
+    c.model.critic_hidden = 32
+    c.data.regions = 9
+    c.data.feat_dim = 16
+    c.data.num_synthetic_images = 64
+    c.train.batch_size = 8
+    c.train.n_critic = 2
+    c.train.total_steps = 20
+    c.train.log_every = 5
+    c.train.checkpoint_every = 10
+    return c
+
+
+CONFIGS = {"vg1k": _cfg_vg1k, "smoke": _cfg_smoke}
+
+
+def get_config(name: str) -> Config:
+    if name not in CONFIGS:
+        raise KeyError(f"unknown config {name!r}; available: {sorted(CONFIGS)}")
+    return CONFIGS[name]()

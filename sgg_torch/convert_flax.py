@@ -1,0 +1,70 @@
+"""Generator weights between the reference's flax param tree and the port.
+
+The flax tree is the nested dict of numpy arrays that ``sgg.train.checkpoint``
+restores as ``g_params`` (or ``g_ema``). A flax ``Dense`` kernel is
+``[in, out]``, the transpose of a torch ``Linear`` weight. The TF1 LSTM
+kernel stays one ``[I+H, 4H]`` matrix in i, j, f, o order, and the embedding
+is ``[V, E]`` in both.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+# (flax path, port state_dict key, transposed)
+_GENERATOR_MAP = (
+    (("AdditiveAttention_0", "feat_proj", "kernel"), "attention.feat_proj.weight", True),
+    (("AdditiveAttention_0", "state_proj", "kernel"), "attention.state_proj.weight", True),
+    (("AdditiveAttention_0", "state_proj", "bias"), "attention.state_proj.bias", False),
+    (("AdditiveAttention_0", "score", "kernel"), "attention.score.weight", True),
+    (("TF1LSTMCell_0", "kernel"), "cell.kernel", False),
+    (("TF1LSTMCell_0", "bias"), "cell.bias", False),
+    (("token_embedding",), "token_embedding", False),
+    (("init_c", "kernel"), "init_c.weight", True),
+    (("init_c", "bias"), "init_c.bias", False),
+    (("init_h", "kernel"), "init_h.weight", True),
+    (("init_h", "bias"), "init_h.bias", False),
+    (("deep_out", "kernel"), "deep_out.weight", True),
+    (("deep_out", "bias"), "deep_out.bias", False),
+    (("vocab_proj", "kernel"), "vocab_proj.weight", True),
+    (("vocab_proj", "bias"), "vocab_proj.bias", False),
+)
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def flax_to_state_dict(g_params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``AttentionLSTMGenerator`` params → ``AttentionLSTMGenerator``
+    state_dict of the port. Raises on a missing or an unknown leaf."""
+    flat = {path: np.asarray(v) for path, v in _leaves(g_params)}
+    known = {path for path, _, _ in _GENERATOR_MAP}
+    unknown = sorted("/".join(p) for p in flat if p not in known)
+    missing = sorted("/".join(p) for p in known if p not in flat)
+    if unknown or missing:
+        raise ValueError(f"generator tree mismatch: unknown {unknown}, missing {missing}")
+    sd = OrderedDict()
+    for path, key, transposed in _GENERATOR_MAP:
+        a = flat[path]
+        sd[key] = torch.from_numpy(np.array(a.T if transposed else a, order="C"))
+    return sd
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    """The reverse of :func:`flax_to_state_dict`: a nested dict of numpy arrays."""
+    tree: dict = {}
+    for path, key, transposed in _GENERATOR_MAP:
+        a = sd[key].detach().cpu().numpy()
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a.T if transposed else a)
+    return tree

@@ -1,0 +1,116 @@
+"""Attention-LSTM triple generator, from ``sgg/models/generator.py``.
+
+Conditioned on region features and a noise vector, it emits a (subject,
+predicate, object) triple as three token distributions. Per decode step:
+additive attention over the R regions gives a context vector; a TF1 LSTM step
+runs on [context, previous-token embedding, z]; a deep-output layer and the
+vocab projection give logits, masked to the step's legal tokens; a
+Gumbel-softmax sample feeds back through the embedding.
+
+The noise is an input: ``gumbel`` holds the [B, 3, V] float32 Gumbel draws
+that the reference makes inside the step loop. Forced steps,
+``detach_sample``/``log_prob``, ``sample_temp`` and top-k/top-p belong to the
+reference's XLA sampler and come with the slice that ports it.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sgg_torch.config import Config
+from sgg_torch.models.attention import AdditiveAttention
+from sgg_torch.models.layers import dense, init_dense_
+from sgg_torch.models.lstm import TF1LSTMCell
+from sgg_torch.utils.gumbel import gumbel_softmax
+
+TRIPLE_LEN = 3  # (subject, predicate, object)
+MASK_VALUE = -1e9  # the reference masks with -1e9, not -inf
+
+
+class AttentionLSTMGenerator(nn.Module):
+    def __init__(
+        self, vocab_size: int, feat_dim: int, hidden: int = 512,
+        embed_dim: int = 256, attn_dim: int = 256, noise_dim: int = 128,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.embed_dim = embed_dim
+        self.dtype = dtype
+        self.attention = AdditiveAttention(feat_dim, hidden, attn_dim, dtype)
+        self.cell = TF1LSTMCell(feat_dim + embed_dim + noise_dim, hidden, dtype=dtype)
+        self.token_embedding = nn.Parameter(torch.randn(vocab_size, embed_dim) * 0.01)
+        self.init_c = init_dense_(nn.Linear(feat_dim, hidden))
+        self.init_h = init_dense_(nn.Linear(feat_dim, hidden))
+        self.deep_out = init_dense_(nn.Linear(hidden + feat_dim, embed_dim))
+        self.vocab_proj = init_dense_(nn.Linear(embed_dim, vocab_size))
+
+    @classmethod
+    def from_config(cls, cfg: Config) -> "AttentionLSTMGenerator":
+        m = cfg.model
+        if m.decoder != "lstm":
+            raise NotImplementedError(
+                f"decoder {m.decoder!r} is not ported yet (only 'lstm')"
+            )
+        return cls(
+            vocab_size=m.vocab_size, feat_dim=cfg.data.feat_dim,
+            hidden=m.hidden, embed_dim=m.embed_dim, attn_dim=m.attn_dim,
+            noise_dim=m.noise_dim, dtype=m.dtype,
+        )
+
+    def forward(
+        self,
+        feats: torch.Tensor,  # [B, R, F]
+        z: torch.Tensor,  # [B, noise_dim]
+        gumbel: torch.Tensor,  # [B, 3, V] float32
+        tau: float = 1.0,
+        hard: bool = False,
+        step_mask: torch.Tensor | None = None,  # bool[3, V]
+    ) -> dict[str, torch.Tensor]:
+        """Decode one triple per image → soft [B,3,V], logits [B,3,V],
+        attention [B,3,R] and tokens [B,3] (argmax of soft, first index
+        among ties)."""
+        dt = self.dtype
+        feats = feats.to(dt)
+        z = z.to(dt)
+        B = feats.shape[0]
+        embedding = self.token_embedding.to(dt)
+
+        # Show-Attend-Tell init: LSTM state from the mean image feature.
+        mean_feat = feats.mean(dim=1)
+        c = torch.tanh(dense(self.init_c, mean_feat, dt))
+        h = torch.tanh(dense(self.init_h, mean_feat, dt))
+
+        proj_feats = self.attention.project_features(feats)
+        prev_emb = torch.zeros(B, self.embed_dim, dtype=dt, device=feats.device)
+        if step_mask is not None:
+            step_mask = step_mask.to(device=feats.device, dtype=torch.bool)
+
+        soft_steps, logit_steps, attn_steps = [], [], []
+        for t in range(TRIPLE_LEN):
+            ctx, alpha = self.attention(feats, h, proj_feats)
+            x = torch.cat([ctx, prev_emb, z], dim=-1)
+            (c, h), _ = self.cell((c, h), x)
+            dec = torch.tanh(dense(self.deep_out, torch.cat([h, ctx], dim=-1), dt))
+            logits = dense(self.vocab_proj, dec, dt)
+            if step_mask is not None:
+                logits = torch.where(
+                    step_mask[t][None, :], logits,
+                    torch.tensor(MASK_VALUE, dtype=logits.dtype, device=logits.device),
+                )
+            y = gumbel_softmax(
+                logits.float(), gumbel[:, t, :].float(), tau=tau, hard=hard
+            ).to(dt)
+            prev_emb = y @ embedding
+            soft_steps.append(y)
+            logit_steps.append(logits)
+            attn_steps.append(alpha)
+
+        soft = torch.stack(soft_steps, dim=1)
+        return {
+            "soft": soft,
+            "logits": torch.stack(logit_steps, dim=1),
+            "attention": torch.stack(attn_steps, dim=1),
+            "tokens": torch.argmax(soft, dim=-1),
+        }

@@ -1,0 +1,51 @@
+"""Workdir IO for inference, from ``sgg/train/checkpoint.py``.
+
+A workdir holds ``config.json`` and ``vocab.json`` beside the weights. The
+port keeps the generator's weights and their EMA (``g_params``, ``g_ema``) as
+port state_dicts in one torch file, ``generator.pt``. The reference's orbax
+checkpoints are not read here: ``sgg_torch.convert_flax`` turns a restored
+flax tree into a state_dict, and :func:`save_generator` writes it.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from sgg_torch.config import Config
+from sgg_torch.data.vocab import Vocab
+
+GENERATOR_FILE = "generator.pt"
+
+
+def load_workdir(workdir: str) -> tuple[Config, Vocab]:
+    """Read back the self-describing workdir: (config, vocab)."""
+    with open(os.path.join(workdir, "config.json")) as f:
+        cfg = Config.from_json(f.read())
+    vocab = Vocab.load(os.path.join(workdir, "vocab.json"))
+    return cfg, vocab
+
+
+def save_generator(
+    workdir: str, g_params: dict, g_ema: dict | None = None, step: int = 0
+) -> str:
+    """Write the generator's state_dict (and its EMA) to ``workdir``."""
+    path = os.path.join(workdir, GENERATOR_FILE)
+    tmp = path + ".tmp"
+    cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+    torch.save(
+        {"step": int(step), "g_params": cpu(g_params),
+         "g_ema": None if g_ema is None else cpu(g_ema)},
+        tmp,
+    )
+    os.replace(tmp, path)
+    return path
+
+
+def load_generator(workdir: str) -> dict | None:
+    """{'step', 'g_params', 'g_ema'} from ``workdir``, or None if absent."""
+    path = os.path.join(workdir, GENERATOR_FILE)
+    if not os.path.exists(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)

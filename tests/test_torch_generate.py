@@ -1,0 +1,235 @@
+"""The port's generate path against the reference: the K-sample fused
+sampler given the same noise, triple ranking and scene-graph assembly,
+recall@k, the data layer, and ``sgg_torch.cli.generate`` end to end on the
+CPU. Tokens, rankings and recall values must be identical.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from sgg.config import get_config as jax_get_config
+from sgg.data import TripleDataset as JaxTripleDataset
+from sgg.data import synthetic_dataset as jax_synthetic_dataset
+from sgg.eval import assemble_scene_graphs as jax_assemble
+from sgg.eval import corpus_recall as jax_corpus_recall
+from sgg.eval import rank_triples as jax_rank_triples
+from sgg.eval.sampler import make_fused_sampler as jax_make_fused_sampler
+from sgg.kernels.fused_decode import decode_gumbel_noise
+from sgg.train.state import create_train_state, make_models
+from sgg_torch.cli import generate
+from sgg_torch.config import Config as PortConfig
+from sgg_torch.config import get_config
+from sgg_torch.convert_flax import flax_to_state_dict
+from sgg_torch.data import TripleDataset, list_shards, synthetic_dataset, write_feature_shard
+from sgg_torch.eval.recall import corpus_recall, recall_at_k
+from sgg_torch.eval.sampler import assemble_scene_graphs, make_fused_sampler, rank_triples
+from sgg_torch.train.checkpoint import save_generator
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+K = 3
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = jax_get_config("smoke")
+    cfg.model.vocab_size = 40
+    gen, _ = make_models(cfg)
+    r = np.random.RandomState(0)
+    B, R, F = 6, cfg.data.regions, cfg.data.feat_dim
+    feats = r.randn(B, R, F).astype(np.float32)
+    z = r.randn(B, cfg.model.noise_dim).astype(np.float32)
+    gvars = gen.init(jax.random.key(0), jnp.asarray(feats), jnp.asarray(z), jax.random.key(1))
+    mask = np.zeros((3, 40), bool)
+    mask[0, :20] = mask[2, :20] = True
+    mask[1, 20:] = True
+    return cfg, gvars["params"], feats, mask
+
+
+def _reference_noise(cfg, rng, B, V):
+    """The reference sampler's draws: split(rng, K), then per draw
+    split(key) into z and the decode's Gumbel noise."""
+    zs, gs = [], []
+    for key in jax.random.split(rng, K):
+        kz, kg = jax.random.split(key)
+        zs.append(np.array(jax.random.normal(kz, (B, cfg.model.noise_dim), cfg.model.dtype)))
+        gs.append(np.array(decode_gumbel_noise(kg, B, V)))
+    return torch.from_numpy(np.stack(zs)), torch.from_numpy(np.stack(gs))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_sampler_matches_reference(setup, masked):
+    cfg, g_params, feats, mask = setup
+    step_mask = mask if masked else None
+    rng = jax.random.key(7)
+    ref = jax_make_fused_sampler(cfg, step_mask=step_mask, num_samples=K)(
+        g_params, jnp.asarray(feats), rng)
+    port_cfg = PortConfig.from_json(cfg.to_json())
+    sd = flax_to_state_dict(jax.tree.map(np.asarray, g_params))
+    noise = _reference_noise(cfg, rng, feats.shape[0], 40)
+    got = make_fused_sampler(port_cfg, step_mask=step_mask, num_samples=K)(
+        sd, torch.from_numpy(feats), noise=noise)
+    assert got.dtype == torch.int32 and got.shape == (feats.shape[0], K, 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_indexed_fused_sampler_matches_reference(setup):
+    cfg, g_params, feats, mask = setup
+    rng = jax.random.key(11)
+    idx = np.array([4, 1, 5, 0], np.int32)
+    ref = jax_make_fused_sampler(cfg, step_mask=mask, num_samples=K, indexed=True)(
+        g_params, jnp.asarray(feats), jnp.asarray(idx), rng)
+    port_cfg = PortConfig.from_json(cfg.to_json())
+    sd = flax_to_state_dict(jax.tree.map(np.asarray, g_params))
+    got = make_fused_sampler(port_cfg, step_mask=mask, num_samples=K, indexed=True)(
+        sd, torch.from_numpy(feats), idx, noise=_reference_noise(cfg, rng, len(idx), 40))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_sampler_draws_its_own_noise_from_generator(setup):
+    cfg, g_params, feats, mask = setup
+    port_cfg = PortConfig.from_json(cfg.to_json())
+    sd = flax_to_state_dict(jax.tree.map(np.asarray, g_params))
+    sampler = make_fused_sampler(port_cfg, step_mask=mask, num_samples=5)
+    a = sampler(sd, torch.from_numpy(feats), torch.Generator().manual_seed(3))
+    b = sampler(sd, torch.from_numpy(feats), torch.Generator().manual_seed(3))
+    assert torch.equal(a, b) and a.shape == (feats.shape[0], 5, 3)
+    toks = a.reshape(-1, 3).numpy()
+    assert (toks[:, 0] < 20).all() and (toks[:, 1] >= 20).all() and (toks[:, 2] < 20).all()
+    with pytest.raises(ValueError):
+        make_fused_sampler(port_cfg, tau=0.5)
+
+
+def _tokens(seed=0, B=5):
+    r = np.random.RandomState(seed)
+    return r.randint(0, 4, size=(B, 12, 3)).astype(np.int32)  # many repeats
+
+
+def test_rank_and_assemble_match_reference():
+    from sgg.data.vocab import Vocab as JaxVocab
+
+    vocab_path = os.path.join(REPO, "results", "run_v3_bal0.7_ckpt", "vocab.json")
+    from sgg_torch.data import Vocab
+
+    tokens = _tokens()
+    for row in tokens:
+        assert rank_triples(row) == jax_rank_triples(row)
+    ids = np.arange(100, 105)
+    got = assemble_scene_graphs(tokens, Vocab.load(vocab_path), ids)
+    want = jax_assemble(tokens, JaxVocab.load(vocab_path), ids)
+    assert got == want
+    with pytest.raises(ValueError):
+        rank_triples(tokens[0], rank="logp")
+
+
+def test_recall_matches_reference():
+    gen = [list(map(tuple, t)) for t in _tokens(1)]
+    gt = [list(map(tuple, t[:4])) for t in _tokens(2)]
+    for k in (1, 3, 50):
+        assert corpus_recall(gen, gt, k=k) == jax_corpus_recall(gen, gt, k=k)
+    assert recall_at_k([(1, 2, 3)], [(1, 2, 3), (4, 5, 6)], k=1) == 0.5
+
+
+def test_data_layer_matches_reference(tmp_path):
+    """Shards written by either package read back identically in the other;
+    synthetic data and configs are the reference's."""
+    a, b = synthetic_dataset(num_images=6, regions=3, feat_dim=4, seed=2), \
+        jax_synthetic_dataset(num_images=6, regions=3, feat_dim=4, seed=2)
+    np.testing.assert_array_equal(a["features"], b["features"])
+    np.testing.assert_array_equal(a["triples"], b["triples"])
+    assert a["vocab"].tokens == b["vocab"].tokens
+    triples = [t[: i % 3] for i, t in enumerate(a["triples"])]  # image 0 and 3 empty
+    write_feature_shard(str(tmp_path / "shard-00000-of-00001.npz"),
+                        np.arange(6), a["features"], triples)
+    shards = list_shards(str(tmp_path))
+    port_ds, ref_ds = TripleDataset.from_shards(shards), JaxTripleDataset.from_shards(shards)
+    assert len(port_ds) == len(ref_ds) == 4
+    np.testing.assert_array_equal(port_ds.features, ref_ds.features)
+    for x, y in zip(port_ds.triples, ref_ds.triples):
+        np.testing.assert_array_equal(x, y)
+    for name in ("smoke", "vg1k"):
+        assert get_config(name).to_json() == jax_get_config(name).to_json()
+    over = ["train.batch_size=3", "model.compute_dtype=bfloat16", "train.hard=false"]
+    assert get_config("smoke").override(over).to_json() == \
+        jax_get_config("smoke").override(over).to_json()
+
+
+@pytest.fixture(scope="module")
+def smoke_workdir(tmp_path_factory):
+    """A port workdir for the smoke config on synthetic data, its generator
+    weights converted from a reference train state."""
+    cfg = jax_get_config("smoke")
+    data = jax_synthetic_dataset(num_images=4, regions=1, feat_dim=1, seed=cfg.train.seed)
+    cfg.model.vocab_size = len(data["vocab"])
+    cfg.data.num_synthetic_images = 20
+    cfg.train.ema_decay = 0.99
+    wd = str(tmp_path_factory.mktemp("smoke_wd"))
+    with open(os.path.join(wd, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    data["vocab"].save(os.path.join(wd, "vocab.json"))
+    state = create_train_state(cfg, jax.random.key(0))
+    save_generator(wd, flax_to_state_dict(jax.tree.map(np.asarray, state.g_params)),
+                   flax_to_state_dict(jax.tree.map(np.asarray, state.g_ema)), step=0)
+    return wd, data["vocab"]
+
+
+@pytest.mark.parametrize("ema", [False, True])
+def test_generate_cli_on_cpu(smoke_workdir, capsys, ema):
+    wd, vocab = smoke_workdir
+    out = os.path.join(wd, f"graphs_{ema}.json")
+    argv = ["--workdir", wd, "--out", out, "--num-samples", "4", "--batch-size", "8",
+            "--recall-k", "50", "--device", "cpu"] + (["--ema"] if ema else [])
+    assert generate.main(argv) == 0
+    printed = capsys.readouterr().out
+    assert "[sgg.generate] 20 images, 80 triples" in printed
+    assert "[sgg.generate] recall@50 = " in printed
+    with open(out) as f:
+        result = json.load(f)
+    assert result["num_images"] == 20 and len(result["scene_graphs"]) == 20
+    for i, g in enumerate(result["scene_graphs"]):
+        assert g["image_id"] == i
+        assert sum(t["count"] for t in g["triples"]) == 4
+        for t in g["triples"]:
+            assert vocab.is_object[vocab.id(t["subject"])]
+            assert vocab.is_predicate[vocab.id(t["predicate"])]
+
+
+def test_generate_cli_needs_cuda_or_cpu_flag(smoke_workdir, monkeypatch):
+    wd, _ = smoke_workdir
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        generate.main(["--workdir", wd, "--num-samples", "2"])
+
+
+@pytest.mark.parametrize("flags", [["--decode", "xla"], ["--rank", "logp"],
+                                   ["--top-k", "5"], ["--temperature", "0.5"]])
+def test_generate_cli_refuses_unported_options(smoke_workdir, capsys, flags):
+    wd, _ = smoke_workdir
+    assert generate.main(["--workdir", wd, "--device", "cpu", *flags]) == 2
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_port_imports_no_jax_and_no_sgg():
+    code = (
+        "import sys\n"
+        "import sgg_torch, sgg_torch.cli.generate, sgg_torch.convert_flax\n"
+        "import sgg_torch.models, sgg_torch.kernels.fused_decode\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sgg'))\n"
+        "assert not bad, bad\n"
+        "from sgg_torch.kernels import build\n"
+        "assert not build.load_library.cache_info().currsize  # nothing built at import\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
