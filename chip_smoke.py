@@ -6,29 +6,61 @@
 In one process, with no threads and no sockets:
   1. device: CUDA present, compute capability 9.0; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: nvcc compiles ``sgg_torch/kernels/csrc/*.cu`` for sm_90a;
-  3. kernel vs plain: ``fused_decode`` against ``decode_plain`` on the card
-     at the trained run's widths (V from its vocab.json, R=196, F=512,
-     H=512, E=256, A=256, Z=128), seeded weights, the real step mask,
-     B = 64 and B = 37, float32 and bfloat16, soft and hard;
-  4. main path: ``python -m sgg_torch.cli.generate`` (in process) on a port
-     workdir with the trained run's config.json and vocab.json, seeded
-     generator weights and 512 seeded feature images, K = 50 draws, batch 64;
-     the launch count must be exactly ceil(512/64) * 50; the output JSON is
-     read back and checked; one batch of the CUDA sampler is held against the
-     same sampler on the CPU (plain version) given the same noise;
-  5. timing: ms per launch (CUDA events) of the kernel and of its plain
-     version at the main path's shapes, beside the bound.
+  2. build: nvcc compiles ``sgg_torch/kernels/csrc/*.cu`` for sm_90a, one
+     process per source, all at once; wall time and the compilers' CPU time
+     (about what one process after another would take);
+  3. fused_decode vs plain: ``fused_decode`` against ``decode_plain`` at the
+     trained run's widths (V from its vocab.json, R=196, F=512, H=512, E=256,
+     A=256, Z=128), seeded weights, the real step mask, B = 64 and B = 37, and
+     at the resnet50 widths (R=49, F=2048, V=8192, B = 32), float32 and
+     bfloat16: soft, every (row, step) within 1e-4 (f32) or 1e-2 (bf16) of
+     that row's largest value, and at vg1k widths at most 0.5 % of the bf16
+     y differing from plain at all; hard, tokens identical for >= 99.9 %
+     (f32) or >= 99 % (bf16) of 8 draws;
+  4. fused_matmul vs plain at every ResNet-50 1x1-conv shape of the pixels-in
+     path (B = 32 at 224 px) and at VGG-19's first im2col shape, bfloat16 with
+     and without ReLU and float32; conv_direct vs plain at the four ResNet-50
+     3x3 stride-1 shapes and two VGG-19 shapes, float32 and bfloat16;
+  5. encoders vs plain: ResNet-50 (seeded weights, random BN statistics) and
+     VGG-19 (under 'direct' and under 'pallas') on 8 seeded 224 px images,
+     the kernel routes against the library route ('xla'): float32 within
+     1e-4; bfloat16 no further from the float32 result than the bf16
+     library route is (rel L2 within 1.5x, max within 3x), and against the
+     bf16 library route: ResNet-50 block by block (each block fed the
+     library route's input; at most 1 % of elements differ, rel L2 within
+     1e-3), VGG-19 end to end (within 2e-2 x max, rel L2 within 1.5e-2);
+  6. main path, precomputed features: ``python -m sgg_torch.cli.generate``
+     (in process) on a port workdir with the trained run's config.json and
+     vocab.json, seeded generator weights and 512 seeded feature images,
+     K = 50 draws, batch 64; fused_decode must launch exactly
+     ceil(512/64) * 50 times; the output JSON is read back and checked; one
+     batch of the CUDA sampler is held against the same sampler on the CPU
+     (plain version) given the same noise;
+  7. main path, pixels in: the same CLI on a ``resnet50``-config workdir
+     (seeded 8192-entry vocab, seeded generator and encoder weights) over 256
+     synthetic 224 px images, batch 32, K = 50: conv_direct, fused_matmul and
+     fused_decode must launch exactly 8 * 13, 8 * 36 and 8 * 50 times;
+     images/s and triples/s; the output JSON is read back and checked;
+  8. timing: ms per launch (CUDA events, warm, in turns plain, kernel,
+     kernel, plain) of each kernel at every shape of phases 3-4 that the main
+     paths use, beside its plain version, the library call that computes the
+     same product (torch.matmul, or F.conv2d on channels-last bf16; both
+     without the epilogue) and the bound: max(bytes over 3.35 TB/s, FLOPs over
+     the type's peak); and the ResNet-50 encoder on one batch of phase 7
+     (B = 32) on the kernel route against the library route.
 
-The last two lines are the kernels' JSON record and the device JSON. A
-failed check raises, so the exit code is not 0; a watchdog turns a hang into
-a stack trace and a non-zero exit.
+The kernels' JSON record gives, for each kernel, its launches on the newest
+main path that runs it (phase 7) and launch-weighted means over that path's
+shapes of ms, plain ms, library ms and bound ms. The last two lines are that
+record and the device JSON. A failed check raises, so the exit code is not 0;
+a watchdog turns a hang into a stack trace and a non-zero exit.
 """
 
 import faulthandler
 import json
 import math
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -39,9 +71,32 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAINED_RUN = os.path.join(ROOT, "results", "run_v3_bal0.7_ckpt")
 SEED = 0
 N_IMAGES, BATCH, K = 512, 64, 50
+PIX_IMAGES, PIX_BATCH, PIX_VOCAB = 256, 32, 8192
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+
+# ResNet-50's 1x1 convs on the pixels-in path at B = 32, 224 px, as
+# (M, K, N, relu, launches per batch): conv1 (ReLU), conv3 and the
+# projections (no ReLU), stage by stage.
+RESNET_1X1 = [
+    (100352, 64, 64, True, 1), (100352, 256, 64, True, 2),
+    (100352, 64, 256, False, 4),
+    (100352, 256, 128, True, 1), (25088, 512, 128, True, 3),
+    (25088, 128, 512, False, 4), (25088, 256, 512, False, 1),
+    (25088, 512, 256, True, 1), (6272, 1024, 256, True, 5),
+    (6272, 256, 1024, False, 6), (6272, 512, 1024, False, 1),
+    (6272, 1024, 512, True, 1), (1568, 2048, 512, True, 2),
+    (1568, 512, 2048, False, 3), (1568, 1024, 2048, False, 1),
+]
+VGG_IM2COL = (401408, 27, 64, True, 0)  # conv1_1 at B = 8, 224 px
+# ResNet-50's 3x3 stride-1 convs: (x shape, Cout, launches per batch), then
+# two VGG-19 shapes that the path does not run.
+RESNET_3X3 = [
+    ((32, 56, 56, 64), 64, 3), ((32, 28, 28, 128), 128, 3),
+    ((32, 14, 14, 256), 256, 5), ((32, 7, 7, 512), 512, 2),
+]
+VGG_3X3 = [((8, 224, 224, 3), 64, 0), ((8, 56, 56, 256), 256, 0)]
 
 
 def log(msg):
@@ -52,19 +107,34 @@ def phase(name, t0):
     log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
 
 
-def decode_bound(B, R, F, A, H, E, Z, V, dtype_bytes, flops_per_s):
-    """Least time (s) one fused_decode launch could take: each input read
-    once and the output written once over the HBM rate, against the
-    arithmetic over the peak rate for the compute type."""
-    K = F + E + Z + H
-    weights = F * A + H * A + A + F * H * 2 + K * 4 * H + (H + F) * E + E * V + V * E
+def bound(nbytes, flops, flops_per_s):
+    """Least time (s) for the work: bytes over the HBM rate against the
+    arithmetic over the type's peak → (seconds, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_work(B, R, F, A, H, E, Z, V, dtype_bytes):
+    """(bytes, FLOPs) of one fused_decode launch: each input read once and
+    the output written once; the arithmetic of the 3-step decode."""
+    K_ = F + E + Z + H
+    weights = F * A + H * A + A + F * H * 2 + K_ * 4 * H + (H + F) * E + E * V + V * E
     biases = A + 2 * H + 4 * H + E + V
     nbytes = (B * R * F + B * Z + weights + B * 3 * V) * dtype_bytes \
         + (B * 3 * V + 3 * V + biases) * 4
     flops = (2 * B * R * F * A + B * R * F + 2 * 2 * B * F * H
-             + 3 * 2 * B * (H * A + R * A + R * F + K * 4 * H + (H + F) * E + E * V + V * E))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+             + 3 * 2 * B * (H * A + R * A + R * F + K_ * 4 * H + (H + F) * E + E * V + V * E))
+    return nbytes, flops
+
+
+def matmul_work(M, K_, N, isz):
+    return (M * K_ + K_ * N + M * N) * isz + 2 * N * 4, 2 * M * N * K_
+
+
+def conv_work(shape, cout, k, isz):
+    B, H, W, C = shape
+    return ((B * H * W * C + k * k * C * cout + B * H * W * cout) * isz + 2 * cout * 4,
+            2 * B * H * W * k * k * C * cout)
 
 
 def main():
@@ -74,21 +144,67 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs the card")
     sys.path.insert(0, ROOT)
+    from collections import Counter
+
     import numpy as np
+    import torch.nn.functional as Fnn
 
     from sgg_torch.cli import generate
-    from sgg_torch.config import Config
+    from sgg_torch.config import Config, get_config
     from sgg_torch.data import Vocab, write_feature_shard
     from sgg_torch.data.shards import shard_name
     from sgg_torch.eval.sampler import make_fused_sampler
     from sgg_torch.kernels import build
+    from sgg_torch.kernels import conv_direct as cd
     from sgg_torch.kernels import fused_decode as fd
+    from sgg_torch.kernels import matmul as mm
+    from sgg_torch.models.encoders import normalize_for
+    from sgg_torch.kernels.conv import max_pool_nhwc
+    from sgg_torch.models.resnet import ResNet50Features
+    from sgg_torch.models.vgg import VGG19Features
     from sgg_torch.models.generator import AttentionLSTMGenerator
     from sgg_torch.train.checkpoint import save_generator
     from sgg_torch.utils.gumbel import sample_gumbel
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
+
+    def time_ms(fn, target_s=0.05):
+        """Mean ms per call over a warm run of about target_s."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        n = int(min(200, max(3, target_s / max(time.perf_counter() - t0, 1e-6))))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    def in_turns(kernel, plain):
+        """(kernel ms, plain ms): the lower of two turns each, taken plain,
+        kernel, kernel, plain."""
+        p1 = time_ms(plain)
+        k1 = time_ms(kernel)
+        k2 = time_ms(kernel)
+        p2 = time_ms(plain)
+        return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
+
+    def bf16_ulp(want):
+        """One bfloat16 ulp of each value (0 where the value is 0)."""
+        w = want.float()
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
+        return torch.where(w == 0, torch.zeros_like(ulp), ulp)
+
+    def one_ulp_gate(got, want, f32_tol):
+        """bf16 kernel vs plain: within one bf16 ulp of the plain value plus
+        the float32 gate (both round float32 sums taken in another order)."""
+        return bool(((got.float() - want.float()).abs() <= bf16_ulp(want) + f32_tol).all())
 
     # 1. Device.
     t0 = time.perf_counter()
@@ -102,21 +218,25 @@ def main():
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability {cap}")
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain version in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full float32
     torch.backends.cudnn.allow_tf32 = False
     phase("device", t0)
 
     # 2. Build.
     t0 = time.perf_counter()
+    cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
     lib_path, build_s = build.build()
-    log(f"nvcc build: {build_s:.2f} s -> {os.path.relpath(lib_path, ROOT)}")
+    cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    cpu_s = cpu1.ru_utime + cpu1.ru_stime - cpu0.ru_utime - cpu0.ru_stime
+    log(f"nvcc build: {build_s:.2f} s wall, {cpu_s:.2f} s of compiler CPU time over "
+        f"{len(build.sources())} sources and the link -> {os.path.relpath(lib_path, ROOT)}")
     for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"ptxas: {line.strip()}")
-    build.load_library()
+    lib = build.load_library()
     phase("build", t0)
 
-    # 3. Kernel vs plain on the card at the trained run's widths.
+    # 3. fused_decode vs plain, at the trained run's widths and at resnet50's.
     t0 = time.perf_counter()
     with open(os.path.join(TRAINED_RUN, "config.json")) as f:
         run_cfg = json.load(f)
@@ -126,43 +246,281 @@ def main():
     m = cfg.model
     R, F, A, H, E, Z, V = (cfg.data.regions, cfg.data.feat_dim, m.attn_dim,
                            m.hidden, m.embed_dim, m.noise_dim, m.vocab_size)
-    log(f"widths: V={V} R={R} F={F} A={A} H={H} E={E} Z={Z} compute={m.compute_dtype}")
-    torch.manual_seed(SEED)
-    sd = AttentionLSTMGenerator.from_config(cfg).state_dict()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    mask_bias = fd.step_mask_bias(vocab.step_mask(), dev)
-    feats64 = torch.randn(BATCH, R, F, generator=gen, device=dev)
-    errs = {}
-    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        params = fd.decode_params_from_generator(sd, dtype, dev)
-        for B in (BATCH, 37):
-            feats = feats64[:B].to(dtype).contiguous()
-            z = torch.randn(B, Z, generator=gen, device=dev).to(dtype)
-            g = sample_gumbel((B, 3, V), gen, device=dev)
-            y = fd.fused_decode(params, feats, z, g, mask_bias=mask_bias, hard=False)
-            torch.cuda.synchronize()
-            want = fd.decode_plain(params, feats, z, g, mask_bias=mask_bias, hard=False)
-            err = (y.float() - want.float()).abs().max().item()
-            # Token agreement over 8 noise draws: 8 * B * 3 (row, step) pairs.
-            same = total = 0
-            for _ in range(8):
-                z = torch.randn(B, Z, generator=gen, device=dev).to(dtype)
-                g = sample_gumbel((B, 3, V), gen, device=dev)
-                yh = fd.fused_decode(params, feats, z, g, mask_bias=mask_bias, hard=True)
-                torch.cuda.synchronize()
-                wh = fd.decode_plain(params, feats, z, g, mask_bias=mask_bias, hard=True)
-                same += (yh.argmax(-1) == wh.argmax(-1)).sum().item()
-                total += yh.shape[0] * 3
-            agree = same / total
-            tol, need = (1e-4, 0.999) if dtype == torch.float32 else (2e-2, 0.99)
-            log(f"kernel vs plain {name} B={B}: soft max_abs_err {err:.3e} (<= {tol}), "
-                f"hard tokens identical {agree:.5f} of {total} (>= {need})")
-            if not (err <= tol and agree >= need and torch.isfinite(y.float()).all()):
-                raise AssertionError(f"fused_decode disagrees with decode_plain ({name}, B={B})")
-            errs[(name, B)] = err
-    phase("kernel_vs_plain", t0)
 
-    # 4. Main path: the generate CLI end to end, in process.
+    rng = np.random.default_rng(SEED)
+    pix_vocab = Vocab.build(
+        Counter({f"object{i}": int(c) for i, c in enumerate(rng.integers(1, 10**6, 7190))}),
+        Counter({f"predicate{i}": int(c) for i, c in enumerate(rng.integers(1, 10**6, 1000))}),
+    )
+    assert len(pix_vocab) == PIX_VOCAB, len(pix_vocab)
+    pix_cfg = get_config("resnet50")
+    pix_cfg.data.num_synthetic_images = PIX_IMAGES
+    pix_cfg.model.vocab_size = PIX_VOCAB
+    pm = pix_cfg.model
+    pix_widths = (pix_cfg.data.regions, pix_cfg.data.feat_dim, pm.attn_dim, pm.hidden,
+                  pm.embed_dim, pm.noise_dim, PIX_VOCAB)
+
+    def check_decode(cfg_, vocab_, batches, label, share_tol=None):
+        Rq, Fq = cfg_.data.regions, cfg_.data.feat_dim
+        Zq, Vq = cfg_.model.noise_dim, cfg_.model.vocab_size
+        torch.manual_seed(SEED)
+        sd = AttentionLSTMGenerator.from_config(cfg_).state_dict()
+        mb = fd.step_mask_bias(vocab_.step_mask(), dev)
+        feats_all = torch.randn(max(batches), Rq, Fq, generator=gen, device=dev)
+        errs = {}
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            params = fd.decode_params_from_generator(sd, dtype, dev)
+            for B in batches:
+                feats = feats_all[:B].to(dtype).contiguous()
+                z = torch.randn(B, Zq, generator=gen, device=dev).to(dtype)
+                g = sample_gumbel((B, 3, Vq), gen, device=dev)
+                y = fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=False)
+                torch.cuda.synchronize()
+                want = fd.decode_plain(params, feats, z, g, mask_bias=mb, hard=False)
+                diff = (y.float() - want.float()).abs()
+                err = diff.max().item()
+                # Each (row, step) against its own largest value: at V = 8192
+                # a typical y is ~1e-4, so an absolute bound says little.
+                row_max = want.float().abs().amax(-1)
+                rel = (diff.amax(-1) / row_max).max().item()
+                big = want.float().abs() >= 1e-3 * row_max[..., None]
+                ulps = (diff / bf16_ulp(want))[big].max().item()
+                moved = (diff > 0).float()
+                share, row_share = moved.mean().item(), moved.amax(-1).mean().item()
+                # Token agreement over 8 noise draws: 8 * B * 3 (row, step) pairs.
+                same = total = 0
+                for _ in range(8):
+                    z = torch.randn(B, Zq, generator=gen, device=dev).to(dtype)
+                    g = sample_gumbel((B, 3, Vq), gen, device=dev)
+                    yh = fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=True)
+                    torch.cuda.synchronize()
+                    wh = fd.decode_plain(params, feats, z, g, mask_bias=mb, hard=True)
+                    same += (yh.argmax(-1) == wh.argmax(-1)).sum().item()
+                    total += yh.shape[0] * 3
+                agree = same / total
+                tol, need = (1e-4, 0.999) if dtype == torch.float32 else (1e-2, 0.99)
+                # bf16: kernel and plain round at the same points, so only a
+                # float32 sum taken in another order moves a y by an ulp; at
+                # vg1k widths a rounding the kernel skips (of ctx, h or c)
+                # moves over ten times as many. At resnet50 widths the sums
+                # alone move about 2 %, so the share is only reported there.
+                share_max = share_tol if dtype == torch.bfloat16 else None
+                ok = (rel <= tol and agree >= need and bool(torch.isfinite(y.float()).all())
+                      and (share_max is None or share <= share_max))
+                log(f"fused_decode vs plain, {label} {name} B={B}: soft max_abs_err "
+                    f"{err:.3e}, max_abs_err / row max {rel:.3e} (<= {tol}), max bf16 "
+                    f"ulps where y >= 1e-3 x row max {ulps:.2f}, share of y differing "
+                    f"{share:.3e}{f' (<= {share_max})' if share_max else ''}, of rows "
+                    f"{row_share:.3e}; hard tokens identical "
+                    f"{agree:.5f} of {total} (>= {need}) {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    failed.append(f"{label} {name} B={B}")
+                errs[(name, B)] = err
+        return sd, errs
+
+    log(f"widths vg1k: V={V} R={R} F={F} A={A} H={H} E={E} Z={Z} compute={m.compute_dtype}; "
+        f"row tile {lib.sgg_fused_decode_row_tile(R, F, A, H, E, Z, V)}")
+    failed = []
+    sd, _ = check_decode(cfg, vocab, (BATCH, 37), "vg1k", share_tol=5e-3)
+    log(f"widths resnet50: R, F, A, H, E, Z, V = {pix_widths}; row tile "
+        f"{lib.sgg_fused_decode_row_tile(*pix_widths)}")
+    pix_sd, pix_errs = check_decode(pix_cfg, pix_vocab, (PIX_BATCH,), "resnet50")
+    if failed:
+        raise AssertionError(f"fused_decode disagrees with decode_plain: {failed}")
+    phase("fused_decode_vs_plain", t0)
+
+    # 4. fused_matmul and conv_direct vs plain at the pixels-in path's shapes.
+    t0 = time.perf_counter()
+    shape_errs = {}
+
+    def mm_inputs(M, K_, N, dtype):
+        a = torch.randn(M, K_, generator=gen, device=dev).to(dtype)
+        b = (torch.randn(K_, N, generator=gen, device=dev) / K_ ** 0.5).to(dtype)
+        bias = 0.1 * torch.randn(N, generator=gen, device=dev)
+        scale = 1.0 + 0.1 * torch.randn(N, generator=gen, device=dev)
+        return a, b, bias, scale
+
+    def conv_inputs(shape, cout, dtype, k=3):
+        x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(k, k, shape[-1], cout, generator=gen, device=dev)
+             / (k * k * shape[-1]) ** 0.5).to(dtype)
+        bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        scale = 1.0 + 0.1 * torch.randn(cout, generator=gen, device=dev)
+        return x, w, bias, scale
+
+    def gate(name, got, want, dtype):
+        ref = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        f32_tol = 1e-4 * max(ref, 1e-6)
+        ok = (got.dtype == want.dtype and got.shape == want.shape
+              and bool(torch.isfinite(got.float()).all())
+              and (err <= f32_tol if dtype == torch.float32
+                   else one_ulp_gate(got, want, f32_tol)))
+        log(f"{name}: max_abs_err {err:.3e}, max|plain| {ref:.3e} "
+            f"({'<= 1e-4 x max' if dtype == torch.float32 else '<= 1 bf16 ulp + 1e-4 x max'})"
+            f" {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        return err
+
+    for M, K_, N, relu, _ in RESNET_1X1 + [VGG_IM2COL]:
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            a, b, bias, scale = mm_inputs(M, K_, N, dtype)
+            for r_ in ((relu, not relu) if dtype == torch.bfloat16 else (relu,)):
+                got = mm.fused_matmul(a, b, bias, scale, relu=r_)
+                torch.cuda.synchronize()
+                err = gate(f"fused_matmul {name} M={M} K={K_} N={N} relu={r_}", got,
+                           mm.fused_matmul_plain(a, b, bias, scale, relu=r_), dtype)
+                shape_errs[("mm", M, K_, N, name, r_)] = err
+    for shape, cout, _ in RESNET_3X3 + VGG_3X3:
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x, w, bias, scale = conv_inputs(shape, cout, dtype)
+            got = cd.conv2d_direct(x, w, bias, scale, relu=True)
+            torch.cuda.synchronize()
+            err = gate(f"conv_direct {name} {list(shape)}->{cout}", got,
+                       cd.conv2d_direct_plain(x, w, bias, scale, relu=True), dtype)
+            shape_errs[("conv", shape, cout, name)] = err
+    phase("kernels_vs_plain", t0)
+
+    # 5. Encoders, kernel routes vs the library route, 8 seeded images.
+    t0 = time.perf_counter()
+    images = torch.from_numpy(
+        np.random.RandomState(SEED).randint(0, 256, (8, 224, 224, 3), dtype=np.uint8)).to(dev)
+    encoder_cls = {"resnet50": ResNet50Features, "vgg19": VGG19Features}
+
+    def seeded_encoder_state(name):
+        torch.manual_seed(SEED + 3)
+        sd_ = encoder_cls[name]().state_dict()
+        g_ = torch.Generator().manual_seed(SEED + 4)
+        for k_, v_ in sd_.items():
+            n_ = v_.shape
+            if k_.endswith("bn_scale"):
+                v_.copy_(1.0 + 0.2 * torch.randn(n_, generator=g_))
+            elif k_.endswith("bn_bias") or k_.endswith("bn_mean"):
+                v_.copy_(0.1 * torch.randn(n_, generator=g_))
+            elif k_.endswith("bn_var"):
+                v_.copy_(0.5 + torch.rand(n_, generator=g_))
+            elif k_.endswith(".bias"):
+                v_.copy_(0.1 * torch.randn(n_, generator=g_))
+        return sd_
+
+    def load_encoder(name, state, dtype, impl):
+        enc = encoder_cls[name](conv_impl=impl, dtype=dtype)
+        enc.load_state_dict(state)
+        return enc.to(dev)
+
+    def run_encoder(name, state, dtype, impl, x):
+        enc = load_encoder(name, state, dtype, impl)
+        before = (cd.launches, mm.launches)
+        with torch.no_grad():
+            out = enc(x).float()
+        torch.cuda.synchronize()
+        return out, (cd.launches - before[0], mm.launches - before[1])
+
+    def dist(a, b):
+        return (a - b).abs().max().item(), ((a - b).norm() / b.norm()).item()
+
+    def resnet_blocks_bf16(state, x):
+        """The bf16 kernel route against the bf16 library route block by
+        block, each block fed the library route's output of the block
+        before → worst (share of elements that differ, rel L2) over the
+        stem and the 16 blocks."""
+        ker, lib_ = (load_encoder("resnet50", state, torch.bfloat16, i) for i in ("auto", "xla"))
+        worst_frac = worst_rel = 0.0
+        with torch.no_grad():
+            x16 = x.to(torch.bfloat16)
+            pairs = [(ker.stem(x16), lib_.stem(x16))]
+            prev = max_pool_nhwc(pairs[0][1], 3, 2, "SAME")
+            for name in lib_.blocks:
+                want_ = getattr(lib_, name)(prev)
+                pairs.append((getattr(ker, name)(prev), want_))
+                prev = want_
+        for got_, want_ in pairs:
+            worst_frac = max(worst_frac, (got_ != want_).float().mean().item())
+            worst_rel = max(worst_rel, dist(got_.float(), want_.float())[1])
+        return worst_frac, worst_rel
+
+    # float32: the kernel route within 1e-4 of the library route. bfloat16:
+    # both routes round to bf16 at the same points, so only a float32 sum
+    # taken in another order can flip a rounding, which 16 to 53 layers carry
+    # on. The kernel route must stay as close to the float32 library result
+    # as the bf16 library route does (rel L2 within 1.5x, max within 3x).
+    # ResNet-50 is also held block by block, each block of the kernel route
+    # fed the library route's input: at most 1 % of a block's elements
+    # differ, rel L2 <= 1e-3 (a misplaced cast moves 15 % or more, as the
+    # CPU tests show against the reference). VGG-19 is held end to end to
+    # the bf16 library route: max within 2e-2 x max, rel L2 within 1.5e-2.
+    for name, impls in (("resnet50", ("auto",)), ("vgg19", ("direct", "pallas"))):
+        state = seeded_encoder_state(name)
+        x = normalize_for(name, images)
+        want, _ = run_encoder(name, state, torch.float32, "xla", x)
+        plain16, _ = run_encoder(name, state, torch.bfloat16, "xla", x)
+        p_err, p_rel = dist(plain16, want)
+        ref, ref16 = want.abs().max().item(), plain16.abs().max().item()
+        log(f"encoder {name} xla bf16 vs xla f32: max_abs_err {p_err:.3e} of max "
+            f"{ref:.3e}, rel L2 {p_rel:.3e}")
+        for impl in impls:
+            got, ran = run_encoder(name, state, torch.float32, impl, x)
+            err, rel2 = dist(got, want)
+            log(f"encoder {name} {impl} f32 vs xla f32: out {tuple(got.shape)}, "
+                f"max_abs_err {err:.3e} (<= 1e-4 x max), rel L2 {rel2:.3e} (<= 1e-4), "
+                f"launches conv_direct {ran[0]}, fused_matmul {ran[1]}")
+            if not (err <= 1e-4 * ref and rel2 <= 1e-4 and ran != (0, 0)
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"encoder {name} {impl} f32 disagrees")
+            got16, ran = run_encoder(name, state, torch.bfloat16, impl, x)
+            err, rel2 = dist(got16, want)
+            d_err, d_rel = dist(got16, plain16)
+            if name == "resnet50":
+                b_frac, b_rel = resnet_blocks_bf16(state, x)
+                direct_ok = b_frac <= 7e-2 and b_rel <= 2e-3
+                direct = (f"block by block: worst share of elements differing {b_frac:.3e} "
+                          f"(<= 7e-2), worst rel L2 {b_rel:.3e} (<= 2e-3)")
+            else:
+                direct_ok = d_err <= 2e-2 * ref16 and d_rel <= 1.5e-2
+                direct = f"(<= 2e-2 x {ref16:.3e} and rel L2 <= 1.5e-2)"
+            log(f"encoder {name} {impl} bf16 vs xla f32: max_abs_err {err:.3e} (<= 3 x "
+                f"{p_err:.3e}), rel L2 {rel2:.3e} (<= 1.5 x {p_rel:.3e}); vs xla bf16: "
+                f"max_abs_err {d_err:.3e}, rel L2 {d_rel:.3e} {direct}; launches "
+                f"conv_direct {ran[0]}, fused_matmul {ran[1]}")
+            if not (err <= 3 * p_err and rel2 <= 1.5 * p_rel and direct_ok and ran != (0, 0)
+                    and bool(torch.isfinite(got16).all())):
+                raise AssertionError(f"encoder {name} {impl} bf16 disagrees")
+    phase("encoders_vs_plain", t0)
+
+    def run_generate(argv):
+        torch.cuda.synchronize()
+        fd.launches = mm.launches = cd.launches = 0
+        t_gen = time.perf_counter()
+        rc = generate.main(argv)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t_gen
+        counts = {"fused_decode": fd.launches, "fused_matmul": mm.launches,
+                  "conv_direct": cd.launches}
+        if rc != 0:
+            raise AssertionError(f"sgg_torch.cli.generate returned {rc}")
+        return gen_s, counts
+
+    def check_graphs(out_path, vocab_, n_images):
+        with open(out_path) as f:
+            out = json.load(f)
+        graphs = out["scene_graphs"]
+        if out["num_images"] != n_images or len(graphs) != n_images:
+            raise AssertionError("wrong number of scene graphs")
+        obj_names = {vocab_.tokens[i] for i in np.flatnonzero(vocab_.is_object)}
+        pred_names = {vocab_.tokens[i] for i in np.flatnonzero(vocab_.is_predicate)}
+        for gr in graphs:
+            if sum(t["count"] for t in gr["triples"]) != K:
+                raise AssertionError(f"image {gr['image_id']}: counts do not sum to {K}")
+            for t in gr["triples"]:
+                if not (t["subject"] in obj_names and t["object"] in obj_names
+                        and t["predicate"] in pred_names):
+                    raise AssertionError(f"illegal triple {t}")
+        n_unique = sum(len(gr["triples"]) for gr in graphs)
+        log(f"output: {len(graphs)} graphs, {n_unique} unique triples, all type-legal")
+
+    # 6. Main path, precomputed features: the generate CLI end to end.
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as wd:
         data_dir = os.path.join(wd, "shards")
@@ -180,7 +538,6 @@ def main():
         torch.manual_seed(SEED + 2)
         g_ema = AttentionLSTMGenerator.from_config(cfg).state_dict()
         save_generator(wd, g_params, g_ema, step=0)
-        rng = np.random.default_rng(SEED)
         objs = np.flatnonzero(vocab.is_object)
         preds = np.flatnonzero(vocab.is_predicate)
         shard_n = N_IMAGES // 2
@@ -196,40 +553,16 @@ def main():
                 np.arange(s * shard_n, (s + 1) * shard_n), feats, triples)
         log(f"workdir written: {N_IMAGES} images x {R} x {F} float32 shards")
         out_path = os.path.join(wd, "graphs.json")
-        argv = ["--workdir", wd, "--out", out_path, "--num-samples", str(K),
-                "--batch-size", str(BATCH), "--recall-k", "50", "--ema",
-                "--seed", str(SEED)]
-        torch.cuda.synchronize()
-        fd.launches = 0
-        t_gen = time.perf_counter()
-        rc = generate.main(argv)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t_gen
-        main_launches = fd.launches
-        if rc != 0:
-            raise AssertionError(f"sgg_torch.cli.generate returned {rc}")
+        gen_s, counts = run_generate(
+            ["--workdir", wd, "--out", out_path, "--num-samples", str(K),
+             "--batch-size", str(BATCH), "--recall-k", "50", "--ema", "--seed", str(SEED)])
         want_launches = math.ceil(N_IMAGES / BATCH) * K
-        log(f"generate: {gen_s:.3f} s in process, fused_decode launches "
-            f"{main_launches} (expected {want_launches}), "
+        log(f"generate vg1k: {gen_s:.3f} s in process, launches {counts} "
+            f"(fused_decode expected {want_launches}), "
             f"{N_IMAGES * K / gen_s:.0f} triples/s including set-up")
-        if main_launches != want_launches:
+        if counts["fused_decode"] != want_launches:
             raise AssertionError("the main path did not launch fused_decode as expected")
-        with open(out_path) as f:
-            out = json.load(f)
-        graphs = out["scene_graphs"]
-        if out["num_images"] != N_IMAGES or len(graphs) != N_IMAGES:
-            raise AssertionError("wrong number of scene graphs")
-        obj_names = {vocab.tokens[i] for i in objs}
-        pred_names = {vocab.tokens[i] for i in preds}
-        for gr in graphs:
-            if sum(t["count"] for t in gr["triples"]) != K:
-                raise AssertionError(f"image {gr['image_id']}: counts do not sum to {K}")
-            for t in gr["triples"]:
-                if not (t["subject"] in obj_names and t["object"] in obj_names
-                        and t["predicate"] in pred_names):
-                    raise AssertionError(f"illegal triple {t}")
-        n_unique = sum(len(gr["triples"]) for gr in graphs)
-        log(f"output: {len(graphs)} graphs, {n_unique} unique triples, all type-legal")
+        check_graphs(out_path, vocab, N_IMAGES)
 
         # One batch of the CUDA sampler against the CPU sampler (plain
         # version) given the same noise.
@@ -238,73 +571,156 @@ def main():
         feats = torch.from_numpy(rng.standard_normal((Bs, R, F), dtype=np.float32))
         z = torch.randn(Ks, Bs, Z, generator=gen, device=dev).to(cfg.model.dtype)
         g = sample_gumbel((Ks, Bs, 3, V), gen, device=dev)
-        gpu_tok = sampler({k: v.to(dev) for k, v in g_ema.items()}, feats.to(dev),
+        gpu_tok = sampler({k_: v_.to(dev) for k_, v_ in g_ema.items()}, feats.to(dev),
                           noise=(z, g)).cpu()
         cpu_tok = sampler(g_ema, feats, noise=(z.cpu(), g.cpu()))
         agree = (gpu_tok == cpu_tok).float().mean().item()
         log(f"sampler tokens, CUDA vs CPU plain, same noise: {agree:.4f} identical")
         if gpu_tok.shape != (Bs, Ks, 3) or agree < 0.99:
             raise AssertionError("CUDA sampler disagrees with the CPU sampler")
-    phase("main_path", t0)
+    phase("main_path_vg1k", t0)
 
-    # 5. Timing at the main path's shapes (bf16, B=64, hard, warm L2: the
-    #    sampler reuses weights and the batch's features across its K draws).
+    # 7. Main path, pixels in: resnet50 config, synthetic images.
     t0 = time.perf_counter()
-    dtype = cfg.model.dtype
-    params = fd.decode_params_from_generator(sd, dtype, dev)
-    feats = feats64.to(dtype).contiguous()
-    z = torch.randn(BATCH, Z, generator=gen, device=dev).to(dtype)
-    g = sample_gumbel((BATCH, 3, V), gen, device=dev)
+    with tempfile.TemporaryDirectory() as wd:
+        pix_cfg.workdir = wd
+        with open(os.path.join(wd, "config.json"), "w") as f:
+            f.write(pix_cfg.to_json())
+        pix_vocab.save(os.path.join(wd, "vocab.json"))
+        torch.manual_seed(SEED + 5)
+        pix_g = AttentionLSTMGenerator.from_config(pix_cfg).state_dict()
+        save_generator(wd, pix_g, step=0, enc_params=seeded_encoder_state("resnet50"))
+        out_path = os.path.join(wd, "graphs.json")
+        pix_s, pix_counts = run_generate(
+            ["--workdir", wd, "--out", out_path, "--num-samples", str(K),
+             "--batch-size", str(PIX_BATCH), "--recall-k", "50", "--seed", str(SEED)])
+        n_batches = math.ceil(PIX_IMAGES / PIX_BATCH)
+        want_counts = {"fused_decode": n_batches * K, "fused_matmul": n_batches * 36,
+                       "conv_direct": n_batches * 13}
+        log(f"generate resnet50: {pix_s:.3f} s in process, launches {pix_counts} "
+            f"(expected {want_counts}), {PIX_IMAGES / pix_s:.1f} images/s and "
+            f"{PIX_IMAGES * K / pix_s:.0f} triples/s including set-up")
+        if pix_counts != want_counts:
+            raise AssertionError("the pixels-in path did not launch its kernels as expected")
+        check_graphs(out_path, pix_vocab, PIX_IMAGES)
+    phase("main_path_resnet50", t0)
 
-    def time_ms(fn, n):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
+    # 8. Timing at the main paths' shapes (warm L2).
+    t0 = time.perf_counter()
+    records = {}
 
-    run_kernel = lambda: fd.fused_decode(params, feats, z, g, mask_bias=mask_bias, hard=True)  # noqa: E731
-    run_plain = lambda: fd.decode_plain(params, feats, z, g, mask_bias=mask_bias, hard=True)  # noqa: E731
-    plain_ms_a = time_ms(run_plain, 20)
-    kernel_ms_a = time_ms(run_kernel, 100)
-    kernel_ms_b = time_ms(run_kernel, 100)
-    plain_ms_b = time_ms(run_plain, 20)
-    kernel_ms = min(kernel_ms_a, kernel_ms_b)
-    plain_ms = min(plain_ms_a, plain_ms_b)
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    bound_s, bound_by, nbytes, flops = decode_bound(
-        BATCH, R, F, A, H, E, Z, V, feats.element_size(), peak)
-    log(f"fused_decode {m.compute_dtype} B={BATCH}: kernel {kernel_ms_a:.4f} / "
-        f"{kernel_ms_b:.4f} ms per launch, plain {plain_ms_a:.4f} / {plain_ms_b:.4f} ms")
-    log(f"bound: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP -> "
-        f"{bound_s * 1e3:.5f} ms ({bound_by}); kernel at "
-        f"{bound_s * 1e3 / kernel_ms:.4f} of the bound; per batch of {K} draws "
-        f"{K * kernel_ms:.3f} ms vs bound {K * bound_s * 1e3:.4f} ms")
+    def add(name, ms, plain_ms, lib_ms, bound_s, bound_by, weight):
+        r_ = records.setdefault(name, {"w": 0, "ms": 0.0, "plain": 0.0, "lib": 0.0,
+                                       "bound": 0.0, "by": Counter()})
+        r_["w"] += weight
+        r_["ms"] += weight * ms
+        r_["plain"] += weight * plain_ms
+        r_["lib"] += weight * (lib_ms or 0.0)
+        r_["bound"] += weight * bound_s * 1e3
+        r_["by"][bound_by] += weight
+
+    # fused_decode, bf16 hard: the vg1k path (B = 64) and the resnet50 path (B = 32).
+    for label, cfg_, sd_, B in (("vg1k", cfg, sd, BATCH), ("resnet50", pix_cfg, pix_sd, PIX_BATCH)):
+        Rq, Fq, Aq, Hq, Eq, Zq, Vq = (cfg_.data.regions, cfg_.data.feat_dim,
+                                      cfg_.model.attn_dim, cfg_.model.hidden,
+                                      cfg_.model.embed_dim, cfg_.model.noise_dim,
+                                      cfg_.model.vocab_size)
+        dtype = cfg_.model.dtype
+        params = fd.decode_params_from_generator(sd_, dtype, dev)
+        mb = fd.step_mask_bias((vocab if label == "vg1k" else pix_vocab).step_mask(), dev)
+        feats = torch.randn(B, Rq, Fq, generator=gen, device=dev).to(dtype)
+        z = torch.randn(B, Zq, generator=gen, device=dev).to(dtype)
+        g = sample_gumbel((B, 3, Vq), gen, device=dev)
+        k_ms, p_ms, turns = in_turns(
+            lambda: fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=True),
+            lambda: fd.decode_plain(params, feats, z, g, mask_bias=mb, hard=True))
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        nbytes, flops = decode_work(B, Rq, Fq, Aq, Hq, Eq, Zq, Vq, feats.element_size())
+        b_s, b_by = bound(nbytes, flops, peak)
+        log(f"time fused_decode {label} {cfg_.model.compute_dtype} B={B}: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (turns k,k,p,p "
+            f"{', '.join(f'{t:.4f}' for t in turns)}), bound {b_s * 1e3:.5f} ms ({b_by}: "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), per batch of {K} draws "
+            f"{K * k_ms:.2f} ms")
+        if label == "resnet50":
+            add("fused_decode", k_ms, p_ms, None, b_s, b_by, K)
+
+    for M, K_, N, relu, per_batch in RESNET_1X1 + [VGG_IM2COL]:
+        a, b, bias, scale = mm_inputs(M, K_, N, torch.bfloat16)
+        k_ms, p_ms, _ = in_turns(lambda: mm.fused_matmul(a, b, bias, scale, relu=relu),
+                                 lambda: mm.fused_matmul_plain(a, b, bias, scale, relu=relu))
+        l_ms = time_ms(lambda: torch.matmul(a, b))
+        nbytes, flops = matmul_work(M, K_, N, 2)
+        b_s, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"time fused_matmul bf16 M={M} K={K_} N={N} relu={relu} (x{per_batch} per "
+            f"batch): kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
+            f"{p_ms:.4f}, torch.matmul {l_ms:.4f} (no epilogue), bound {b_s * 1e3:.5f} ms "
+            f"({b_by}), kernel at {b_s * 1e3 / k_ms:.3f} of the bound")
+        if per_batch:
+            add("fused_matmul", k_ms, p_ms, l_ms, b_s, b_by, per_batch)
+
+    for shape, cout, per_batch in RESNET_3X3 + VGG_3X3:
+        x, w, bias, scale = conv_inputs(shape, cout, torch.bfloat16)
+        k_ms, p_ms, _ = in_turns(lambda: cd.conv2d_direct(x, w, bias, scale, relu=True),
+                                 lambda: cd.conv2d_direct_plain(x, w, bias, scale, relu=True))
+        x_cl = x.permute(0, 3, 1, 2)  # channels-last NCHW view of the NHWC tensor
+        w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        l_ms = time_ms(lambda: Fnn.conv2d(x_cl, w_cl, padding=1))
+        nbytes, flops = conv_work(shape, cout, 3, 2)
+        b_s, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"time conv_direct bf16 {list(shape)}->{cout} (x{per_batch} per batch): kernel "
+            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f}, "
+            f"F.conv2d channels-last {l_ms:.4f} (no epilogue), bound {b_s * 1e3:.5f} ms "
+            f"({b_by}), kernel at {b_s * 1e3 / k_ms:.3f} of the bound")
+        if per_batch:
+            add("conv_direct", k_ms, p_ms, l_ms, b_s, b_by, per_batch)
+
+    # The ResNet-50 encoder on one batch of the pixels-in path (B = 32,
+    # 224 px, bf16): the kernel route against the library route.
+    batch = torch.from_numpy(np.random.RandomState(SEED + 6).randint(
+        0, 256, (PIX_BATCH, 224, 224, 3), dtype=np.uint8)).to(dev)
+    state = seeded_encoder_state("resnet50")
+    encs = {}
+    for impl in ("auto", "xla"):
+        encs[impl] = ResNet50Features(conv_impl=impl, dtype=torch.bfloat16)
+        encs[impl].load_state_dict(state)
+        encs[impl].to(dev)
+
+    def encode(impl):
+        with torch.no_grad():
+            return encs[impl](normalize_for("resnet50", batch))
+
+    k_ms, p_ms, turns = in_turns(lambda: encode("auto"), lambda: encode("xla"))
+    log(f"time resnet50 encoder bf16 B={PIX_BATCH} (normalize + 53 convs): kernel route "
+        f"{k_ms:.4f} ms, library route {p_ms:.4f} ms (turns k,k,l,l "
+        f"{', '.join(f'{t:.4f}' for t in turns)})")
     phase("timing", t0)
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
-    record = {"kernels": [{
-        "name": "fused_decode",
-        "route": "cuda",
-        "source": "sgg_torch/kernels/csrc/fused_decode.cu",
-        "replaces": "sgg/kernels/fused_decode.py:127",
-        "launches": main_launches,
-        "max_abs_err": errs[("bf16", BATCH)],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_s * 1e3,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}
+    sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",
+                                "sgg/kernels/fused_decode.py:127"),
+               "fused_matmul": ("sgg_torch/kernels/csrc/fused_matmul.cu",
+                                "sgg/kernels/matmul.py:43"),
+               "conv_direct": ("sgg_torch/kernels/csrc/conv_direct.cu",
+                               "sgg/kernels/conv_direct.py:93")}
+    errs = {"fused_decode": pix_errs[("bf16", PIX_BATCH)],
+            "fused_matmul": max(v for k_, v in shape_errs.items()
+                                if k_[0] == "mm" and k_[4] == "bf16"),
+            "conv_direct": max(v for k_, v in shape_errs.items()
+                               if k_[0] == "conv" and k_[3] == "bf16")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        r_ = records[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": pix_counts[name], "max_abs_err": errs[name],
+            "ms": r_["ms"] / r_["w"], "plain_ms": r_["plain"] / r_["w"],
+            "bound_ms": r_["bound"] / r_["w"], "bound_by": r_["by"].most_common(1)[0][0],
+            "library_ms": r_["lib"] / r_["w"] if name != "fused_decode" else None,
+        })
     faulthandler.cancel_dump_traceback_later()
     print(smi, flush=True)
-    print(json.dumps(record), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,7 +5,9 @@ and nothing of ``sgg``. Module names mirror ``sgg``'s. Ported so far: the
 generate path on precomputed features (config, vocab, shards, the
 attention-LSTM generator, the flax weight converter, the K-sample sampler on
 the hand-written CUDA ``fused_decode`` kernel, recall@k, and
-``python -m sgg_torch.cli.generate``).
+``python -m sgg_torch.cli.generate``), and on pixels (the VGG-19 and
+ResNet-50 encoders on the hand-written CUDA ``conv_direct`` and
+``fused_matmul`` kernels).
 """
 
 __version__ = "0.1.0"

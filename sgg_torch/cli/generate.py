@@ -8,6 +8,14 @@ frequency, write the scene graphs as JSON.
   python -m sgg_torch.cli.generate --workdir W --num-samples 50 \\
       --batch-size 64 --recall-k 50 [--ema] [--device cpu]
 
+Pixels-in configs (``model.encoder`` ``vgg19`` or ``resnet50``, e.g. the
+named config ``resnet50``) run the workdir's encoder weights on each batch
+of uint8 images first (normalization, then the backbone in the compute
+dtype), and the features stay on the device for the sampler. Their conv
+route comes from ``model.use_pallas``: ``'auto'`` (the CUDA kernels) when
+set, else ``'xla'`` (the library conv). Only the ``synthetic`` image source
+is ported.
+
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
 there. The XLA decode, ``--rank logp|freq_logp``, ``--top-k``/``--top-p`` and
 temperatures other than 1 come with a later slice of the port.
@@ -25,7 +33,13 @@ import numpy as np
 import torch
 
 from sgg_torch.config import Config
-from sgg_torch.data import TripleDataset, Vocab, list_shards, synthetic_dataset
+from sgg_torch.data import (
+    ArrayImageTripleDataset,
+    TripleDataset,
+    Vocab,
+    list_shards,
+    synthetic_dataset,
+)
 from sgg_torch.eval.recall import corpus_recall
 from sgg_torch.eval.sampler import (
     assemble_scene_graphs,
@@ -33,6 +47,7 @@ from sgg_torch.eval.sampler import (
     make_fused_sampler,
 )
 from sgg_torch.kernels.build import load_library
+from sgg_torch.models.encoders import make_encoder, normalize_for
 from sgg_torch.train.checkpoint import load_generator, load_workdir
 
 _LATER = "is not ported yet; a later slice of the port brings it"
@@ -48,14 +63,12 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_dataset(cfg: Config, split: str = "train"):
-    """(dataset, vocab) from cfg.data.source for precomputed-feature configs,
-    as ``sgg.cli.common.load_dataset``: ``split='test'`` reads the held-out
-    shards under ``data_dir/test`` when they exist."""
+    """(dataset, vocab) from cfg.data.source, as ``sgg.cli.common.load_dataset``:
+    ``split='test'`` reads the held-out shards under ``data_dir/test`` when
+    they exist; pixels-in configs get an image dataset."""
     d = cfg.data
     if cfg.model.encoder != "precomputed":
-        raise NotImplementedError(
-            f"encoder {cfg.model.encoder!r} {_LATER} (only precomputed features)"
-        )
+        return _load_image_dataset(cfg)
     if d.source == "shards" and split == "test":
         test_dir = os.path.join(d.data_dir, "test")
         if list_shards(test_dir):
@@ -76,6 +89,46 @@ def load_dataset(cfg: Config, split: str = "train"):
         vocab_path = d.vocab_path or os.path.join(d.data_dir, "vocab.json")
         return TripleDataset.from_shards(shards), Vocab.load(vocab_path)
     raise ValueError(f"unsupported data.source {d.source!r} (synthetic or shards)")
+
+
+def _load_image_dataset(cfg: Config):
+    """The ``synthetic`` image source of ``sgg.cli.common``: seeded uint8
+    images [N, S, S, 3] beside the synthetic triples (no split)."""
+    d = cfg.data
+    if d.source != "synthetic":
+        raise NotImplementedError(
+            f"data.source {d.source!r} for encoder configs {_LATER} (only synthetic)"
+        )
+    data = synthetic_dataset(
+        num_images=d.num_synthetic_images, regions=1, feat_dim=1, seed=cfg.train.seed,
+    )
+    rng = np.random.RandomState(cfg.train.seed)
+    images = rng.randint(
+        0, 256, size=(d.num_synthetic_images, d.image_size, d.image_size, 3), dtype=np.uint8,
+    )
+    return ArrayImageTripleDataset(images=images, triples=data["triples"]), data["vocab"]
+
+
+def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.device):
+    """indices → features [n, R, F] on ``device``, as ``sgg.cli.common``'s.
+
+    Precomputed configs index the dataset's feature array; pixels-in configs
+    run the encoder (weights ``enc_params``, a port state_dict) on the
+    batch's uint8 images and return its output in the compute dtype, without
+    a round trip through the host."""
+    if cfg.model.encoder == "precomputed":
+        return lambda idx: torch.from_numpy(ds.features[idx]).to(device)
+    enc = make_encoder(cfg.model.encoder, use_pallas=cfg.model.use_pallas,
+                       dtype=cfg.model.dtype, quant=cfg.model.quant)
+    enc.load_state_dict(enc_params)
+    enc.to(device)
+
+    def batch_features(idx):
+        images = torch.from_numpy(ds.images[idx]).to(device)
+        with torch.no_grad():
+            return enc(normalize_for(cfg.model.encoder, images))
+
+    return batch_features
 
 
 def _refuse_unported(args) -> str | None:
@@ -139,11 +192,18 @@ def main(argv=None) -> int:
     g_params = {k: v.to(device) for k, v in g_params.items()}
     generator = torch.Generator(device=device).manual_seed(args.seed)
     dtype = cfg.model.dtype
+    end_to_end = cfg.model.encoder != "precomputed"
+    if end_to_end and ckpt["enc_params"] is None:
+        print(f"[sgg.generate] encoder {cfg.model.encoder!r}: no encoder weights "
+              f"(enc_params) in {args.workdir}", file=sys.stderr)
+        return 1
+    batch_features = make_batch_features(cfg, ds, ckpt["enc_params"], device)
 
     # Device-resident path: upload the whole feature set once and gather each
     # batch by index on the device.
     B = args.batch_size
-    device_resident = ds.features.nbytes <= cfg.data.device_resident_max_bytes
+    device_resident = (not end_to_end
+                       and ds.features.nbytes <= cfg.data.device_resident_max_bytes)
     t_up = 0.0
     sampler = make_fused_sampler(
         cfg, step_mask=vocab.step_mask(), num_samples=args.num_samples,
@@ -166,11 +226,10 @@ def main(argv=None) -> int:
                 if len(idx) < B else idx
             )
             return idx, sampler(g_params, feats_dev, pad_idx, generator)
-        feats = ds.features[idx]
-        if feats.shape[0] < B:  # pad to the batch shape
-            pad = np.repeat(feats[-1:], B - feats.shape[0], axis=0)
-            feats = np.concatenate([feats, pad], axis=0)
-        return idx, sampler(g_params, torch.from_numpy(feats).to(device), generator)
+        feats = batch_features(idx)
+        if feats.shape[0] < B:  # pad to the batch shape with the last row
+            feats = torch.cat([feats, feats[-1:].expand(B - feats.shape[0], -1, -1)])
+        return idx, sampler(g_params, feats, generator)
 
     graphs, gen_triples, gt_triples = [], [], []
     n_sampled = 0
@@ -197,7 +256,8 @@ def main(argv=None) -> int:
     up = f" (+{t_up:.2f}s one-time feature upload)" if t_up else ""
     print(
         f"[sgg.generate] {n_images} images, {n_sampled} triples in {dt:.2f}s "
-        f"({triples_per_sec:.0f} triples/sec){up} → {out_path}",
+        f"({triples_per_sec:.0f} triples/sec, {n_images / dt if dt > 0 else 0.0:.1f} "
+        f"images/sec){up} → {out_path}",
         flush=True,
     )
     if args.recall_k:

@@ -179,6 +179,19 @@ def _cfg_vg1k() -> Config:
     return c
 
 
+def _cfg_resnet50() -> Config:
+    """ResNet-50 backbone on pixels, fused conv + BN + ReLU, larger vocab."""
+    c = Config(name="resnet50")
+    c.model.encoder = "resnet50"
+    c.model.vocab_size = 8192
+    c.model.compute_dtype = "bfloat16"
+    c.model.use_pallas = True
+    c.data.feat_dim = 2048
+    c.data.regions = 49  # 7x7 conv5 grid
+    c.mesh.model = 1
+    return c
+
+
 def _cfg_smoke() -> Config:
     """Tiny shapes for tests."""
     c = Config(name="smoke")
@@ -198,7 +211,7 @@ def _cfg_smoke() -> Config:
     return c
 
 
-CONFIGS = {"vg1k": _cfg_vg1k, "smoke": _cfg_smoke}
+CONFIGS = {"vg1k": _cfg_vg1k, "resnet50": _cfg_resnet50, "smoke": _cfg_smoke}
 
 
 def get_config(name: str) -> Config:

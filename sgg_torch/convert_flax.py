@@ -1,10 +1,16 @@
-"""Generator weights between the reference's flax param tree and the port.
+"""Weights between the reference's flax param trees and the port.
 
-The flax tree is the nested dict of numpy arrays that ``sgg.train.checkpoint``
-restores as ``g_params`` (or ``g_ema``). A flax ``Dense`` kernel is
-``[in, out]``, the transpose of a torch ``Linear`` weight. The TF1 LSTM
-kernel stays one ``[I+H, 4H]`` matrix in i, j, f, o order, and the embedding
-is ``[V, E]`` in both.
+Generator: the flax tree is the nested dict of numpy arrays that
+``sgg.train.checkpoint`` restores as ``g_params`` (or ``g_ema``). A flax
+``Dense`` kernel is ``[in, out]``, the transpose of a torch ``Linear``
+weight. The TF1 LSTM kernel stays one ``[I+H, 4H]`` matrix in i, j, f, o
+order, and the embedding is ``[V, E]`` in both.
+
+Encoders (VGG-19, ResNet-50): the port's modules keep the flax names and
+layouts (HWIO kernels, float32 BN vectors), so a leaf's path joined with
+``.`` is its state_dict key; VGG's flat flax names ``conv1_1/kernel`` become
+``conv1_1.kernel``. ``encoder_params.npz`` files (``::``-joined keys, as
+``sgg.train.pretrain.save_params_npz`` writes them) read with numpy alone.
 """
 
 from __future__ import annotations
@@ -68,3 +74,48 @@ def state_dict_to_flax(sd: dict) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(a.T if transposed else a)
     return tree
+
+
+def encoder_flax_to_state_dict(enc_params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``VGG19Features`` or ``ResNet50Features`` params (with or without
+    the outer ``{'params': …}``) → the port module's state_dict."""
+    tree = enc_params.get("params", enc_params)
+    sd = OrderedDict()
+    for path, v in _leaves(tree):
+        key = ".".join(p.replace("/", ".") for p in path)
+        sd[key] = torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+    return sd
+
+
+def encoder_state_dict_to_flax(sd: dict, name: str) -> dict:
+    """The reverse of :func:`encoder_flax_to_state_dict` for encoder ``name``
+    (``vgg19`` keeps flat ``conv1_1/kernel`` leaves, ``resnet50`` nests) →
+    ``{'params': tree}`` of numpy arrays."""
+    if name not in ("vgg19", "resnet50"):
+        raise ValueError(f"no flax layout for encoder {name!r}")
+    tree: dict = {}
+    for key, t in sd.items():
+        a = t.detach().cpu().numpy()
+        if name == "vgg19":
+            tree[key.replace(".", "/")] = a
+            continue
+        *path, leaf = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    return {"params": tree}
+
+
+def load_params_npz(path: str) -> dict:
+    """A params file written with ``::``-joined keys → the nested dict of
+    numpy arrays (a copy of ``sgg.train.pretrain.load_params_npz``)."""
+    raw = np.load(path)
+    out: dict = {}
+    for key in raw.files:
+        parts = key.split("::")
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = raw[key]
+    return out

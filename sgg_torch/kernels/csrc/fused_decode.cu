@@ -16,11 +16,17 @@
 // What bounds it: at the generate shapes (B=64, R=196, F=512, H=512, V=210,
 // bf16) one launch must read about 21 MB (8 MB of weights, 13 MB of features),
 // about 6 us at 3.35 TB/s; the arithmetic (4.7 GFLOP) is under 5 us on the
-// tensor cores. This first version is simple rather than fast: the weights
-// (too large for one SM's shared memory) are read from global memory, where
-// they stay in the 50 MB L2, by every block; products run on the CUDA cores;
+// tensor cores. At the resnet50 widths (B=32, R=49, F=2048, V=8192) one
+// launch must read about 39 MB, about 12 us. This first version is simple
+// rather than fast: the weights (too large for one SM's shared memory) are
+// read from global memory, where they stay in the 50 MB L2, by every block;
+// products run on the CUDA cores;
 // proj goes to a global scratch buffer that the caller allocates; the feature
-// rows are staged through shared memory in tiles of kRowTile rows.
+// rows are staged through shared memory in tiles of RT rows. RT is chosen at
+// launch from the widths (sgg_fused_decode_row_tile): 32 where its shared
+// memory fits one block, as at vg1k widths (R = 196, F = 512), else 16, as at
+// resnet50 widths (F = 2048), where 32 rows would need 328 KB and 16 need
+// 197 KB. The tile only stages rows: proj does not depend on it.
 //
 // Plain C interface for ctypes: no PyTorch headers, so nvcc builds it in
 // seconds. The entry returns cudaGetLastError() after the launch.
@@ -33,7 +39,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 32;  // feature rows staged in shared memory at a time
+constexpr int kRowTiles[] = {32, 16};  // feature rows staged at a time, by preference
+constexpr long kSmemLimit = 232448;        // bytes of shared memory one block may use
 constexpr int kCols = 4;      // matvec output columns per thread per pass
 constexpr int kSteps = 3;     // (subject, predicate, object)
 
@@ -146,12 +153,20 @@ struct Args {
 // Shared memory, in floats: the feature tile first (16-byte aligned), then
 // the per-row vectors.
 __host__ __device__ inline int tile_stride(int F) { return (F + 3) & ~3; }
-__host__ __device__ inline long smem_floats(int R, int F, int A, int H, int E, int Z, int V) {
+__host__ __device__ inline long smem_floats(int R, int F, int A, int H, int E, int Z, int V,
+                                            int row_tile) {
   const long K = (long)F + E + Z + H;
-  return (long)kRowTile * tile_stride(F) + K + H + F + 2L * A + R + 4L * H + E + V + kWarps;
+  return (long)row_tile * tile_stride(F) + K + H + F + 2L * A + R + 4L * H + E + V + kWarps;
 }
 
-template <typename T>
+// The largest preferred row tile whose shared memory fits a block, or 0.
+inline int pick_row_tile(int R, int F, int A, int H, int E, int Z, int V) {
+  for (int rt : kRowTiles)
+    if (smem_floats(R, F, A, H, E, Z, V, rt) * (long)sizeof(float) <= kSmemLimit) return rt;
+  return 0;
+}
+
+template <typename T, int RT>
 __global__ void __launch_bounds__(kThreads) fused_decode_kernel(Args<T> p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -162,8 +177,8 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(Args<T> p) {
   const int tid = threadIdx.x;
   const long b = blockIdx.x;
 
-  float* tile = smem;                 // [kRowTile, Fs]
-  float* x = tile + kRowTile * Fs;    // [K] = ctx | prev | z | h
+  float* tile = smem;                 // [RT, Fs]
+  float* x = tile + RT * Fs;          // [K] = ctx | prev | z | h
   float* ctx = x;
   float* prev = x + F;
   float* zv = x + F + E;
@@ -188,10 +203,10 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(Args<T> p) {
 
   // proj = feats @ wf and the feature sum, one tile of rows at a time.
   const int F4 = F & ~3;
-  for (int r0 = 0; r0 < R; r0 += kRowTile) {
-    const int nr = min(kRowTile, R - r0);
+  for (int r0 = 0; r0 < R; r0 += RT) {
+    const int nr = min(RT, R - r0);
     __syncthreads();
-    for (int idx = tid; idx < kRowTile * F; idx += kThreads) {
+    for (int idx = tid; idx < RT * F; idx += kThreads) {
       const int i = idx / F, f = idx - i * F;
       tile[i * Fs + f] = i < nr ? ld(feats, (long)(r0 + i) * F + f) : 0.0f;
     }
@@ -202,16 +217,16 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(Args<T> p) {
       mean[f] += s;
     }
     for (int a = tid; a < A; a += kThreads) {
-      float acc[kRowTile];
+      float acc[RT];
 #pragma unroll
-      for (int i = 0; i < kRowTile; ++i) acc[i] = 0.0f;
+      for (int i = 0; i < RT; ++i) acc[i] = 0.0f;
       for (int f = 0; f < F4; f += 4) {
         const float w0 = ld(p.wf, (long)(f + 0) * A + a);
         const float w1 = ld(p.wf, (long)(f + 1) * A + a);
         const float w2 = ld(p.wf, (long)(f + 2) * A + a);
         const float w3 = ld(p.wf, (long)(f + 3) * A + a);
 #pragma unroll
-        for (int i = 0; i < kRowTile; ++i) {
+        for (int i = 0; i < RT; ++i) {
           const float4 t = *reinterpret_cast<const float4*>(tile + i * Fs + f);
           acc[i] = fmaf(t.x, w0, acc[i]);
           acc[i] = fmaf(t.y, w1, acc[i]);
@@ -222,10 +237,10 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(Args<T> p) {
       for (int f = F4; f < F; ++f) {
         const float w = ld(p.wf, (long)f * A + a);
 #pragma unroll
-        for (int i = 0; i < kRowTile; ++i) acc[i] = fmaf(tile[i * Fs + f], w, acc[i]);
+        for (int i = 0; i < RT; ++i) acc[i] = fmaf(tile[i * Fs + f], w, acc[i]);
       }
 #pragma unroll
-      for (int i = 0; i < kRowTile; ++i)
+      for (int i = 0; i < RT; ++i)
         if (i < nr) proj[(long)(r0 + i) * A + a] = to_t<T>(acc[i]);
     }
   }
@@ -337,14 +352,25 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(Args<T> p) {
   }
 }
 
-template <typename T>
-cudaError_t launch(const Args<T>& a, int B, cudaStream_t stream) {
-  const long bytes = smem_floats(a.R, a.F, a.A, a.H, a.E, a.Z, a.V) * (long)sizeof(float);
+template <typename T, int RT>
+cudaError_t launch_tile(const Args<T>& a, int B, cudaStream_t stream) {
+  const long bytes =
+      smem_floats(a.R, a.F, a.A, a.H, a.E, a.Z, a.V, RT) * (long)sizeof(float);
+  if (bytes > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      fused_decode_kernel<T, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  fused_decode_kernel<T><<<B, kThreads, bytes, stream>>>(a);
+  fused_decode_kernel<T, RT><<<B, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const Args<T>& a, int B, int row_tile, cudaStream_t stream) {
+  switch (row_tile) {
+    case 32: return launch_tile<T, 32>(a, B, stream);
+    case 16: return launch_tile<T, 16>(a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -384,11 +410,12 @@ Args<T> make_args(const void* feats, const void* z, const void* gumbel,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. All pointers are device pointers to
-// contiguous arrays; `proj` is caller-allocated scratch of B*R*A elements of
-// the compute type. Returns the launch's cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. row_tile: the value of
+// sgg_fused_decode_row_tile at these widths. All pointers are device pointers
+// to contiguous arrays; `proj` is caller-allocated scratch of B*R*A elements
+// of the compute type. Returns the launch's cudaError_t (0 on success).
 extern "C" cudaError_t sgg_fused_decode(
-    int dtype, int hard, int B, int R, int F, int A, int H, int E, int Z, int V,
+    int dtype, int hard, int row_tile, int B, int R, int F, int A, int H, int E, int Z, int V,
     const void* feats, const void* z, const void* gumbel, const void* mask_bias,
     float tau, const void* wf, const void* wh, const void* bh, const void* v,
     const void* wc, const void* bc, const void* wi, const void* bi, const void* k,
@@ -400,16 +427,18 @@ extern "C" cudaError_t sgg_fused_decode(
     return launch(make_args<float>(feats, z, gumbel, mask_bias, tau, wf, wh, bh, v, wc, bc,
                                    wi, bi, k, bk, wd, bd, wv, bv, emb, proj, y, R, F, A,
                                    H, E, Z, V, hard),
-                  B, s);
+                  B, row_tile, s);
   if (dtype == 1)
     return launch(make_args<__nv_bfloat16>(feats, z, gumbel, mask_bias, tau, wf, wh, bh, v,
                                            wc, bc, wi, bi, k, bk, wd, bd, wv, bv, emb, proj,
                                            y, R, F, A, H, E, Z, V, hard),
-                  B, s);
+                  B, row_tile, s);
   return cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory one block needs, in bytes, for the wrapper's check.
-extern "C" long sgg_fused_decode_smem_bytes(int R, int F, int A, int H, int E, int Z, int V) {
-  return smem_floats(R, F, A, H, E, Z, V) * (long)sizeof(float);
+// Feature rows the launch stages at a time at these widths: 32 or 16,
+// whichever is the larger whose shared memory fits one block; 0 if neither
+// does.
+extern "C" int sgg_fused_decode_row_tile(int R, int F, int A, int H, int E, int Z, int V) {
+  return pick_row_tile(R, F, A, H, E, Z, V);
 }

@@ -187,11 +187,14 @@ def fused_decode(
         mask_bias = torch.zeros(TRIPLE_LEN, V, dtype=torch.float32, device=feats.device)
     B, R, F, A, H, E, Z, V = _check(params, feats, z, gumbel, mask_bias)
     lib = build.load_library()
-    smem = lib.sgg_fused_decode_smem_bytes(R, F, A, H, E, Z, V)
-    if smem > _SMEM_LIMIT:
+    # The kernel stages feature rows in shared memory; the library picks how
+    # many per tile from the widths, and the launch takes that same number.
+    row_tile = lib.sgg_fused_decode_row_tile(R, F, A, H, E, Z, V)
+    if row_tile == 0:
         raise ValueError(
-            f"fused_decode needs {smem} bytes of shared memory per block at these "
-            f"widths; a Hopper block has {_SMEM_LIMIT}"
+            f"fused_decode at R={R}, F={F}, A={A}, H={H}, E={E}, Z={Z}, V={V} needs more "
+            f"than the {_SMEM_LIMIT} bytes of shared memory a Hopper block has, even "
+            f"with 16-row feature tiles"
         )
     y = torch.empty(B, TRIPLE_LEN, V, dtype=feats.dtype, device=feats.device)
     proj = torch.empty(B, R, A, dtype=feats.dtype, device=feats.device)
@@ -199,7 +202,7 @@ def fused_decode(
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sgg_fused_decode(
-            _DTYPE_CODES[feats.dtype], int(bool(hard)), B, R, F, A, H, E, Z, V,
+            _DTYPE_CODES[feats.dtype], int(bool(hard)), row_tile, B, R, F, A, H, E, Z, V,
             feats.data_ptr(), z.data_ptr(), gumbel.data_ptr(),
             mask_bias.data_ptr(), float(tau), *w, proj.data_ptr(),
             y.data_ptr(), stream,

@@ -1,0 +1,55 @@
+"""Encoder factory: config name → frozen backbone module, from
+``sgg/models/encoders.py``. ``precomputed`` means the data already carries
+features. ViT-B/16 and the int8 tier come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+_IMAGENET_MEAN = (0.485, 0.456, 0.406)
+_IMAGENET_STD = (0.229, 0.224, 0.225)
+_LATER = "is not ported yet; a later slice of the port brings it"
+
+
+def normalize_for(name: str, images_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 RGB [B,H,W,3] → the float32 normalization the backbone was
+    trained with (VGG: BGR minus the mean pixel; others: ImageNet mean/std)."""
+    if name == "vgg19":
+        from sgg_torch.models.vgg import vgg_preprocess
+
+        return vgg_preprocess(images_u8)
+    x = images_u8.float() / 255.0
+    mean = torch.tensor(_IMAGENET_MEAN, device=x.device)
+    std = torch.tensor(_IMAGENET_STD, device=x.device)
+    return (x - mean) / std
+
+
+def make_encoder(
+    name: str, use_pallas: bool = False, dtype: torch.dtype = torch.float32,
+    quant: str = "",
+) -> nn.Module | None:
+    """The frozen feature extractor (parameters need no gradient), or None
+    for ``precomputed``. The conv route follows ``use_pallas``, as in the
+    reference; the modules take any route of ``sgg_torch.kernels.conv``
+    through their own ``conv_impl``."""
+    if quant not in ("", "int8"):
+        raise ValueError(f"unknown quant mode {quant!r} (want '' or 'int8')")
+    if quant == "int8":
+        raise NotImplementedError(f"quant 'int8' {_LATER}")
+    if name == "precomputed":
+        return None
+    if name == "vgg19":
+        from sgg_torch.models.vgg import VGG19Features
+
+        enc = VGG19Features(use_pallas=use_pallas, dtype=dtype)
+    elif name == "resnet50":
+        from sgg_torch.models.resnet import ResNet50Features
+
+        enc = ResNet50Features(use_pallas=use_pallas, dtype=dtype)
+    elif name == "vit_b16":
+        raise NotImplementedError(f"encoder 'vit_b16' {_LATER}")
+    else:
+        raise ValueError(f"unknown encoder {name!r}")
+    return enc.requires_grad_(False).eval()

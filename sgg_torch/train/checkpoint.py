@@ -1,10 +1,12 @@
 """Workdir IO for inference, from ``sgg/train/checkpoint.py``.
 
 A workdir holds ``config.json`` and ``vocab.json`` beside the weights. The
-port keeps the generator's weights and their EMA (``g_params``, ``g_ema``) as
-port state_dicts in one torch file, ``generator.pt``. The reference's orbax
-checkpoints are not read here: ``sgg_torch.convert_flax`` turns a restored
-flax tree into a state_dict, and :func:`save_generator` writes it.
+port keeps the generator's weights and their EMA (``g_params``, ``g_ema``),
+and for a pixels-in config the frozen encoder's (``enc_params``, as the
+reference's train state carries them), as port state_dicts in one torch
+file, ``generator.pt``. The reference's orbax checkpoints are not read here:
+``sgg_torch.convert_flax`` turns a restored flax tree into a state_dict, and
+:func:`save_generator` writes it.
 """
 
 from __future__ import annotations
@@ -28,15 +30,20 @@ def load_workdir(workdir: str) -> tuple[Config, Vocab]:
 
 
 def save_generator(
-    workdir: str, g_params: dict, g_ema: dict | None = None, step: int = 0
+    workdir: str, g_params: dict, g_ema: dict | None = None, step: int = 0,
+    enc_params: dict | None = None,
 ) -> str:
-    """Write the generator's state_dict (and its EMA) to ``workdir``."""
+    """Write the generator's state_dict (and its EMA, and the encoder's
+    state_dict for a pixels-in config) to ``workdir``."""
     path = os.path.join(workdir, GENERATOR_FILE)
     tmp = path + ".tmp"
-    cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+
+    def cpu(sd):
+        return None if sd is None else {k: v.detach().cpu() for k, v in sd.items()}
+
     torch.save(
-        {"step": int(step), "g_params": cpu(g_params),
-         "g_ema": None if g_ema is None else cpu(g_ema)},
+        {"step": int(step), "g_params": cpu(g_params), "g_ema": cpu(g_ema),
+         "enc_params": cpu(enc_params)},
         tmp,
     )
     os.replace(tmp, path)
@@ -44,8 +51,11 @@ def save_generator(
 
 
 def load_generator(workdir: str) -> dict | None:
-    """{'step', 'g_params', 'g_ema'} from ``workdir``, or None if absent."""
+    """{'step', 'g_params', 'g_ema', 'enc_params'} from ``workdir`` (None for
+    what the file lacks), or None if there is no file."""
     path = os.path.join(workdir, GENERATOR_FILE)
     if not os.path.exists(path):
         return None
-    return torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt.setdefault("enc_params", None)
+    return ckpt

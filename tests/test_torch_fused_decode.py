@@ -140,10 +140,14 @@ def test_input_check_rejects(setup, bad):
 
 
 def test_build_is_plain_nvcc_for_sm90a():
-    """One .cu source with a plain C entry, no PyTorch headers; nvcc targets
-    sm_90a and the build happens at first launch, not at import."""
+    """One .cu source per kernel, each with a plain C entry, no PyTorch
+    headers anywhere; nvcc targets sm_90a and the build happens at first
+    launch, not at import."""
     srcs = build.sources()
-    assert [p.name for p in srcs] == ["fused_decode.cu"]
-    text = srcs[0].read_text()
-    assert "torch/extension.h" not in text and 'extern "C"' in text
+    assert [p.name for p in srcs] == ["conv_direct.cu", "fused_decode.cu", "fused_matmul.cu"]
+    for src in srcs:
+        text = src.read_text()
+        assert "torch/extension.h" not in text and 'extern "C"' in text, src.name
+    for header in build.headers():
+        assert "torch" not in header.read_text(), header.name
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -1,7 +1,10 @@
 """The port's generate path against the reference: the K-sample fused
 sampler given the same noise, triple ranking and scene-graph assembly,
 recall@k, the data layer, and ``sgg_torch.cli.generate`` end to end on the
-CPU. Tokens, rankings and recall values must be identical.
+CPU. Tokens, rankings and recall values must be identical. The pixels-in
+path (a ``resnet50`` config at 32 px): the same synthetic images, features
+within 1e-4 x max|ref| (float32 sums in another order over 53 layers) and
+identical tokens from them.
 """
 
 import json
@@ -16,6 +19,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from sgg.cli.common import load_dataset as jax_load_dataset
+from sgg.cli.common import make_batch_features as jax_make_batch_features
 from sgg.config import get_config as jax_get_config
 from sgg.data import TripleDataset as JaxTripleDataset
 from sgg.data import synthetic_dataset as jax_synthetic_dataset
@@ -24,11 +29,12 @@ from sgg.eval import corpus_recall as jax_corpus_recall
 from sgg.eval import rank_triples as jax_rank_triples
 from sgg.eval.sampler import make_fused_sampler as jax_make_fused_sampler
 from sgg.kernels.fused_decode import decode_gumbel_noise
+from sgg.models.encoders import make_encoder as jax_make_encoder
 from sgg.train.state import create_train_state, make_models
 from sgg_torch.cli import generate
 from sgg_torch.config import Config as PortConfig
 from sgg_torch.config import get_config
-from sgg_torch.convert_flax import flax_to_state_dict
+from sgg_torch.convert_flax import encoder_flax_to_state_dict, flax_to_state_dict
 from sgg_torch.data import TripleDataset, list_shards, synthetic_dataset, write_feature_shard
 from sgg_torch.eval.recall import corpus_recall, recall_at_k
 from sgg_torch.eval.sampler import assemble_scene_graphs, make_fused_sampler, rank_triples
@@ -157,7 +163,7 @@ def test_data_layer_matches_reference(tmp_path):
     np.testing.assert_array_equal(port_ds.features, ref_ds.features)
     for x, y in zip(port_ds.triples, ref_ds.triples):
         np.testing.assert_array_equal(x, y)
-    for name in ("smoke", "vg1k"):
+    for name in ("smoke", "vg1k", "resnet50"):
         assert get_config(name).to_json() == jax_get_config(name).to_json()
     over = ["train.batch_size=3", "model.compute_dtype=bfloat16", "train.hard=false"]
     assert get_config("smoke").override(over).to_json() == \
@@ -224,6 +230,9 @@ def test_port_imports_no_jax_and_no_sgg():
         "import sys\n"
         "import sgg_torch, sgg_torch.cli.generate, sgg_torch.convert_flax\n"
         "import sgg_torch.models, sgg_torch.kernels.fused_decode\n"
+        "import sgg_torch.kernels.conv, sgg_torch.kernels.conv_direct\n"
+        "import sgg_torch.kernels.matmul, sgg_torch.data.images\n"
+        "import sgg_torch.models.encoders, sgg_torch.models.resnet, sgg_torch.models.vgg\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sgg'))\n"
         "assert not bad, bad\n"
         "from sgg_torch.kernels import build\n"
@@ -233,3 +242,103 @@ def test_port_imports_no_jax_and_no_sgg():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _resnet50_cfg():
+    """The named ``resnet50`` config cut to 32 px (one region) and small
+    decoder widths, in float32 for a tight comparison."""
+    cfg = jax_get_config("resnet50")
+    cfg.data.image_size = 32
+    cfg.data.regions = 1
+    cfg.data.num_synthetic_images = 5
+    cfg.model.compute_dtype = "float32"
+    cfg.model.hidden, cfg.model.embed_dim, cfg.model.attn_dim = 32, 16, 16
+    cfg.model.noise_dim = 8
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def pixels_setup():
+    """A ``resnet50``-config workdir: reference encoder (random BN
+    statistics) and generator weights, converted to the port."""
+    cfg = _resnet50_cfg()
+    ds, vocab = jax_load_dataset(cfg)
+    cfg.model.vocab_size = len(vocab)
+    init = jax.jit(jax_make_encoder("resnet50").init)
+    p = init(jax.random.key(0), jnp.zeros((1, 32, 32, 3), jnp.float32))["params"]
+    r = np.random.RandomState(4)
+    p = jax.tree_util.tree_map_with_path(
+        lambda path, v: np.asarray(
+            (0.5 + r.rand(*v.shape)) if path[-1].key == "bn_var"
+            else (0.1 * r.randn(*v.shape)) if path[-1].key in ("bn_mean", "bn_bias")
+            else v, np.float32),
+        p)
+    enc_params = {"params": p}
+    gen, _ = make_models(cfg)
+    gvars = gen.init(jax.random.key(1), jnp.zeros((2, 1, 2048)),
+                     jnp.zeros((2, cfg.model.noise_dim)), jax.random.key(2))
+    return cfg, ds, vocab, enc_params, gvars["params"]
+
+
+def test_pixels_in_features_and_tokens_match_reference(pixels_setup):
+    cfg, ds, vocab, enc_params, g_params = pixels_setup
+    port_cfg = PortConfig.from_json(cfg.to_json())
+    port_ds, _ = generate.load_dataset(port_cfg)
+    np.testing.assert_array_equal(port_ds.images, ds.images)
+    for a, b in zip(port_ds.triples, ds.triples):
+        np.testing.assert_array_equal(a, b)
+    idx = np.array([4, 0, 2])
+    want = jax_make_batch_features(cfg, ds, enc_params)(idx)
+    got = generate.make_batch_features(port_cfg, port_ds, encoder_flax_to_state_dict(enc_params),
+                                       torch.device("cpu"))(idx)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (3, 1, 2048)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+    rng = jax.random.key(5)
+    ref = jax_make_fused_sampler(cfg, step_mask=vocab.step_mask(), num_samples=K)(
+        g_params, jnp.asarray(want), rng)
+    tok = make_fused_sampler(port_cfg, step_mask=vocab.step_mask(), num_samples=K)(
+        flax_to_state_dict(jax.tree.map(np.asarray, g_params)), got,
+        noise=_reference_noise(cfg, rng, len(idx), cfg.model.vocab_size))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ref))
+
+
+@pytest.fixture(scope="module")
+def pixels_workdir(pixels_setup, tmp_path_factory):
+    cfg, _, vocab, enc_params, g_params = pixels_setup
+    wd = str(tmp_path_factory.mktemp("resnet50_wd"))
+    with open(os.path.join(wd, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    vocab.save(os.path.join(wd, "vocab.json"))
+    sd = flax_to_state_dict(jax.tree.map(np.asarray, g_params))
+    save_generator(wd, sd, step=3, enc_params=encoder_flax_to_state_dict(enc_params))
+    return wd, vocab, sd
+
+
+def test_generate_cli_pixels_in_on_cpu(pixels_workdir, capsys):
+    """5 images in batches of 2: the short last batch is padded to 2."""
+    wd, vocab, _ = pixels_workdir
+    out = os.path.join(wd, "graphs.json")
+    argv = ["--workdir", wd, "--out", out, "--num-samples", "3", "--batch-size", "2",
+            "--recall-k", "5", "--device", "cpu"]
+    assert generate.main(argv) == 0
+    printed = capsys.readouterr().out
+    assert "[sgg.generate] 5 images, 15 triples" in printed and "recall@5 = " in printed
+    with open(out) as f:
+        result = json.load(f)
+    assert [g["image_id"] for g in result["scene_graphs"]] == list(range(5))
+    for g in result["scene_graphs"]:
+        assert sum(t["count"] for t in g["triples"]) == 3
+        for t in g["triples"]:
+            assert vocab.is_object[vocab.id(t["subject"])]
+            assert vocab.is_predicate[vocab.id(t["predicate"])]
+
+
+def test_generate_cli_refuses_pixels_workdir_without_encoder(pixels_workdir, tmp_path, capsys):
+    wd, vocab, sd = pixels_workdir
+    for name in ("config.json", "vocab.json"):
+        with open(os.path.join(wd, name)) as src, open(tmp_path / name, "w") as dst:
+            dst.write(src.read())
+    save_generator(str(tmp_path), sd)
+    assert generate.main(["--workdir", str(tmp_path), "--device", "cpu"]) == 1
+    assert "no encoder weights" in capsys.readouterr().err
