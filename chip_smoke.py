@@ -16,7 +16,9 @@ In one process, with no threads and no sockets:
      bfloat16: soft, every (row, step) within 1e-4 (f32) or 1e-2 (bf16) of
      that row's largest value, and at vg1k widths at most 0.5 % of the bf16
      y differing from plain at all; hard, tokens identical for >= 99.9 %
-     (f32) or >= 99 % (bf16) of 8 draws;
+     (f32) or >= 99 % (bf16) of 8 draws; and the 16-row template instance
+     (the one resnet50 widths run) at vg1k widths, B = 64, under the same
+     0.5 % share gate;
   4. fused_matmul vs plain at every ResNet-50 1x1-conv shape of the pixels-in
      path (B = 32 at 224 px) and at VGG-19's first im2col shape, bfloat16 with
      and without ReLU and float32; conv_direct vs plain at the four ResNet-50
@@ -29,14 +31,15 @@ In one process, with no threads and no sockets:
      bf16 library route: ResNet-50 block by block (each block fed the
      library route's input; at most 1 % of elements differ, rel L2 within
      1e-3), VGG-19 end to end (within 2e-2 x max, rel L2 within 1.5e-2);
-  6. main path, precomputed features: ``python -m sgg_torch.cli.generate``
-     (in process) on a port workdir with the trained run's config.json and
-     vocab.json, seeded generator weights and 512 seeded feature images,
+  6. main path, precomputed features: ``python -m sgg_torch.cli.generate
+     --decode fused`` (in process) on a port workdir with the trained run's
+     config.json and vocab.json, seeded generator weights and 512 seeded feature images,
      K = 50 draws, batch 64; fused_decode must launch exactly
      ceil(512/64) * 50 times; the output JSON is read back and checked; one
      batch of the CUDA sampler is held against the same sampler on the CPU
      (plain version) given the same noise;
-  7. main path, pixels in: the same CLI on a ``resnet50``-config workdir
+  7. main path, pixels in: the same CLI (``--decode fused``) on a
+     ``resnet50``-config workdir
      (seeded 8192-entry vocab, seeded generator and encoder weights) over 256
      synthetic 224 px images, batch 32, K = 50: conv_direct, fused_matmul and
      fused_decode must launch exactly 8 * 13, 8 * 36 and 8 * 50 times;
@@ -47,11 +50,33 @@ In one process, with no threads and no sockets:
      same product (torch.matmul, or F.conv2d on channels-last bf16; both
      without the epilogue) and the bound: max(bytes over 3.35 TB/s, FLOPs over
      the type's peak); and the ResNet-50 encoder on one batch of phase 7
-     (B = 32) on the kernel route against the library route.
+     (B = 32) on the kernel route against the library route;
+  9. flash_attention vs plain at [32, 12, 196, 64] (ViT-B/16 at 224 px),
+     [32, 12, 576, 64] (384 px) and a ragged S = 100, float32 and bfloat16,
+     with and without lse: float32 within 1e-4 x max; bf16 within one bf16
+     ulp of plain plus that, and at most 1 % of the outputs differing at all
+     (the share is printed); lse within 1e-5 relative;
+ 10. ViT-B/16 encoder (seeded weights) on 8 seeded 224 px images, the kernel
+     route (use_pallas) against the plain route (attention by
+     ``flash_attention_plain``): float32 within 1e-4 x max; bfloat16 block
+     by block, each block fed the plain route's input (at most 7 % of a
+     block's elements differ, rel L2 within 2e-3);
+ 11. main path, ``vit_b16``: the CLI (``--decode xla``) on a
+     ``vit_b16``-config workdir (seeded 1024-entry vocab, seeded generator
+     and encoder weights) over 256 synthetic 224 px images, batch 32,
+     K = 50: flash_attention must launch exactly 8 * 12 times and the other
+     kernels not at all; images/s and triples/s; the output JSON is read
+     back and checked; one batch of the CUDA sampler against the CPU
+     sampler (plain versions) given the same features and noise;
+ 12. timing: flash_attention per launch at both ViT shapes beside its plain
+     version, ``F.scaled_dot_product_attention`` on the same bf16 tensors
+     (timed only; the port never calls it) and the bound; the ViT-B/16
+     encoder on one batch of 32 on the kernel route against the plain route.
 
 The kernels' JSON record gives, for each kernel, its launches on the newest
-main path that runs it (phase 7) and launch-weighted means over that path's
-shapes of ms, plain ms, library ms and bound ms. The last two lines are that
+main path that runs it (phase 7; phase 11 for flash_attention) and
+launch-weighted means over that path's shapes of ms, plain ms, library ms and
+bound ms. The last two lines are that
 record and the device JSON. A failed check raises, so the exit code is not 0;
 a watchdog turns a hang into a stack trace and a non-zero exit.
 """
@@ -72,6 +97,10 @@ TRAINED_RUN = os.path.join(ROOT, "results", "run_v3_bal0.7_ckpt")
 SEED = 0
 N_IMAGES, BATCH, K = 512, 64, 50
 PIX_IMAGES, PIX_BATCH, PIX_VOCAB = 256, 32, 8192
+VIT_IMAGES, VIT_BATCH, VIT_VOCAB = 256, 32, 1024
+# [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
+# 384 px, and a ragged S.
+FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
@@ -137,6 +166,13 @@ def conv_work(shape, cout, k, isz):
             2 * B * H * W * k * k * C * cout)
 
 
+def flash_work(shape, isz):
+    """(bytes, FLOPs) of one attention forward: q, k, v read once, o written
+    once; q.kT and P.V."""
+    B, H, S, D = shape
+    return 4 * B * H * S * D * isz, 4 * B * H * S * S * D
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_SECONDS, exit=True)
     import torch
@@ -156,6 +192,7 @@ def main():
     from sgg_torch.eval.sampler import make_fused_sampler
     from sgg_torch.kernels import build
     from sgg_torch.kernels import conv_direct as cd
+    from sgg_torch.kernels import flash_attention as fa
     from sgg_torch.kernels import fused_decode as fd
     from sgg_torch.kernels import matmul as mm
     from sgg_torch.models.encoders import normalize_for
@@ -163,6 +200,9 @@ def main():
     from sgg_torch.models.resnet import ResNet50Features
     from sgg_torch.models.vgg import VGG19Features
     from sgg_torch.models.generator import AttentionLSTMGenerator
+    from sgg_torch.models.transformer import TransformerTripleGenerator
+    from sgg_torch.models.vit import ViTB16Features
+    from sgg_torch.eval.sampler import make_sampler
     from sgg_torch.train.checkpoint import save_generator
     from sgg_torch.utils.gumbel import sample_gumbel
 
@@ -261,7 +301,7 @@ def main():
     pix_widths = (pix_cfg.data.regions, pix_cfg.data.feat_dim, pm.attn_dim, pm.hidden,
                   pm.embed_dim, pm.noise_dim, PIX_VOCAB)
 
-    def check_decode(cfg_, vocab_, batches, label, share_tol=None):
+    def check_decode(cfg_, vocab_, batches, label, share_tol=None, row_tile=None):
         Rq, Fq = cfg_.data.regions, cfg_.data.feat_dim
         Zq, Vq = cfg_.model.noise_dim, cfg_.model.vocab_size
         torch.manual_seed(SEED)
@@ -275,7 +315,8 @@ def main():
                 feats = feats_all[:B].to(dtype).contiguous()
                 z = torch.randn(B, Zq, generator=gen, device=dev).to(dtype)
                 g = sample_gumbel((B, 3, Vq), gen, device=dev)
-                y = fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=False)
+                y = fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=False,
+                                    row_tile=row_tile)
                 torch.cuda.synchronize()
                 want = fd.decode_plain(params, feats, z, g, mask_bias=mb, hard=False)
                 diff = (y.float() - want.float()).abs()
@@ -293,7 +334,8 @@ def main():
                 for _ in range(8):
                     z = torch.randn(B, Zq, generator=gen, device=dev).to(dtype)
                     g = sample_gumbel((B, 3, Vq), gen, device=dev)
-                    yh = fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=True)
+                    yh = fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=True,
+                                         row_tile=row_tile)
                     torch.cuda.synchronize()
                     wh = fd.decode_plain(params, feats, z, g, mask_bias=mb, hard=True)
                     same += (yh.argmax(-1) == wh.argmax(-1)).sum().item()
@@ -323,6 +365,10 @@ def main():
         f"row tile {lib.sgg_fused_decode_row_tile(R, F, A, H, E, Z, V)}")
     failed = []
     sd, _ = check_decode(cfg, vocab, (BATCH, 37), "vg1k", share_tol=5e-3)
+    # The 16-row instance, which resnet50 widths run, where the share of y
+    # that differs can tell a skipped rounding (at resnet50 widths the sums
+    # alone move about 2 %).
+    check_decode(cfg, vocab, (BATCH,), "vg1k row tile 16", share_tol=5e-3, row_tile=16)
     log(f"widths resnet50: R, F, A, H, E, Z, V = {pix_widths}; row tile "
         f"{lib.sgg_fused_decode_row_tile(*pix_widths)}")
     pix_sd, pix_errs = check_decode(pix_cfg, pix_vocab, (PIX_BATCH,), "resnet50")
@@ -491,13 +537,13 @@ def main():
 
     def run_generate(argv):
         torch.cuda.synchronize()
-        fd.launches = mm.launches = cd.launches = 0
+        fd.launches = mm.launches = cd.launches = fa.launches = 0
         t_gen = time.perf_counter()
         rc = generate.main(argv)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t_gen
         counts = {"fused_decode": fd.launches, "fused_matmul": mm.launches,
-                  "conv_direct": cd.launches}
+                  "conv_direct": cd.launches, "flash_attention": fa.launches}
         if rc != 0:
             raise AssertionError(f"sgg_torch.cli.generate returned {rc}")
         return gen_s, counts
@@ -554,7 +600,7 @@ def main():
         log(f"workdir written: {N_IMAGES} images x {R} x {F} float32 shards")
         out_path = os.path.join(wd, "graphs.json")
         gen_s, counts = run_generate(
-            ["--workdir", wd, "--out", out_path, "--num-samples", str(K),
+            ["--workdir", wd, "--out", out_path, "--num-samples", str(K), "--decode", "fused",
              "--batch-size", str(BATCH), "--recall-k", "50", "--ema", "--seed", str(SEED)])
         want_launches = math.ceil(N_IMAGES / BATCH) * K
         log(f"generate vg1k: {gen_s:.3f} s in process, launches {counts} "
@@ -592,11 +638,11 @@ def main():
         save_generator(wd, pix_g, step=0, enc_params=seeded_encoder_state("resnet50"))
         out_path = os.path.join(wd, "graphs.json")
         pix_s, pix_counts = run_generate(
-            ["--workdir", wd, "--out", out_path, "--num-samples", str(K),
+            ["--workdir", wd, "--out", out_path, "--num-samples", str(K), "--decode", "fused",
              "--batch-size", str(PIX_BATCH), "--recall-k", "50", "--seed", str(SEED)])
         n_batches = math.ceil(PIX_IMAGES / PIX_BATCH)
         want_counts = {"fused_decode": n_batches * K, "fused_matmul": n_batches * 36,
-                       "conv_direct": n_batches * 13}
+                       "conv_direct": n_batches * 13, "flash_attention": 0}
         log(f"generate resnet50: {pix_s:.3f} s in process, launches {pix_counts} "
             f"(expected {want_counts}), {PIX_IMAGES / pix_s:.1f} images/s and "
             f"{PIX_IMAGES * K / pix_s:.0f} triples/s including set-up")
@@ -695,6 +741,186 @@ def main():
         f"{k_ms:.4f} ms, library route {p_ms:.4f} ms (turns k,k,l,l "
         f"{', '.join(f'{t:.4f}' for t in turns)})")
     phase("timing", t0)
+
+    # 9. flash_attention vs plain at the ViT shapes and a ragged S.
+    t0 = time.perf_counter()
+    flash_errs = {}
+    for shape in FLASH_SHAPES:
+        q32, k32, v32 = (torch.randn(*shape, generator=gen, device=dev) for _ in range(3))
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k_, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            o, lse = fa.flash_attention_with_lse(q, k_, v)
+            o_only = fa.flash_attention(q, k_, v)
+            torch.cuda.synchronize()
+            want, want_lse = fa.flash_attention_plain(q, k_, v, return_lse=True)
+            diff = (o.float() - want.float()).abs()
+            ref = want.float().abs().max().item()
+            err, f32_tol = diff.max().item(), 1e-4 * ref
+            share = (diff > 0).float().mean().item()
+            lse_rel = ((lse - want_lse).abs() / want_lse.abs()).max().item()
+            in_ulp = one_ulp_gate(o, want, f32_tol)
+            if dtype == torch.float32:
+                close = err <= f32_tol
+            else:  # the share tells p rounded to bf16 before P.V from sum order
+                close = in_ulp and share <= 1e-2
+            ok = (close and lse_rel <= 1e-5 and torch.equal(o, o_only)
+                  and o.dtype == dtype and o.shape == q.shape
+                  and bool(torch.isfinite(o.float()).all()))
+            gate = ("max_abs_err <= 1e-4 x max" if dtype == torch.float32
+                    else "within 1 bf16 ulp + 1e-4 x max, share <= 1e-2")
+            log(f"flash_attention vs plain {name} {list(shape)}: max_abs_err {err:.3e}, "
+                f"max|plain| {ref:.3e}, within 1 bf16 ulp + 1e-4 x max {in_ulp}, share of "
+                f"outputs differing {share:.3e}, lse max rel err {lse_rel:.3e} (<= 1e-5), "
+                f"o with lse == o without {torch.equal(o, o_only)}; gate: {gate}: "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise AssertionError(f"flash_attention {name} {shape} disagrees with plain")
+            flash_errs[(shape, name)] = err
+    phase("flash_vs_plain", t0)
+
+    # 10. ViT-B/16, kernel route vs plain route, 8 seeded images.
+    t0 = time.perf_counter()
+
+    def seeded_vit_state():
+        torch.manual_seed(SEED + 7)
+        sd_ = ViTB16Features().state_dict()
+        g_ = torch.Generator().manual_seed(SEED + 8)
+        for k_, v_ in sd_.items():
+            if k_.endswith(".scale"):
+                v_.copy_(1.0 + 0.2 * torch.randn(v_.shape, generator=g_))
+            elif k_.endswith(".bias"):
+                v_.copy_(0.1 * torch.randn(v_.shape, generator=g_))
+        return sd_
+
+    vit_state = seeded_vit_state()
+
+    def load_vit(dtype, kernel_route):
+        kw = {"use_pallas": True} if kernel_route else {"attn_fn": fa.flash_attention_plain}
+        enc = ViTB16Features(dtype=dtype, **kw)
+        enc.load_state_dict(vit_state)
+        return enc.requires_grad_(False).eval().to(dev)
+
+    x = normalize_for("vit_b16", images)
+    vits = {(dt, kr): load_vit(dt, kr) for dt in (torch.float32, torch.bfloat16)
+            for kr in (True, False)}
+    with torch.no_grad():
+        want = vits[(torch.float32, False)](x).float()
+        fa.launches = 0
+        got = vits[(torch.float32, True)](x).float()
+        torch.cuda.synchronize()
+        ran = fa.launches
+    err, rel2 = dist(got, want)
+    ref = want.abs().max().item()
+    log(f"encoder vit_b16 f32 kernel route vs plain route: out {tuple(got.shape)}, "
+        f"max_abs_err {err:.3e} (<= 1e-4 x {ref:.3e}), rel L2 {rel2:.3e}, "
+        f"flash_attention launches {ran} (12 expected)")
+    if not (err <= 1e-4 * ref and ran == 12 and bool(torch.isfinite(got).all())):
+        raise AssertionError("ViT-B/16 kernel route f32 disagrees with the plain route")
+    ker, pln = vits[(torch.bfloat16, True)], vits[(torch.bfloat16, False)]
+    worst_frac = worst_rel = 0.0
+    with torch.no_grad():
+        prev = pln.embed(x)
+        for name in pln.blocks:
+            want_ = getattr(pln, name)(prev)
+            got_ = getattr(ker, name)(prev)
+            worst_frac = max(worst_frac, (got_ != want_).float().mean().item())
+            worst_rel = max(worst_rel, dist(got_.float(), want_.float())[1])
+            prev = want_
+        end_err, end_rel = dist(ker(x).float(), pln(x).float())
+    torch.cuda.synchronize()
+    log(f"encoder vit_b16 bf16 kernel route vs plain route, block by block: worst share "
+        f"of elements differing {worst_frac:.3e} (<= 7e-2), worst rel L2 {worst_rel:.3e} "
+        f"(<= 2e-3); end to end max_abs_err {end_err:.3e}, rel L2 {end_rel:.3e}")
+    if not (worst_frac <= 7e-2 and worst_rel <= 2e-3):
+        raise AssertionError("ViT-B/16 kernel route bf16 disagrees with the plain route")
+    del vits, ker, pln
+    phase("vit_vs_plain", t0)
+
+    # 11. Main path, vit_b16: ViT-B/16 encoder, transformer decoder.
+    t0 = time.perf_counter()
+    vit_vocab = Vocab.build(
+        Counter({f"object{i}": int(c) for i, c in enumerate(rng.integers(1, 10**6, 872))}),
+        Counter({f"predicate{i}": int(c) for i, c in enumerate(rng.integers(1, 10**6, 150))}),
+    )
+    assert len(vit_vocab) == VIT_VOCAB, len(vit_vocab)
+    vit_cfg = get_config("vit_b16")
+    vit_cfg.data.num_synthetic_images = VIT_IMAGES
+    vit_cfg.model.vocab_size = VIT_VOCAB
+    with tempfile.TemporaryDirectory() as wd:
+        vit_cfg.workdir = wd
+        with open(os.path.join(wd, "config.json"), "w") as f:
+            f.write(vit_cfg.to_json())
+        vit_vocab.save(os.path.join(wd, "vocab.json"))
+        torch.manual_seed(SEED + 9)
+        vit_g = TransformerTripleGenerator.from_config(vit_cfg).state_dict()
+        save_generator(wd, vit_g, step=0, enc_params=vit_state)
+        out_path = os.path.join(wd, "graphs.json")
+        vit_s, vit_counts = run_generate(
+            ["--workdir", wd, "--out", out_path, "--num-samples", str(K), "--decode", "xla",
+             "--batch-size", str(VIT_BATCH), "--recall-k", "50", "--seed", str(SEED)])
+        n_batches = math.ceil(VIT_IMAGES / VIT_BATCH)
+        want_counts = {"fused_decode": 0, "fused_matmul": 0, "conv_direct": 0,
+                       "flash_attention": n_batches * 12}
+        log(f"generate vit_b16: {vit_s:.3f} s in process, launches {vit_counts} "
+            f"(expected {want_counts}), {VIT_IMAGES / vit_s:.1f} images/s and "
+            f"{VIT_IMAGES * K / vit_s:.0f} triples/s including set-up")
+        if vit_counts != want_counts:
+            raise AssertionError("the vit_b16 path did not launch its kernels as expected")
+        check_graphs(out_path, vit_vocab, VIT_IMAGES)
+
+    # One batch of the CUDA sampler against the CPU sampler (plain
+    # versions) given the same features (the CUDA encoder's, on the kernel
+    # route, held to its plain route in phase 10) and the same noise.
+    Ks, Bs = 8, VIT_BATCH
+    imgs = torch.from_numpy(np.random.RandomState(SEED + 10).randint(
+        0, 256, (Bs, 224, 224, 3), dtype=np.uint8)).to(dev)
+    with torch.no_grad():
+        feats = load_vit(torch.bfloat16, True)(normalize_for("vit_b16", imgs))
+    z = torch.randn(Ks, Bs, vit_cfg.model.noise_dim, generator=gen, device=dev)
+    g = sample_gumbel((Ks, Bs, 3, VIT_VOCAB), gen, device=dev)
+    sampler = make_sampler(vit_cfg, step_mask=vit_vocab.step_mask(), num_samples=Ks)
+    gpu_tok = sampler({k_: v_.to(dev) for k_, v_ in vit_g.items()}, feats, noise=(z, g)).cpu()
+    cpu_tok = make_sampler(vit_cfg, step_mask=vit_vocab.step_mask(), num_samples=Ks)(
+        vit_g, feats.cpu(), noise=(z.cpu(), g.cpu()))
+    agree = (gpu_tok == cpu_tok).float().mean().item()
+    log(f"vit_b16 sampler tokens, CUDA vs CPU plain, same features and noise: "
+        f"{agree:.4f} identical of {cpu_tok.numel()} (>= 0.99)")
+    if gpu_tok.shape != (Bs, Ks, 3) or agree < 0.99:
+        raise AssertionError("the CUDA vit_b16 sampler disagrees with the CPU sampler")
+    phase("main_path_vit_b16", t0)
+
+    # 12. Timing of flash_attention and the ViT-B/16 encoder (bf16, warm L2).
+    t0 = time.perf_counter()
+    for shape in FLASH_SHAPES[:2]:
+        q, k_, v = (torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(3))
+        k_ms, p_ms, turns = in_turns(lambda: fa.flash_attention(q, k_, v),
+                                     lambda: fa.flash_attention_plain(q, k_, v))
+        l_ms = time_ms(lambda: Fnn.scaled_dot_product_attention(q, k_, v))
+        nbytes, flops = flash_work(shape, 2)
+        b_s, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        per_batch = 12 if shape == FLASH_SHAPES[0] else 0
+        log(f"time flash_attention bf16 {list(shape)} (x{per_batch} per batch): kernel "
+            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} (turns "
+            f"k,k,p,p {', '.join(f'{t:.4f}' for t in turns)}), scaled_dot_product_attention "
+            f"{l_ms:.4f}, bound {b_s * 1e3:.5f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP), kernel at {b_s * 1e3 / k_ms:.3f} of the bound")
+        if per_batch:
+            add("flash_attention", k_ms, p_ms, l_ms, b_s, b_by, per_batch)
+
+    batch = torch.from_numpy(np.random.RandomState(SEED + 11).randint(
+        0, 256, (VIT_BATCH, 224, 224, 3), dtype=np.uint8)).to(dev)
+    vits = {kr: load_vit(torch.bfloat16, kr) for kr in (True, False)}
+
+    def vit_encode(kernel_route):
+        with torch.no_grad():
+            return vits[kernel_route](normalize_for("vit_b16", batch))
+
+    k_ms, p_ms, turns = in_turns(lambda: vit_encode(True), lambda: vit_encode(False))
+    log(f"time vit_b16 encoder bf16 B={VIT_BATCH} (normalize + 12 blocks): kernel route "
+        f"{k_ms:.4f} ms, plain route {p_ms:.4f} ms (turns k,k,p,p "
+        f"{', '.join(f'{t:.4f}' for t in turns)})")
+    phase("timing_vit", t0)
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",
@@ -702,18 +928,22 @@ def main():
                "fused_matmul": ("sgg_torch/kernels/csrc/fused_matmul.cu",
                                 "sgg/kernels/matmul.py:43"),
                "conv_direct": ("sgg_torch/kernels/csrc/conv_direct.cu",
-                               "sgg/kernels/conv_direct.py:93")}
+                               "sgg/kernels/conv_direct.py:93"),
+               "flash_attention": ("sgg_torch/kernels/csrc/flash_attention.cu",
+                                   "sgg/kernels/flash_attention.py:35")}
     errs = {"fused_decode": pix_errs[("bf16", PIX_BATCH)],
             "fused_matmul": max(v for k_, v in shape_errs.items()
                                 if k_[0] == "mm" and k_[4] == "bf16"),
             "conv_direct": max(v for k_, v in shape_errs.items()
-                               if k_[0] == "conv" and k_[3] == "bf16")}
+                               if k_[0] == "conv" and k_[3] == "bf16"),
+            "flash_attention": flash_errs[(FLASH_SHAPES[0], "bf16")]}
+    path_counts = dict(pix_counts, flash_attention=vit_counts["flash_attention"])
     kernels = []
     for name, (src, replaces) in sources.items():
         r_ = records[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": pix_counts[name], "max_abs_err": errs[name],
+            "launches": path_counts[name], "max_abs_err": errs[name],
             "ms": r_["ms"] / r_["w"], "plain_ms": r_["plain"] / r_["w"],
             "bound_ms": r_["bound"] / r_["w"], "bound_by": r_["by"].most_common(1)[0][0],
             "library_ms": r_["lib"] / r_["w"] if name != "fused_decode" else None,

@@ -7,7 +7,9 @@ attention-LSTM generator, the flax weight converter, the K-sample sampler on
 the hand-written CUDA ``fused_decode`` kernel, recall@k, and
 ``python -m sgg_torch.cli.generate``), and on pixels (the VGG-19 and
 ResNet-50 encoders on the hand-written CUDA ``conv_direct`` and
-``fused_matmul`` kernels).
+``fused_matmul`` kernels; ViT-B/16 on the hand-written CUDA
+``flash_attention`` forward, with the transformer triple decoder and the
+generator-forward sampler).
 """
 
 __version__ = "0.1.0"

@@ -1,24 +1,30 @@
 """Sample scene graphs from a port workdir, optionally scoring recall@k.
 
-Port of ``sgg/cli/generate.py`` on the fused decode kernel: read the workdir
-(config, vocab, generator weights), draw K noise samples per test image (one
-``fused_decode`` launch per draw and batch), dedupe and rank the triples by
+Port of ``sgg/cli/generate.py``: read the workdir (config, vocab, generator
+weights), draw K noise samples per test image, dedupe and rank the triples by
 frequency, write the scene graphs as JSON.
 
   python -m sgg_torch.cli.generate --workdir W --num-samples 50 \\
-      --batch-size 64 --recall-k 50 [--ema] [--device cpu]
+      --batch-size 64 --recall-k 50 [--decode xla|fused] [--ema] [--device cpu]
 
-Pixels-in configs (``model.encoder`` ``vgg19`` or ``resnet50``, e.g. the
-named config ``resnet50``) run the workdir's encoder weights on each batch
-of uint8 images first (normalization, then the backbone in the compute
-dtype), and the features stay on the device for the sampler. Their conv
-route comes from ``model.use_pallas``: ``'auto'`` (the CUDA kernels) when
-set, else ``'xla'`` (the library conv). Only the ``synthetic`` image source
-is ported.
+``--decode xla`` (the default, as in the reference) runs the generator's own
+forward per draw, for either decoder (``model.decoder`` ``lstm`` or
+``transformer``); ``--decode fused`` runs one ``fused_decode`` launch per
+draw and batch, attention-LSTM only.
+
+Pixels-in configs (``model.encoder`` ``vgg19``, ``resnet50`` or ``vit_b16``,
+e.g. the named configs ``resnet50`` and ``vit_b16``) run the workdir's
+encoder weights on each batch of uint8 images first (normalization, then the
+backbone in the compute dtype), and the features stay on the device for the
+sampler. The encoder's kernel route comes from ``model.use_pallas``: when
+set, ``'auto'`` (the CUDA conv kernels; for the ViT the CUDA flash
+attention), else the library conv and the unfused attention. The ViT is
+built from ``data.image_size`` and ``model.vit_dims``. Only the
+``synthetic`` image source is ported.
 
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
-there. The XLA decode, ``--rank logp|freq_logp``, ``--top-k``/``--top-p`` and
-temperatures other than 1 come with a later slice of the port.
+there. ``--rank logp|freq_logp``, ``--top-k``/``--top-p`` and temperatures
+other than 1 come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ from sgg_torch.eval.sampler import (
     assemble_scene_graphs,
     device_put_features,
     make_fused_sampler,
+    make_indexed_sampler,
+    make_sampler,
 )
 from sgg_torch.kernels.build import load_library
 from sgg_torch.models.encoders import make_encoder, normalize_for
@@ -118,8 +126,10 @@ def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.
     a round trip through the host."""
     if cfg.model.encoder == "precomputed":
         return lambda idx: torch.from_numpy(ds.features[idx]).to(device)
-    enc = make_encoder(cfg.model.encoder, use_pallas=cfg.model.use_pallas,
-                       dtype=cfg.model.dtype, quant=cfg.model.quant)
+    m = cfg.model
+    enc = make_encoder(m.encoder, use_pallas=m.use_pallas, dtype=m.dtype, quant=m.quant,
+                       image_size=cfg.data.image_size, vit_dims=m.vit_dims,
+                       moe_experts=m.moe_experts)
     enc.load_state_dict(enc_params)
     enc.to(device)
 
@@ -132,8 +142,6 @@ def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.
 
 
 def _refuse_unported(args) -> str | None:
-    if args.decode != "fused":
-        return f"--decode {args.decode} {_LATER}"
     if args.rank != "freq":
         return f"--rank {args.rank} {_LATER}"
     if args.top_k or args.top_p is not None:
@@ -160,8 +168,10 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--split", default="test", choices=["train", "test"],
                    help="evaluate on held-out shards when available (default)")
-    p.add_argument("--decode", default="fused", choices=["xla", "fused"],
-                   help="decode path; only the fused CUDA kernel is ported")
+    p.add_argument("--decode", default="xla", choices=["xla", "fused"],
+                   help="decode path: 'xla' = the generator's forward per draw, "
+                        "'fused' = one fused_decode kernel launch per draw "
+                        "(attention-LSTM decoder only)")
     p.add_argument("--ema", action="store_true", help="sample from the EMA generator weights")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (default) or on the CPU")
@@ -174,10 +184,15 @@ def main(argv=None) -> int:
 
     cfg, vocab = load_workdir(args.workdir)
     cfg.model.vocab_size = len(vocab)
+    if args.decode == "fused" and cfg.model.decoder != "lstm":
+        print(f"[sgg.generate] --decode fused runs the attention-LSTM decoder only; this "
+              f"workdir's model.decoder is {cfg.model.decoder!r}: use --decode xla",
+              file=sys.stderr)
+        return 2
     ds, _ = load_dataset(cfg, split=args.split)
     n_images = min(args.num_images or len(ds), len(ds))
 
-    ckpt = load_generator(args.workdir)
+    ckpt = load_generator(args.workdir, decoder=cfg.model.decoder)
     if ckpt is None:
         print(f"[sgg.generate] no generator weights in {args.workdir}", file=sys.stderr)
         return 1
@@ -205,10 +220,16 @@ def main(argv=None) -> int:
     device_resident = (not end_to_end
                        and ds.features.nbytes <= cfg.data.device_resident_max_bytes)
     t_up = 0.0
-    sampler = make_fused_sampler(
-        cfg, step_mask=vocab.step_mask(), num_samples=args.num_samples,
-        tau=args.temperature, indexed=device_resident,
-    )
+    if args.decode == "fused":
+        sampler = make_fused_sampler(
+            cfg, step_mask=vocab.step_mask(), num_samples=args.num_samples,
+            tau=args.temperature, indexed=device_resident,
+        )
+    else:
+        sampler = (make_indexed_sampler if device_resident else make_sampler)(
+            cfg, step_mask=vocab.step_mask(), num_samples=args.num_samples,
+            tau=args.temperature,
+        )
     if device_resident:
         t0 = time.perf_counter()
         feats_dev = device_put_features(ds.features, device, dtype)

@@ -47,6 +47,11 @@ class ModelConfig:
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
+    @property
+    def vit_dims(self) -> tuple[int, int, int]:
+        """(embed_dim, num_layers, num_heads) for the ViT encoder."""
+        return (self.vit_dim, self.vit_layers, self.vit_heads)
+
 
 @dataclass
 class DataConfig:
@@ -192,6 +197,18 @@ def _cfg_resnet50() -> Config:
     return c
 
 
+def _cfg_vit_b16() -> Config:
+    """ViT-B/16 encoder + transformer triple decoder + flash attention."""
+    c = Config(name="vit_b16")
+    c.model.encoder = "vit_b16"
+    c.model.decoder = "transformer"
+    c.model.compute_dtype = "bfloat16"
+    c.model.use_pallas = True
+    c.data.feat_dim = 768
+    c.data.regions = 196  # 14x14 patches at 224px
+    return c
+
+
 def _cfg_smoke() -> Config:
     """Tiny shapes for tests."""
     c = Config(name="smoke")
@@ -211,7 +228,8 @@ def _cfg_smoke() -> Config:
     return c
 
 
-CONFIGS = {"vg1k": _cfg_vg1k, "resnet50": _cfg_resnet50, "smoke": _cfg_smoke}
+CONFIGS = {"vg1k": _cfg_vg1k, "resnet50": _cfg_resnet50, "vit_b16": _cfg_vit_b16,
+           "smoke": _cfg_smoke}
 
 
 def get_config(name: str) -> Config:

@@ -6,10 +6,13 @@ Generator: the flax tree is the nested dict of numpy arrays that
 weight. The TF1 LSTM kernel stays one ``[I+H, 4H]`` matrix in i, j, f, o
 order, and the embedding is ``[V, E]`` in both.
 
-Encoders (VGG-19, ResNet-50): the port's modules keep the flax names and
-layouts (HWIO kernels, float32 BN vectors), so a leaf's path joined with
+Encoders (VGG-19, ResNet-50, ViT-B/16) and the transformer generator: the
+port's modules keep the flax names and layouts (HWIO kernels, Dense kernels
+[in, out], float32 BN and LayerNorm vectors), so a leaf's path joined with
 ``.`` is its state_dict key; VGG's flat flax names ``conv1_1/kernel`` become
-``conv1_1.kernel``. ``encoder_params.npz`` files (``::``-joined keys, as
+``conv1_1.kernel``. Given the port module's own state_dict (``like``), the
+conversion raises on a missing or unknown leaf, or on a shape that differs.
+``encoder_params.npz`` files (``::``-joined keys, as
 ``sgg.train.pretrain.save_params_npz`` writes them) read with numpy alone.
 """
 
@@ -76,35 +79,83 @@ def state_dict_to_flax(sd: dict) -> dict:
     return tree
 
 
-def encoder_flax_to_state_dict(enc_params: dict) -> "OrderedDict[str, torch.Tensor]":
-    """Flax ``VGG19Features`` or ``ResNet50Features`` params (with or without
-    the outer ``{'params': …}``) → the port module's state_dict."""
-    tree = enc_params.get("params", enc_params)
+def _check_like(sd: dict, like: dict, what: str) -> None:
+    unknown = sorted(k for k in sd if k not in like)
+    missing = sorted(k for k in like if k not in sd)
+    if unknown or missing:
+        raise ValueError(f"{what} tree mismatch: unknown {unknown}, missing {missing}")
+    bad = sorted(k for k in sd if tuple(sd[k].shape) != tuple(like[k].shape))
+    if bad:
+        raise ValueError(f"{what} tree mismatch: shapes differ at {bad}")
+
+
+def tree_to_state_dict(tree: dict, like: dict | None = None,
+                       what: str = "flax") -> "OrderedDict[str, torch.Tensor]":
+    """A flax param tree (with or without the outer ``{'params': …}``) →
+    the state_dict of a port module that keeps the flax names and layouts:
+    float32 leaves keyed by their path joined with ``.``. With ``like`` (the
+    port module's own state_dict), raises on a missing or unknown leaf or a
+    shape that differs."""
+    tree = tree.get("params", tree)
     sd = OrderedDict()
     for path, v in _leaves(tree):
         key = ".".join(p.replace("/", ".") for p in path)
         sd[key] = torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+    if like is not None:
+        _check_like(sd, like, what)
     return sd
 
 
-def encoder_state_dict_to_flax(sd: dict, name: str) -> dict:
-    """The reverse of :func:`encoder_flax_to_state_dict` for encoder ``name``
-    (``vgg19`` keeps flat ``conv1_1/kernel`` leaves, ``resnet50`` nests) →
-    ``{'params': tree}`` of numpy arrays."""
-    if name not in ("vgg19", "resnet50"):
-        raise ValueError(f"no flax layout for encoder {name!r}")
+def state_dict_to_tree(sd: dict) -> dict:
+    """The reverse of :func:`tree_to_state_dict`: keys split at ``.`` into a
+    nested dict of numpy arrays."""
     tree: dict = {}
     for key, t in sd.items():
-        a = t.detach().cpu().numpy()
-        if name == "vgg19":
-            tree[key.replace(".", "/")] = a
-            continue
         *path, leaf = key.split(".")
         node = tree
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = a
-    return {"params": tree}
+        node[leaf] = t.detach().cpu().numpy()
+    return tree
+
+
+def encoder_flax_to_state_dict(enc_params: dict, like: dict | None = None
+                               ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``VGG19Features``, ``ResNet50Features`` or ``ViTB16Features``
+    params (with or without the outer ``{'params': …}``) → the port module's
+    state_dict; checked against ``like`` when given."""
+    return tree_to_state_dict(enc_params, like, "encoder")
+
+
+def encoder_state_dict_to_flax(sd: dict, name: str) -> dict:
+    """The reverse of :func:`encoder_flax_to_state_dict` for encoder ``name``
+    (``vgg19`` keeps flat ``conv1_1/kernel`` leaves, ``resnet50`` and
+    ``vit_b16`` nest) → ``{'params': tree}`` of numpy arrays."""
+    if name not in ("vgg19", "resnet50", "vit_b16"):
+        raise ValueError(f"no flax layout for encoder {name!r}")
+    if name == "vgg19":
+        return {"params": {k.replace(".", "/"): t.detach().cpu().numpy()
+                           for k, t in sd.items()}}
+    return {"params": state_dict_to_tree(sd)}
+
+
+def generator_flax_to_state_dict(g_params: dict, cfg) -> "OrderedDict[str, torch.Tensor]":
+    """The generator of ``cfg.model.decoder`` from its flax tree: the
+    attention-LSTM through :func:`flax_to_state_dict`, the transformer leaf
+    by leaf, checked against a port module built from ``cfg``."""
+    if cfg.model.decoder == "lstm":
+        return flax_to_state_dict(g_params)
+    from sgg_torch.train.state import make_generator
+
+    return tree_to_state_dict(g_params, make_generator(cfg).state_dict(), "generator")
+
+
+def generator_state_dict_to_flax(sd: dict) -> dict:
+    """The reverse of :func:`generator_flax_to_state_dict`, for either
+    decoder."""
+    from sgg_torch.train.checkpoint import decoder_of
+
+    return state_dict_to_tree(sd) if decoder_of(sd) == "transformer" else state_dict_to_flax(sd)
 
 
 def load_params_npz(path: str) -> dict:

@@ -1,10 +1,14 @@
-"""Batched scene-graph sampling on the fused decode kernel.
+"""Batched scene-graph sampling, from ``sgg/eval/sampler.py``.
 
-Port of the fused path of ``sgg/eval/sampler.py``: per image batch, K noise
-draws, each one launch of ``fused_decode`` (hard Gumbel-max tokens at
-temperature 1.0), then the K triples of each image are deduped and ranked by
-sample frequency. The XLA sampler, log-prob ranking, temperature and
-top-k/top-p come with a later slice.
+Per image batch, K noise draws, each a hard Gumbel-max triple at temperature
+1.0, then the K triples of each image are deduped and ranked by sample
+frequency. Two samplers draw the tokens:
+  - :func:`make_sampler` / :func:`make_indexed_sampler` run the generator's
+    own forward (either decoder), the reference's XLA sampler;
+  - :func:`make_fused_sampler` runs one launch of ``fused_decode`` per draw
+    (attention-LSTM only).
+Log-prob ranking, temperatures other than 1 and top-k/top-p come with a later
+slice (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -20,7 +24,86 @@ from sgg_torch.kernels.fused_decode import (
     fused_decode,
     step_mask_bias,
 )
+from sgg_torch.train.state import make_generator
 from sgg_torch.utils.gumbel import sample_gumbel
+
+_LATER_A4 = "is not ported yet; a later slice of the port brings it (ROADMAP A4)"
+
+
+def _draw(noise, i, B, Z, V, dtype, dev, generator):
+    """Draw i's z [B, Z] in ``dtype`` and Gumbel noise [B, 3, V] float32:
+    from ``noise = (z [K,B,Z], gumbel [K,B,3,V])`` when given, else from
+    ``generator``."""
+    if noise is None:
+        z = torch.randn(B, Z, generator=generator, device=dev).to(dtype)
+        return z, sample_gumbel((B, TRIPLE_LEN, V), generator, device=dev)
+    z = noise[0][i].to(device=dev, dtype=dtype).contiguous()
+    return z, noise[1][i].to(device=dev, dtype=torch.float32).contiguous()
+
+
+def _sample_body(cfg: Config, step_mask, num_samples: int, tau, with_logp: bool,
+                 top_k: int, top_p):
+    """(g_params, feats [B,R,F], generator=None, noise=None) → tokens
+    int32[B, K, 3] through the generator's forward, hard, at temperature 1."""
+    if with_logp:
+        raise NotImplementedError(f"with_logp (log-prob ranking) {_LATER_A4}")
+    if tau is not None and float(tau) != 1.0:
+        raise NotImplementedError(f"sampling temperature other than 1.0 {_LATER_A4}")
+    if top_k or top_p is not None:
+        raise NotImplementedError(f"top-k/top-p sampling {_LATER_A4}")
+    gen = make_generator(cfg).requires_grad_(False).eval()
+    mask = None if step_mask is None else torch.as_tensor(step_mask, dtype=torch.bool)
+    dtype, Z, V = cfg.model.dtype, cfg.model.noise_dim, cfg.model.vocab_size
+    loaded = {"params": None}
+
+    def body(g_params, feats, generator=None, noise=None):
+        dev = feats.device
+        if loaded["params"] is not g_params:  # load each weights dict once
+            gen.load_state_dict(g_params)
+            gen.to(dev)
+            loaded["params"] = g_params
+        m = None if mask is None else mask.to(dev)
+        B = feats.shape[0]
+        toks = []
+        with torch.no_grad():
+            for i in range(num_samples):
+                z, g = _draw(noise, i, B, Z, V, dtype, dev, generator)
+                out = gen(feats, z, g, tau=1.0, hard=True, step_mask=m)
+                toks.append(out["tokens"].to(torch.int32))
+        return torch.stack(toks, dim=1)  # [B, K, 3]
+
+    return body
+
+
+def make_sampler(
+    cfg: Config, step_mask=None, num_samples: int = 50, tau: float | None = None,
+    with_logp: bool = False, top_k: int = 0, top_p: float | None = None,
+):
+    """Build ``sample(g_params, feats [B,R,F], generator=None, noise=None)`` →
+    tokens int32[B, K, 3] on the feats' device, through the forward of the
+    generator ``cfg.model.decoder`` names. ``g_params`` is its state_dict.
+    Each draw takes z ~ N(0, 1) [B, Z] and Gumbel noise [B, 3, V] from
+    ``generator`` (a torch.Generator on the feats' device), or from ``noise
+    = (z [K,B,Z], gumbel [K,B,3,V])`` when given, so that a test can feed the
+    reference's own draws. Only temperature 1 and ``with_logp=False`` are
+    ported."""
+    return _sample_body(cfg, step_mask, num_samples, tau, with_logp, top_k, top_p)
+
+
+def make_indexed_sampler(
+    cfg: Config, step_mask=None, num_samples: int = 50, tau: float | None = None,
+    with_logp: bool = False, top_k: int = 0, top_p: float | None = None,
+):
+    """As :func:`make_sampler`, gathering the batch from a device-resident
+    feature store: ``sample(g_params, feats_dev [N,R,F], idx [B],
+    generator=None, noise=None)``."""
+    body = _sample_body(cfg, step_mask, num_samples, tau, with_logp, top_k, top_p)
+
+    def sample(g_params, feats_dev, idx, generator=None, noise=None):
+        idx = torch.as_tensor(idx, dtype=torch.long, device=feats_dev.device)
+        return body(g_params, feats_dev.index_select(0, idx), generator, noise)
+
+    return sample
 
 
 def make_fused_sampler(
@@ -38,12 +121,17 @@ def make_fused_sampler(
     gumbel [K,B,3,V])`` when given, so that a test can feed the reference's
     own draws.
     """
+    if cfg.model.decoder != "lstm":
+        raise ValueError(
+            f"fused decode runs the attention-LSTM decoder only, not "
+            f"{cfg.model.decoder!r}; use the generator-forward sampler (make_sampler)"
+        )
     if tau is not None and float(tau) != 1.0:
         # argmax((logits + g) / tau) does not depend on tau, so a requested
         # temperature would silently do nothing.
         raise ValueError(
-            "fused decode samples at temperature 1.0 only; temperature comes "
-            "with the XLA sampler in a later slice of the port"
+            f"fused decode samples at temperature 1.0 only; temperature other "
+            f"than 1.0 {_LATER_A4}"
         )
     dtype = cfg.model.dtype
     Z = cfg.model.noise_dim
@@ -57,12 +145,7 @@ def make_fused_sampler(
         V = params["wv"].shape[1]
         toks = []
         for i in range(num_samples):
-            if noise is None:
-                z = torch.randn(B, Z, generator=generator, device=dev).to(dtype)
-                g = sample_gumbel((B, TRIPLE_LEN, V), generator, device=dev)
-            else:
-                z = noise[0][i].to(device=dev, dtype=dtype).contiguous()
-                g = noise[1][i].to(device=dev, dtype=torch.float32).contiguous()
+            z, g = _draw(noise, i, B, Z, V, dtype, dev, generator)
             y = fused_decode(params, feats, z, g, tau=1.0, mask_bias=mask_bias, hard=True)
             toks.append(torch.argmax(y, dim=-1).to(torch.int32))
         return torch.stack(toks, dim=1)  # [B, K, 3]
@@ -93,7 +176,7 @@ def device_put_features(
 def rank_triples(tokens: np.ndarray, rank: str = "freq") -> list[tuple[int, int, int]]:
     """Rank one image's K sampled triples → deduped [(s,p,o)], best first:
     sample count descending, ties by first-sampled order. Only ``freq`` is
-    ported; the log-prob orderings come with the XLA sampler."""
+    ported; the log-prob orderings come with a later slice (ROADMAP A4)."""
     if rank != "freq":
         raise ValueError(f"rank={rank!r} is not ported yet (only 'freq')")
     tokens = np.asarray(tokens).reshape(-1, 3)

@@ -44,6 +44,8 @@ _ENTRIES = {
     # (dtype, relu, B, H, W, C, kh, kw, N, x, w, scale, bias, out, a_vec,
     #  b_vec, stream)
     "sgg_conv_direct": ([_I] * 9 + [_P] * 5 + [_I] * 2 + [_P], _I),
+    # (dtype, BH, S, D, q, k, v, o, lse, scale, stream)
+    "sgg_flash_attention": ([_I] * 4 + [_P] * 5 + [ctypes.c_float, _P], _I),
 }
 
 

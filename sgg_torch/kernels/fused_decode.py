@@ -32,6 +32,7 @@ WEIGHT_NAMES = (
 BIAS_NAMES = frozenset({"bh", "bc", "bi", "bk", "bd", "bv"})
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
+ROW_TILES = (32, 16)  # the kernel's template instances
 
 # Kernel launches in this process; the wrapper adds one per launch.
 launches = 0
@@ -174,9 +175,15 @@ def _check(params, feats, z, gumbel, mask_bias):
 def fused_decode(
     params: dict, feats: torch.Tensor, z: torch.Tensor, gumbel: torch.Tensor,
     tau: float = 1.0, mask_bias: torch.Tensor | None = None, hard: bool = True,
+    row_tile: int | None = None,
 ) -> torch.Tensor:
     """One-launch 3-step decode → y [B, 3, V] in feats' dtype (one-hot when
-    ``hard``; tokens are its argmax). CPU tensors take :func:`decode_plain`."""
+    ``hard``; tokens are its argmax). CPU tensors take :func:`decode_plain`.
+
+    ``row_tile`` overrides the feature rows the kernel stages at a time (the
+    library's own choice for the widths otherwise): 32 or 16, and no more
+    than that choice, or the wrapper raises. A check can so run the 16-row
+    instance at widths where the library would pick 32."""
     global launches
     if feats.device.type == "cpu":
         return decode_plain(params, feats, z, gumbel, tau, mask_bias, hard)
@@ -189,12 +196,19 @@ def fused_decode(
     lib = build.load_library()
     # The kernel stages feature rows in shared memory; the library picks how
     # many per tile from the widths, and the launch takes that same number.
-    row_tile = lib.sgg_fused_decode_row_tile(R, F, A, H, E, Z, V)
-    if row_tile == 0:
+    fits = lib.sgg_fused_decode_row_tile(R, F, A, H, E, Z, V)
+    if fits == 0:
         raise ValueError(
             f"fused_decode at R={R}, F={F}, A={A}, H={H}, E={E}, Z={Z}, V={V} needs more "
             f"than the {_SMEM_LIMIT} bytes of shared memory a Hopper block has, even "
             f"with 16-row feature tiles"
+        )
+    if row_tile is None:
+        row_tile = fits
+    elif row_tile not in ROW_TILES or row_tile > fits:
+        raise ValueError(
+            f"row_tile {row_tile}: the kernel takes 32 or 16 feature rows per tile, and "
+            f"at most {fits} at these widths"
         )
     y = torch.empty(B, TRIPLE_LEN, V, dtype=feats.dtype, device=feats.device)
     proj = torch.empty(B, R, A, dtype=feats.dtype, device=feats.device)

@@ -1,6 +1,6 @@
 """Encoder factory: config name → frozen backbone module, from
 ``sgg/models/encoders.py``. ``precomputed`` means the data already carries
-features. ViT-B/16 and the int8 tier come with later slices of the port.
+features. The int8 tier and MoE blocks come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -28,12 +28,16 @@ def normalize_for(name: str, images_u8: torch.Tensor) -> torch.Tensor:
 
 def make_encoder(
     name: str, use_pallas: bool = False, dtype: torch.dtype = torch.float32,
-    quant: str = "",
+    quant: str = "", image_size: int | None = None,
+    vit_dims: tuple[int, int, int] = (768, 12, 12), moe_experts: int = 0,
 ) -> nn.Module | None:
     """The frozen feature extractor (parameters need no gradient), or None
-    for ``precomputed``. The conv route follows ``use_pallas``, as in the
-    reference; the modules take any route of ``sgg_torch.kernels.conv``
-    through their own ``conv_impl``."""
+    for ``precomputed``. The conv route (CNNs) and the attention route (ViT)
+    follow ``use_pallas``; the CNN modules take any route of
+    ``sgg_torch.kernels.conv`` through their own ``conv_impl``, the ViT any
+    attention through its ``attn_fn``. ViT only: ``image_size`` (default
+    224) sizes ``pos_embed``; ``vit_dims`` is (embed_dim, num_layers,
+    num_heads), the config's ``model.vit_dims``."""
     if quant not in ("", "int8"):
         raise ValueError(f"unknown quant mode {quant!r} (want '' or 'int8')")
     if quant == "int8":
@@ -49,7 +53,14 @@ def make_encoder(
 
         enc = ResNet50Features(use_pallas=use_pallas, dtype=dtype)
     elif name == "vit_b16":
-        raise NotImplementedError(f"encoder 'vit_b16' {_LATER}")
+        from sgg_torch.models.vit import ViTB16Features
+
+        dim, layers, heads = vit_dims
+        enc = ViTB16Features(
+            embed_dim=dim, num_heads=heads, num_layers=layers, use_pallas=use_pallas,
+            moe_experts=moe_experts, dtype=dtype,
+            num_patches=((image_size or 224) // 16) ** 2,
+        )
     else:
         raise ValueError(f"unknown encoder {name!r}")
     return enc.requires_grad_(False).eval()

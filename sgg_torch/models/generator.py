@@ -51,7 +51,8 @@ class AttentionLSTMGenerator(nn.Module):
         m = cfg.model
         if m.decoder != "lstm":
             raise NotImplementedError(
-                f"decoder {m.decoder!r} is not ported yet (only 'lstm')"
+                f"AttentionLSTMGenerator is the 'lstm' decoder, not {m.decoder!r}; "
+                f"sgg_torch.train.state.make_generator builds either"
             )
         return cls(
             vocab_size=m.vocab_size, feat_dim=cfg.data.feat_dim,

@@ -1,7 +1,10 @@
-"""Dense-layer helpers that follow flax ``nn.Dense``: float32 parameters,
-cast to the compute dtype at the call, and flax's initializers."""
+"""Layers that follow flax's: ``nn.Dense`` (float32 parameters cast to the
+compute dtype at the call), ``nn.LayerNorm``, ``nn.gelu``, and flax's
+initializers."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -23,3 +26,63 @@ def init_dense_(layer: nn.Linear) -> nn.Linear:
     if layer.bias is not None:
         nn.init.zeros_(layer.bias)
     return layer
+
+
+def lecun_normal(shape: tuple[int, ...]) -> torch.Tensor:
+    """flax's default kernel init for a ``[..., in, out]`` kernel: a normal
+    truncated at ±2σ with variance 1 / fan_in (all dims but the last)."""
+    fan_in = 1
+    for d in shape[:-1]:
+        fan_in *= d
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+    return w
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` with its parameter names and layout: ``kernel``
+    [in, out] and ``bias`` [out], float32, cast to the compute dtype at the
+    call. The product is rounded to that dtype, then the bias add, as flax's
+    separate ``dot_general`` and ``+``."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(lecun_normal((in_features, out_features)))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return torch.matmul(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: eps 1e-6, statistics in
+    float32 (variance as E[x²] − E[x]², clipped at 0), ``scale`` and
+    ``bias`` applied in float32, one cast to the compute dtype."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32, eps: float = 1e-6):
+        super().__init__()
+        self.dtype, self.eps = dtype, eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        return ((x - mean) * mul + self.bias.float()).to(self.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``flax.linen.gelu``, the tanh approximation, op by op in x's dtype
+    as ``jax.nn.gelu`` computes it: in bfloat16 every operation rounds, and
+    the constants are rounded to the dtype first."""
+
+    def c(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))

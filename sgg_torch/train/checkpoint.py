@@ -1,7 +1,8 @@
 """Workdir IO for inference, from ``sgg/train/checkpoint.py``.
 
 A workdir holds ``config.json`` and ``vocab.json`` beside the weights. The
-port keeps the generator's weights and their EMA (``g_params``, ``g_ema``),
+port keeps the generator's weights and their EMA (``g_params``, ``g_ema``,
+either decoder),
 and for a pixels-in config the frozen encoder's (``enc_params``, as the
 reference's train state carries them), as port state_dicts in one torch
 file, ``generator.pt``. The reference's orbax checkpoints are not read here:
@@ -50,12 +51,24 @@ def save_generator(
     return path
 
 
-def load_generator(workdir: str) -> dict | None:
-    """{'step', 'g_params', 'g_ema', 'enc_params'} from ``workdir`` (None for
-    what the file lacks), or None if there is no file."""
+def decoder_of(g_params: dict) -> str:
+    """Which decoder a generator state_dict holds: ``transformer`` (it has
+    ``slot_embed``) or ``lstm``."""
+    return "transformer" if "slot_embed" in g_params else "lstm"
+
+
+def load_generator(workdir: str, decoder: str | None = None) -> dict | None:
+    """{'step', 'decoder', 'g_params', 'g_ema', 'enc_params'} from
+    ``workdir`` (None for what the file lacks), or None if there is no file.
+    With ``decoder`` (the config's ``model.decoder``), raises if the file
+    holds the other decoder's weights."""
     path = os.path.join(workdir, GENERATOR_FILE)
     if not os.path.exists(path):
         return None
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     ckpt.setdefault("enc_params", None)
+    ckpt["decoder"] = decoder_of(ckpt["g_params"])
+    if decoder is not None and ckpt["decoder"] != decoder:
+        raise ValueError(f"{path} holds a {ckpt['decoder']!r} generator; the config's "
+                         f"model.decoder is {decoder!r}")
     return ckpt

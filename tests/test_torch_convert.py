@@ -150,3 +150,23 @@ def test_port_workdir_roundtrip(tmp_path):
     assert cfg.to_json() == ref_cfg.to_json()
     assert cfg.model.dtype == torch.bfloat16 and len(vocab) == 210
     np.testing.assert_array_equal(vocab.step_mask(), ref_vocab.step_mask())
+
+
+def test_workdir_records_decoder_and_refuses_the_other(tmp_path):
+    """load_generator tells which decoder the weights are and, given the
+    config's decoder, refuses the other one's."""
+    from sgg_torch.models.transformer import TransformerTripleGenerator
+
+    tr = TransformerTripleGenerator(vocab_size=5, feat_dim=4, hidden=8, noise_dim=2,
+                                    num_heads=2, num_layers=1).state_dict()
+    save_generator(str(tmp_path), tr, step=3)
+    ck = load_generator(str(tmp_path), decoder="transformer")
+    assert ck["decoder"] == "transformer" and ck["g_ema"] is None
+    for k in tr:
+        assert torch.equal(ck["g_params"][k], tr[k])
+    with pytest.raises(ValueError, match="transformer"):
+        load_generator(str(tmp_path), decoder="lstm")
+    lstm = AttentionLSTMGenerator(vocab_size=5, feat_dim=4, hidden=4, embed_dim=2,
+                                  attn_dim=2, noise_dim=2).state_dict()
+    save_generator(str(tmp_path), lstm)
+    assert load_generator(str(tmp_path), decoder="lstm")["decoder"] == "lstm"

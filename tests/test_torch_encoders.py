@@ -34,6 +34,7 @@ from sgg_torch.models.encoders import make_encoder, normalize_for
 from sgg_torch.kernels.conv import fold_batchnorm, max_pool_nhwc
 from sgg_torch.models.resnet import ResNet50Features
 from sgg_torch.models.vgg import VGG19Features, conv_names, load_npy_weights
+from sgg_torch.models.vit import ViTB16Features
 
 torch.set_num_threads(1)
 
@@ -300,8 +301,10 @@ def test_make_encoder_routes_and_refusals():
     assert not any(p.requires_grad for p in enc.parameters())
     assert enc.stem.dtype == torch.bfloat16 and enc.stem.use_pallas
     assert isinstance(make_encoder("vgg19"), VGG19Features)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_encoder("vit_b16")
+    vit = make_encoder("vit_b16", use_pallas=True, image_size=64, vit_dims=(64, 2, 4))
+    assert isinstance(vit, ViTB16Features) and vit.num_patches == 16
+    assert not any(p.requires_grad for p in vit.parameters())
+    assert vit.block0.attn.use_pallas
     with pytest.raises(NotImplementedError, match="later slice"):
         make_encoder("resnet50", quant="int8")
     with pytest.raises(ValueError):

@@ -1,8 +1,10 @@
 """The port's generate path against the reference: the K-sample fused
 sampler given the same noise, triple ranking and scene-graph assembly,
 recall@k, the data layer, and ``sgg_torch.cli.generate`` end to end on the
-CPU. Tokens, rankings and recall values must be identical. The pixels-in
-path (a ``resnet50`` config at 32 px): the same synthetic images, features
+CPU. Tokens, rankings and recall values must be identical. The
+generator-forward sampler (``--decode xla``) on the attention-LSTM. The
+pixels-in paths (a ``resnet50`` config at 32 px, a ``vit_b16`` config at
+64 px with the transformer decoder): the same synthetic images, features
 within 1e-4 x max|ref| (float32 sums in another order over 53 layers) and
 identical tokens from them.
 """
@@ -28,16 +30,29 @@ from sgg.eval import assemble_scene_graphs as jax_assemble
 from sgg.eval import corpus_recall as jax_corpus_recall
 from sgg.eval import rank_triples as jax_rank_triples
 from sgg.eval.sampler import make_fused_sampler as jax_make_fused_sampler
+from sgg.eval.sampler import make_indexed_sampler as jax_make_indexed_sampler
+from sgg.eval.sampler import make_sampler as jax_make_sampler
 from sgg.kernels.fused_decode import decode_gumbel_noise
 from sgg.models.encoders import make_encoder as jax_make_encoder
 from sgg.train.state import create_train_state, make_models
+from sgg.utils.gumbel import sample_gumbel as jax_sample_gumbel
 from sgg_torch.cli import generate
 from sgg_torch.config import Config as PortConfig
 from sgg_torch.config import get_config
-from sgg_torch.convert_flax import encoder_flax_to_state_dict, flax_to_state_dict
+from sgg_torch.convert_flax import (
+    encoder_flax_to_state_dict,
+    flax_to_state_dict,
+    generator_flax_to_state_dict,
+)
 from sgg_torch.data import TripleDataset, list_shards, synthetic_dataset, write_feature_shard
 from sgg_torch.eval.recall import corpus_recall, recall_at_k
-from sgg_torch.eval.sampler import assemble_scene_graphs, make_fused_sampler, rank_triples
+from sgg_torch.eval.sampler import (
+    assemble_scene_graphs,
+    make_fused_sampler,
+    make_indexed_sampler,
+    make_sampler,
+    rank_triples,
+)
 from sgg_torch.train.checkpoint import save_generator
 
 torch.set_num_threads(1)
@@ -102,6 +117,29 @@ def test_indexed_fused_sampler_matches_reference(setup):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("indexed", [False, True])
+def test_xla_sampler_matches_reference_lstm(setup, indexed):
+    """The generator-forward sampler on the attention-LSTM decoder, given the
+    reference's draws (its per-step Gumbel splits)."""
+    cfg, g_params, feats, mask = setup
+    rng = jax.random.key(13)
+    port_cfg = PortConfig.from_json(cfg.to_json())
+    sd = flax_to_state_dict(jax.tree.map(np.asarray, g_params))
+    if indexed:
+        idx = np.array([5, 2, 0], np.int32)
+        ref = jax_make_indexed_sampler(cfg, step_mask=mask, num_samples=K)(
+            g_params, jnp.asarray(feats), jnp.asarray(idx), rng)
+        got = make_indexed_sampler(port_cfg, step_mask=mask, num_samples=K)(
+            sd, torch.from_numpy(feats), idx, noise=_reference_noise(cfg, rng, len(idx), 40))
+    else:
+        ref = jax_make_sampler(cfg, step_mask=mask, num_samples=K)(
+            g_params, jnp.asarray(feats), rng)
+        got = make_sampler(port_cfg, step_mask=mask, num_samples=K)(
+            sd, torch.from_numpy(feats), noise=_reference_noise(cfg, rng, feats.shape[0], 40))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
 def test_sampler_draws_its_own_noise_from_generator(setup):
     cfg, g_params, feats, mask = setup
     port_cfg = PortConfig.from_json(cfg.to_json())
@@ -163,7 +201,7 @@ def test_data_layer_matches_reference(tmp_path):
     np.testing.assert_array_equal(port_ds.features, ref_ds.features)
     for x, y in zip(port_ds.triples, ref_ds.triples):
         np.testing.assert_array_equal(x, y)
-    for name in ("smoke", "vg1k", "resnet50"):
+    for name in ("smoke", "vg1k", "resnet50", "vit_b16"):
         assert get_config(name).to_json() == jax_get_config(name).to_json()
     over = ["train.batch_size=3", "model.compute_dtype=bfloat16", "train.hard=false"]
     assert get_config("smoke").override(over).to_json() == \
@@ -217,12 +255,27 @@ def test_generate_cli_needs_cuda_or_cpu_flag(smoke_workdir, monkeypatch):
         generate.main(["--workdir", wd, "--num-samples", "2"])
 
 
-@pytest.mark.parametrize("flags", [["--decode", "xla"], ["--rank", "logp"],
+@pytest.mark.parametrize("flags", [["--top-p", "0.9"], ["--rank", "logp"],
                                    ["--top-k", "5"], ["--temperature", "0.5"]])
 def test_generate_cli_refuses_unported_options(smoke_workdir, capsys, flags):
     wd, _ = smoke_workdir
     assert generate.main(["--workdir", wd, "--device", "cpu", *flags]) == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+def test_generate_cli_decode_xla_and_fused_agree(smoke_workdir, capsys):
+    """--decode xla (the default) and --decode fused draw the same noise from
+    the same seed, so on the CPU they write the same scene graphs."""
+    wd, _ = smoke_workdir
+    graphs = {}
+    for decode in ("xla", "fused"):
+        out = os.path.join(wd, f"graphs_{decode}.json")
+        assert generate.main(["--workdir", wd, "--out", out, "--num-samples", "4",
+                              "--batch-size", "8", "--device", "cpu", "--decode", decode]) == 0
+        with open(out) as f:
+            graphs[decode] = json.load(f)
+    assert "[sgg.generate] 20 images, 80 triples" in capsys.readouterr().out
+    assert graphs["xla"] == graphs["fused"]
 
 
 def test_port_imports_no_jax_and_no_sgg():
@@ -233,6 +286,8 @@ def test_port_imports_no_jax_and_no_sgg():
         "import sgg_torch.kernels.conv, sgg_torch.kernels.conv_direct\n"
         "import sgg_torch.kernels.matmul, sgg_torch.data.images\n"
         "import sgg_torch.models.encoders, sgg_torch.models.resnet, sgg_torch.models.vgg\n"
+        "import sgg_torch.models.vit, sgg_torch.models.transformer, sgg_torch.train.state\n"
+        "import sgg_torch.kernels.flash_attention, sgg_torch.eval.sampler\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sgg'))\n"
         "assert not bad, bad\n"
         "from sgg_torch.kernels import build\n"
@@ -342,3 +397,102 @@ def test_generate_cli_refuses_pixels_workdir_without_encoder(pixels_workdir, tmp
     save_generator(str(tmp_path), sd)
     assert generate.main(["--workdir", str(tmp_path), "--device", "cpu"]) == 1
     assert "no encoder weights" in capsys.readouterr().err
+
+
+def _vit_cfg(dtype="float32"):
+    """The named ``vit_b16`` config cut to 64 px (16 patches),
+    ``vit_dims=(64, 2, 4)`` and small decoder widths."""
+    cfg = jax_get_config("vit_b16")
+    cfg.data.image_size = 64
+    cfg.data.regions = 16
+    cfg.data.feat_dim = 64
+    cfg.data.num_synthetic_images = 5
+    cfg.model.vit_dim, cfg.model.vit_layers, cfg.model.vit_heads = 64, 2, 4
+    cfg.model.hidden, cfg.model.num_heads, cfg.model.num_layers = 32, 4, 2
+    cfg.model.noise_dim = 8
+    cfg.model.compute_dtype = dtype
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def vit_setup():
+    """A ``vit_b16``-config dataset with reference encoder and transformer
+    generator weights."""
+    cfg = _vit_cfg()
+    ds, vocab = jax_load_dataset(cfg)
+    cfg.model.vocab_size = len(vocab)
+    enc = jax_make_encoder("vit_b16", image_size=64, vit_dims=cfg.model.vit_dims)
+    enc_params = jax.jit(enc.init)(jax.random.key(0), jnp.zeros((1, 64, 64, 3), jnp.float32))
+    gen, _ = make_models(cfg)
+    gvars = gen.init(jax.random.key(1), jnp.zeros((2, 16, 64)),
+                     jnp.zeros((2, cfg.model.noise_dim)), jax.random.key(2))
+    return cfg, ds, vocab, jax.tree.map(np.asarray, enc_params), gvars["params"]
+
+
+def test_vit_features_and_tokens_match_reference(vit_setup):
+    """The port's generate builds the ViT on the flash route (its plain
+    version on the CPU), the reference's on the unfused route: features
+    within 1e-4 x max, and identical tokens from them."""
+    cfg, ds, vocab, enc_params, g_params = vit_setup
+    port_cfg = PortConfig.from_json(cfg.to_json())
+    port_ds, _ = generate.load_dataset(port_cfg)
+    np.testing.assert_array_equal(port_ds.images, ds.images)
+    idx = np.array([4, 0, 2])
+    want = jax_make_batch_features(cfg, ds, enc_params)(idx)
+    got = generate.make_batch_features(port_cfg, port_ds, encoder_flax_to_state_dict(enc_params),
+                                       torch.device("cpu"))(idx)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (3, 16, 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+    rng = jax.random.key(5)
+    ref = jax_make_sampler(cfg, step_mask=vocab.step_mask(), num_samples=K)(
+        g_params, jnp.asarray(want), rng)
+    zs, gs = [], []
+    for key in jax.random.split(rng, K):
+        kz, kg = jax.random.split(key)
+        zs.append(np.array(jax.random.normal(kz, (len(idx), cfg.model.noise_dim))))
+        gs.append(np.array(jax_sample_gumbel(kg, (len(idx), 3, cfg.model.vocab_size))))
+    tok = make_sampler(port_cfg, step_mask=vocab.step_mask(), num_samples=K)(
+        generator_flax_to_state_dict(g_params, port_cfg), got,
+        noise=(torch.from_numpy(np.stack(zs)), torch.from_numpy(np.stack(gs))))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ref))
+
+
+@pytest.fixture(scope="module")
+def vit_workdir(vit_setup, tmp_path_factory):
+    """The same weights under the config's own compute dtype, bfloat16."""
+    _, _, vocab, enc_params, g_params = vit_setup
+    cfg = _vit_cfg("bfloat16")
+    cfg.model.vocab_size = len(vocab)
+    wd = str(tmp_path_factory.mktemp("vit_wd"))
+    with open(os.path.join(wd, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    vocab.save(os.path.join(wd, "vocab.json"))
+    sd = generator_flax_to_state_dict(g_params, PortConfig.from_json(cfg.to_json()))
+    save_generator(wd, sd, step=2, enc_params=encoder_flax_to_state_dict(enc_params))
+    return wd, vocab
+
+
+def test_generate_cli_vit_on_cpu(vit_workdir, capsys):
+    """5 images in batches of 2 through the default --decode xla."""
+    wd, vocab = vit_workdir
+    out = os.path.join(wd, "graphs.json")
+    argv = ["--workdir", wd, "--out", out, "--num-samples", "3", "--batch-size", "2",
+            "--recall-k", "5", "--device", "cpu"]
+    assert generate.main(argv) == 0
+    printed = capsys.readouterr().out
+    assert "[sgg.generate] 5 images, 15 triples" in printed and "recall@5 = " in printed
+    with open(out) as f:
+        result = json.load(f)
+    assert [g["image_id"] for g in result["scene_graphs"]] == list(range(5))
+    for g in result["scene_graphs"]:
+        assert sum(t["count"] for t in g["triples"]) == 3
+        for t in g["triples"]:
+            assert vocab.is_object[vocab.id(t["subject"])]
+            assert vocab.is_predicate[vocab.id(t["predicate"])]
+
+
+def test_generate_cli_refuses_fused_decode_for_transformer(vit_workdir, capsys):
+    wd, _ = vit_workdir
+    assert generate.main(["--workdir", wd, "--device", "cpu", "--decode", "fused"]) == 2
+    assert "attention-LSTM decoder only" in capsys.readouterr().err

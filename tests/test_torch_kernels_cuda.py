@@ -14,14 +14,23 @@ with the sum order; at the resnet50 widths (V = 8192) the soft bounds are
 1e-4 and 1e-2 of each (row, step)'s largest value. fused_matmul and
 conv2d_direct: float32 within 1e-4 x max|plain| (float32 products on the
 CUDA cores, sums in another order), bf16 within 3e-3 x max|plain| (one
-bf16 rounding of the output).
+bf16 rounding of the output). fused_decode's 16-row template instance at
+vg1k widths in bf16: at most 0.5 % of y differ from plain at all (a
+rounding the kernel skips moves 1.5-2.3 %). flash_attention: float32 within
+1e-4 x max|plain|; bf16 within one bf16 ulp of plain plus that, and at most
+1 % of the outputs differ at all; lse within 1e-5 relative.
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from sgg_torch.data import Vocab
 from sgg_torch.kernels import conv_direct as tcd
+from sgg_torch.kernels import flash_attention as tfa
 from sgg_torch.kernels import fused_decode as tfd
 from sgg_torch.kernels import matmul as tmm
 
@@ -161,3 +170,87 @@ def test_conv2d_direct_matches_plain(shape, cout, k, dtype):
     torch.cuda.synchronize()
     assert tcd.launches == before + 1
     _check_close(got, tcd.conv2d_direct_plain(x, w, bias, scale, relu=True), dtype)
+
+
+TRAINED_RUN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "results", "run_v3_bal0.7_ckpt")
+
+
+@pytest.mark.cuda
+def test_fused_decode_16_row_instance_at_vg1k_widths():
+    """The 16-row template instance (the one resnet50 widths run) at vg1k
+    widths, where the share of y that differs tells a skipped rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sgg_torch.config import Config
+    from sgg_torch.models.generator import AttentionLSTMGenerator
+
+    with open(os.path.join(TRAINED_RUN, "config.json")) as f:
+        cfg = Config.from_dict(json.load(f))
+    vocab = Vocab.load(os.path.join(TRAINED_RUN, "vocab.json"))
+    cfg.model.vocab_size = len(vocab)
+    torch.manual_seed(0)
+    sd = AttentionLSTMGenerator.from_config(cfg).state_dict()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, R, F, Zq, Vq = 64, cfg.data.regions, cfg.data.feat_dim, cfg.model.noise_dim, len(vocab)
+    params = tfd.decode_params_from_generator(sd, torch.bfloat16, dev)
+    mb = tfd.step_mask_bias(vocab.step_mask(), dev)
+    feats = torch.randn(B, R, F, generator=g, device=dev).to(torch.bfloat16)
+    z = torch.randn(B, Zq, generator=g, device=dev).to(torch.bfloat16)
+    gum = -torch.log(-torch.log(torch.rand(B, 3, Vq, generator=g, device=dev).clamp_min(1e-20)))
+    got = tfd.fused_decode(params, feats, z, gum, mask_bias=mb, hard=False, row_tile=16)
+    torch.cuda.synchronize()
+    want = tfd.decode_plain(params, feats, z, gum, mask_bias=mb, hard=False).float()
+    diff = (got.float() - want).abs()
+    assert (diff.amax(-1) / want.abs().amax(-1)).max().item() <= 1e-2
+    assert (diff > 0).float().mean().item() <= 5e-3
+    with pytest.raises(ValueError, match="row_tile"):
+        tfd.fused_decode(params, feats, z, gum, mask_bias=mb, row_tile=8)
+
+
+def _ulp(want):
+    w = want.float()
+    u = torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
+    return torch.where(w == 0, torch.zeros_like(u), u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(32, 12, 196, 64), (3, 2, 100, 64)])
+def test_flash_attention_matches_plain(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(shape[2])
+    q, k, v = (torch.randn(*shape, device="cuda", generator=g).to(dtype) for _ in range(3))
+    before = tfa.launches
+    o, lse = tfa.flash_attention_with_lse(q, k, v)
+    o2 = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 2
+    want, want_lse = tfa.flash_attention_plain(q, k, v, return_lse=True)
+    assert o.dtype == dtype and o.shape == q.shape and torch.equal(o, o2)
+    diff = (o.float() - want.float()).abs()
+    tol = 1e-4 * want.float().abs().max().item()
+    if dtype == torch.float32:
+        assert diff.max().item() <= tol
+    else:
+        assert bool((diff <= _ulp(want) + tol).all())
+        assert (diff > 0).float().mean().item() <= 1e-2
+    assert ((lse - want_lse).abs() / want_lse.abs()).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_cannot_run():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q = torch.randn(1, 2, 10, 64, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        tfa.flash_attention(q, q.detach(), q.detach())
+    for D in (24, 144):
+        x = torch.randn(1, 2, 10, D, device="cuda")
+        with pytest.raises(ValueError, match="multiple of 16"):
+            tfa.flash_attention(x, x, x)
+    x = torch.randn(1, 2, 10, 64, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(x.transpose(2, 3).contiguous().transpose(2, 3), x, x)
