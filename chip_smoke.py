@@ -71,10 +71,38 @@ In one process, with no threads and no sockets:
  12. timing: flash_attention per launch at both ViT shapes beside its plain
      version, ``F.scaled_dot_product_attention`` on the same bf16 tensors
      (timed only; the port never calls it) and the bound; the ViT-B/16
-     encoder on one batch of 32 on the kernel route against the plain route.
+     encoder on one batch of 32 on the kernel route against the plain route;
+ 13. flash backward vs plain (the dq and dk/dv kernels) at the shapes of
+     phase 9, float32 and bfloat16: dq, dk and dv in float32 within
+     1e-4 x max; bf16 within one bf16 ulp of plain plus that, and at most 1 %
+     of the outputs differing at all (the share is printed);
+     ``torch.autograd.grad`` through ``flash_attention`` gives the kernels'
+     own result; a seeded fault, the plain backward with p and ds rounded
+     to bf16 before the three products that take them, must fail the gate;
+ 14. ViT-B/16 gradients (seeded weights, 8 seeded 224 px images, a fixed
+     linear loss), the kernel route against the plain route: every
+     parameter's gradient in float32 within 1e-4 x its max; in bfloat16 no
+     further from the float32 plain gradients than the bf16 plain route is
+     (worst parameter's rel L2 and the rel L2 over all parameters, each
+     within 1.5x); exactly 12 launches of each of the three flash kernels;
+ 15. main path, training: ``python -m sgg_torch.cli.train --config vit_b16
+     --set train.train_encoder=true`` (in process) at the config's widths,
+     batch 32, n_critic 5, over 256 seeded synthetic 224 px images, 3
+     steps: exactly 72 flash_attention, 60 dq and 60 dk/dv launches per step
+     and no other kernel; finite losses; every encoder tensor moved;
+     metrics.jsonl and the checkpoint read back; s/step, images/s and peak
+     device memory; then ``sgg_torch.cli.generate`` on that workdir (K = 4)
+     with its output read back; one step at V = 1024 through the same entry
+     points (state, step, device iterator) with a seeded 1024-entry vocab and
+     the same launch counts; and ``--config vg1k`` for 3 steps with no kernel
+     launch;
+ 16. timing: the dq and the dk/dv kernels at [32, 12, 196, 64] bf16 beside
+     their plain versions, the backward of ``scaled_dot_product_attention``
+     (``torch.autograd.grad`` of its output; timed only) and the bound, with
+     the float32 floor of their CUDA-core products.
 
 The kernels' JSON record gives, for each kernel, its launches on the newest
-main path that runs it (phase 7; phase 11 for flash_attention) and
+main path that runs it (phase 7; phase 15 for the three flash kernels) and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
 bound ms. The last two lines are that
 record and the device JSON. A failed check raises, so the exit code is not 0;
@@ -98,6 +126,7 @@ SEED = 0
 N_IMAGES, BATCH, K = 512, 64, 50
 PIX_IMAGES, PIX_BATCH, PIX_VOCAB = 256, 32, 8192
 VIT_IMAGES, VIT_BATCH, VIT_VOCAB = 256, 32, 1024
+TRAIN_STEPS = 3
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -186,6 +215,7 @@ def main():
     import torch.nn.functional as Fnn
 
     from sgg_torch.cli import generate
+    from sgg_torch.cli import train as train_cli
     from sgg_torch.config import Config, get_config
     from sgg_torch.data import Vocab, write_feature_shard
     from sgg_torch.data.shards import shard_name
@@ -193,6 +223,7 @@ def main():
     from sgg_torch.kernels import build
     from sgg_torch.kernels import conv_direct as cd
     from sgg_torch.kernels import flash_attention as fa
+    from sgg_torch.kernels import flash_attention_bwd as fb
     from sgg_torch.kernels import fused_decode as fd
     from sgg_torch.kernels import matmul as mm
     from sgg_torch.models.encoders import normalize_for
@@ -203,7 +234,11 @@ def main():
     from sgg_torch.models.transformer import TransformerTripleGenerator
     from sgg_torch.models.vit import ViTB16Features
     from sgg_torch.eval.sampler import make_sampler
-    from sgg_torch.train.checkpoint import save_generator
+    from sgg_torch.data import ArrayImageTripleDataset
+    from sgg_torch.data.pipeline import make_device_train_iterator
+    from sgg_torch.train.checkpoint import CheckpointManager, load_workdir, save_generator
+    from sgg_torch.train.state import create_train_state
+    from sgg_torch.train.step import make_step_fn
     from sgg_torch.utils.gumbel import sample_gumbel
 
     t_all = time.perf_counter()
@@ -535,20 +570,34 @@ def main():
                 raise AssertionError(f"encoder {name} {impl} bf16 disagrees")
     phase("encoders_vs_plain", t0)
 
-    def run_generate(argv):
-        torch.cuda.synchronize()
+    def zero_counts():
         fd.launches = mm.launches = cd.launches = fa.launches = 0
-        t_gen = time.perf_counter()
-        rc = generate.main(argv)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t_gen
-        counts = {"fused_decode": fd.launches, "fused_matmul": mm.launches,
-                  "conv_direct": cd.launches, "flash_attention": fa.launches}
-        if rc != 0:
-            raise AssertionError(f"sgg_torch.cli.generate returned {rc}")
-        return gen_s, counts
+        fb.dq_launches = fb.dkv_launches = 0
 
-    def check_graphs(out_path, vocab_, n_images):
+    def read_counts():
+        return {"fused_decode": fd.launches, "fused_matmul": mm.launches,
+                "conv_direct": cd.launches, "flash_attention": fa.launches,
+                "flash_attention_bwd_dq": fb.dq_launches,
+                "flash_attention_bwd_dkv": fb.dkv_launches}
+
+    def run_cli(main_fn, argv, what):
+        """(seconds, launch counts) of one in-process CLI run; the counts are
+        set to 0 just before it and read just after."""
+        torch.cuda.synchronize()
+        zero_counts()
+        t_run = time.perf_counter()
+        rc = main_fn(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        counts = read_counts()
+        if rc != 0:
+            raise AssertionError(f"{what} returned {rc}")
+        return run_s, counts
+
+    def run_generate(argv):
+        return run_cli(generate.main, argv, "sgg_torch.cli.generate")
+
+    def check_graphs(out_path, vocab_, n_images, k_draws=K):
         with open(out_path) as f:
             out = json.load(f)
         graphs = out["scene_graphs"]
@@ -557,8 +606,8 @@ def main():
         obj_names = {vocab_.tokens[i] for i in np.flatnonzero(vocab_.is_object)}
         pred_names = {vocab_.tokens[i] for i in np.flatnonzero(vocab_.is_predicate)}
         for gr in graphs:
-            if sum(t["count"] for t in gr["triples"]) != K:
-                raise AssertionError(f"image {gr['image_id']}: counts do not sum to {K}")
+            if sum(t["count"] for t in gr["triples"]) != k_draws:
+                raise AssertionError(f"image {gr['image_id']}: counts do not sum to {k_draws}")
             for t in gr["triples"]:
                 if not (t["subject"] in obj_names and t["object"] in obj_names
                         and t["predicate"] in pred_names):
@@ -642,7 +691,8 @@ def main():
              "--batch-size", str(PIX_BATCH), "--recall-k", "50", "--seed", str(SEED)])
         n_batches = math.ceil(PIX_IMAGES / PIX_BATCH)
         want_counts = {"fused_decode": n_batches * K, "fused_matmul": n_batches * 36,
-                       "conv_direct": n_batches * 13, "flash_attention": 0}
+                       "conv_direct": n_batches * 13, "flash_attention": 0,
+                       "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
         log(f"generate resnet50: {pix_s:.3f} s in process, launches {pix_counts} "
             f"(expected {want_counts}), {PIX_IMAGES / pix_s:.1f} images/s and "
             f"{PIX_IMAGES * K / pix_s:.0f} triples/s including set-up")
@@ -860,7 +910,8 @@ def main():
              "--batch-size", str(VIT_BATCH), "--recall-k", "50", "--seed", str(SEED)])
         n_batches = math.ceil(VIT_IMAGES / VIT_BATCH)
         want_counts = {"fused_decode": 0, "fused_matmul": 0, "conv_direct": 0,
-                       "flash_attention": n_batches * 12}
+                       "flash_attention": n_batches * 12, "flash_attention_bwd_dq": 0,
+                       "flash_attention_bwd_dkv": 0}
         log(f"generate vit_b16: {vit_s:.3f} s in process, launches {vit_counts} "
             f"(expected {want_counts}), {VIT_IMAGES / vit_s:.1f} images/s and "
             f"{VIT_IMAGES * K / vit_s:.0f} triples/s including set-up")
@@ -921,6 +972,280 @@ def main():
         f"{k_ms:.4f} ms, plain route {p_ms:.4f} ms (turns k,k,p,p "
         f"{', '.join(f'{t:.4f}' for t in turns)})")
     phase("timing_vit", t0)
+
+    # 13. The flash backward (dq and dk/dv kernels) vs plain.
+    t0 = time.perf_counter()
+    bwd_errs = {}
+
+    def faulty_bwd(q, k_, v, o, lse, do):
+        """The plain backward with p and ds rounded to bf16 before the three
+        products that take them: another function, which the gate must
+        refuse."""
+        s_ = q.shape[-1] ** -0.5
+        qs = (q * torch.tensor(s_, dtype=q.dtype, device=dev)).float()
+        p = torch.exp(qs @ k_.float().transpose(-1, -2) - lse[..., None])
+        ds = p * (do.float() @ v.float().transpose(-1, -2) - fb.dstat(o, do)[..., None])
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+        return ((ds @ k_.float()) * s_).to(q.dtype), (ds.transpose(-1, -2) @ qs).to(q.dtype), \
+            (p.transpose(-1, -2) @ do.float()).to(q.dtype)
+
+    def bwd_gate(got, want, dtype):
+        """dq, dk, dv against plain → (all pass, max_abs_errs, shares differing).
+        float32: within 1e-4 x max; bf16: within one bf16 ulp plus that, and at
+        most 1 % of the outputs differing at all (sound runs read 0.020-0.031 %,
+        p and ds rounded to bf16 about 41 %)."""
+        ok, errs_, shares = True, [], []
+        for g_, w_ in zip(got, want):
+            d_ = (g_.float() - w_.float()).abs()
+            tol = 1e-4 * w_.float().abs().max().item()
+            share = (d_ > 0).float().mean().item()
+            close = (d_.max().item() <= tol if dtype == torch.float32
+                     else one_ulp_gate(g_, w_, tol) and share <= 1e-2)
+            ok = (ok and close and g_.dtype == w_.dtype and g_.shape == w_.shape
+                  and bool(torch.isfinite(g_.float()).all()))
+            errs_.append(d_.max().item())
+            shares.append(share)
+        return ok, errs_, shares
+
+    for shape in FLASH_SHAPES:
+        base = [torch.randn(*shape, generator=gen, device=dev) for _ in range(4)]
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k_, v, do = (t_.to(dtype) for t_ in base)
+            o, lse = fa.flash_attention_with_lse(q, k_, v)
+            got = fb.flash_attention_bwd(q, k_, v, o, lse, do)
+            torch.cuda.synchronize()
+            want = fb.flash_attention_bwd_plain(q, k_, v, o, lse, do)
+            ok, b_errs, b_shares = bwd_gate(got, want, dtype)
+            qa, ka, va = (t_.clone().requires_grad_() for t_ in (q, k_, v))
+            auto = torch.autograd.grad(fa.flash_attention(qa, ka, va), (qa, ka, va), do)
+            same = all(torch.equal(a_, b_) for a_, b_ in zip(auto, got))
+            fault_ok, f_errs, f_shares = bwd_gate(faulty_bwd(q, k_, v, o, lse, do), want, dtype)
+            log(f"flash backward vs plain {name} {list(shape)}: dq, dk, dv max_abs_err "
+                f"{', '.join(f'{e:.3e}' for e in b_errs)}, share differing "
+                f"{', '.join(f'{x:.3e}' for x in b_shares)}; autograd through flash_attention "
+                f"== the kernels {same}; seeded fault (p, ds rounded to bf16) max_abs_err "
+                f"{', '.join(f'{e:.3e}' for e in f_errs)}, share "
+                f"{', '.join(f'{x:.3e}' for x in f_shares)}, refused {not fault_ok}: "
+                f"{'ok' if ok and same and not fault_ok else 'FAILED'}")
+            if not (ok and same):
+                raise AssertionError(f"flash backward {name} {shape} disagrees with plain")
+            if fault_ok:
+                raise AssertionError(f"the backward gate passes a seeded fault ({name} {shape})")
+            bwd_errs[(shape, name)] = b_errs
+    phase("flash_backward_vs_plain", t0)
+
+    # 14. ViT-B/16 gradients, kernel route vs plain route, 8 seeded images and
+    # a fixed linear loss.
+    t0 = time.perf_counter()
+    x = normalize_for("vit_b16", images)
+    w_lin = torch.randn(8, 196, 768, generator=gen, device=dev)
+
+    def vit_grads(dtype, kernel_route):
+        kw = {"use_pallas": True} if kernel_route else {"attn_fn": fa.flash_attention_plain}
+        enc = ViTB16Features(dtype=dtype, **kw)
+        enc.load_state_dict(vit_state)
+        enc.to(dev)
+        zero_counts()
+        loss = (enc(x).float() * w_lin).sum()
+        grads = torch.autograd.grad(loss, list(enc.parameters()))
+        torch.cuda.synchronize()
+        ran = (fa.launches, fb.dq_launches, fb.dkv_launches)
+        return {n_: g_.float() for (n_, _), g_ in zip(enc.named_parameters(), grads)}, ran
+
+    def rel_l2(a_, b_):
+        return ((a_ - b_).norm() / b_.norm()).item()
+
+    def rel_l2_all(ga, gb):
+        num = sum(((ga[n_] - gb[n_]) ** 2).sum() for n_ in gb)
+        return (num.sqrt() / sum((g_ ** 2).sum() for g_ in gb.values()).sqrt()).item()
+
+    want32, _ = vit_grads(torch.float32, False)
+    got32, ran = vit_grads(torch.float32, True)
+    worst = max((got32[n_] - w_).abs().max().item() / max(w_.abs().max().item(), 1e-30)
+                for n_, w_ in want32.items())
+    log(f"vit_b16 gradients f32, kernel route vs plain route: {len(want32)} parameters, worst "
+        f"max_abs_err / max|plain| {worst:.3e} (<= 1e-4), rel L2 over all "
+        f"{rel_l2_all(got32, want32):.3e}; launches flash_attention, dq, dk/dv {ran} "
+        f"(12 each expected)")
+    if not (worst <= 1e-4 and ran == (12, 12, 12)
+            and all(bool(torch.isfinite(g_).all()) for g_ in got32.values())):
+        raise AssertionError("ViT-B/16 kernel-route gradients disagree in float32")
+    got16, ran16 = vit_grads(torch.bfloat16, True)
+    plain16, _ = vit_grads(torch.bfloat16, False)
+    k_worst = max(rel_l2(got16[n_], w_) for n_, w_ in want32.items())
+    p_worst = max(rel_l2(plain16[n_], w_) for n_, w_ in want32.items())
+    k_all, p_all = rel_l2_all(got16, want32), rel_l2_all(plain16, want32)
+    log(f"vit_b16 gradients bf16 vs the f32 plain gradients: kernel route worst parameter rel L2 "
+        f"{k_worst:.3e} (<= 1.5 x {p_worst:.3e}, the bf16 plain route's), over all {k_all:.3e} "
+        f"(<= 1.5 x {p_all:.3e}); kernel vs plain route in bf16 over all "
+        f"{rel_l2_all(got16, plain16):.3e}; launches {ran16}")
+    if not (k_worst <= 1.5 * p_worst and k_all <= 1.5 * p_all and ran16 == (12, 12, 12)):
+        raise AssertionError("ViT-B/16 kernel-route gradients disagree in bfloat16")
+    del want32, got32, got16, plain16
+    phase("vit_gradients", t0)
+
+    # 15. Main path, training: the train CLI on vit_b16 with train_encoder,
+    # then generate on its workdir; one step at V = 1024; and vg1k.
+    t0 = time.perf_counter()
+    enc_counts = {"fused_decode": 0, "fused_matmul": 0, "conv_direct": 0,
+                  "flash_attention": 72, "flash_attention_bwd_dq": 60,
+                  "flash_attention_bwd_dkv": 60}
+    metric_keys = {"d_loss", "w_dist", "gp", "real_score", "fake_score", "g_loss",
+                   "g_fake_score", "tau"}
+
+    def read_metrics(wd, n_steps, keys):
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        if [r_["step"] for r_ in lines] != list(range(1, n_steps + 1)):
+            raise AssertionError(f"metrics.jsonl steps {[r_['step'] for r_ in lines]}")
+        for r_ in lines:
+            if not keys <= set(r_) or not all(math.isfinite(v_) for v_ in r_.values()):
+                raise AssertionError(f"metrics.jsonl line {r_} lacks a key or is not finite")
+        if "images_per_sec" not in lines[-1]:
+            raise AssertionError("metrics.jsonl has no throughput")
+        return lines
+
+    per_step = []  # the launches of each step of the CLI's run
+    make_step = train_cli.make_step_fn
+
+    def counting_step_fn(cfg_, step_mask=None):
+        step_fn = make_step(cfg_, step_mask)
+
+        def counted(state, batch, *args, **kwargs):
+            before = read_counts()
+            out = step_fn(state, batch, *args, **kwargs)
+            after = read_counts()
+            per_step.append({k_: after[k_] - before[k_] for k_ in after})
+            return out
+
+        return counted
+
+    with tempfile.TemporaryDirectory() as wd:
+        torch.cuda.reset_peak_memory_stats()
+        train_cli.make_step_fn = counting_step_fn
+        try:
+            train_s, train_counts = run_cli(train_cli.main, [
+                "--config", "vit_b16", "--workdir", wd, "--steps", str(TRAIN_STEPS),
+                "--set", "train.train_encoder=true",
+                "--set", f"data.num_synthetic_images={VIT_IMAGES}", "--set",
+                "train.log_every=1"], "sgg_torch.cli.train")
+        finally:
+            train_cli.make_step_fn = make_step
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want_counts = {k_: TRAIN_STEPS * v_ for k_, v_ in enc_counts.items()}
+        lines = read_metrics(wd, TRAIN_STEPS, metric_keys | {"enc_gnorm"})
+        train_cfg, train_vocab = load_workdir(wd)
+        train_cfg.model.vocab_size = len(train_vocab)
+        log(f"train vit_b16 train_encoder: {TRAIN_STEPS} steps in {train_s:.3f} s in process, "
+            f"launches {train_counts} (expected {want_counts}); last step "
+            f"{1 / lines[-1]['steps_per_sec']:.4f} s/step, {lines[-1]['images_per_sec']:.1f} "
+            f"images/s; peak device memory {peak_gb:.2f} GB; widths: ViT "
+            f"{train_cfg.model.vit_dims}, {train_cfg.data.image_size} px, decoder hidden "
+            f"{train_cfg.model.hidden} x {train_cfg.model.num_layers} layers, V = "
+            f"{train_cfg.model.vocab_size} (the synthetic source's vocab), batch "
+            f"{train_cfg.train.batch_size}, n_critic {train_cfg.train.n_critic}, "
+            f"{train_cfg.model.compute_dtype}; last losses d {lines[-1]['d_loss']:.4f}, "
+            f"g {lines[-1]['g_loss']:.4f}, gp {lines[-1]['gp']:.4f}, enc_gnorm "
+            f"{lines[-1]['enc_gnorm']:.4f}")
+        log(f"launches per step: {per_step}")
+        if train_counts != want_counts or per_step != [enc_counts] * TRAIN_STEPS:
+            raise AssertionError("the training path did not launch its kernels as expected")
+        mgr = CheckpointManager(wd, train_cfg)
+        fresh = create_train_state(train_cfg, train_cfg.train.seed, device=dev)
+        initial = {k_: v_.clone() for k_, v_ in fresh.encoder.state_dict().items()}
+        if mgr.all_steps() != [TRAIN_STEPS] or mgr.restore(fresh) is None \
+                or fresh.step != TRAIN_STEPS:
+            raise AssertionError(f"checkpoint steps {mgr.all_steps()}, restored {fresh.step}")
+        trained = fresh.encoder.state_dict()
+        moved = sum(not torch.equal(initial[k_], v_) for k_, v_ in trained.items())
+        saved = torch.load(os.path.join(wd, "generator.pt"), map_location="cpu",
+                           weights_only=True)
+        same_enc = all(torch.equal(saved["enc_params"][k_], v_.cpu())
+                       for k_, v_ in trained.items())
+        log(f"checkpoint {mgr.all_steps()} read back at step {fresh.step}; encoder tensors "
+            f"moved {moved} of {len(trained)}; generator.pt holds the trained encoder {same_enc}")
+        if moved != len(trained) or not same_enc or saved["step"] != TRAIN_STEPS:
+            raise AssertionError("the trained encoder did not move or was not saved")
+        del fresh, initial, trained, saved
+        out_path = os.path.join(wd, "graphs.json")
+        tg_s, tg_counts = run_generate(
+            ["--workdir", wd, "--out", out_path, "--num-samples", "4",
+             "--batch-size", str(VIT_BATCH), "--seed", str(SEED)])
+        n_batches = math.ceil(VIT_IMAGES / VIT_BATCH)
+        log(f"generate on the trained workdir: {tg_s:.3f} s, launches {tg_counts}")
+        if tg_counts["flash_attention"] != n_batches * 12 or tg_counts["flash_attention_bwd_dq"]:
+            raise AssertionError("generate on the trained workdir launched unexpectedly")
+        check_graphs(out_path, train_vocab, VIT_IMAGES, k_draws=4)
+
+    # One step at V = 1024 through the entry points the CLI uses.
+    cfg1k = get_config("vit_b16")
+    cfg1k.train.train_encoder = True
+    cfg1k.model.vocab_size = VIT_VOCAB
+    objs1k, preds1k = np.flatnonzero(vit_vocab.is_object), np.flatnonzero(vit_vocab.is_predicate)
+    tri1k = [np.stack([rng.choice(objs1k, 4), rng.choice(preds1k, 4), rng.choice(objs1k, 4)],
+                      axis=1).astype(np.int32) for _ in range(VIT_IMAGES)]
+    ds1k = ArrayImageTripleDataset(images=np.random.RandomState(SEED + 12).randint(
+        0, 256, (VIT_IMAGES, 224, 224, 3), dtype=np.uint8), triples=tri1k)
+    state1k = create_train_state(cfg1k, SEED, device=dev)
+    step1k = make_step_fn(cfg1k, step_mask=vit_vocab.step_mask())
+    it1k = make_device_train_iterator(ds1k, cfg1k.train.batch_size, cfg1k.train.n_critic,
+                                      device=dev)
+    batch1k = next(it1k)
+    torch.cuda.synchronize()
+    zero_counts()
+    t1k = time.perf_counter()
+    m1k = {k_: float(v_) for k_, v_ in step1k(state1k, batch1k).items()}
+    step1k_s = time.perf_counter() - t1k
+    counts1k = read_counts()
+    log(f"train step vit_b16 V = {VIT_VOCAB}: {step1k_s:.3f} s (the first step, cold), "
+        f"launches {counts1k}, metrics {m1k}")
+    if counts1k != enc_counts or not all(math.isfinite(v_) for v_ in m1k.values()):
+        raise AssertionError("the V = 1024 step launched unexpectedly or is not finite")
+    del state1k, step1k, it1k, batch1k, ds1k
+
+    with tempfile.TemporaryDirectory() as wd:
+        vg_s, vg_counts = run_cli(train_cli.main, [
+            "--config", "vg1k", "--workdir", wd, "--steps", str(TRAIN_STEPS),
+            "--set", "train.log_every=1"], "sgg_torch.cli.train")
+        vg_lines = read_metrics(wd, TRAIN_STEPS, metric_keys)
+        log(f"train vg1k: {TRAIN_STEPS} steps in {vg_s:.3f} s in process, launches {vg_counts} "
+            f"(none expected); last step {1 / vg_lines[-1]['steps_per_sec']:.4f} s/step, "
+            f"{vg_lines[-1]['images_per_sec']:.1f} images/s")
+        if any(vg_counts.values()):
+            raise AssertionError("vg1k training launched a kernel")
+    phase("main_path_train", t0)
+
+    # 16. Timing of the dq and dk/dv kernels (bf16, warm L2).
+    t0 = time.perf_counter()
+    shape = FLASH_SHAPES[0]
+    q, k_, v, do = (torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(4))
+    o, lse = fa.flash_attention_with_lse(q, k_, v)
+    D = fb.dstat(o, do)
+    qa, ka, va = (t_.clone().requires_grad_() for t_ in (q, k_, v))
+    so = Fnn.scaled_dot_product_attention(qa, ka, va)
+    l_ms = time_ms(lambda: torch.autograd.grad(so, (qa, ka, va), do, retain_graph=True))
+    Bq, Hq, Sq, Dq = shape
+    bhsd, bhs = Bq * Hq * Sq * Dq, Bq * Hq * Sq
+    for name, kern, plain, n_in, n_out, n_prod in (
+            ("flash_attention_bwd_dq", lambda: fb.launch_dq(q, k_, v, do, lse, D),
+             lambda: fb.dq_plain(q, k_, v, do, lse, D), 4, 1, 3),
+            ("flash_attention_bwd_dkv", lambda: fb.launch_dkv(q, k_, v, do, lse, D),
+             lambda: fb.dkv_plain(q, k_, v, do, lse, D), 4, 2, 4)):
+        k_ms, p_ms, turns = in_turns(kern, plain)
+        nbytes = (n_in + n_out) * bhsd * 2 + 2 * bhs * 4  # + lse and D, float32
+        flops = n_prod * 2 * Bq * Hq * Sq * Sq * Dq
+        b_s, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        f32_floor = (n_prod - 2) * 2 * Bq * Hq * Sq * Sq * Dq / F32_FLOPS_PER_S
+        log(f"time {name} bf16 {list(shape)} (x60 per train step): kernel {k_ms:.4f} ms "
+            f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} (turns k,k,p,p "
+            f"{', '.join(f'{t_:.4f}' for t_ in turns)}), scaled_dot_product_attention backward "
+            f"(dq, dk and dv together) {l_ms:.4f}, bound {b_s * 1e3:.5f} ms ({b_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), float32 floor of its products "
+            f"that take p or ds on the CUDA cores {f32_floor * 1e3:.5f} ms; kernel at "
+            f"{b_s * 1e3 / k_ms:.3f} of the bound")
+        add(name, k_ms, p_ms, l_ms, b_s, b_by, 60)
+    phase("timing_backward", t0)
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",
@@ -930,14 +1255,21 @@ def main():
                "conv_direct": ("sgg_torch/kernels/csrc/conv_direct.cu",
                                "sgg/kernels/conv_direct.py:93"),
                "flash_attention": ("sgg_torch/kernels/csrc/flash_attention.cu",
-                                   "sgg/kernels/flash_attention.py:35")}
+                                   "sgg/kernels/flash_attention.py:35"),
+               "flash_attention_bwd_dq": ("sgg_torch/kernels/csrc/flash_attention_bwd.cu",
+                                          "sgg/kernels/flash_attention_bwd.py:69"),
+               "flash_attention_bwd_dkv": ("sgg_torch/kernels/csrc/flash_attention_bwd.cu",
+                                           "sgg/kernels/flash_attention_bwd.py:122")}
     errs = {"fused_decode": pix_errs[("bf16", PIX_BATCH)],
             "fused_matmul": max(v for k_, v in shape_errs.items()
                                 if k_[0] == "mm" and k_[4] == "bf16"),
             "conv_direct": max(v for k_, v in shape_errs.items()
                                if k_[0] == "conv" and k_[3] == "bf16"),
-            "flash_attention": flash_errs[(FLASH_SHAPES[0], "bf16")]}
-    path_counts = dict(pix_counts, flash_attention=vit_counts["flash_attention"])
+            "flash_attention": flash_errs[(FLASH_SHAPES[0], "bf16")],
+            "flash_attention_bwd_dq": bwd_errs[(FLASH_SHAPES[0], "bf16")][0],
+            "flash_attention_bwd_dkv": max(bwd_errs[(FLASH_SHAPES[0], "bf16")][1:])}
+    path_counts = dict(pix_counts, **{k_: train_counts[k_] for k_ in (
+        "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
     kernels = []
     for name, (src, replaces) in sources.items():
         r_ = records[name]

@@ -38,14 +38,8 @@ import time
 import numpy as np
 import torch
 
+from sgg_torch.cli.common import LATER, add_device_arg, load_dataset, resolve_device
 from sgg_torch.config import Config
-from sgg_torch.data import (
-    ArrayImageTripleDataset,
-    TripleDataset,
-    Vocab,
-    list_shards,
-    synthetic_dataset,
-)
 from sgg_torch.eval.recall import corpus_recall
 from sgg_torch.eval.sampler import (
     assemble_scene_graphs,
@@ -57,64 +51,6 @@ from sgg_torch.eval.sampler import (
 from sgg_torch.kernels.build import load_library
 from sgg_torch.models.encoders import make_encoder, normalize_for
 from sgg_torch.train.checkpoint import load_generator, load_workdir
-
-_LATER = "is not ported yet; a later slice of the port brings it"
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` (the default) or ``cpu``; never falls back silently."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass --device cpu to run on the CPU"
-        )
-    return torch.device(name)
-
-
-def load_dataset(cfg: Config, split: str = "train"):
-    """(dataset, vocab) from cfg.data.source, as ``sgg.cli.common.load_dataset``:
-    ``split='test'`` reads the held-out shards under ``data_dir/test`` when
-    they exist; pixels-in configs get an image dataset."""
-    d = cfg.data
-    if cfg.model.encoder != "precomputed":
-        return _load_image_dataset(cfg)
-    if d.source == "shards" and split == "test":
-        test_dir = os.path.join(d.data_dir, "test")
-        if list_shards(test_dir):
-            vocab_path = d.vocab_path or os.path.join(d.data_dir, "vocab.json")
-            return TripleDataset.from_shards(list_shards(test_dir)), Vocab.load(vocab_path)
-    if d.source == "synthetic":
-        data = synthetic_dataset(
-            num_images=d.num_synthetic_images, regions=d.regions,
-            feat_dim=d.feat_dim, seed=cfg.train.seed,
-        )
-        return TripleDataset(features=data["features"], triples=data["triples"]), data["vocab"]
-    if d.source == "shards":
-        if not d.data_dir:
-            raise ValueError("data.source=shards requires data.data_dir")
-        shards = list_shards(d.data_dir)
-        if not shards:
-            raise FileNotFoundError(f"no feature shards in {d.data_dir}")
-        vocab_path = d.vocab_path or os.path.join(d.data_dir, "vocab.json")
-        return TripleDataset.from_shards(shards), Vocab.load(vocab_path)
-    raise ValueError(f"unsupported data.source {d.source!r} (synthetic or shards)")
-
-
-def _load_image_dataset(cfg: Config):
-    """The ``synthetic`` image source of ``sgg.cli.common``: seeded uint8
-    images [N, S, S, 3] beside the synthetic triples (no split)."""
-    d = cfg.data
-    if d.source != "synthetic":
-        raise NotImplementedError(
-            f"data.source {d.source!r} for encoder configs {_LATER} (only synthetic)"
-        )
-    data = synthetic_dataset(
-        num_images=d.num_synthetic_images, regions=1, feat_dim=1, seed=cfg.train.seed,
-    )
-    rng = np.random.RandomState(cfg.train.seed)
-    images = rng.randint(
-        0, 256, size=(d.num_synthetic_images, d.image_size, d.image_size, 3), dtype=np.uint8,
-    )
-    return ArrayImageTripleDataset(images=images, triples=data["triples"]), data["vocab"]
 
 
 def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.device):
@@ -143,11 +79,11 @@ def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.
 
 def _refuse_unported(args) -> str | None:
     if args.rank != "freq":
-        return f"--rank {args.rank} {_LATER}"
+        return f"--rank {args.rank} {LATER}"
     if args.top_k or args.top_p is not None:
-        return f"--top-k/--top-p {_LATER}"
+        return f"--top-k/--top-p {LATER}"
     if args.temperature is not None and args.temperature != 1.0:
-        return f"--temperature other than 1.0 {_LATER}"
+        return f"--temperature other than 1.0 {LATER}"
     return None
 
 
@@ -173,8 +109,7 @@ def main(argv=None) -> int:
                         "'fused' = one fused_decode kernel launch per draw "
                         "(attention-LSTM decoder only)")
     p.add_argument("--ema", action="store_true", help="sample from the EMA generator weights")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="run on the card (default) or on the CPU")
+    add_device_arg(p)
     args = p.parse_args(argv)
     refusal = _refuse_unported(args)
     if refusal:

@@ -6,14 +6,16 @@ Generator: the flax tree is the nested dict of numpy arrays that
 weight. The TF1 LSTM kernel stays one ``[I+H, 4H]`` matrix in i, j, f, o
 order, and the embedding is ``[V, E]`` in both.
 
-Encoders (VGG-19, ResNet-50, ViT-B/16) and the transformer generator: the
-port's modules keep the flax names and layouts (HWIO kernels, Dense kernels
+Encoders (VGG-19, ResNet-50, ViT-B/16), the transformer generator and the
+critic: the port's modules keep the flax names and layouts (HWIO kernels, Dense kernels
 [in, out], float32 BN and LayerNorm vectors), so a leaf's path joined with
 ``.`` is its state_dict key; VGG's flat flax names ``conv1_1/kernel`` become
 ``conv1_1.kernel``. Given the port module's own state_dict (``like``), the
 conversion raises on a missing or unknown leaf, or on a shape that differs.
 ``encoder_params.npz`` files (``::``-joined keys, as
 ``sgg.train.pretrain.save_params_npz`` writes them) read with numpy alone.
+:func:`train_state_from_flax` builds a port train state from a reference
+train state's parameters, with fresh optimizers.
 """
 
 from __future__ import annotations
@@ -156,6 +158,44 @@ def generator_state_dict_to_flax(sd: dict) -> dict:
     from sgg_torch.train.checkpoint import decoder_of
 
     return state_dict_to_tree(sd) if decoder_of(sd) == "transformer" else state_dict_to_flax(sd)
+
+
+def critic_flax_to_state_dict(d_params: dict, cfg) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``TripleCritic`` params → the port critic's state_dict, checked
+    leaf by leaf against a port critic built from ``cfg``."""
+    from sgg_torch.models.discriminator import TripleCritic
+
+    return tree_to_state_dict(d_params, TripleCritic.from_config(cfg).state_dict(), "critic")
+
+
+def critic_state_dict_to_flax(sd: dict) -> dict:
+    """The reverse of :func:`critic_flax_to_state_dict`."""
+    return state_dict_to_tree(sd)
+
+
+def train_state_from_flax(cfg, ref, device="cpu"):
+    """A port ``GANTrainState`` holding the parameters of ``ref``, a
+    reference train state (its ``step``, ``g_params``, ``d_params``,
+    ``enc_params`` and ``g_ema``, arrays that numpy reads), with fresh
+    optimizers: the state ``create_train_state`` makes, at ``ref``'s weights."""
+    from sgg_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, device=device)
+    state.step = int(ref.step)
+    g_sd = generator_flax_to_state_dict(ref.g_params, cfg)
+    state.generator.load_state_dict(g_sd)
+    state.critic.load_state_dict(critic_flax_to_state_dict(ref.d_params, cfg))
+    if state.encoder is not None:
+        if ref.enc_params is None:
+            raise ValueError("the config has an encoder but the reference state has no enc_params")
+        state.encoder.load_state_dict(
+            encoder_flax_to_state_dict(ref.enc_params, state.encoder.state_dict()))
+    if state.g_ema is not None:
+        if ref.g_ema is None:
+            raise ValueError("train.ema_decay > 0 but the reference state has no g_ema")
+        for k, v in generator_flax_to_state_dict(ref.g_ema, cfg).items():
+            state.g_ema[k].copy_(v)
+    return state
 
 
 def load_params_npz(path: str) -> dict:

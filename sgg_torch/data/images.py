@@ -1,7 +1,7 @@
 """In-memory image datasets for the pixels-in (encoder) configs, from
-``sgg/data/images.py``. Only ``ArrayImageTripleDataset`` is ported, as far as
-generate reads it; the path-backed ``ImageTripleDataset`` (JPEG decode) and
-the training samplers come with later slices.
+``sgg/data/images.py``. Only ``ArrayImageTripleDataset`` is ported; the
+path-backed ``ImageTripleDataset`` (JPEG decode) and predicate balance come
+with later slices.
 """
 
 from __future__ import annotations
@@ -9,6 +9,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from sgg_torch.data.pipeline import refuse_weights, sample_rows
 
 
 @dataclass
@@ -27,3 +29,12 @@ class ArrayImageTripleDataset:
 
     def __len__(self) -> int:
         return self.images.shape[0]
+
+    def process_slice(self, process_index: int, process_count: int) -> np.ndarray:
+        return np.arange(len(self))[process_index::process_count]
+
+    def sample_batch(self, rng: np.random.RandomState, indices: np.ndarray,
+                     batch_size: int) -> dict:
+        refuse_weights(self)
+        images, trip = sample_rows(self.images, self.triples, rng, indices, batch_size)
+        return {"images": images, "triples": trip}

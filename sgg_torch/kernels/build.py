@@ -46,6 +46,10 @@ _ENTRIES = {
     "sgg_conv_direct": ([_I] * 9 + [_P] * 5 + [_I] * 2 + [_P], _I),
     # (dtype, BH, S, D, q, k, v, o, lse, scale, stream)
     "sgg_flash_attention": ([_I] * 4 + [_P] * 5 + [ctypes.c_float, _P], _I),
+    # (dtype, BH, S, D, q, k, v, do, lse, dstat, dq, scale_q, scale, stream)
+    "sgg_flash_attention_bwd_dq": ([_I] * 4 + [_P] * 7 + [ctypes.c_float] * 2 + [_P], _I),
+    # (dtype, BH, S, D, q, k, v, do, lse, dstat, dk, dv, scale_q, stream)
+    "sgg_flash_attention_bwd_dkv": ([_I] * 4 + [_P] * 8 + [ctypes.c_float, _P], _I),
 }
 
 

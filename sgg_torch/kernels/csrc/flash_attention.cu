@@ -36,10 +36,9 @@
 //
 // Plain C interface for ctypes; the entry returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_tile.cuh"
 
 namespace {
 
@@ -49,62 +48,11 @@ constexpr int kWarps = 4;     // 16 query rows each
 constexpr int kThreads = kWarps * 32;
 constexpr int kSLd = kTK + 4;  // score buffer row length (floats)
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Shared-memory row length of q and k tiles, in elements: bf16 rows padded by
-// 8 (16-byte aligned, conflict-free mma fragment loads), float32 rows by 1.
-template <typename T> struct Ld;
-template <> struct Ld<__nv_bfloat16> { __host__ __device__ static int of(int D) { return D + 8; } };
-template <> struct Ld<float> { __host__ __device__ static int of(int D) { return D + 1; } };
-
 template <typename T>
 __host__ __device__ inline size_t smem_bytes(int D) {
   return (size_t)2 * kTQ * Ld<T>::of(D) * sizeof(T)  // q tile, k tile
          + (size_t)kTK * D * sizeof(float)           // v tile (float32)
          + (size_t)kWarps * 16 * kSLd * sizeof(float);  // score buffers
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Copy rows [r0, r0 + 64) of a [S, D] matrix into a shared tile of row
-// length ld, zeros past S. D % 16 == 0 and 16-byte aligned rows (the wrapper
-// checks), so every thread moves 16-byte words. With `scale` (q only) each
-// element becomes the product rounded to T; with TS = float and T = bf16
-// (v) each element is widened.
-template <typename T, typename TS, bool kScale>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, TS* dst, int ld, int r0,
-                                          int S, int D, float scale) {
-  constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte word
-  const int words = D / kPer;
-  for (int w = threadIdx.x; w < kTK * words; w += kThreads) {
-    const int r = w / words, c = (w % words) * kPer;
-    alignas(16) T v[kPer];
-    if (r0 + r < S) {
-      *reinterpret_cast<uint4*>(v) =
-          *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * D + c);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) v[i] = from_f<T>(0.0f);
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      float x = to_f(v[i]);
-      if (kScale) x = __fmul_rn(x, scale);  // exact for bf16 x bf16, then one rounding
-      dst[r * ld + c + i] = from_f<TS>(x);
-    }
-  }
 }
 
 // Scores of the warp's 16 rows against the 64 staged keys → sbuf[16][kSLd].
@@ -192,7 +140,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const long base = bh * (long)S * D;
   float* sbuf = Sb + warp * 16 * kSLd;
 
-  load_tile<T, T, true>(q + base, Qs, ld, q0, S, D, scale);
+  load_rows<kTQ, kThreads, T, T, true>(q + base, Qs, ld, q0, S, D, scale);
   __syncthreads();
   Scores<T, kND> sc;
   sc.load_q(Qs, ld, D);
@@ -207,8 +155,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int k0 = 0; k0 < S; k0 += kTK) {
     __syncthreads();  // the previous tile's products are done
-    load_tile<T, T, false>(k + base, Ks, ld, k0, S, D, 1.0f);
-    load_tile<T, float, false>(v + base, Vs, D, k0, S, D, 1.0f);
+    load_rows<kTK, kThreads, T, T, false>(k + base, Ks, ld, k0, S, D, 1.0f);
+    load_rows<kTK, kThreads, T, float, false>(v + base, Vs, D, k0, S, D, 1.0f);
     __syncthreads();
     sc.compute(Qs, Ks, ld, D, sbuf);
     __syncwarp();

@@ -1,15 +1,20 @@
-"""Flash-attention forward: the CUDA kernel, its plain PyTorch version, the
-unfused reference and the router.
+"""Flash attention: the CUDA forward kernel, its plain PyTorch version, its
+autograd Function, the unfused reference and the router.
 
-Port of ``sgg/kernels/flash_attention.py`` (forward only; the backward comes
-with the training slice). ``flash_attention(q, k, v, scale)`` computes
-``softmax(q·kᵀ·scale)·v`` over ``[B, H, S, D]`` tensors in one launch of
-``csrc/flash_attention.cu`` without storing the S × S scores, with the
-arithmetic of the Pallas kernel ``_fa_kernel``: q·scale rounded to q's dtype,
+Port of ``sgg/kernels/flash_attention.py``. ``flash_attention(q, k, v,
+scale)`` computes ``softmax(q·kᵀ·scale)·v`` over ``[B, H, S, D]`` tensors in
+one launch of ``csrc/flash_attention.cu`` without storing the S × S scores,
+with the arithmetic of the Pallas kernel ``_fa_kernel``: q·scale rounded to q's dtype,
 float32 scores from the stored-type operands, a float32 softmax, P·V with p
 in float32 and v widened to float32, and one cast at the end.
 ``flash_attention_with_lse`` also returns the per-row log-sum-exp ``[B, H, S]``
 float32 that the backward and ring attention need.
+
+Under grad mode, with an input that needs a gradient, ``flash_attention`` runs
+through :class:`FlashAttention`, the counterpart of the reference's
+``custom_vjp``: the forward also computes lse and saves (q, k, v, o, lse), the
+backward is ``flash_attention_bwd`` (the CUDA dq and dk/dv kernels) and is
+differentiable once only. Otherwise nothing is saved and no lse is computed.
 
 On a CUDA tensor the wrappers launch the kernel or raise; on a CPU tensor they
 run :func:`flash_attention_plain`, the same arithmetic in PyTorch.
@@ -19,8 +24,10 @@ run :func:`flash_attention_plain`, the same arithmetic in PyTorch.
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from sgg_torch.kernels import build
+from sgg_torch.kernels.flash_attention_bwd import flash_attention_bwd
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -76,11 +83,6 @@ def _check(q, k, v):
 
 def _launch(q, k, v, scale, return_lse):
     global launches
-    _check(q, k, v)
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention's backward is not ported yet (the training slice "
-            "brings it); call it on tensors that need no gradient")
     B, H, S, D = q.shape
     if D % 16 != 0 or D > 128:
         raise ValueError(f"flash_attention needs a head width D that is a multiple of 16 "
@@ -106,28 +108,57 @@ def _launch(q, k, v, scale, return_lse):
     return (o, lse) if return_lse else o
 
 
+def _forward(q, k, v, scale, return_lse):
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, return_lse=return_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    return _launch(q, k, v, scale, return_lse)
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = softmax(q·kᵀ·scale)·v with the flash backward (``_fa_fwd`` and
+    ``_fa_bwd`` of the reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = _forward(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None,
 ) -> torch.Tensor:
     """softmax(q·kᵀ·scale)·v → [B, H, S, D] in q's dtype; scale defaults to
-    D^-0.5. CPU tensors take :func:`flash_attention_plain`."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    return _launch(q, k, v, scale, return_lse=False)
+    D^-0.5. CPU tensors take :func:`flash_attention_plain` (and
+    :func:`flash_attention_bwd_plain` for the gradient)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale, return_lse=False)
 
 
 def flash_attention_with_lse(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """As :func:`flash_attention`, also returning the per-row log-sum-exp
-    [B, H, S] float32 of the scaled scores."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale, return_lse=True)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    return _launch(q, k, v, scale, return_lse=True)
+    [B, H, S] float32 of the scaled scores. Forward only: on a CUDA tensor
+    that needs a gradient it raises (:func:`flash_attention` carries the
+    backward)."""
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        raise NotImplementedError(
+            "flash_attention_with_lse is forward only; flash_attention carries the backward")
+    return _forward(q, k, v, scale, return_lse=True)
 
 
 def attention(q, k, v, scale=None, impl: str = "auto") -> torch.Tensor:

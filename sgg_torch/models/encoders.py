@@ -1,4 +1,4 @@
-"""Encoder factory: config name → frozen backbone module, from
+"""Encoder factory: config name → backbone module, from
 ``sgg/models/encoders.py``. ``precomputed`` means the data already carries
 features. The int8 tier and MoE blocks come with later slices of the port.
 """
@@ -30,10 +30,13 @@ def make_encoder(
     name: str, use_pallas: bool = False, dtype: torch.dtype = torch.float32,
     quant: str = "", image_size: int | None = None,
     vit_dims: tuple[int, int, int] = (768, 12, 12), moe_experts: int = 0,
+    trainable: bool = False,
 ) -> nn.Module | None:
-    """The frozen feature extractor (parameters need no gradient), or None
-    for ``precomputed``. The conv route (CNNs) and the attention route (ViT)
-    follow ``use_pallas``; the CNN modules take any route of
+    """The feature extractor, or None for ``precomputed``: frozen (its
+    parameters need no gradient) unless ``trainable``, as training with
+    ``train.train_encoder`` asks. Either way in ``eval()`` mode: no module
+    here behaves differently in training. The conv route (CNNs) and the
+    attention route (ViT) follow ``use_pallas``; the CNN modules take any route of
     ``sgg_torch.kernels.conv`` through their own ``conv_impl``, the ViT any
     attention through its ``attn_fn``. ViT only: ``image_size`` (default
     224) sizes ``pos_embed``; ``vit_dims`` is (embed_dim, num_layers,
@@ -63,4 +66,4 @@ def make_encoder(
         )
     else:
         raise ValueError(f"unknown encoder {name!r}")
-    return enc.requires_grad_(False).eval()
+    return enc.requires_grad_(trainable).eval()

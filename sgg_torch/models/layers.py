@@ -1,6 +1,6 @@
 """Layers that follow flax's: ``nn.Dense`` (float32 parameters cast to the
-compute dtype at the call), ``nn.LayerNorm``, ``nn.gelu``, and flax's
-initializers."""
+compute dtype at the call), ``nn.LayerNorm``, ``nn.gelu``, ``nn.softmax``,
+``nn.leaky_relu``, and flax's initializers."""
 
 from __future__ import annotations
 
@@ -42,19 +42,21 @@ def lecun_normal(shape: tuple[int, ...]) -> torch.Tensor:
 
 class Dense(nn.Module):
     """flax ``nn.Dense`` with its parameter names and layout: ``kernel``
-    [in, out] and ``bias`` [out], float32, cast to the compute dtype at the
-    call. The product is rounded to that dtype, then the bias add, as flax's
-    separate ``dot_general`` and ``+``."""
+    [in, out] and ``bias`` [out] (none when ``use_bias`` is false), float32,
+    cast to the compute dtype at the call. The product is rounded to that
+    dtype, then the bias add, as flax's separate ``dot_general`` and ``+``."""
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(lecun_normal((in_features, out_features)))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return torch.matmul(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
+        y = torch.matmul(x.to(dt), self.kernel.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -76,13 +78,31 @@ class LayerNorm(nn.Module):
         return ((x - mean) * mul + self.bias.float()).to(self.dtype)
 
 
+def _const(v: float, x: torch.Tensor) -> torch.Tensor:
+    """A Python float as JAX combines it with an array: rounded to x's dtype."""
+    return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax`` op by op in x's dtype: exp(x − max) / its sum, each
+    operation rounded to that dtype."""
+    u = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return u / u.sum(dim=dim, keepdim=True)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: x where x >= 0, else slope·x with the slope
+    rounded to x's dtype."""
+    return torch.where(x >= 0, x, x * _const(negative_slope, x))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``flax.linen.gelu``, the tanh approximation, op by op in x's dtype
     as ``jax.nn.gelu`` computes it: in bfloat16 every operation rounds, and
     the constants are rounded to the dtype first."""
 
     def c(v: float) -> torch.Tensor:
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
+        return _const(v, x)
 
     inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))

@@ -1,18 +1,20 @@
-"""Workdir IO for inference, from ``sgg/train/checkpoint.py``.
+"""Workdirs and checkpoints, from ``sgg/train/checkpoint.py``.
 
 A workdir holds ``config.json`` and ``vocab.json`` beside the weights. The
-port keeps the generator's weights and their EMA (``g_params``, ``g_ema``,
-either decoder),
-and for a pixels-in config the frozen encoder's (``enc_params``, as the
-reference's train state carries them), as port state_dicts in one torch
-file, ``generator.pt``. The reference's orbax checkpoints are not read here:
-``sgg_torch.convert_flax`` turns a restored flax tree into a state_dict, and
-:func:`save_generator` writes it.
+generator's weights and their EMA (either decoder), and for a pixels-in config
+the encoder's (``enc_params``), are port state_dicts in one torch file,
+``generator.pt``, which ``sgg_torch.cli.generate`` reads. Training keeps its
+whole state (the modules, their Adam states, the step) as
+``checkpoints/<step>/state.pt``, at most ``max_to_keep`` of them, and
+rewrites ``generator.pt`` at every save. The reference's orbax checkpoints are
+not read here: ``sgg_torch.convert_flax`` turns restored flax trees into
+state_dicts.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 
 import torch
 
@@ -20,6 +22,7 @@ from sgg_torch.config import Config
 from sgg_torch.data.vocab import Vocab
 
 GENERATOR_FILE = "generator.pt"
+STATE_FILE = "state.pt"
 
 
 def load_workdir(workdir: str) -> tuple[Config, Vocab]:
@@ -30,6 +33,16 @@ def load_workdir(workdir: str) -> tuple[Config, Vocab]:
     return cfg, vocab
 
 
+def _save_atomic(obj, path: str) -> None:
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _cpu(sd):
+    return None if sd is None else {k: v.detach().cpu() for k, v in sd.items()}
+
+
 def save_generator(
     workdir: str, g_params: dict, g_ema: dict | None = None, step: int = 0,
     enc_params: dict | None = None,
@@ -37,17 +50,8 @@ def save_generator(
     """Write the generator's state_dict (and its EMA, and the encoder's
     state_dict for a pixels-in config) to ``workdir``."""
     path = os.path.join(workdir, GENERATOR_FILE)
-    tmp = path + ".tmp"
-
-    def cpu(sd):
-        return None if sd is None else {k: v.detach().cpu() for k, v in sd.items()}
-
-    torch.save(
-        {"step": int(step), "g_params": cpu(g_params), "g_ema": cpu(g_ema),
-         "enc_params": cpu(enc_params)},
-        tmp,
-    )
-    os.replace(tmp, path)
+    _save_atomic({"step": int(step), "g_params": _cpu(g_params), "g_ema": _cpu(g_ema),
+                  "enc_params": _cpu(enc_params)}, path)
     return path
 
 
@@ -72,3 +76,54 @@ def load_generator(workdir: str, decoder: str | None = None) -> dict | None:
         raise ValueError(f"{path} holds a {ckpt['decoder']!r} generator; the config's "
                          f"model.decoder is {decoder!r}")
     return ckpt
+
+
+class CheckpointManager:
+    """Train-state checkpoints under ``workdir/checkpoints/<step>/``, with
+    ``max_to_keep`` retention and resume from the latest."""
+
+    def __init__(self, workdir: str, cfg: Config, max_to_keep: int = 3):
+        self.workdir = os.path.abspath(workdir)
+        self.ckpt_dir = os.path.join(self.workdir, "checkpoints")
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        with open(os.path.join(self.workdir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+
+    def save_vocab(self, vocab: Vocab) -> None:
+        vocab.save(os.path.join(self.workdir, "vocab.json"))
+
+    def all_steps(self) -> list[int]:
+        """Retained checkpoint steps, ascending."""
+        return sorted(int(n) for n in os.listdir(self.ckpt_dir)
+                      if n.isdigit()
+                      and os.path.exists(os.path.join(self.ckpt_dir, n, STATE_FILE)))
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, state) -> None:
+        """Write ``state`` at its step, prune to ``max_to_keep``, and rewrite
+        ``generator.pt`` for generate."""
+        step_dir = os.path.join(self.ckpt_dir, str(state.step))
+        os.makedirs(step_dir, exist_ok=True)
+        _save_atomic(state.state_dict(), os.path.join(step_dir, STATE_FILE))
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.ckpt_dir, str(old)))
+        save_generator(self.workdir, state.generator.state_dict(), state.g_ema, state.step,
+                       None if state.encoder is None else state.encoder.state_dict())
+
+    def restore(self, state, step: int | None = None):
+        """Load checkpoint ``step`` (default: the latest) into ``state`` in
+        place and return it, or None when there is none."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return None
+        # Loaded to the CPU: each module and optimizer moves its own tensors
+        # to its parameters' device.
+        sd = torch.load(os.path.join(self.ckpt_dir, str(step), STATE_FILE),
+                        map_location="cpu", weights_only=True)
+        state.load_state_dict(sd)
+        return state

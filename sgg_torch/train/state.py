@@ -1,12 +1,23 @@
-"""Model construction from a config, from ``sgg/train/state.py``.
+"""Train state: generator, critic, optimizers, step, from ``sgg/train/state.py``.
 
-:func:`make_generator` is the decoder switch of the reference's
-``make_models``. The critic, the optimizers and the train state come with the
-training slice of the port (ROADMAP A3).
+:class:`GANTrainState` holds the modules themselves (the reference's
+``g_params``/``d_params``/``enc_params`` trees), an :class:`Adam` per module
+(its ``*_opt_state``), the step and the generator's EMA. The step updates it
+in place. Optimizers follow optax's ``adam`` with β = (0.5, 0.9), eps 1e-8,
+behind an optional ``clip_by_global_norm`` (:func:`clip_by_global_norm`,
+optax's function: scale by max/‖g‖ only when ‖g‖ ≥ max) and an optional
+schedule that counts updates from 0 (:func:`lr_schedule_fn`, the critic's and
+the encoder's horizons stretched by n_critic).
 """
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
 from torch import nn
 
 from sgg_torch.config import Config
@@ -25,3 +36,179 @@ def make_generator(cfg: Config) -> nn.Module:
 
         return TransformerTripleGenerator.from_config(cfg)
     raise ValueError(f"unknown decoder {decoder!r}")
+
+
+def make_models(cfg: Config) -> tuple[nn.Module, nn.Module]:
+    """(generator, critic) from the config."""
+    from sgg_torch.models.discriminator import TripleCritic
+
+    return make_generator(cfg), TripleCritic.from_config(cfg)
+
+
+def lr_schedule_fn(cfg: Config, peak: float, updates_per_step: int
+                   ) -> Callable[[int], float] | None:
+    """count → lr of one optimizer in float32, or None when both the
+    schedule and the warmup are off (a constant lr). ``count`` is the number
+    of updates before this one, from 0; ``updates_per_step`` stretches the
+    warmup and decay horizons (n_critic for the critic and the encoder)."""
+    t = cfg.train
+    if t.lr_schedule == "constant" and t.warmup_steps <= 0:
+        return None
+    if t.lr_schedule not in ("constant", "cosine", "linear"):
+        raise ValueError(
+            f"unknown train.lr_schedule {t.lr_schedule!r} (constant | cosine | linear)")
+    f32 = np.float32
+    warm = f32(max(t.warmup_steps, 0) * updates_per_step)
+    total = f32(max(t.total_steps, 1) * updates_per_step)
+    pk, end, kind = f32(peak), f32(peak * t.lr_final_frac), t.lr_schedule
+
+    def sched(count: int) -> float:
+        c = f32(count)
+        if c < warm:
+            return float(pk * (c + f32(1.0)) / max(warm, f32(1.0)))
+        frac = np.clip((c - warm) / max(total - warm, f32(1.0)), f32(0.0), f32(1.0))
+        if kind == "cosine":
+            return float(end + (pk - end) * f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * frac)))
+        if kind == "linear":
+            return float(pk + (end - pk) * frac)
+        return float(pk)
+
+    return sched
+
+
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """‖g‖ over all tensors, in float32 (``optax.global_norm``)."""
+    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+
+
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
+    """``optax.clip_by_global_norm``: the gradients as they are when
+    ‖g‖ < max_norm, else each scaled by max_norm / ‖g‖."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
+
+
+class Adam:
+    """``optax.chain(clip_by_global_norm(clip), adam(lr, b1, b2))`` over a
+    module's parameters, on ``torch.optim.Adam`` (eps 1e-8). :meth:`update`
+    takes the gradients in ``parameters()`` order."""
+
+    def __init__(self, module: nn.Module, peak: float, cfg: Config, updates_per_step: int):
+        t = cfg.train
+        self.params = [p for p in module.parameters()]
+        self.sched = lr_schedule_fn(cfg, peak, updates_per_step)
+        self.clip = t.grad_clip
+        self.count = 0
+        self.opt = torch.optim.Adam(self.params, lr=peak, betas=(t.beta1, t.beta2), eps=1e-8)
+
+    def update(self, grads: list[torch.Tensor]) -> None:
+        if self.clip > 0:
+            grads = clip_by_global_norm(grads, self.clip)
+        for p, g in zip(self.params, grads, strict=True):
+            p.grad = g.to(p.dtype)
+        if self.sched is not None:
+            for group in self.opt.param_groups:
+                group["lr"] = self.sched(self.count)
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "adam": self.opt.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.count = int(sd["count"])
+        self.opt.load_state_dict(sd["adam"])
+
+
+def make_optimizers(cfg: Config, generator: nn.Module, critic: nn.Module) -> tuple[Adam, Adam]:
+    """(generator's, critic's) optimizers; the critic takes n_critic updates
+    per step."""
+    t = cfg.train
+    return Adam(generator, t.g_lr, cfg, 1), Adam(critic, t.d_lr, cfg, t.n_critic)
+
+
+def make_encoder_optimizer(cfg: Config, encoder: nn.Module) -> Adam:
+    """The encoder updates inside the critic loop: n_critic updates per step."""
+    return Adam(encoder, cfg.train.enc_lr, cfg, cfg.train.n_critic)
+
+
+@dataclass
+class GANTrainState:
+    step: int
+    generator: nn.Module
+    critic: nn.Module
+    g_tx: Adam
+    d_tx: Adam
+    # The backbone for pixels-in configs (None when features are
+    # precomputed); trained, with its optimizer, only with train.train_encoder.
+    encoder: nn.Module | None = None
+    enc_tx: Adam | None = None
+    # EMA of the generator's state_dict (train.ema_decay > 0).
+    g_ema: dict[str, torch.Tensor] | None = None
+
+    def state_dict(self) -> dict:
+        def opt(tx):
+            return None if tx is None else tx.state_dict()
+
+        return {
+            "step": self.step,
+            "g_params": self.generator.state_dict(),
+            "d_params": self.critic.state_dict(),
+            "enc_params": None if self.encoder is None else self.encoder.state_dict(),
+            "g_ema": self.g_ema,
+            "g_opt": opt(self.g_tx), "d_opt": opt(self.d_tx), "enc_opt": opt(self.enc_tx),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.step = int(sd["step"])
+        self.generator.load_state_dict(sd["g_params"])
+        self.critic.load_state_dict(sd["d_params"])
+        self.g_tx.load_state_dict(sd["g_opt"])
+        self.d_tx.load_state_dict(sd["d_opt"])
+        if self.encoder is not None:
+            self.encoder.load_state_dict(sd["enc_params"])
+        if self.enc_tx is not None:
+            self.enc_tx.load_state_dict(sd["enc_opt"])
+        if self.g_ema is not None:
+            for k, v in sd["g_ema"].items():
+                self.g_ema[k].copy_(v)
+
+
+def create_train_state(cfg: Config, seed: int = 0, enc_params: dict | None = None,
+                       device: torch.device | str = "cpu") -> GANTrainState:
+    """A fresh state on ``device``, parameters initialized from ``seed``. For
+    pixels-in configs ``enc_params`` (a port state_dict) sets the encoder's
+    weights, else they are initialized too."""
+    from sgg_torch.models.encoders import make_encoder
+
+    m = cfg.model
+    train_enc = bool(cfg.train.train_encoder)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        generator, critic = make_models(cfg)
+        encoder = make_encoder(
+            m.encoder, use_pallas=m.use_pallas, dtype=m.dtype, quant=m.quant,
+            image_size=cfg.data.image_size, vit_dims=m.vit_dims, moe_experts=m.moe_experts,
+            trainable=train_enc)
+    if encoder is not None and enc_params is not None:
+        encoder.load_state_dict(enc_params)
+    for mod in (generator, critic, encoder):
+        if mod is not None:
+            mod.to(device)
+    g_tx, d_tx = make_optimizers(cfg, generator, critic)
+    return GANTrainState(
+        step=0, generator=generator, critic=critic, g_tx=g_tx, d_tx=d_tx,
+        encoder=encoder,
+        enc_tx=(make_encoder_optimizer(cfg, encoder)
+                if train_enc and encoder is not None else None),
+        g_ema=({k: v.detach().clone() for k, v in generator.state_dict().items()}
+               if cfg.train.ema_decay > 0 else None),
+    )
+
+
+def param_count(module: nn.Module | dict) -> int:
+    """Number of parameters of a module (or of a state_dict's tensors)."""
+    tensors = module.values() if isinstance(module, dict) else module.parameters()
+    return sum(int(t.numel()) for t in tensors)

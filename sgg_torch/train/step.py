@@ -1,0 +1,250 @@
+"""The WGAN-GP train step, from ``sgg/train/step.py``, on one device.
+
+One step is ``n_critic`` critic updates (each a forward, the gradient penalty's
+double backward and an Adam update), one generator update through the
+straight-through Gumbel decode, and the generator's EMA. The reference fuses
+these into one compiled program; here they run eagerly and update the
+:class:`~sgg_torch.train.state.GANTrainState` in place. Three critic branches,
+as in the reference:
+  - precomputed features: the frozen generator samples all n_critic fakes in
+    one batched forward over n_critic·B rows;
+  - ``train.train_encoder``: each critic iteration differentiates the critic
+    loss jointly with respect to the critic and the encoder (the ViT's
+    attention through ``flash_attention``'s backward); the fake conditions on
+    the features without gradient, and the generator update conditions on
+    the updated encoder, without gradient;
+  - a frozen encoder: features and fakes without gradient.
+``train.grad_accum`` splits each update's batch into equal microbatches and
+averages their losses, aux values and gradients.
+
+All noise is an input (:func:`noise_shapes` gives its layout): the fakes' z and
+Gumbel draws, the penalty's ε and the generator update's draws, per
+microbatch. Without it the step draws from a ``torch.Generator`` seeded from
+``train.seed`` and the step.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sgg_torch.config import Config
+from sgg_torch.models.encoders import normalize_for
+from sgg_torch.models.generator import TRIPLE_LEN
+from sgg_torch.train.losses import critic_loss, generator_loss
+from sgg_torch.train.state import GANTrainState, global_norm
+from sgg_torch.utils.gumbel import sample_gumbel
+
+_LATER = "is not ported yet; a later slice of the port brings it"
+
+
+def refuse_unported(cfg: Config) -> None:
+    """Raise for the training options that only a later slice brings."""
+    m, t, mesh = cfg.model, cfg.train, cfg.mesh
+    if t.estimator == "reinforce":
+        raise NotImplementedError(
+            f"train.estimator='reinforce' {_LATER} (it needs the generator's "
+            "detach_sample/log_prob, ROADMAP A4)")
+    if t.estimator != "gumbel":
+        raise ValueError(f"unknown train.estimator {t.estimator!r} (expected 'gumbel' or "
+                         "'reinforce')")
+    if m.sp_mode or m.pp_microbatches or m.moe_experts:
+        raise NotImplementedError(
+            f"sequence, pipeline and expert parallelism and MoE (model.sp_mode, "
+            f"model.pp_microbatches, model.moe_experts) {_LATER} (ROADMAP A8)")
+    if mesh.model > 1 or mesh.seq > 1 or mesh.expert > 1 or mesh.fsdp or mesh.data > 1:
+        raise NotImplementedError(f"meshes (mesh.data/model/seq/expert > 1, fsdp) {_LATER} "
+                                  "(ROADMAP A8); the port trains on one device")
+    if t.train_encoder:
+        if m.encoder == "precomputed":
+            raise ValueError("train.train_encoder requires an end-to-end encoder config "
+                             "(model.encoder != 'precomputed')")
+        if m.encoder != "vit_b16" and m.use_pallas:
+            raise NotImplementedError(
+                f"train.train_encoder through the CNN conv kernels {_LATER} (they have no "
+                "backward); set model.use_pallas=false for the library conv route")
+
+
+def tau_schedule(cfg: Config, step: int) -> float:
+    """Gumbel temperature max(tau_min, tau0·exp(−rate·step)), in float32."""
+    t = cfg.train
+    f32 = np.float32
+    tau = np.maximum(f32(t.tau_min), f32(t.tau0) * np.exp(f32(-t.tau_anneal) * f32(step)))
+    return float(tau)
+
+
+def _accum_vg(vg_fn: Callable, batch: tuple, accum: int):
+    """``vg_fn(microbatch, m) → (loss, aux, grads)`` over ``accum`` equal
+    splits of the leading batch axis, averaged; ``accum == 1`` is one call on
+    the whole batch."""
+    if accum == 1:
+        return vg_fn(batch, 0)
+    n = batch[0].shape[0] // accum
+    total = None
+    for m in range(accum):
+        loss, aux, grads = vg_fn(tuple(x[m * n:(m + 1) * n] for x in batch), m)
+        if total is None:
+            total = [loss, dict(aux), list(grads)]
+        else:
+            total[0] = total[0] + loss
+            total[1] = {k: total[1][k] + v for k, v in aux.items()}
+            total[2] = [a + g for a, g in zip(total[2], grads)]
+    inv = 1.0 / accum
+    loss, aux, grads = total
+    return loss * inv, {k: v * inv for k, v in aux.items()}, [g * inv for g in grads]
+
+
+def noise_shapes(cfg: Config, B: int) -> dict[str, tuple]:
+    """The shape of each noise tensor of one step for batch B.
+
+    ``fake_z`` [nc, Af, Bf, Z] and ``fake_gumbel`` [nc, Af, Bf, 3, V]: the
+    critic loop's fakes (Af, Bf = accum, B / accum with ``train_encoder``,
+    whose fakes are drawn per microbatch; else 1, B; precomputed features
+    sample all nc·B rows in one forward, in that order). ``gp_eps``
+    [nc, accum, B / accum, 1, 1]: ε per microbatch. ``gen_z`` [accum,
+    B / accum, Z] and ``gen_gumbel`` [accum, B / accum, 3, V]: the generator
+    update's draws."""
+    nc, A = cfg.train.n_critic, max(1, int(cfg.train.grad_accum))
+    Z, V, Bm = cfg.model.noise_dim, cfg.model.vocab_size, B // A
+    Af, Bf = (A, Bm) if cfg.train.train_encoder else (1, B)
+    return {"fake_z": (nc, Af, Bf, Z), "fake_gumbel": (nc, Af, Bf, TRIPLE_LEN, V),
+            "gp_eps": (nc, A, Bm, 1, 1), "gen_z": (A, Bm, Z),
+            "gen_gumbel": (A, Bm, TRIPLE_LEN, V)}
+
+
+def draw_noise(cfg: Config, B: int, generator: torch.Generator, device) -> dict:
+    """One step's noise from ``generator``: z in the model dtype (normal),
+    Gumbel float32, ε in the model dtype (uniform [0, 1))."""
+    dt, out = cfg.model.dtype, {}
+    for name, shape in noise_shapes(cfg, B).items():
+        if name.endswith("_gumbel"):
+            out[name] = sample_gumbel(shape, generator, device=device)
+        elif name == "gp_eps":
+            out[name] = torch.rand(shape, generator=generator, device=device).to(dt)
+        else:
+            out[name] = torch.randn(shape, generator=generator, device=device).to(dt)
+    return out
+
+
+def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
+    """Build ``step(state, batch, noise=None) → metrics``.
+
+    ``batch``: ``features`` [n_critic+1, B, R, F] (or ``images`` uint8
+    [n_critic+1, B, H, W, 3] for pixels-in configs) and ``triples`` int
+    [n_critic+1, B, 3] on the state's device. Sub-batches 0..n_critic-1 feed
+    the critic updates, the last one the generator update. The state is
+    updated in place; the metrics (0-dim tensors) are the last critic
+    iteration's aux values, the generator's and ``tau``."""
+    refuse_unported(cfg)
+    t, m = cfg.train, cfg.model
+    V, nc, dtype = m.vocab_size, t.n_critic, m.dtype
+    accum = max(1, int(t.grad_accum))
+    mask = None if step_mask is None else torch.as_tensor(np.asarray(step_mask), dtype=torch.bool)
+    train_enc = bool(t.train_encoder)
+
+    def step_fn(state: GANTrainState, batch: dict, noise: dict | None = None) -> dict:
+        gen, critic, encoder = state.generator, state.critic, state.encoder
+        data = batch["features"] if encoder is None else batch["images"]
+        triples = batch["triples"].long()
+        dev, B = data.device, data.shape[1]
+        if accum > 1 and B % accum:
+            raise ValueError(f"train.grad_accum={accum} must divide the batch ({B})")
+        if noise is None:
+            generator = torch.Generator(device=dev).manual_seed(
+                int(t.seed) * 1_000_003 + state.step)
+            noise = draw_noise(cfg, B, generator, dev)
+        noise = {k: v.to(dev) for k, v in noise.items()}
+        step_mask_d = None if mask is None else mask.to(dev)
+        tau = tau_schedule(cfg, state.step)
+
+        def sample_fake(feats, z, g):
+            return gen(feats, z, g, tau=tau, hard=t.hard, step_mask=step_mask_d)["soft"]
+
+        def enc_feats(images):
+            return encoder(normalize_for(m.encoder, images)).to(dtype)
+
+        d_params = list(critic.parameters())
+
+        def d_loss(feats, real_ids, fake, eps):
+            real = F.one_hot(real_ids, V).to(fake.dtype)
+            return critic_loss(critic, feats, real, fake, eps, gp_lambda=t.gp_lambda,
+                               drift=t.drift)
+
+        # ---- n_critic critic updates ----
+        d_aux = None
+        if encoder is None:
+            with torch.no_grad():
+                fakes = sample_fake(
+                    data[:nc].reshape(nc * B, *data.shape[2:]),
+                    noise["fake_z"].reshape(nc * B, -1),
+                    noise["fake_gumbel"].reshape(nc * B, TRIPLE_LEN, V),
+                ).reshape(nc, B, TRIPLE_LEN, V)
+        for i in range(nc):
+            eps = noise["gp_eps"][i]
+            if train_enc:
+                enc_params = list(encoder.parameters())
+
+                def vg(mb, k):
+                    raw_mb, real_mb = mb
+                    feats = enc_feats(raw_mb)
+                    with torch.no_grad():
+                        fake = sample_fake(feats.detach(), noise["fake_z"][i, k],
+                                           noise["fake_gumbel"][i, k])
+                    loss, aux = d_loss(feats, real_mb, fake, eps[k])
+                    return loss, aux, torch.autograd.grad(loss, d_params + enc_params)
+
+                _, d_aux, grads = _accum_vg(vg, (data[i], triples[i]), accum)
+                d_grads, enc_grads = grads[:len(d_params)], grads[len(d_params):]
+                d_aux["enc_gnorm"] = global_norm(enc_grads)
+                state.d_tx.update(d_grads)
+                state.enc_tx.update(enc_grads)
+                continue
+            if encoder is None:
+                feats, fake = data[i], fakes[i]
+            else:
+                with torch.no_grad():
+                    feats = enc_feats(data[i])
+                    fake = sample_fake(feats, noise["fake_z"][i, 0], noise["fake_gumbel"][i, 0])
+
+            def vg(mb, k):
+                loss, aux = d_loss(*mb, eps[k])
+                return loss, aux, torch.autograd.grad(loss, d_params)
+
+            _, d_aux, d_grads = _accum_vg(vg, (feats, triples[i], fake), accum)
+            state.d_tx.update(d_grads)
+
+        # ---- one generator update on the last sub-batch ----
+        if encoder is None:
+            feats_g = data[nc]
+        else:  # the updated encoder with train_encoder, without gradient
+            with torch.no_grad():
+                feats_g = enc_feats(data[nc])
+        g_params = list(gen.parameters())
+
+        def g_vg(mb, k):
+            fake = sample_fake(mb[0], noise["gen_z"][k], noise["gen_gumbel"][k])
+            loss, aux = generator_loss(critic, mb[0], fake)
+            grads = torch.autograd.grad(loss, g_params, allow_unused=True)
+            return loss, aux, [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(g_params, grads)]
+
+        _, g_aux, g_grads = _accum_vg(g_vg, (feats_g,), accum)
+        state.g_tx.update(g_grads)
+
+        if t.ema_decay > 0:
+            d = np.float32(t.ema_decay)
+            keep, take = float(d), float(np.float32(1.0) - d)
+            with torch.no_grad():
+                for k, p in gen.state_dict().items():
+                    e = state.g_ema[k]
+                    e.copy_((e * keep + p * take).to(e.dtype))
+
+        state.step += 1
+        metrics = {k: v.detach() for k, v in {**d_aux, **g_aux}.items()}
+        metrics["tau"] = torch.tensor(tau)
+        return metrics
+
+    return step_fn

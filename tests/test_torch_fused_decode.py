@@ -144,7 +144,8 @@ def test_build_is_plain_nvcc_for_sm90a():
     headers anywhere; nvcc targets sm_90a and the build happens at first
     launch, not at import."""
     srcs = build.sources()
-    assert [p.name for p in srcs] == ["conv_direct.cu", "flash_attention.cu", "fused_decode.cu",
+    assert [p.name for p in srcs] == ["conv_direct.cu", "flash_attention.cu",
+                                       "flash_attention_bwd.cu", "fused_decode.cu",
                                        "fused_matmul.cu"]
     for src in srcs:
         text = src.read_text()

@@ -288,6 +288,9 @@ def test_port_imports_no_jax_and_no_sgg():
         "import sgg_torch.models.encoders, sgg_torch.models.resnet, sgg_torch.models.vgg\n"
         "import sgg_torch.models.vit, sgg_torch.models.transformer, sgg_torch.train.state\n"
         "import sgg_torch.kernels.flash_attention, sgg_torch.eval.sampler\n"
+        "import sgg_torch.cli.train, sgg_torch.cli.common, sgg_torch.kernels.flash_attention_bwd\n"
+        "import sgg_torch.models.discriminator, sgg_torch.train.losses, sgg_torch.train.step\n"
+        "import sgg_torch.train.metrics, sgg_torch.train.checkpoint, sgg_torch.data.pipeline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sgg'))\n"
         "assert not bad, bad\n"
         "from sgg_torch.kernels import build\n"
