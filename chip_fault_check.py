@@ -1,84 +1,210 @@
 #!/usr/bin/env python3
-"""Seeded-fault check of the flash backward's gate, on the card.
+"""Seeded-fault check of the flash kernels' gates, on the card.
 
   python3 chip_fault_check.py
 
-Copies the port (``sgg_torch/``) into a temporary directory, rounds p and ds
-to bfloat16 in the copy's ``csrc/flash_attention_bwd.cu`` before the three
-products that take them (another function than the reference's), builds the
-copy's kernels with nvcc, and holds its dq, dk and dv against the plain
-backward under ``chip_smoke.py``'s bf16 gate (within one bf16 ulp of plain plus
-1e-4 x max, and at most 1 % of the outputs differing) at [32, 12, 196, 64] and
-[32, 12, 100, 64]. Exits 0 when the gate refuses the faulty kernel for every
-shape and output, 1 when it passes any. The tree itself is not touched.
+The bf16 flash kernels run the products that take p or ds (P·V in the
+forward; ds·k in the dq kernel; dsᵀ·q_s and pᵀ·do in the dk/dv kernel) as
+three bf16 products over an exact split p = hi + mid + lo. For each of those
+four products and for two cuts of its split (hi only, which is p or ds
+rounded to bf16; and hi + mid), this script copies the port (``sgg_torch/``)
+into a temporary directory, cuts the split at that one product in the copy's
+CUDA source, builds the copy's kernels with nvcc and holds the outputs of the
+kernel that holds the product against the plain versions under
+``chip_smoke.py``'s gates, at [32, 12, 196, 64] and [32, 12, 100, 64]:
+  - the bf16 gate: within one bf16 ulp of plain plus 1e-4 x max, and at most
+    1 % of the outputs differing;
+  - the float32-result gate: the kernel's float32 result before the cast (its
+    check-only entry) within ``flash_attention.F32_RESULT_TOL`` of the plain
+    version in float32, as a relative L2 distance.
+A fault is refused when either gate fails it. The unmodified tree is held to
+the same gates as a baseline (it must pass them), and a variant that is not a
+fault is reported beside it: the hi, mid and lo products summed in one
+accumulator carried inside the tensor core, the score products too (no fresh
+sum per 16-deep step and no round-to-nearest add), at the two shapes and at
+[32, 12, 576, 64]. Each copy builds and runs in its own process, all at once.
+Exits 0 when the baseline passes and every fault is refused at both shapes,
+1 otherwise. The tree itself is not touched.
 """
 
+import json
 import os
+import re
 import shutil
+import subprocess
 import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPES = [(32, 12, 196, 64), (32, 12, 100, 64)]
-# (sound line, faulty line) of the copy's kernel source.
-FAULTS = [
-    ("srow[key] = p * (prow[key] - d_r);  // ds",
-     "srow[key] = __bfloat162float(__float2bfloat16(p * (prow[key] - d_r)));"),
-    ("      srow[qi] = p;\n",
-     "      srow[qi] = __bfloat162float(__float2bfloat16(p));\n"),
-    ("prow[qi] = p * (prow[qi] - Ds[qi]);  // ds",
-     "prow[qi] = __bfloat162float(__float2bfloat16(p * (prow[qi] - Ds[qi])));"),
+VARIANT_SHAPES = SHAPES + [(32, 12, 576, 64)]
+CSRC = os.path.join("sgg_torch", "kernels", "csrc")
+# (source, the tag that ends the line which splits, the kernel it sits in)
+SITES = [
+    ("flash_attention.cu", "// p of P . V", "fwd"),
+    ("flash_attention_bwd.cu", "// ds of dq", "dq"),
+    ("flash_attention_bwd.cu", "// ds of dk", "dkv"),
+    ("flash_attention_bwd.cu", "// p of dv", "dkv"),
+]
+# cut name: the split terms zeroed
+CUTS = {"hi only": ("mid", "lo"), "hi + mid": ("lo",)}
+# The variant: (source, sound text, variant text).
+ONE_ACCUMULATOR = [
+    ("flash_tile.cuh",
+     "  float h[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n  mma_bf16(h, a, b);\n#pragma unroll\n"
+     "  for (int i = 0; i < 4; ++i) c[i] = __fadd_rn(c[i], h[i]);\n",
+     "  mma_bf16(c, a, b);\n"),
+    ("flash_tile.cuh",
+     "  mma_rn(acc, a.hi, b);\n  mma_bf16(cor, a.mid, b);\n  mma_bf16(cor, a.lo, b);\n",
+     "  mma_bf16(acc, a.hi, b);\n  mma_bf16(acc, a.mid, b);\n  mma_bf16(acc, a.lo, b);\n"),
 ]
 
 
+def cut_site(text, tag, zeroed):
+    """The source with the split on the line ending in ``tag`` cut: the named
+    terms of its Split set to zero."""
+    lines = [ln for ln in text.splitlines(keepends=True) if ln.rstrip().endswith(tag)]
+    if len(lines) != 1:
+        raise SystemExit(f"chip_fault_check: expected one line ending in {tag!r}, "
+                         f"found {len(lines)}")
+    m = re.fullmatch(r"(\s*)const Split (\w+) = (split_frag\([^;]*\));\s*" + re.escape(tag) + r"\n",
+                     lines[0])
+    if m is None:
+        raise SystemExit(f"chip_fault_check: cannot read the split line {lines[0]!r}")
+    ind, var, call = m.groups()
+    zero = " ".join(f"{var}.{t}[z_] = 0u;" for t in zeroed)
+    faulty = (f"{ind}Split {var} = {call};  // cut\n"
+              f"{ind}for (int z_ = 0; z_ < 4; ++z_) {{ {zero} }}\n")
+    return text.replace(lines[0], faulty)
+
+
+def make_copy(tmp, name, edits):
+    """Copy sgg_torch/ into tmp/name and apply edits: (source, function of
+    its text)."""
+    root = os.path.join(tmp, name)
+    shutil.copytree(os.path.join(ROOT, "sgg_torch"), os.path.join(root, "sgg_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for src, edit in edits:
+        path = os.path.join(root, CSRC, src)
+        with open(path) as f:
+            text = f.read()
+        with open(path, "w") as f:
+            f.write(edit(text))
+    return root
+
+
+def replace_once(sound, variant):
+    def edit(text):
+        if text.count(sound) != 1:
+            raise SystemExit(f"chip_fault_check: the source no longer has {sound.strip()!r}")
+        return text.replace(sound, variant)
+    return edit
+
+
+def child(root, kernels, shapes):
+    """Run in a copy: build, hold the named kernels to both gates, print one
+    JSON line per (shape, output)."""
+    sys.path.insert(0, root)
+    import torch
+
+    from sgg_torch.kernels import build
+    from sgg_torch.kernels import flash_attention as fa
+    from sgg_torch.kernels import flash_attention_bwd as fb
+
+    if not fb.__file__.startswith(root):
+        raise SystemExit(f"chip_fault_check: imported {fb.__file__}, not the copy")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def bf16_gate(got, want):
+        w = want.float()
+        diff = (got.float() - w).abs()
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
+        ulp = torch.where(w == 0, torch.zeros_like(ulp), ulp)
+        in_ulp = bool((diff <= ulp + 1e-4 * w.abs().max()).all())
+        share = (diff > 0).float().mean().item()
+        return in_ulp and share <= 1e-2, share
+
+    for shape in shapes:
+        q, k, v, do = (torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_with_lse(q, k, v)
+        rows = []
+        if "fwd" in kernels:
+            rows.append(("o", o, fa.flash_attention_plain(q, k, v), fa.launch_f32_result(q, k, v),
+                         fa.flash_attention_plain(q, k, v, cast=False), fa.F32_RESULT_TOL))
+        D = fb.dstat(o, do).contiguous()
+        if "dq" in kernels:
+            rows.append(("dq", fb.launch_dq(q, k, v, do, lse, D), fb.dq_plain(q, k, v, do, lse, D),
+                         fb.launch_dq_f32_result(q, k, v, do, lse, D),
+                         fb.dq_plain(q, k, v, do, lse, D, cast=False), fa.F32_RESULT_TOL))
+        if "dkv" in kernels:
+            got, want = fb.launch_dkv(q, k, v, do, lse, D), fb.dkv_plain(q, k, v, do, lse, D)
+            got32 = fb.launch_dkv_f32_result(q, k, v, do, lse, D)
+            want32 = fb.dkv_plain(q, k, v, do, lse, D, cast=False)
+            for i, name in enumerate(("dk", "dv")):
+                rows.append((name, got[i], want[i], got32[i], want32[i], fa.F32_RESULT_TOL))
+        torch.cuda.synchronize()
+        for name, got, want, got32, want32, tol in rows:
+            ok16, share = bf16_gate(got, want)
+            err32 = fa.f32_result_error(got32, want32)
+            print(json.dumps({"shape": list(shape), "output": name, "bf16_gate": ok16,
+                              "share": share, "f32_err": err32, "tol": tol,
+                              "f32_gate": err32 <= tol}), flush=True)
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--child":
+        _, _, root, kernels, shapes = sys.argv
+        child(root, kernels.split(","), json.loads(shapes))
+        return 0
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
+    runs = [("sound", [], "fwd,dq,dkv", VARIANT_SHAPES),
+            ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
+             "fwd,dq,dkv", VARIANT_SHAPES)]
+    for src, tag, kernel in SITES:
+        for cut, zeroed in CUTS.items():
+            runs.append((f"{cut} at {tag[3:]}",
+                         [(src, lambda t, tag=tag, z=zeroed: cut_site(t, tag, z))], kernel, SHAPES))
     with tempfile.TemporaryDirectory() as tmp:
-        shutil.copytree(os.path.join(ROOT, "sgg_torch"), os.path.join(tmp, "sgg_torch"),
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        src = os.path.join(tmp, "sgg_torch", "kernels", "csrc", "flash_attention_bwd.cu")
-        with open(src) as f:
-            text = f.read()
-        for sound, faulty in FAULTS:
-            if text.count(sound) != 1:
-                raise SystemExit(f"chip_fault_check: the kernel no longer has {sound.strip()!r}")
-            text = text.replace(sound, faulty)
-        with open(src, "w") as f:
-            f.write(text)
-        sys.path.insert(0, tmp)
-        from sgg_torch.kernels import flash_attention as fa
-        from sgg_torch.kernels import flash_attention_bwd as fb
-
-        if not fb.__file__.startswith(tmp):
-            raise SystemExit(f"chip_fault_check: imported {fb.__file__}, not the copy")
-        dev = torch.device("cuda")
-        gen = torch.Generator(device=dev).manual_seed(0)
-        refused = []
-        for shape in SHAPES:
-            q, k, v, do = (torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
-                           for _ in range(4))
-            o, lse = fa.flash_attention_with_lse(q, k, v)
-            got = fb.flash_attention_bwd(q, k, v, o, lse, do)
-            want = fb.flash_attention_bwd_plain(q, k, v, o, lse, do)
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                w32 = w.float()
-                diff = (g.float() - w32).abs()
-                ulp = torch.ldexp(torch.ones_like(w32), torch.frexp(w32.abs())[1] - 8)
-                ulp = torch.where(w32 == 0, torch.zeros_like(ulp), ulp)
-                in_ulp = bool((diff <= ulp + 1e-4 * w32.abs().max()).all())
-                share = (diff > 0).float().mean().item()
-                passes = in_ulp and share <= 1e-2
-                refused.append(not passes)
-                print(f"[chip_fault_check] p, ds rounded to bf16, {list(shape)} {name}: "
-                      f"max_abs_err {diff.max().item():.3e}, within 1 ulp + 1e-4 x max "
-                      f"{in_ulp}, share differing {share:.3e}; the gate refuses it "
-                      f"{not passes}", flush=True)
-    ok = all(refused)
-    verdict = "the gate refuses the fault" if ok else "THE GATE PASSES THE FAULT"
-    print(f"[chip_fault_check] {verdict}", flush=True)
+        procs = []
+        for i, (label, edits, kernels, shapes) in enumerate(runs):
+            root = make_copy(tmp, f"copy{i}", edits)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--child", root, kernels,
+                 json.dumps(shapes)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate()[0] for p in procs]
+    ok = True
+    for (label, _, _, _), proc, out in zip(runs, procs, outs):
+        rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or not rows:
+            print(f"[chip_fault_check] {label}: the run failed ({proc.returncode}):\n{out}",
+                  flush=True)
+            ok = False
+            continue
+        for r in rows:
+            print(f"[chip_fault_check] {label}, {r['shape']} {r['output']}: share of bf16 "
+                  f"outputs differing {r['share']:.3e} (bf16 gate {r['bf16_gate']}), float32 "
+                  f"result rel L2 {r['f32_err']:.3e} (<= {r['tol']:.2e}: {r['f32_gate']})",
+                  flush=True)
+        # A kernel passes at a shape when every output it gives passes both gates.
+        for shape in sorted({tuple(r["shape"]) for r in rows}, key=lambda t: -t[2]):
+            passes = all(r["bf16_gate"] and r["f32_gate"] for r in rows
+                         if tuple(r["shape"]) == shape)
+            if label == "sound":
+                verdict, good = ("passes" if passes else "FAILS"), passes
+            elif label == "one accumulator":
+                verdict, good = f"reported: the gates {'pass' if passes else 'refuse'} it", True
+            else:
+                verdict, good = ("refused" if not passes else "PASSES THE GATES"), not passes
+            ok = ok and good
+            print(f"[chip_fault_check] {label}, {list(shape)}: {verdict}", flush=True)
+    print(f"[chip_fault_check] {'every fault is refused' if ok else 'FAILED'}", flush=True)
     return 0 if ok else 1
 
 

@@ -8,7 +8,8 @@ In one process, with no threads and no sockets:
      power limit as nvidia-smi reports them;
   2. build: nvcc compiles ``sgg_torch/kernels/csrc/*.cu`` for sm_90a, one
      process per source, all at once; wall time and the compilers' CPU time
-     (about what one process after another would take);
+     (about what one process after another would take), and ptxas's
+     registers and spills for each kernel;
   3. fused_decode vs plain: ``fused_decode`` against ``decode_plain`` at the
      trained run's widths (V from its vocab.json, R=196, F=512, H=512, E=256,
      A=256, Z=128), seeded weights, the real step mask, B = 64 and B = 37, and
@@ -55,7 +56,12 @@ In one process, with no threads and no sockets:
      [32, 12, 576, 64] (384 px) and a ragged S = 100, float32 and bfloat16,
      with and without lse: float32 within 1e-4 x max; bf16 within one bf16
      ulp of plain plus that, and at most 1 % of the outputs differing at all
-     (the share is printed); lse within 1e-5 relative;
+     (the share is printed); lse within 1e-5 relative; and for bf16 the
+     kernel's float32 result before its cast (acc / l, from the check-only
+     entry) against the plain version in float32 from the same inputs: a
+     relative L2 distance within ``flash_attention.F32_RESULT_TOL``, while
+     p's split cut to hi + mid (plain, emulated) must land above it; both
+     margins printed;
  10. ViT-B/16 encoder (seeded weights) on 8 seeded 224 px images, the kernel
      route (use_pallas) against the plain route (attention by
      ``flash_attention_plain``): float32 within 1e-4 x max; bfloat16 block
@@ -79,6 +85,9 @@ In one process, with no threads and no sockets:
      ``torch.autograd.grad`` through ``flash_attention`` gives the kernels'
      own result; a seeded fault, the plain backward with p and ds rounded
      to bf16 before the three products that take them, must fail the gate;
+     and for bf16 the kernels' float32 dq, dk, dv before the cast within
+     ``flash_attention.F32_RESULT_TOL`` (relative L2) of plain in float32,
+     with p and ds split cut to hi + mid (plain, emulated) above it;
  14. ViT-B/16 gradients (seeded weights, 8 seeded 224 px images, a fixed
      linear loss), the kernel route against the plain route: every
      parameter's gradient in float32 within 1e-4 x its max; in bfloat16 no
@@ -99,7 +108,8 @@ In one process, with no threads and no sockets:
  16. timing: the dq and the dk/dv kernels at [32, 12, 196, 64] bf16 beside
      their plain versions, the backward of ``scaled_dot_product_attention``
      (``torch.autograd.grad`` of its output; timed only) and the bound, with
-     the float32 floor of their CUDA-core products.
+     the float32 CUDA-core floor of the products that take p or ds as a
+     reference line (the products now run on the tensor cores).
 
 The kernels' JSON record gives, for each kernel, its launches on the newest
 main path that runs it (phase 7; phase 15 for the three flash kernels) and
@@ -170,6 +180,28 @@ def bound(nbytes, flops, flops_per_s):
     arithmetic over the type's peak → (seconds, what bounds it)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_report(text):
+    """(kernel, registers line, spill line) for each entry function in the
+    build log's ptxas -v output, the names demangled by c++filt."""
+    rows, name, spills = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name is not None:
+            rows.append([name, line.split(":", 1)[-1].strip(), spills])
+            name = None
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60, check=True).stdout
+        for r, n in zip(rows, out.splitlines()):
+            r[0] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
 
 
 def decode_work(B, R, F, A, H, E, Z, V, dtype_bytes):
@@ -281,6 +313,21 @@ def main():
         the float32 gate (both round float32 sums taken in another order)."""
         return bool(((got.float() - want.float()).abs() <= bf16_ulp(want) + f32_tol).all())
 
+    def cut_split(x, n):
+        """x with its three-way bf16 split cut to the first n terms, float32."""
+        return sum(t_.float() for t_ in fa.split3(x)[:n])
+
+    def f32_result_gate(name, errs, faults, tol):
+        """The float32 results before the cast: every sound relative L2
+        distance within tol and every cut-split fault's above it."""
+        ok = max(errs) <= tol < min(faults)
+        log(f"{name} float32 result before the cast vs plain in float32: rel L2 "
+            f"{', '.join(f'{e:.3e}' for e in errs)} (<= {tol:.2e}, margin "
+            f"{tol / max(max(errs), 1e-30):.2f}x); split cut to hi + mid (plain) "
+            f"{', '.join(f'{e:.3e}' for e in faults)} (> {tol:.2e}, margin "
+            f"{min(faults) / tol:.2f}x): {'ok' if ok else 'FAILED'}")
+        return ok
+
     # 1. Device.
     t0 = time.perf_counter()
     cap = torch.cuda.get_device_capability(0)
@@ -305,9 +352,8 @@ def main():
     cpu_s = cpu1.ru_utime + cpu1.ru_stime - cpu0.ru_utime - cpu0.ru_stime
     log(f"nvcc build: {build_s:.2f} s wall, {cpu_s:.2f} s of compiler CPU time over "
         f"{len(build.sources())} sources and the link -> {os.path.relpath(lib_path, ROOT)}")
-    for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"ptxas: {line.strip()}")
+    for name, regs, spills in ptxas_report((build.BUILD_DIR / "build.log").read_text()):
+        log(f"ptxas: {name}: {regs}; {spills}")
     lib = build.load_library()
     phase("build", t0)
 
@@ -826,6 +872,19 @@ def main():
             if not ok:
                 raise AssertionError(f"flash_attention {name} {shape} disagrees with plain")
             flash_errs[(shape, name)] = err
+            if dtype == torch.bfloat16:
+                o32 = fa.launch_f32_result(q, k_, v)
+                torch.cuda.synchronize()
+                want32 = fa.flash_attention_plain(q, k_, v, cast=False)
+                sc = ((q * torch.tensor(shape[-1] ** -0.5, dtype=dtype, device=dev)).float()
+                      @ k_.float().transpose(-1, -2))
+                p_ = torch.exp(sc - sc.amax(-1, keepdim=True))
+                fault = fa.f32_result_error(
+                    (cut_split(p_, 2) @ v.float()) / p_.sum(-1, keepdim=True), want32)
+                if not f32_result_gate(f"flash_attention {list(shape)}",
+                                       [fa.f32_result_error(o32, want32)], [fault],
+                                       fa.F32_RESULT_TOL):
+                    raise AssertionError(f"flash_attention bf16 {shape}: float32 result gate")
     phase("flash_vs_plain", t0)
 
     # 10. ViT-B/16, kernel route vs plain route, 8 seeded images.
@@ -977,17 +1036,17 @@ def main():
     t0 = time.perf_counter()
     bwd_errs = {}
 
-    def faulty_bwd(q, k_, v, o, lse, do):
-        """The plain backward with p and ds rounded to bf16 before the three
-        products that take them: another function, which the gate must
-        refuse."""
+    def faulty_bwd(q, k_, v, o, lse, do, n=1, cast=True):
+        """The plain backward with p and ds cut to the first n terms of their
+        split before the three products that take them (n = 1: rounded to
+        bf16): another function, which the gates must refuse."""
         s_ = q.shape[-1] ** -0.5
         qs = (q * torch.tensor(s_, dtype=q.dtype, device=dev)).float()
         p = torch.exp(qs @ k_.float().transpose(-1, -2) - lse[..., None])
         ds = p * (do.float() @ v.float().transpose(-1, -2) - fb.dstat(o, do)[..., None])
-        p, ds = p.bfloat16().float(), ds.bfloat16().float()
-        return ((ds @ k_.float()) * s_).to(q.dtype), (ds.transpose(-1, -2) @ qs).to(q.dtype), \
-            (p.transpose(-1, -2) @ do.float()).to(q.dtype)
+        p, ds = cut_split(p, n), cut_split(ds, n)
+        out = ((ds @ k_.float()) * s_, ds.transpose(-1, -2) @ qs, p.transpose(-1, -2) @ do.float())
+        return tuple(t_.to(q.dtype) for t_ in out) if cast else out
 
     def bwd_gate(got, want, dtype):
         """dq, dk, dv against plain → (all pass, max_abs_errs, shares differing).
@@ -1032,6 +1091,20 @@ def main():
             if fault_ok:
                 raise AssertionError(f"the backward gate passes a seeded fault ({name} {shape})")
             bwd_errs[(shape, name)] = b_errs
+            if dtype == torch.bfloat16:
+                D = fb.dstat(o, do).contiguous()
+                got32 = (fb.launch_dq_f32_result(q, k_, v, do, lse, D),
+                         *fb.launch_dkv_f32_result(q, k_, v, do, lse, D))
+                torch.cuda.synchronize()
+                want32 = (fb.dq_plain(q, k_, v, do, lse, D, cast=False),
+                          *fb.dkv_plain(q, k_, v, do, lse, D, cast=False))
+                cut2 = faulty_bwd(q, k_, v, o, lse, do, n=2, cast=False)
+                if not f32_result_gate(
+                        f"flash backward dq, dk, dv {list(shape)}",
+                        [fa.f32_result_error(g_, w_) for g_, w_ in zip(got32, want32)],
+                        [fa.f32_result_error(c_, w_) for c_, w_ in zip(cut2, want32)],
+                        fa.F32_RESULT_TOL):
+                    raise AssertionError(f"flash backward bf16 {shape}: float32 result gate")
     phase("flash_backward_vs_plain", t0)
 
     # 14. ViT-B/16 gradients, kernel route vs plain route, 8 seeded images and
@@ -1241,9 +1314,9 @@ def main():
             f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} (turns k,k,p,p "
             f"{', '.join(f'{t_:.4f}' for t_ in turns)}), scaled_dot_product_attention backward "
             f"(dq, dk and dv together) {l_ms:.4f}, bound {b_s * 1e3:.5f} ms ({b_by}: "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), float32 floor of its products "
-            f"that take p or ds on the CUDA cores {f32_floor * 1e3:.5f} ms; kernel at "
-            f"{b_s * 1e3 / k_ms:.3f} of the bound")
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), reference line: float32 floor "
+            f"of its products that take p or ds on the CUDA cores {f32_floor * 1e3:.5f} ms (they "
+            f"now run split on the tensor cores); kernel at {b_s * 1e3 / k_ms:.3f} of the bound")
         add(name, k_ms, p_ms, l_ms, b_s, b_by, 60)
     phase("timing_backward", t0)
     log(f"total: {time.perf_counter() - t_all:.3f} s")

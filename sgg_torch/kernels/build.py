@@ -50,6 +50,15 @@ _ENTRIES = {
     "sgg_flash_attention_bwd_dq": ([_I] * 4 + [_P] * 7 + [ctypes.c_float] * 2 + [_P], _I),
     # (dtype, BH, S, D, q, k, v, do, lse, dstat, dk, dv, scale_q, stream)
     "sgg_flash_attention_bwd_dkv": ([_I] * 4 + [_P] * 8 + [ctypes.c_float, _P], _I),
+    # Check-only bf16 entries that store the float32 results before the cast:
+    # (BH, S, D, q, k, v, o32, lse, scale, stream),
+    "sgg_flash_attention_f32_result": ([_I] * 3 + [_P] * 5 + [ctypes.c_float, _P], _I),
+    # (BH, S, D, q, k, v, do, lse, dstat, dq32, scale_q, scale, stream),
+    "sgg_flash_attention_bwd_dq_f32_result": (
+        [_I] * 3 + [_P] * 7 + [ctypes.c_float] * 2 + [_P], _I),
+    # (BH, S, D, q, k, v, do, lse, dstat, dk32, dv32, scale_q, stream)
+    "sgg_flash_attention_bwd_dkv_f32_result": (
+        [_I] * 3 + [_P] * 8 + [ctypes.c_float, _P], _I),
 }
 
 

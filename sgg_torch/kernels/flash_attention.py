@@ -6,7 +6,9 @@ scale)`` computes ``softmax(q·kᵀ·scale)·v`` over ``[B, H, S, D]`` tensors i
 one launch of ``csrc/flash_attention.cu`` without storing the S × S scores,
 with the arithmetic of the Pallas kernel ``_fa_kernel``: q·scale rounded to q's dtype,
 float32 scores from the stored-type operands, a float32 softmax, P·V with p
-in float32 and v widened to float32, and one cast at the end.
+in float32 and v widened to float32, and one cast at the end. The bf16
+kernel runs P·V on the tensor cores as three bf16 products of v with an
+exact split of p (:func:`split3`), which is the same function.
 ``flash_attention_with_lse`` also returns the per-row log-sum-exp ``[B, H, S]``
 float32 that the backward and ring attention need.
 
@@ -19,6 +21,8 @@ differentiable once only. Otherwise nothing is saved and no lse is computed.
 On a CUDA tensor the wrappers launch the kernel or raise; on a CPU tensor they
 run :func:`flash_attention_plain`, the same arithmetic in PyTorch.
 :func:`attention_reference` is the reference's unfused route (``'xla'``).
+:func:`launch_f32_result` is for checks only: the bf16 kernel's float32
+result before its final cast, which the main path never launches.
 """
 
 from __future__ import annotations
@@ -34,6 +38,34 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Kernel launches in this process; the wrapper adds one per launch.
 launches = 0
 
+# The check of the bf16 flash kernels' float32 results before the final cast
+# (o here; dq, dk, dv in flash_attention_bwd): the relative L2 distance of
+# each to its plain version in float32 from the same bf16 inputs
+# (:func:`f32_result_error`) must be at most this. It lies between the sound
+# kernels' distance and that of a split cut to hi + mid, 2.0e-6 to 2.5e-6
+# (PERF.md). A relative L2 distance rather than max |diff| / max: for
+# the cut split the first holds steady over seeds, the second wanders
+# (tests/test_torch_flash_split.py).
+F32_RESULT_TOL = 1e-6
+
+
+def split3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernels' exact split of float32 x into three bf16 terms → (hi,
+    mid, lo) as bf16 tensors: hi = bf16(x), mid = bf16(x − hi), lo = bf16(x −
+    hi − mid), all rounded to nearest, so hi + mid + lo == x for |x| >=
+    2^-100 (``csrc/flash_tile.cuh``, ``split3``). For checks only."""
+    x = x.float()
+    hi = x.bfloat16()
+    r = x - hi.float()
+    mid = r.bfloat16()
+    return hi, mid, (r - mid.float()).bfloat16()
+
+
+def f32_result_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """‖got − want‖₂ / ‖want‖₂, summed in float64."""
+    want = want.double()
+    return ((got.double() - want).norm() / want.norm()).item()
+
 
 def _scale(q: torch.Tensor, scale: float | None) -> float:
     return q.shape[-1] ** -0.5 if scale is None else float(scale)
@@ -41,17 +73,20 @@ def _scale(q: torch.Tensor, scale: float | None) -> float:
 
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None,
-    return_lse: bool = False,
+    return_lse: bool = False, cast: bool = True,
 ):
     """The kernel's arithmetic in plain PyTorch → o [B,H,S,D] in q's dtype
-    (and lse [B,H,S] float32 when ``return_lse``)."""
+    (float32 acc / l before the cast when ``cast`` is False), and lse
+    [B,H,S] float32 when ``return_lse``."""
     s_ = torch.tensor(_scale(q, scale), dtype=q.dtype, device=q.device)
     qs = q * s_  # rounded to q's dtype, as the Pallas wrapper folds it in
     s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = (torch.matmul(p, v.float()) / l).to(q.dtype)
+    o = torch.matmul(p, v.float()) / l
+    if cast:
+        o = o.to(q.dtype)
     if return_lse:
         return o, (m + torch.log(l)).squeeze(-1)
     return o
@@ -81,9 +116,8 @@ def _check(q, k, v):
         raise TypeError(f"flash_attention takes float32 or bfloat16, not {q.dtype}")
 
 
-def _launch(q, k, v, scale, return_lse):
-    global launches
-    B, H, S, D = q.shape
+def _kernel_checks(q, k, v):
+    D = q.shape[-1]
     if D % 16 != 0 or D > 128:
         raise ValueError(f"flash_attention needs a head width D that is a multiple of 16 "
                          f"and at most 128, got {D}")
@@ -92,6 +126,12 @@ def _launch(q, k, v, scale, return_lse):
             raise ValueError(f"{name} is not contiguous")
         if t.data_ptr() % 16 != 0:
             raise ValueError(f"{name} does not start on a 16-byte boundary")
+
+
+def _launch(q, k, v, scale, return_lse):
+    global launches
+    B, H, S, D = q.shape
+    _kernel_checks(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device) if return_lse else None
     # The scale rounded to the compute dtype, as the Pallas wrapper casts it.
@@ -106,6 +146,26 @@ def _launch(q, k, v, scale, return_lse):
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1
     return (o, lse) if return_lse else o
+
+
+def launch_f32_result(q, k, v, scale: float | None = None) -> torch.Tensor:
+    """Check only: one launch of the bf16 kernel's instance that stores acc / l
+    in float32 before the cast, on CUDA tensors → [B, H, S, D] float32. The
+    main path never calls it, and it does not count in ``launches``."""
+    _check(q, k, v)
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError("launch_f32_result takes bfloat16 CUDA tensors")
+    B, H, S, D = q.shape
+    _kernel_checks(q, k, v)
+    o32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    s_ = torch.tensor(_scale(q, scale), dtype=q.dtype).item()
+    with torch.cuda.device(q.device):
+        err = build.load_library().sgg_flash_attention_f32_result(
+            B * H, S, D, q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(), None, s_,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention f32-result kernel launch failed: CUDA error {err}")
+    return o32
 
 
 def _forward(q, k, v, scale, return_lse):

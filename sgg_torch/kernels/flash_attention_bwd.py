@@ -10,11 +10,16 @@ the S × S scores: ``csrc/flash_attention_bwd.cu`` launches once for dq
 q·scale rounded to q's dtype, D = rowsum(do·o) in float32 (computed here by
 torch, as XLA fuses it outside the Pallas kernels there), float32 scores and
 p = exp(s − lse), dp = do·vᵀ widened, ds = p·(dp − D), then dq = scale·(ds·k),
-dk = dsᵀ·q_s and dv = pᵀ·do summed in float32 and cast once.
+dk = dsᵀ·q_s and dv = pᵀ·do summed in float32 and cast once. The bf16
+kernels run those three products on the tensor cores as three bf16 products
+with an exact split of p or ds (``flash_attention.split3``), the same
+function.
 
 On a CUDA tensor the wrapper launches the kernels or raises; on a CPU tensor it
 runs :func:`flash_attention_bwd_plain`. Ring attention calls it directly, the
 autograd ``Function`` of ``flash_attention`` through its backward.
+:func:`launch_dq_f32_result` and :func:`launch_dkv_f32_result` are for checks
+only: the bf16 kernels' float32 results before the final cast.
 """
 
 from __future__ import annotations
@@ -47,19 +52,22 @@ def _p_ds(q, k, v, do, lse, D, scale):
     return qs, p, ds
 
 
-def dq_plain(q, k, v, do, lse, D, scale: float | None = None) -> torch.Tensor:
-    """The dq kernel's arithmetic in plain PyTorch: scale·(ds·k)."""
+def dq_plain(q, k, v, do, lse, D, scale: float | None = None, cast: bool = True) -> torch.Tensor:
+    """The dq kernel's arithmetic in plain PyTorch: scale·(ds·k) (in float32
+    before the cast when ``cast`` is False)."""
     s_ = _scale(q, scale)
     _, _, ds = _p_ds(q, k, v, do, lse, D, s_)
-    return (torch.matmul(ds, k.float()) * s_).to(q.dtype)
+    dq = torch.matmul(ds, k.float()) * s_
+    return dq.to(q.dtype) if cast else dq
 
 
-def dkv_plain(q, k, v, do, lse, D, scale: float | None = None):
-    """The dk/dv kernel's arithmetic in plain PyTorch: (dsᵀ·q_s, pᵀ·do)."""
+def dkv_plain(q, k, v, do, lse, D, scale: float | None = None, cast: bool = True):
+    """The dk/dv kernel's arithmetic in plain PyTorch: (dsᵀ·q_s, pᵀ·do) (in
+    float32 before the cast when ``cast`` is False)."""
     qs, p, ds = _p_ds(q, k, v, do, lse, D, _scale(q, scale))
     dk = torch.matmul(ds.transpose(-1, -2), qs)
     dv = torch.matmul(p.transpose(-1, -2), do.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return (dk.to(k.dtype), dv.to(v.dtype)) if cast else (dk, dv)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float | None = None):
@@ -135,6 +143,44 @@ def launch_dkv(q, k, v, do, lse, D, scale: float | None = None):
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd dk/dv kernel launch failed: CUDA error {err}")
     dkv_launches += 1
+    return dk, dv
+
+
+def _f32_args(q, k, v, do, lse, D, scale):
+    if q.dtype != torch.bfloat16:
+        raise ValueError("the f32-result entries take bfloat16 tensors")
+    return _kernel_args(q, k, v, do, lse, D, scale)[1:]
+
+
+def launch_dq_f32_result(q, k, v, do, lse, D, scale: float | None = None) -> torch.Tensor:
+    """Check only: the bf16 dq kernel's instance that stores scale·(ds·k) in
+    float32 before the cast → [B, H, S, D] float32. Not counted in
+    ``dq_launches``; the main path never calls it."""
+    BH, S, Dh, scale_q, s_ = _f32_args(q, k, v, do, lse, D, scale)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = build.load_library().sgg_flash_attention_bwd_dq_f32_result(
+            BH, S, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), D.data_ptr(), dq.data_ptr(), scale_q, s_,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd dq f32-result launch failed: CUDA error {err}")
+    return dq
+
+
+def launch_dkv_f32_result(q, k, v, do, lse, D, scale: float | None = None):
+    """Check only: the bf16 dk/dv kernel's instance that stores dk and dv in
+    float32 before the cast → (dk, dv) float32. Not counted in
+    ``dkv_launches``; the main path never calls it."""
+    BH, S, Dh, scale_q, _ = _f32_args(q, k, v, do, lse, D, scale)
+    dk, dv = (torch.empty(q.shape, dtype=torch.float32, device=q.device) for _ in range(2))
+    with torch.cuda.device(q.device):
+        err = build.load_library().sgg_flash_attention_bwd_dkv_f32_result(
+            BH, S, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(), scale_q,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd dk/dv f32-result launch failed: CUDA error {err}")
     return dk, dv
 
 

@@ -20,8 +20,11 @@ rounding the kernel skips moves 1.5-2.3 %). flash_attention: float32 within
 1e-4 x max|plain|; bf16 within one bf16 ulp of plain plus that, and at most
 1 % of the outputs differ at all; lse within 1e-5 relative. The flash
 backward (dq and dk/dv kernels): the same bounds on dq, dk and dv (sound runs
-differ from plain at 0.020-0.031 % of bf16 outputs; p or ds rounded to bf16
-moves about 41 %).
+differ from plain at 0.020-0.038 % of bf16 outputs; p or ds rounded to bf16
+moves about 41 %). The bf16 flash kernels' float32 results before the cast
+(their check-only entries) within a relative L2 distance of
+``flash_attention.F32_RESULT_TOL`` of the plain versions in float32 (p or ds
+split cut to hi + mid moves them by 2.0e-6 to 2.5e-6).
 """
 
 import json
@@ -319,3 +322,45 @@ def test_flash_attention_bwd_refuses_what_it_cannot_run():
         tfb.flash_attention_bwd(strided, x, x, x, lse, x)
     with pytest.raises(ValueError, match="contiguous"):
         tfb.flash_attention_bwd(x, x, x, x, lse, strided)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 12, 196, 64), (32, 12, 100, 64)])
+def test_flash_attention_f32_result_matches_plain(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(shape[2] + 2)
+    q, k, v = (torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    before = tfa.launches
+    o32 = tfa.launch_f32_result(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.launches == before  # check-only: not a launch of the main path
+    want = tfa.flash_attention_plain(q, k, v, cast=False)
+    assert o32.dtype == torch.float32 and o32.shape == q.shape
+    assert tfa.f32_result_error(o32, want) <= tfa.F32_RESULT_TOL
+    assert torch.equal(o32.to(torch.bfloat16), tfa.flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 12, 196, 64), (32, 12, 100, 64)])
+def test_flash_attention_bwd_f32_result_matches_plain(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(shape[2] + 3)
+    q, k, v, do = (torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = tfa.flash_attention_with_lse(q, k, v)
+    D = tfb.dstat(o, do).contiguous()
+    before = (tfb.dq_launches, tfb.dkv_launches)
+    got = (tfb.launch_dq_f32_result(q, k, v, do, lse, D),
+           *tfb.launch_dkv_f32_result(q, k, v, do, lse, D))
+    torch.cuda.synchronize()
+    assert (tfb.dq_launches, tfb.dkv_launches) == before
+    want = (tfb.dq_plain(q, k, v, do, lse, D, cast=False),
+            *tfb.dkv_plain(q, k, v, do, lse, D, cast=False))
+    cast = (tfb.launch_dq(q, k, v, do, lse, D), *tfb.launch_dkv(q, k, v, do, lse, D))
+    for a, w, c in zip(got, want, cast):
+        assert a.dtype == torch.float32 and a.shape == q.shape
+        assert tfa.f32_result_error(a, w) <= tfa.F32_RESULT_TOL
+        assert torch.equal(a.to(torch.bfloat16), c)
