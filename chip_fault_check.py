@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Seeded-fault check of the flash kernels' gates, on the card.
+"""Seeded-fault check of the flash and conv_direct kernels' gates, on the card.
 
   python3 chip_fault_check.py
 
@@ -17,14 +17,28 @@ kernel that holds the product against the plain versions under
   - the float32-result gate: the kernel's float32 result before the cast (its
     check-only entry) within ``flash_attention.F32_RESULT_TOL`` of the plain
     version in float32, as a relative L2 distance.
-A fault is refused when either gate fails it. The unmodified tree is held to
+A fault is refused when either gate fails it.
+
+Four conv_direct faults are seeded into the tiled instance of the copy's
+``conv_direct.cu``: the halo's column test dropped (a tap at the left or right
+edge reads the neighbouring row's pixel), its row test dropped (a tap at the
+top or bottom edge reads the neighbouring image's row), the weight slice of
+tap 1 offset by one channel slice, and bias added before scale. Each must be
+refused at the four ResNet-50 3x3 shapes ([32,56,56,64]->64,
+[32,28,28,128]->128, [32,14,14,256]->256, [32,7,7,512]->512, bf16) by
+``chip_smoke.py``'s phase-4 gate: every output within one bf16 ulp of the
+plain version plus 1e-4 x max, finite, of the plain version's shape and
+dtype. x lies inside a buffer with one seeded image before it and one after,
+so a fault that reads past the image reads data, not unmapped memory.
+
+The unmodified tree is held to
 the same gates as a baseline (it must pass them), and a variant that is not a
 fault is reported beside it: the hi, mid and lo products summed in one
 accumulator carried inside the tensor core, the score products too (no fresh
 sum per 16-deep step and no round-to-nearest add), at the two shapes and at
 [32, 12, 576, 64]. Each copy builds and runs in its own process, all at once.
-Exits 0 when the baseline passes and every fault is refused at both shapes,
-1 otherwise. The tree itself is not touched.
+Exits 0 when the baseline passes and every fault is refused at each of its
+shapes (both flash shapes; the four conv shapes), 1 otherwise. The tree itself is not touched.
 """
 
 import json
@@ -40,6 +54,21 @@ SHAPES = [(32, 12, 196, 64), (32, 12, 100, 64)]
 VARIANT_SHAPES = SHAPES + [(32, 12, 576, 64)]
 CSRC = os.path.join("sgg_torch", "kernels", "csrc")
 # (source, the tag that ends the line which splits, the kernel it sits in)
+CONV_SHAPES = [((32, 56, 56, 64), 64), ((32, 28, 28, 128), 128), ((32, 14, 14, 256), 256),
+               ((32, 7, 7, 512), 512)]
+CONV_SRC = "conv_direct.cu"
+# conv fault: (sound text, faulty text) in conv_direct.cu
+CONV_FAULTS = {
+    "halo column test dropped":
+        ("      ok = ok && (unsigned)iw < (unsigned)W;  // halo: the column test\n", ""),
+    "halo row test dropped":
+        ("      ok = ok && (unsigned)ih < (unsigned)H;  // halo: the row test\n", ""),
+    "tap 1's weight slice offset by one channel slice":
+        ("const bf16* wk = w + ((long)p_tap * C + p_c0) * N + n0 + b_col;",
+         "const bf16* wk = w + ((long)p_tap * C + p_c0 + (p_tap == 1 ? BK : 0)) * N + n0 + b_col;"),
+    "bias added before scale":
+        ("  return __fadd_rn(__fmul_rn(a, s), b);\n", "  return __fmul_rn(__fadd_rn(a, b), s);\n"),
+}
 SITES = [
     ("flash_attention.cu", "// p of P . V", "fwd"),
     ("flash_attention_bwd.cu", "// ds of dq", "dq"),
@@ -108,6 +137,7 @@ def child(root, kernels, shapes):
     import torch
 
     from sgg_torch.kernels import build
+    from sgg_torch.kernels import conv_direct as cd
     from sgg_torch.kernels import flash_attention as fa
     from sgg_torch.kernels import flash_attention_bwd as fb
 
@@ -119,13 +149,32 @@ def child(root, kernels, shapes):
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def bf16_gate(got, want):
+        """(within one bf16 ulp + 1e-4 x max, and within that with at most
+        1 % of outputs differing; share differing)."""
         w = want.float()
         diff = (got.float() - w).abs()
         ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
         ulp = torch.where(w == 0, torch.zeros_like(ulp), ulp)
         in_ulp = bool((diff <= ulp + 1e-4 * w.abs().max()).all())
         share = (diff > 0).float().mean().item()
-        return in_ulp and share <= 1e-2, share
+        return in_ulp, in_ulp and share <= 1e-2, share
+
+    if "conv" in kernels:
+        for shape, cout in CONV_SHAPES:
+            x_all = torch.randn(shape[0] + 2, *shape[1:], generator=gen, device=dev)
+            x = x_all.to(torch.bfloat16)[1:-1]  # one guard image on each side
+            w = (torch.randn(3, 3, shape[-1], cout, generator=gen, device=dev)
+                 / (9 * shape[-1]) ** 0.5).to(torch.bfloat16)
+            bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+            scale = 1.0 + 0.1 * torch.randn(cout, generator=gen, device=dev)
+            got = cd.conv2d_direct(x, w, bias, scale, relu=True)
+            torch.cuda.synchronize()
+            want = cd.conv2d_direct_plain(x, w, bias, scale, relu=True)
+            ok16 = (got.dtype == want.dtype and got.shape == want.shape
+                    and bool(torch.isfinite(got.float()).all()) and bf16_gate(got, want)[0])
+            print(json.dumps({"shape": list(shape) + [cout], "output": "conv",
+                              "bf16_gate": ok16, "share": (got != want).float().mean().item(),
+                              "f32_err": None, "tol": None, "f32_gate": True}), flush=True)
 
     for shape in shapes:
         q, k, v, do = (torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -148,7 +197,7 @@ def child(root, kernels, shapes):
                 rows.append((name, got[i], want[i], got32[i], want32[i], fa.F32_RESULT_TOL))
         torch.cuda.synchronize()
         for name, got, want, got32, want32, tol in rows:
-            ok16, share = bf16_gate(got, want)
+            _, ok16, share = bf16_gate(got, want)
             err32 = fa.f32_result_error(got32, want32)
             print(json.dumps({"shape": list(shape), "output": name, "bf16_gate": ok16,
                               "share": share, "f32_err": err32, "tol": tol,
@@ -164,13 +213,15 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
-    runs = [("sound", [], "fwd,dq,dkv", VARIANT_SHAPES),
+    runs = [("sound", [], "fwd,dq,dkv,conv", VARIANT_SHAPES),
             ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
              "fwd,dq,dkv", VARIANT_SHAPES)]
     for src, tag, kernel in SITES:
         for cut, zeroed in CUTS.items():
             runs.append((f"{cut} at {tag[3:]}",
                          [(src, lambda t, tag=tag, z=zeroed: cut_site(t, tag, z))], kernel, SHAPES))
+    for label, (sound, faulty) in CONV_FAULTS.items():
+        runs.append((label, [(CONV_SRC, replace_once(sound, faulty))], "conv", []))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for i, (label, edits, kernels, shapes) in enumerate(runs):
@@ -188,9 +239,10 @@ def main() -> int:
             ok = False
             continue
         for r in rows:
+            f32 = ("" if r["f32_err"] is None else f", float32 result rel L2 "
+                   f"{r['f32_err']:.3e} (<= {r['tol']:.2e}: {r['f32_gate']})")
             print(f"[chip_fault_check] {label}, {r['shape']} {r['output']}: share of bf16 "
-                  f"outputs differing {r['share']:.3e} (bf16 gate {r['bf16_gate']}), float32 "
-                  f"result rel L2 {r['f32_err']:.3e} (<= {r['tol']:.2e}: {r['f32_gate']})",
+                  f"outputs differing {r['share']:.3e} (bf16 gate {r['bf16_gate']}){f32}",
                   flush=True)
         # A kernel passes at a shape when every output it gives passes both gates.
         for shape in sorted({tuple(r["shape"]) for r in rows}, key=lambda t: -t[2]):

@@ -23,7 +23,12 @@ In one process, with no threads and no sockets:
   4. fused_matmul vs plain at every ResNet-50 1x1-conv shape of the pixels-in
      path (B = 32 at 224 px) and at VGG-19's first im2col shape, bfloat16 with
      and without ReLU and float32; conv_direct vs plain at the four ResNet-50
-     3x3 stride-1 shapes and two VGG-19 shapes, float32 and bfloat16;
+     3x3 stride-1 shapes, two VGG-19 shapes and four shapes that put an image
+     boundary and the SAME halo inside one tile with ragged M and Cout
+     ([3,7,7,512]->512, [2,9,13,64]->72, [1,5,5,32]->16 at 3x3 and
+     [2,14,14,64]->64 at 5x5), float32 and bfloat16, each with the instance,
+     tile and block count that ``conv_direct.plan`` gives and the share of
+     outputs that differ from plain at all;
   5. encoders vs plain: ResNet-50 (seeded weights, random BN statistics) and
      VGG-19 (under 'direct' and under 'pallas') on 8 seeded 224 px images,
      the kernel routes against the library route ('xla'): float32 within
@@ -50,8 +55,14 @@ In one process, with no threads and no sockets:
      paths use, beside its plain version, the library call that computes the
      same product (torch.matmul, or F.conv2d on channels-last bf16; both
      without the epilogue) and the bound: max(bytes over 3.35 TB/s, FLOPs over
-     the type's peak); and the ResNet-50 encoder on one batch of phase 7
-     (B = 32) on the kernel route against the library route;
+     the type's peak); conv_direct also on the device's clock (each call
+     captured in a CUDA graph, so the wrapper's host cost, about as long as
+     the kernel, drops out), with F.conv2d and the generic instance (the
+     tile core shared with fused_matmul, the kernel's earlier design) on the
+     same bf16 inputs, printed apart from the record; and the ResNet-50
+     encoder on one batch of phase 7 (B = 32) on the kernel route against
+     the library route, and in ten pairs against itself with its 3x3 convs
+     on the generic instance, eager and in one CUDA graph;
   9. flash_attention vs plain at [32, 12, 196, 64] (ViT-B/16 at 224 px),
      [32, 12, 576, 64] (384 px) and a ragged S = 100, float32 and bfloat16,
      with and without lse: float32 within 1e-4 x max; bf16 within one bf16
@@ -124,6 +135,7 @@ import json
 import math
 import os
 import resource
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -165,6 +177,10 @@ RESNET_3X3 = [
     ((32, 14, 14, 256), 256, 5), ((32, 7, 7, 512), 512, 2),
 ]
 VGG_3X3 = [((8, 224, 224, 3), 64, 0), ((8, 56, 56, 256), 256, 0)]
+# Shapes that put an image boundary and the SAME halo inside one tile, ragged
+# M and Cout: (x shape, Cout, kernel), checked only.
+CONV_EDGES = [((3, 7, 7, 512), 512, 3), ((2, 9, 13, 64), 72, 3), ((1, 5, 5, 32), 16, 3),
+              ((2, 14, 14, 64), 64, 5)]
 
 
 def log(msg):
@@ -292,6 +308,27 @@ def main():
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / n
+
+    def graph_ms(fn, n=20, reps=5):
+        """Mean ms per call of fn on the device: n calls captured in one CUDA
+        graph, replayed reps times, warm. The host's cost per call does not
+        enter, as it does in time_ms once a kernel takes less than that."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (n * reps)
 
     def in_turns(kernel, plain):
         """(kernel ms, plain ms): the lower of two turns each, taken plain,
@@ -500,13 +537,20 @@ def main():
                 err = gate(f"fused_matmul {name} M={M} K={K_} N={N} relu={r_}", got,
                            mm.fused_matmul_plain(a, b, bias, scale, relu=r_), dtype)
                 shape_errs[("mm", M, K_, N, name, r_)] = err
-    for shape, cout, _ in RESNET_3X3 + VGG_3X3:
+    conv_cases = [(s_, c_, 3) for s_, c_, _ in RESNET_3X3 + VGG_3X3] + CONV_EDGES
+    for shape, cout, k_ in conv_cases:
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            x, w, bias, scale = conv_inputs(shape, cout, dtype)
+            x, w, bias, scale = conv_inputs(shape, cout, dtype, k=k_)
             got = cd.conv2d_direct(x, w, bias, scale, relu=True)
             torch.cuda.synchronize()
-            err = gate(f"conv_direct {name} {list(shape)}->{cout}", got,
-                       cd.conv2d_direct_plain(x, w, bias, scale, relu=True), dtype)
+            want = cd.conv2d_direct_plain(x, w, bias, scale, relu=True)
+            label = f"conv_direct {name} {list(shape)}->{cout} {k_}x{k_}"
+            err = gate(label, got, want, dtype)
+            p_ = cd.plan(*shape, cout, k_, k_, dtype, mm.aligned(x), mm.aligned(w),
+                         cd.sm_count(x.device.index))
+            log(f"{label}: instance {p_.instance}, tile {p_.bm}x{p_.bn}x{p_.bk}, "
+                f"{p_.stages} stages, {p_.threads} threads, {p_.grid[0] * p_.grid[1]} blocks; "
+                f"share of outputs differing from plain {(got != want).float().mean().item():.3e}")
             shape_errs[("conv", shape, cout, name)] = err
     phase("kernels_vs_plain", t0)
 
@@ -801,21 +845,69 @@ def main():
         if per_batch:
             add("fused_matmul", k_ms, p_ms, l_ms, b_s, b_by, per_batch)
 
+    # conv_direct timed as every kernel here (host clock, CUDA events around
+    # eager calls) for the record; then on the device's clock (each call
+    # captured in a CUDA graph, so the wrapper's host cost drops out) the
+    # kernel, F.conv2d and the earlier design (the generic instance,
+    # gemm_tile.cuh) on the same bf16 inputs through its own C entry.
+    def conv_generic(x, w, bias, scale, out):
+        B_, H_, W_, C_ = x.shape
+        err_ = lib.sgg_conv_direct(1, 1, B_, H_, W_, C_, 3, 3, w.shape[-1], x.data_ptr(),
+                                   w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                   out.data_ptr(), 1, 1, torch.cuda.current_stream().cuda_stream)
+        if err_ != 0:
+            raise RuntimeError(f"generic conv_direct launch failed: CUDA error {err_}")
+
+    graph_rec = Counter()
     for shape, cout, per_batch in RESNET_3X3 + VGG_3X3:
         x, w, bias, scale = conv_inputs(shape, cout, torch.bfloat16)
-        k_ms, p_ms, _ = in_turns(lambda: cd.conv2d_direct(x, w, bias, scale, relu=True),
-                                 lambda: cd.conv2d_direct_plain(x, w, bias, scale, relu=True))
+        k_ms, p_ms, turns = in_turns(lambda: cd.conv2d_direct(x, w, bias, scale, relu=True),
+                                     lambda: cd.conv2d_direct_plain(x, w, bias, scale, relu=True))
         x_cl = x.permute(0, 3, 1, 2)  # channels-last NCHW view of the NHWC tensor
         w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         l_ms = time_ms(lambda: Fnn.conv2d(x_cl, w_cl, padding=1))
+        kg_ms = graph_ms(lambda: cd.conv2d_direct(x, w, bias, scale, relu=True))
+        lg_ms = graph_ms(lambda: Fnn.conv2d(x_cl, w_cl, padding=1))
+        p_ = cd.plan(*shape, cout, 3, 3, torch.bfloat16, mm.aligned(x), mm.aligned(w),
+                     cd.sm_count(x.device.index))
+        g_txt = ""
+        if shape[-1] % 16 == 0:
+            g_out = torch.empty(*shape[:3], cout, dtype=torch.bfloat16, device=dev)
+            gg_ms = graph_ms(lambda: conv_generic(x, w, bias, scale, g_out))
+            g_txt = f", generic instance {gg_ms:.4f} (kernel / that {kg_ms / gg_ms:.3f})"
+            graph_rec["generic"] += per_batch * gg_ms
         nbytes, flops = conv_work(shape, cout, 3, 2)
         b_s, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        log(f"time conv_direct bf16 {list(shape)}->{cout} (x{per_batch} per batch): kernel "
-            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f}, "
-            f"F.conv2d channels-last {l_ms:.4f} (no epilogue), bound {b_s * 1e3:.5f} ms "
-            f"({b_by}), kernel at {b_s * 1e3 / k_ms:.3f} of the bound")
+        log(f"time conv_direct bf16 {list(shape)}->{cout} (x{per_batch} per batch), "
+            f"{p_.instance} {p_.bm}x{p_.bn}x{p_.bk}, {p_.grid[0] * p_.grid[1]} blocks: kernel "
+            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s; turns k,k,p,p "
+            f"{', '.join(f'{t_:.4f}' for t_ in turns)}), plain {p_ms:.4f}, F.conv2d "
+            f"channels-last {l_ms:.4f} (no epilogue), bound {b_s * 1e3:.5f} ms ({b_by}), "
+            f"kernel at {b_s * 1e3 / k_ms:.3f} of the bound; on the device's clock (CUDA "
+            f"graphs): kernel {kg_ms:.4f} ms ({flops / kg_ms / 1e9:.1f} TFLOP/s, "
+            f"{b_s * 1e3 / kg_ms:.3f} of the bound), F.conv2d {lg_ms:.4f}{g_txt}")
         if per_batch:
             add("conv_direct", k_ms, p_ms, l_ms, b_s, b_by, per_batch)
+            graph_rec["w"] += per_batch
+            graph_rec["kernel"] += per_batch * kg_ms
+            graph_rec["library"] += per_batch * lg_ms
+    # The wrapper's host cost per call: back-to-back eager calls at a shape
+    # whose kernel takes a few microseconds, so the host's cost sets the pace.
+    g_small = torch.Generator(device=dev).manual_seed(SEED + 30)  # leaves gen's stream as it was
+    x = torch.randn(1, 8, 8, 64, generator=g_small, device=dev).to(torch.bfloat16)
+    w = (torch.randn(3, 3, 64, 64, generator=g_small, device=dev) / 24).to(torch.bfloat16)
+    bias, scale = torch.zeros(64, device=dev), torch.ones(64, device=dev)
+
+    def small():
+        cd.conv2d_direct(x, w, bias, scale, relu=True)
+
+    log(f"time conv_direct wrapper, back-to-back calls at [1, 8, 8, 64]->64: "
+        f"{1e3 * time_ms(small):.1f} us per call (the kernel alone, device clock "
+        f"{1e3 * graph_ms(small):.1f} us)")
+    log(f"time conv_direct bf16, launch-weighted over the ResNet-50 3x3 shapes, on the "
+        f"device's clock (CUDA graphs): kernel {graph_rec['kernel'] / graph_rec['w']:.4f} ms, "
+        f"F.conv2d {graph_rec['library'] / graph_rec['w']:.4f} ms, generic instance "
+        f"{graph_rec['generic'] / graph_rec['w']:.4f} ms")
 
     # The ResNet-50 encoder on one batch of the pixels-in path (B = 32,
     # 224 px, bf16): the kernel route against the library route.
@@ -836,6 +928,38 @@ def main():
     log(f"time resnet50 encoder bf16 B={PIX_BATCH} (normalize + 53 convs): kernel route "
         f"{k_ms:.4f} ms, library route {p_ms:.4f} ms (turns k,k,l,l "
         f"{', '.join(f'{t:.4f}' for t in turns)})")
+
+    # The same kernel-route encoder with its 3x3 convs on the generic
+    # instance (the conv kernel's earlier design) instead: ten pairs in this
+    # process, alternating which side runs first, each timed eager (host
+    # clock) and as one CUDA graph (device clock). Calls across processes
+    # and machines spread more than the two designs differ.
+    xn = normalize_for("resnet50", batch)
+    tiled_plan = cd.plan
+
+    def generic_plan(B_, H_, W_, C_, N_, kh_, kw_, dtype_, *rest):
+        return tiled_plan(B_, H_, W_, C_, N_, kh_, kw_, torch.float32, *rest)
+
+    def encoder_ms(plan_):
+        def run():
+            with torch.no_grad():
+                encs["auto"](xn)
+        cd.plan = plan_
+        try:
+            return time_ms(run), graph_ms(run, n=1, reps=10)
+        finally:
+            cd.plan = tiled_plan
+
+    ab = {"tiled": [], "generic": []}
+    for i in range(10):
+        for name in (("tiled", "generic") if i % 2 == 0 else ("generic", "tiled")):
+            ab[name].append(encoder_ms(tiled_plan if name == "tiled" else generic_plan))
+    for j, clock in ((0, "eager, host clock"), (1, "one CUDA graph, device clock")):
+        t_, g_ = ([r_[j] for r_ in ab[n_]] for n_ in ("tiled", "generic"))
+        log(f"time resnet50 encoder bf16 B={PIX_BATCH}, 3x3 convs tiled vs generic, 10 pairs "
+            f"({clock}): median {statistics.median(t_):.4f} ms vs {statistics.median(g_):.4f} "
+            f"ms, tiled faster in {sum(a < b for a, b in zip(t_, g_))} of 10 pairs; tiled "
+            f"{', '.join(f'{v:.4f}' for v in t_)}; generic {', '.join(f'{v:.4f}' for v in g_)}")
     phase("timing", t0)
 
     # 9. flash_attention vs plain at the ViT shapes and a ragged S.

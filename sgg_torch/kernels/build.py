@@ -44,6 +44,10 @@ _ENTRIES = {
     # (dtype, relu, B, H, W, C, kh, kw, N, x, w, scale, bias, out, a_vec,
     #  b_vec, stream)
     "sgg_conv_direct": ([_I] * 9 + [_P] * 5 + [_I] * 2 + [_P], _I),
+    # (relu, B, H, W, C, kh, kw, N, x, w, scale, bias, out, bm, bn, bk,
+    #  stages, threads, smem, grid_x, grid_y, stream): conv_direct.plan()'s
+    # tiled launch
+    "sgg_conv_direct_tiled": ([_I] * 8 + [_P] * 5 + [_I] * 8 + [_P], _I),
     # (dtype, BH, S, D, q, k, v, o, lse, scale, stream)
     "sgg_flash_attention": ([_I] * 4 + [_P] * 5 + [ctypes.c_float, _P], _I),
     # (dtype, BH, S, D, q, k, v, do, lse, dstat, dq, scale_q, scale, stream)

@@ -8,6 +8,12 @@ launch of ``csrc/conv_direct.cu``, an implicit GEMM that never writes the
 im2col patches to memory. Sums and epilogue are float32, then one cast to
 x's dtype.
 
+:func:`plan` chooses the kernel's instance and launch before each launch: the
+"tiled" Hopper instance (bf16, C % 16 == 0, Cout % 8 == 0, x and w 16-byte
+aligned) with its tile, channel-slice depth, ring depth, threads, shared
+memory and grid, or the "generic" one for everything else. The C entry takes
+the plan as it is.
+
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
 runs :func:`conv2d_direct_plain`: explicit zero padding and a float32
 ``F.conv2d``, the same epilogue, NHWC in and out.
@@ -16,6 +22,8 @@ runs :func:`conv2d_direct_plain`: explicit zero padding and a float32
 from __future__ import annotations
 
 import contextlib
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +33,78 @@ from sgg_torch.kernels.matmul import DTYPE_CODES, aligned, epilogue, epilogue_ve
 
 # Kernel launches in this process; the wrapper adds one per launch.
 launches = 0
+
+# Streaming multiprocessors of an H100 SXM: plan()'s default; the wrapper
+# passes the count of the device it launches on.
+SMS = 132
+# The ring's depth; at every tile below two blocks' rings fit in an SM's
+# 228 KB of shared memory, so the plan can put two blocks on each SM.
+STAGES = 4
+# The tiled instance's tiles as (BM, BN, BK, WM, WN), largest first: a block
+# of BM x BN outputs, K slices of BK channels, warp tiles of WM x WN. The
+# 64-channel slice is taken only where C % 64 == 0. csrc/conv_direct.cu
+# compiles exactly these.
+TILES = ((128, 128, 32, 64, 32), (128, 64, 32, 64, 32), (64, 64, 64, 32, 32))
+GENERIC_TILE = (128, 64, 32)  # gemm_tile.cuh's kBM, kBN, kBK
+GENERIC_THREADS = 256
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """One launch of ``conv2d_direct``: the instance, its block tile
+    (bm x bn outputs, K slices of bk), ring depth, threads, dynamic shared
+    memory in bytes and grid (M tiles, N tiles). a_vec and b_vec are the
+    generic instance's 16-byte load flags."""
+
+    instance: str
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    threads: int
+    smem: int
+    grid: tuple[int, int]
+    a_vec: bool = False
+    b_vec: bool = False
+
+
+def tiled_smem(bm: int, bn: int, bk: int, stages: int) -> int:
+    """Bytes of the ring (A [bm, bk] and B [bk, bn] per slot, bf16 rows
+    padded by 8), or of the staged output tile [bm, bn + 8] if larger."""
+    return 2 * max(stages * (bm * (bk + 8) + bk * (bn + 8)), bm * (bn + 8))
+
+
+@functools.lru_cache(maxsize=256)  # the wrapper asks once per launch
+def plan(B: int, H: int, W: int, C: int, N: int, kh: int, kw: int, dtype,
+         x_aligned: bool, w_aligned: bool, sms: int = SMS) -> ConvPlan:
+    """The launch of one stride-1 SAME conv of x [B, H, W, C] with w
+    [kh, kw, C, N] on a card of ``sms`` streaming multiprocessors.
+
+    "tiled" takes bf16 with C % 16 == 0, N % 8 == 0 and both operands 16-byte
+    aligned; everything else runs "generic". The tiled instance takes the
+    largest tile of TILES that gives two blocks to each SM (at least
+    2 * sms), skipping tiles wider than N rounded up to 64 and 64-channel
+    slices where C % 64 != 0, else the tile with the most blocks."""
+    M = B * H * W
+    if not (dtype == torch.bfloat16 and C % 16 == 0 and N % 8 == 0 and x_aligned
+            and w_aligned):
+        bm, bn, bk = GENERIC_TILE
+        return ConvPlan("generic", bm, bn, bk, 1, GENERIC_THREADS, 0,
+                        (-(-M // bm), -(-N // bn)), a_vec=C % 16 == 0 and x_aligned,
+                        b_vec=N % 8 == 0 and w_aligned)
+    fits = [t for t in TILES
+            if t[1] <= -(-max(N, 1) // 64) * 64 and (t[2] == 32 or C % t[2] == 0)]
+    blocks = [(-(-M // t[0])) * (-(-N // t[1])) for t in fits]
+    full = [t for t, n in zip(fits, blocks) if n >= 2 * sms]
+    bm, bn, bk, wm, wn = full[0] if full else fits[blocks.index(max(blocks))]
+    return ConvPlan("tiled", bm, bn, bk, STAGES, 32 * (bm // wm) * (bn // wn),
+                    tiled_smem(bm, bn, bk, STAGES), (-(-M // bm), -(-N // bn)))
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -102,32 +182,42 @@ def conv2d_direct(
     x [B, H, W, C] and w [kh, kw, C, N] with odd kh and kw; w is cast to x's
     dtype, as the reference casts it. CPU tensors take the plain version."""
     global launches
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return conv2d_direct_plain(x, w, bias, scale, relu, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv2d_direct runs on cuda or cpu, not {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"conv2d_direct runs on cuda or cpu, not {dev}")
     _check(x, w)
     if (out_dtype or x.dtype) != x.dtype:
         raise TypeError(f"conv2d_direct writes x's dtype {x.dtype}, not {out_dtype}")
-    if w.device != x.device:
-        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    if w.device != dev:
+        raise ValueError(f"w is on {w.device}, x on {dev}")
     if not x.is_contiguous():
         raise ValueError("conv2d_direct needs a contiguous NHWC x")
     B, H, W, C = x.shape
     kh, kw, _, N = w.shape
     w = w.to(x.dtype).contiguous()  # [kh*kw*C, N] as it lies
-    scale, bias = epilogue_vectors(scale, bias, N, x.device)
-    out = torch.empty(B, H, W, N, dtype=x.dtype, device=x.device)
+    scale, bias = epilogue_vectors(scale, bias, N, dev)
+    out = torch.empty(B, H, W, N, dtype=x.dtype, device=dev)
+    p = plan(B, H, W, C, N, kh, kw, x.dtype, aligned(x), aligned(w), sm_count(dev.index))
     lib = build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sgg_conv_direct(
-            DTYPE_CODES[x.dtype], int(bool(relu)), B, H, W, C, kh, kw, N,
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), int(C % 16 == 0 and aligned(x)),
-            int(N % 8 == 0 and aligned(w)), stream,
-        )
+    ptrs = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr())
+    # The host's cost of a call is about that of the tiled kernel, so the
+    # wrapper switches devices only when it must and reads the current
+    # stream's handle without building a torch.cuda.Stream.
+    switch = dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        if p.instance == "tiled":
+            err = lib.sgg_conv_direct_tiled(
+                int(bool(relu)), B, H, W, C, kh, kw, N, *ptrs, p.bm, p.bn, p.bk,
+                p.stages, p.threads, p.smem, *p.grid, stream)
+        else:
+            err = lib.sgg_conv_direct(
+                DTYPE_CODES[x.dtype], int(bool(relu)), B, H, W, C, kh, kw, N, *ptrs,
+                int(p.a_vec), int(p.b_vec), stream)
     if err != 0:
-        raise RuntimeError(f"conv2d_direct kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"conv2d_direct {p.instance} kernel launch failed: CUDA error "
+                           f"{err} ({p})")
     launches += 1
     return out

@@ -18,7 +18,10 @@ bf16 rounding of the output). fused_decode's 16-row template instance at
 vg1k widths in bf16: at most 0.5 % of y differ from plain at all (a
 rounding the kernel skips moves 1.5-2.3 %). flash_attention: float32 within
 1e-4 x max|plain|; bf16 within one bf16 ulp of plain plus that, and at most
-1 % of the outputs differ at all; lse within 1e-5 relative. The flash
+1 % of the outputs differ at all; lse within 1e-5 relative. conv2d_direct at
+shapes with an image boundary and the halo inside one tile, and the test of
+which instance the wrapper launches: chip_smoke.py's phase-4 gate (float32
+within 1e-4 x max|plain|, bf16 within one bf16 ulp of plain plus that). The flash
 backward (dq and dk/dv kernels): the same bounds on dq, dk and dv (sound runs
 differ from plain at 0.020-0.038 % of bf16 outputs; p or ds rounded to bf16
 moves about 41 %). The bf16 flash kernels' float32 results before the cast
@@ -177,6 +180,82 @@ def test_conv2d_direct_matches_plain(shape, cout, k, dtype):
     torch.cuda.synchronize()
     assert tcd.launches == before + 1
     _check_close(got, tcd.conv2d_direct_plain(x, w, bias, scale, relu=True), dtype)
+
+
+def _check_within_ulp(got, want, dtype):
+    """chip_smoke.py's phase-4 gate: float32 within 1e-4 x max|plain|; bf16
+    within one bf16 ulp of plain plus that (float32 sums in another order
+    can move a rounding by one ulp, which at the largest values is more
+    than 3e-3 x max)."""
+    w = want.float()
+    tol = 1e-4 * max(w.abs().max().item(), 1e-6)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    diff = (got.float() - w).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= tol
+    else:
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
+        assert bool((diff <= torch.where(w == 0, torch.zeros_like(ulp), ulp) + tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout,k", [
+    ((3, 7, 7, 512), 512, 3), ((2, 9, 13, 64), 72, 3), ((1, 5, 5, 32), 16, 3),
+    ((2, 14, 14, 64), 64, 5),
+])
+def test_conv2d_direct_halo_shapes_match_plain(shape, cout, k, dtype):
+    """An image boundary and the SAME halo inside one tile, ragged M and Cout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(cout + k + 1)
+    x = torch.randn(*shape, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(k, k, shape[-1], cout, device="cuda", generator=g)
+         / (k * k * shape[-1]) ** 0.5).to(dtype)
+    bias = 0.1 * torch.randn(cout, device="cuda", generator=g)
+    scale = 1.0 + 0.1 * torch.randn(cout, device="cuda", generator=g)
+    before = tcd.launches
+    got = tcd.conv2d_direct(x, w, bias, scale, relu=True)
+    torch.cuda.synchronize()
+    assert tcd.launches == before + 1
+    _check_within_ulp(got, tcd.conv2d_direct_plain(x, w, bias, scale, relu=True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,dtype,entry", [
+    ((2, 14, 14, 64), 64, torch.bfloat16, "sgg_conv_direct_tiled"),
+    ((2, 7, 7, 512), 512, torch.bfloat16, "sgg_conv_direct_tiled"),
+    ((1, 9, 13, 3), 64, torch.bfloat16, "sgg_conv_direct"),
+    ((2, 14, 14, 64), 64, torch.float32, "sgg_conv_direct"),
+])
+def test_conv2d_direct_launches_the_planned_instance(shape, cout, dtype, entry, monkeypatch):
+    """The wrapper calls the C entry of the instance plan() names, once,
+    with the plan's tile, ring, threads, shared memory and grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sgg_torch.kernels import build
+
+    lib, calls = build.load_library(), []
+
+    class Recording:
+        def __getattr__(self, name):
+            def call(*args):
+                calls.append((name, args))
+                return getattr(lib, name)(*args)
+            return call
+
+    monkeypatch.setattr(build, "load_library", lambda: Recording())
+    x = torch.randn(*shape, device="cuda").to(dtype)
+    w = (torch.randn(3, 3, shape[-1], cout, device="cuda") / (9 * shape[-1]) ** 0.5).to(dtype)
+    got = tcd.conv2d_direct(x, w, relu=True)
+    torch.cuda.synchronize()
+    assert [name for name, _ in calls] == [entry]
+    p = tcd.plan(*shape, cout, 3, 3, dtype, True, True, tcd.sm_count(x.device.index))
+    assert p.instance == ("tiled" if entry == "sgg_conv_direct_tiled" else "generic")
+    if p.instance == "tiled":
+        assert calls[0][1][13:21] == (p.bm, p.bn, p.bk, p.stages, p.threads, p.smem, *p.grid)
+    _check_within_ulp(got, tcd.conv2d_direct_plain(x, w, relu=True), dtype)
 
 
 TRAINED_RUN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
