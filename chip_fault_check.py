@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Seeded-fault check of the flash and conv_direct kernels' gates, on the card.
+"""Seeded-fault check of the flash, conv_direct and fused_matmul kernels' gates,
+on the card.
 
   python3 chip_fault_check.py
 
@@ -31,6 +32,21 @@ plain version plus 1e-4 x max, finite, of the plain version's shape and
 dtype. x lies inside a buffer with one seeded image before it and one after,
 so a fault that reads past the image reads data, not unmapped memory.
 
+Four fused_matmul faults are seeded into the tiled instance of the copy's
+``fused_matmul.cu``: the row guard dropped (rows of a past M read, not
+zero-filled, and stored), the k guard dropped (k past K read from a and b,
+not zero-filled), b's first K slice offset by one slice, and bias added
+before scale. Each is held, through the planned launch of the tiled
+instance, at the fifteen ResNet-50 1x1 shapes (B = 32, bf16), a ragged-M
+shape ([777, 64] @ [64, 72]) and a ragged-K shape ([1024, 80] @ [80, 64]) to
+``chip_smoke.py``'s phase-4 gate, and the seeded rows around the output must
+come back untouched; a, b and the output each lie inside a buffer with 256
+seeded rows before and after it, so a dropped guard reads and writes data,
+not unmapped memory. A fault must be refused at every shape where it can
+change an output: the row guard where M is not a multiple of the plan's
+tile rows, the k guard where K is not a multiple of its slice, the other two
+everywhere; elsewhere the verdict is reported.
+
 The unmodified tree is held to
 the same gates as a baseline (it must pass them), and a variant that is not a
 fault is reported beside it: the hi, mid and lo products summed in one
@@ -38,7 +54,8 @@ accumulator carried inside the tensor core, the score products too (no fresh
 sum per 16-deep step and no round-to-nearest add), at the two shapes and at
 [32, 12, 576, 64]. Each copy builds and runs in its own process, all at once.
 Exits 0 when the baseline passes and every fault is refused at each of its
-shapes (both flash shapes; the four conv shapes), 1 otherwise. The tree itself is not touched.
+shapes (both flash shapes; the four conv shapes; the matmul shapes it can
+reach), 1 otherwise. The tree itself is not touched.
 """
 
 import json
@@ -68,6 +85,33 @@ CONV_FAULTS = {
          "const bf16* wk = w + ((long)p_tap * C + p_c0 + (p_tap == 1 ? BK : 0)) * N + n0 + b_col;"),
     "bias added before scale":
         ("  return __fadd_rn(__fmul_rn(a, s), b);\n", "  return __fmul_rn(__fadd_rn(a, b), s);\n"),
+}
+MM_SRC = "fused_matmul.cu"
+# fused_matmul's tiled instance, bf16, as (M, K, N, relu): the ResNet-50 1x1
+# shapes (B = 32, 224 px), then a ragged-M shape and a ragged-K shape.
+MM_SHAPES = [
+    (100352, 64, 64, True), (100352, 256, 64, True), (100352, 64, 256, False),
+    (100352, 256, 128, True), (25088, 512, 128, True), (25088, 128, 512, False),
+    (25088, 256, 512, False), (25088, 512, 256, True), (6272, 1024, 256, True),
+    (6272, 256, 1024, False), (6272, 512, 1024, False), (6272, 1024, 512, True),
+    (1568, 2048, 512, True), (1568, 512, 2048, False), (1568, 1024, 2048, False),
+    (777, 64, 72, True), (1024, 80, 64, False),
+]
+MM_GUARD = 256  # seeded rows before and after a, b and out; at least the tallest tile
+# matmul fault: (sound text, faulty text, the shapes it can reach) in
+# fused_matmul.cu. "M": where M is not a multiple of the plan's tile rows;
+# "K": where K is not a multiple of its slice; "all": every shape.
+MM_FAULTS = {
+    "row guard dropped (rows past M read, not zero-filled, and stored)":
+        ("  return m < M;\n", "  return true;\n", "M"),
+    "k guard dropped (k past K read from A and B, not zero-filled)":
+        ("  return k < K;\n", "  return true;\n", "K"),
+    "b's first K slice offset by one slice":
+        ("const bf16* b_src = b + (long)p_k0 * N + n0 + b_col;",
+         "const bf16* b_src = b + (long)(p_k0 + (p_k0 == 0 ? BK : 0)) * N + n0 + b_col;", "all"),
+    "bias added before scale":
+        ("  return __fadd_rn(__fmul_rn(a, s), b);\n", "  return __fmul_rn(__fadd_rn(a, b), s);\n",
+         "all"),
 }
 SITES = [
     ("flash_attention.cu", "// p of P . V", "fwd"),
@@ -176,6 +220,43 @@ def child(root, kernels, shapes):
                               "bf16_gate": ok16, "share": (got != want).float().mean().item(),
                               "f32_err": None, "tol": None, "f32_gate": True}), flush=True)
 
+    if "mm" in kernels:
+        from sgg_torch.kernels import matmul as mm
+
+        lib, G = build.load_library(), MM_GUARD
+        for M, K, N, relu in MM_SHAPES:
+            a = torch.randn(M + 2 * G, K, generator=gen, device=dev).to(torch.bfloat16)[G:-G]
+            b = (torch.randn(K + 2 * G, N, generator=gen, device=dev)
+                 / K ** 0.5).to(torch.bfloat16)[G:-G]
+            bias = 0.1 * torch.randn(N, generator=gen, device=dev)
+            scale = 1.0 + 0.1 * torch.randn(N, generator=gen, device=dev)
+            out_all = torch.randn(M + 2 * G, N, generator=gen, device=dev).to(torch.bfloat16)
+            keep = out_all.clone()
+            got = out_all[G:-G]
+            p = mm.plan(M, K, N, torch.bfloat16, torch.bfloat16, mm.aligned(a), mm.aligned(b),
+                        mm.sm_count(0))
+            if p.instance != "tiled":
+                raise SystemExit(f"chip_fault_check: [{M}, {K}, {N}] does not run tiled: {p}")
+            # The planned launch, as the wrapper makes it, into an output with
+            # seeded rows on each side, which must come back untouched.
+            err = lib.sgg_fused_matmul_tiled(
+                int(relu), M, N, K, a.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), got.data_ptr(), p.bm, p.bn, p.bk, p.stages, p.threads, p.smem,
+                *p.grid, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if err != 0:
+                raise SystemExit(f"chip_fault_check: tiled launch failed: CUDA error {err}")
+            want = mm.fused_matmul_plain(a, b, bias, scale, relu=relu)
+            guards = torch.equal(out_all[:G], keep[:G]) and torch.equal(out_all[-G:], keep[-G:])
+            ok16 = (bool(torch.isfinite(got.float()).all()) and bf16_gate(got, want)[0]
+                    and guards)
+            print(json.dumps({"shape": [M, K, N], "output": f"mm {p.bm}x{p.bn}x{p.bk}",
+                              "bf16_gate": ok16, "share": (got != want).float().mean().item(),
+                              "f32_err": None, "tol": None, "f32_gate": True,
+                              "guards": guards,
+                              "reach": {"M": M % p.bm != 0, "K": K % p.bk != 0, "all": True}}),
+                  flush=True)
+
     for shape in shapes:
         q, k, v, do = (torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
                        for _ in range(4))
@@ -213,7 +294,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
-    runs = [("sound", [], "fwd,dq,dkv,conv", VARIANT_SHAPES),
+    runs = [("sound", [], "fwd,dq,dkv,conv,mm", VARIANT_SHAPES),
             ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
              "fwd,dq,dkv", VARIANT_SHAPES)]
     for src, tag, kernel in SITES:
@@ -222,6 +303,8 @@ def main() -> int:
                          [(src, lambda t, tag=tag, z=zeroed: cut_site(t, tag, z))], kernel, SHAPES))
     for label, (sound, faulty) in CONV_FAULTS.items():
         runs.append((label, [(CONV_SRC, replace_once(sound, faulty))], "conv", []))
+    for label, (sound, faulty, _) in MM_FAULTS.items():
+        runs.append((label, [(MM_SRC, replace_once(sound, faulty))], "mm", []))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for i, (label, edits, kernels, shapes) in enumerate(runs):
@@ -241,17 +324,23 @@ def main() -> int:
         for r in rows:
             f32 = ("" if r["f32_err"] is None else f", float32 result rel L2 "
                    f"{r['f32_err']:.3e} (<= {r['tol']:.2e}: {r['f32_gate']})")
+            guards = "" if "guards" not in r else f", rows around out untouched {r['guards']}"
             print(f"[chip_fault_check] {label}, {r['shape']} {r['output']}: share of bf16 "
-                  f"outputs differing {r['share']:.3e} (bf16 gate {r['bf16_gate']}){f32}",
-                  flush=True)
-        # A kernel passes at a shape when every output it gives passes both gates.
+                  f"outputs differing {r['share']:.3e} (bf16 gate {r['bf16_gate']}){f32}"
+                  f"{guards}", flush=True)
+        # A kernel passes at a shape when every output it gives passes both
+        # gates. A matmul fault is held only where it can change an output.
+        reach = MM_FAULTS[label][2] if label in MM_FAULTS else "all"
         for shape in sorted({tuple(r["shape"]) for r in rows}, key=lambda t: -t[2]):
-            passes = all(r["bf16_gate"] and r["f32_gate"] for r in rows
-                         if tuple(r["shape"]) == shape)
+            at = [r for r in rows if tuple(r["shape"]) == shape]
+            passes = all(r["bf16_gate"] and r["f32_gate"] for r in at)
             if label == "sound":
                 verdict, good = ("passes" if passes else "FAILS"), passes
             elif label == "one accumulator":
                 verdict, good = f"reported: the gates {'pass' if passes else 'refuse'} it", True
+            elif not all(r.get("reach", {}).get(reach, True) for r in at):
+                verdict, good = (f"reported: cannot reach this shape; the gates "
+                                 f"{'pass' if passes else 'refuse'} it"), True
             else:
                 verdict, good = ("refused" if not passes else "PASSES THE GATES"), not passes
             ok = ok and good

@@ -21,14 +21,19 @@ In one process, with no threads and no sockets:
      (the one resnet50 widths run) at vg1k widths, B = 64, under the same
      0.5 % share gate;
   4. fused_matmul vs plain at every ResNet-50 1x1-conv shape of the pixels-in
-     path (B = 32 at 224 px) and at VGG-19's first im2col shape, bfloat16 with
-     and without ReLU and float32; conv_direct vs plain at the four ResNet-50
-     3x3 stride-1 shapes, two VGG-19 shapes and four shapes that put an image
-     boundary and the SAME halo inside one tile with ragged M and Cout
-     ([3,7,7,512]->512, [2,9,13,64]->72, [1,5,5,32]->16 at 3x3 and
-     [2,14,14,64]->64 at 5x5), float32 and bfloat16, each with the instance,
-     tile and block count that ``conv_direct.plan`` gives and the share of
-     outputs that differ from plain at all;
+     path (B = 32 at 224 px), at VGG-19's first im2col shape and at five
+     ragged shapes (M not a multiple of the tile, K = 16 and 80, N = 8 and
+     72; the last with a inside seeded guard rows, so its last M tile
+     straddles a's end), bfloat16 with and without ReLU and float32, each
+     with the instance, tile and block count that ``matmul.plan`` gives and
+     the share of outputs that differ from plain at all; conv_direct vs
+     plain at the four ResNet-50 3x3 stride-1 shapes, two VGG-19 shapes and
+     four shapes that put an image boundary and the SAME halo inside one
+     tile with ragged M and Cout ([3,7,7,512]->512, [2,9,13,64]->72,
+     [1,5,5,32]->16 at 3x3 and [2,14,14,64]->64 at 5x5), float32 and
+     bfloat16, each with the instance, tile and block count that
+     ``conv_direct.plan`` gives and the share of outputs that differ from
+     plain at all;
   5. encoders vs plain: ResNet-50 (seeded weights, random BN statistics) and
      VGG-19 (under 'direct' and under 'pallas') on 8 seeded 224 px images,
      the kernel routes against the library route ('xla'): float32 within
@@ -55,14 +60,15 @@ In one process, with no threads and no sockets:
      paths use, beside its plain version, the library call that computes the
      same product (torch.matmul, or F.conv2d on channels-last bf16; both
      without the epilogue) and the bound: max(bytes over 3.35 TB/s, FLOPs over
-     the type's peak); conv_direct also on the device's clock (each call
-     captured in a CUDA graph, so the wrapper's host cost, about as long as
-     the kernel, drops out), with F.conv2d and the generic instance (the
-     tile core shared with fused_matmul, the kernel's earlier design) on the
-     same bf16 inputs, printed apart from the record; and the ResNet-50
-     encoder on one batch of phase 7 (B = 32) on the kernel route against
-     the library route, and in ten pairs against itself with its 3x3 convs
-     on the generic instance, eager and in one CUDA graph;
+     the type's peak); fused_matmul and conv_direct also on the device's
+     clock (each call captured in a CUDA graph, so the wrapper's host cost
+     drops out), with torch.matmul or F.conv2d and the generic instance (the
+     tile core the two share, each kernel's earlier design) on the same bf16
+     inputs, printed apart from the record, launch-weighted, and each
+     wrapper's host cost per call; and the ResNet-50 encoder on one batch of
+     phase 7 (B = 32) on the kernel route against the library route, and in
+     ten pairs against itself with its 3x3 convs, then its 1x1 convs, on the
+     generic instance, eager and in one CUDA graph;
   9. flash_attention vs plain at [32, 12, 196, 64] (ViT-B/16 at 224 px),
      [32, 12, 576, 64] (384 px) and a ragged S = 100, float32 and bfloat16,
      with and without lse: float32 within 1e-4 x max; bf16 within one bf16
@@ -170,6 +176,12 @@ RESNET_1X1 = [
     (1568, 512, 2048, False, 3), (1568, 1024, 2048, False, 1),
 ]
 VGG_IM2COL = (401408, 27, 64, True, 0)  # conv1_1 at B = 8, 224 px
+# Ragged shapes for fused_matmul's tiled instance, checked only, as (M, K,
+# N, relu, guard rows): M not a multiple of the tile, K = 16 and 80, N = 8
+# and 72; the last sits inside 128 seeded rows on each side, so its last M
+# tile straddles the end of a into them.
+MM_EDGES = [(1000, 16, 72, True, 0), (300, 80, 8, False, 0), (777, 80, 72, True, 0),
+            (129, 48, 264, False, 0), (1568, 2048, 512, True, 128)]
 # ResNet-50's 3x3 stride-1 convs: (x shape, Cout, launches per batch), then
 # two VGG-19 shapes that the path does not run.
 RESNET_3X3 = [
@@ -528,15 +540,25 @@ def main():
             raise AssertionError(f"{name} disagrees with its plain version")
         return err
 
-    for M, K_, N, relu, _ in RESNET_1X1 + [VGG_IM2COL]:
+    for M, K_, N, relu, guard in ([(M, K_, N, relu, 0) for M, K_, N, relu, _ in
+                                    RESNET_1X1 + [VGG_IM2COL]] + MM_EDGES):
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            a, b, bias, scale = mm_inputs(M, K_, N, dtype)
+            a, b, bias, scale = mm_inputs(M + 2 * guard, K_, N, dtype)
+            a = a[guard:guard + M]  # inside seeded guard rows, where guard > 0
+            p_ = mm.plan(M, K_, N, dtype, dtype, mm.aligned(a), mm.aligned(b),
+                         mm.sm_count(a.device.index))
             for r_ in ((relu, not relu) if dtype == torch.bfloat16 else (relu,)):
                 got = mm.fused_matmul(a, b, bias, scale, relu=r_)
                 torch.cuda.synchronize()
-                err = gate(f"fused_matmul {name} M={M} K={K_} N={N} relu={r_}", got,
-                           mm.fused_matmul_plain(a, b, bias, scale, relu=r_), dtype)
-                shape_errs[("mm", M, K_, N, name, r_)] = err
+                label = f"fused_matmul {name} M={M} K={K_} N={N} relu={r_}"
+                want = mm.fused_matmul_plain(a, b, bias, scale, relu=r_)
+                err = gate(label, got, want, dtype)
+                log(f"{label}: instance {p_.instance}, tile {p_.bm}x{p_.bn}x{p_.bk}, "
+                    f"{p_.stages} stages, {p_.threads} threads, {p_.grid[0] * p_.grid[1]} "
+                    f"blocks{f', a inside {guard} guard rows on each side' if guard else ''}; "
+                    f"share of outputs differing from plain "
+                    f"{(got != want).float().mean().item():.3e}")
+                shape_errs[("mm", M, K_, N, name, r_, guard)] = err
     conv_cases = [(s_, c_, 3) for s_, c_, _ in RESNET_3X3 + VGG_3X3] + CONV_EDGES
     for shape, cout, k_ in conv_cases:
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
@@ -831,19 +853,69 @@ def main():
         if label == "resnet50":
             add("fused_decode", k_ms, p_ms, None, b_s, b_by, K)
 
+    # fused_matmul timed as every kernel here (host clock, CUDA events
+    # around eager calls) for the record; then on the device's clock (CUDA
+    # graphs) the kernel, torch.matmul and the generic instance (the tile
+    # core shared with conv_direct, the kernel's earlier design) on the same
+    # bf16 inputs through its own C entry, printed apart.
+    def mm_generic(a, b, bias, scale, out, relu):
+        M_, K__ = a.shape
+        err_ = lib.sgg_fused_matmul(1, 1, int(relu), M_, b.shape[1], K__, a.data_ptr(),
+                                    b.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                    out.data_ptr(), int(K__ % 16 == 0), int(b.shape[1] % 8 == 0),
+                                    torch.cuda.current_stream().cuda_stream)
+        if err_ != 0:
+            raise RuntimeError(f"generic fused_matmul launch failed: CUDA error {err_}")
+
+    mm_graph = Counter()
     for M, K_, N, relu, per_batch in RESNET_1X1 + [VGG_IM2COL]:
         a, b, bias, scale = mm_inputs(M, K_, N, torch.bfloat16)
         k_ms, p_ms, _ = in_turns(lambda: mm.fused_matmul(a, b, bias, scale, relu=relu),
                                  lambda: mm.fused_matmul_plain(a, b, bias, scale, relu=relu))
         l_ms = time_ms(lambda: torch.matmul(a, b))
+        kg_ms = graph_ms(lambda: mm.fused_matmul(a, b, bias, scale, relu=relu))
+        lg_ms = graph_ms(lambda: torch.matmul(a, b))
+        g_out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+        gg_ms = graph_ms(lambda: mm_generic(a, b, bias, scale, g_out, relu))
+        p_ = mm.plan(M, K_, N, torch.bfloat16, torch.bfloat16, mm.aligned(a), mm.aligned(b),
+                     mm.sm_count(a.device.index))
         nbytes, flops = matmul_work(M, K_, N, 2)
         b_s, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
         log(f"time fused_matmul bf16 M={M} K={K_} N={N} relu={relu} (x{per_batch} per "
-            f"batch): kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
+            f"batch), {p_.instance} {p_.bm}x{p_.bn}x{p_.bk}, {p_.grid[0] * p_.grid[1]} blocks: "
+            f"kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
             f"{p_ms:.4f}, torch.matmul {l_ms:.4f} (no epilogue), bound {b_s * 1e3:.5f} ms "
-            f"({b_by}), kernel at {b_s * 1e3 / k_ms:.3f} of the bound")
+            f"({b_by}), kernel at {b_s * 1e3 / k_ms:.3f} of the bound; on the device's clock "
+            f"(CUDA graphs): kernel {kg_ms:.4f} ms ({flops / kg_ms / 1e9:.1f} TFLOP/s, "
+            f"{nbytes / kg_ms / 1e6:.0f} GB/s, {b_s * 1e3 / kg_ms:.3f} of the bound), "
+            f"torch.matmul {lg_ms:.4f}, generic instance {gg_ms:.4f} (kernel / that "
+            f"{kg_ms / gg_ms:.3f})")
         if per_batch:
             add("fused_matmul", k_ms, p_ms, l_ms, b_s, b_by, per_batch)
+            for key, v_ in (("w", 1.0), ("kernel", kg_ms), ("library", lg_ms),
+                            ("generic", gg_ms), ("host", k_ms), ("bound", b_s * 1e3)):
+                mm_graph[key] += per_batch * v_
+    mw = mm_graph["w"]
+    log(f"time fused_matmul bf16, launch-weighted over the 36 ResNet-50 1x1 launches per "
+        f"batch: on the device's clock (CUDA graphs) kernel {mm_graph['kernel'] / mw:.4f} ms, "
+        f"torch.matmul {mm_graph['library'] / mw:.4f} ms, generic instance "
+        f"{mm_graph['generic'] / mw:.4f} ms (kernel / generic "
+        f"{mm_graph['kernel'] / mm_graph['generic']:.3f}, kernel / torch.matmul "
+        f"{mm_graph['kernel'] / mm_graph['library']:.3f}); host clock kernel "
+        f"{mm_graph['host'] / mw:.4f} ms; bound {mm_graph['bound'] / mw:.5f} ms; per batch "
+        f"of 36 on the device: kernel {mm_graph['kernel']:.4f} ms, generic "
+        f"{mm_graph['generic']:.4f} ms")
+    g_small = torch.Generator(device=dev).manual_seed(SEED + 31)  # leaves gen's stream as it was
+    a = torch.randn(64, 64, generator=g_small, device=dev).to(torch.bfloat16)
+    b = (torch.randn(64, 64, generator=g_small, device=dev) / 8).to(torch.bfloat16)
+    bias, scale = torch.zeros(64, device=dev), torch.ones(64, device=dev)
+
+    def small_mm():
+        mm.fused_matmul(a, b, bias, scale, relu=True)
+
+    log(f"time fused_matmul wrapper, back-to-back calls at [64, 64] @ [64, 64]: "
+        f"{1e3 * time_ms(small_mm):.1f} us per call (the kernel alone, device clock "
+        f"{1e3 * graph_ms(small_mm):.1f} us)")
 
     # conv_direct timed as every kernel here (host clock, CUDA events around
     # eager calls) for the record; then on the device's clock (each call
@@ -929,37 +1001,48 @@ def main():
         f"{k_ms:.4f} ms, library route {p_ms:.4f} ms (turns k,k,l,l "
         f"{', '.join(f'{t:.4f}' for t in turns)})")
 
-    # The same kernel-route encoder with its 3x3 convs on the generic
-    # instance (the conv kernel's earlier design) instead: ten pairs in this
-    # process, alternating which side runs first, each timed eager (host
-    # clock) and as one CUDA graph (device clock). Calls across processes
-    # and machines spread more than the two designs differ.
+    # The same kernel-route encoder with its 3x3 convs, then its 1x1 convs,
+    # on the generic instance (each kernel's earlier design) instead: ten
+    # pairs each in this process, alternating which side runs first, each
+    # timed eager (host clock) and as one CUDA graph (device clock). Calls
+    # across processes and machines spread more than two designs differ.
     xn = normalize_for("resnet50", batch)
-    tiled_plan = cd.plan
 
-    def generic_plan(B_, H_, W_, C_, N_, kh_, kw_, dtype_, *rest):
-        return tiled_plan(B_, H_, W_, C_, N_, kh_, kw_, torch.float32, *rest)
+    def generic_conv_plan(B_, H_, W_, C_, N_, kh_, kw_, dtype_, *rest):
+        return cd_plan(B_, H_, W_, C_, N_, kh_, kw_, torch.float32, *rest)
 
-    def encoder_ms(plan_):
+    def generic_mm_plan(M_, K__, N_, dtype_, *rest):
+        return mm_plan(M_, K__, N_, torch.float32, *rest)
+
+    def encoder_ms(mod, plan_):
         def run():
             with torch.no_grad():
                 encs["auto"](xn)
-        cd.plan = plan_
+        tiled_plan_ = mod.plan
+        mod.plan = plan_
         try:
             return time_ms(run), graph_ms(run, n=1, reps=10)
         finally:
-            cd.plan = tiled_plan
+            mod.plan = tiled_plan_
 
-    ab = {"tiled": [], "generic": []}
-    for i in range(10):
-        for name in (("tiled", "generic") if i % 2 == 0 else ("generic", "tiled")):
-            ab[name].append(encoder_ms(tiled_plan if name == "tiled" else generic_plan))
-    for j, clock in ((0, "eager, host clock"), (1, "one CUDA graph, device clock")):
-        t_, g_ = ([r_[j] for r_ in ab[n_]] for n_ in ("tiled", "generic"))
-        log(f"time resnet50 encoder bf16 B={PIX_BATCH}, 3x3 convs tiled vs generic, 10 pairs "
-            f"({clock}): median {statistics.median(t_):.4f} ms vs {statistics.median(g_):.4f} "
-            f"ms, tiled faster in {sum(a < b for a, b in zip(t_, g_))} of 10 pairs; tiled "
-            f"{', '.join(f'{v:.4f}' for v in t_)}; generic {', '.join(f'{v:.4f}' for v in g_)}")
+    cd_plan, mm_plan = cd.plan, mm.plan
+    for what, mod, tiled_plan, generic_plan in (
+            ("3x3 convs", cd, cd_plan, generic_conv_plan),
+            ("1x1 convs", mm, mm_plan, generic_mm_plan)):
+        ab = {"tiled": [], "generic": []}
+        for i in range(10):
+            for name in (("tiled", "generic") if i % 2 == 0 else ("generic", "tiled")):
+                ab[name].append(encoder_ms(mod, tiled_plan if name == "tiled" else generic_plan))
+        for j, clock in ((0, "eager, host clock"), (1, "one CUDA graph, device clock")):
+            t_, g_ = ([r_[j] for r_ in ab[n_]] for n_ in ("tiled", "generic"))
+            log(f"time resnet50 encoder bf16 B={PIX_BATCH}, {what} tiled vs generic, 10 pairs "
+                f"({clock}): median {statistics.median(t_):.4f} ms vs "
+                f"{statistics.median(g_):.4f} ms, tiled faster in "
+                f"{sum(a < b for a, b in zip(t_, g_))} of 10 pairs; tiled "
+                f"{', '.join(f'{v:.4f}' for v in t_)}; generic "
+                f"{', '.join(f'{v:.4f}' for v in g_)}")
+    log(f"expected gain of the 1x1 convs in the CUDA graph: 36 x (generic - tiled) on the "
+        f"device's clock = {mm_graph['generic'] - mm_graph['kernel']:.4f} ms per batch")
     phase("timing", t0)
 
     # 9. flash_attention vs plain at the ViT shapes and a ragged S.

@@ -41,6 +41,9 @@ _ENTRIES = {
     # (dtype, out_dtype, relu, M, N, K, a, b, scale, bias, out, a_vec, b_vec,
     #  stream)
     "sgg_fused_matmul": ([_I] * 6 + [_P] * 5 + [_I] * 2 + [_P], _I),
+    # (relu, M, N, K, a, b, scale, bias, out, bm, bn, bk, stages, threads,
+    #  smem, grid_x, grid_y, stream): matmul.plan()'s tiled launch
+    "sgg_fused_matmul_tiled": ([_I] * 4 + [_P] * 5 + [_I] * 8 + [_P], _I),
     # (dtype, relu, B, H, W, C, kh, kw, N, x, w, scale, bias, out, a_vec,
     #  b_vec, stream)
     "sgg_conv_direct": ([_I] * 9 + [_P] * 5 + [_I] * 2 + [_P], _I),

@@ -23,20 +23,18 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from sgg_torch.kernels import build
-from sgg_torch.kernels.matmul import DTYPE_CODES, aligned, epilogue, epilogue_vectors
+from sgg_torch.kernels.matmul import (DTYPE_CODES, GENERIC_THREADS, GENERIC_TILE, SMS,
+                                      GemmPlan, aligned, epilogue, epilogue_vectors,
+                                      sm_count, tiled_smem)
 
 # Kernel launches in this process; the wrapper adds one per launch.
 launches = 0
 
-# Streaming multiprocessors of an H100 SXM: plan()'s default; the wrapper
-# passes the count of the device it launches on.
-SMS = 132
 # The ring's depth; at every tile below two blocks' rings fit in an SM's
 # 228 KB of shared memory, so the plan can put two blocks on each SM.
 STAGES = 4
@@ -45,38 +43,11 @@ STAGES = 4
 # 64-channel slice is taken only where C % 64 == 0. csrc/conv_direct.cu
 # compiles exactly these.
 TILES = ((128, 128, 32, 64, 32), (128, 64, 32, 64, 32), (64, 64, 64, 32, 32))
-GENERIC_TILE = (128, 64, 32)  # gemm_tile.cuh's kBM, kBN, kBK
-GENERIC_THREADS = 256
-
-
-@dataclass(frozen=True)
-class ConvPlan:
-    """One launch of ``conv2d_direct``: the instance, its block tile
-    (bm x bn outputs, K slices of bk), ring depth, threads, dynamic shared
-    memory in bytes and grid (M tiles, N tiles). a_vec and b_vec are the
-    generic instance's 16-byte load flags."""
-
-    instance: str
-    bm: int
-    bn: int
-    bk: int
-    stages: int
-    threads: int
-    smem: int
-    grid: tuple[int, int]
-    a_vec: bool = False
-    b_vec: bool = False
-
-
-def tiled_smem(bm: int, bn: int, bk: int, stages: int) -> int:
-    """Bytes of the ring (A [bm, bk] and B [bk, bn] per slot, bf16 rows
-    padded by 8), or of the staged output tile [bm, bn + 8] if larger."""
-    return 2 * max(stages * (bm * (bk + 8) + bk * (bn + 8)), bm * (bn + 8))
 
 
 @functools.lru_cache(maxsize=256)  # the wrapper asks once per launch
 def plan(B: int, H: int, W: int, C: int, N: int, kh: int, kw: int, dtype,
-         x_aligned: bool, w_aligned: bool, sms: int = SMS) -> ConvPlan:
+         x_aligned: bool, w_aligned: bool, sms: int = SMS) -> GemmPlan:
     """The launch of one stride-1 SAME conv of x [B, H, W, C] with w
     [kh, kw, C, N] on a card of ``sms`` streaming multiprocessors.
 
@@ -89,7 +60,7 @@ def plan(B: int, H: int, W: int, C: int, N: int, kh: int, kw: int, dtype,
     if not (dtype == torch.bfloat16 and C % 16 == 0 and N % 8 == 0 and x_aligned
             and w_aligned):
         bm, bn, bk = GENERIC_TILE
-        return ConvPlan("generic", bm, bn, bk, 1, GENERIC_THREADS, 0,
+        return GemmPlan("generic", bm, bn, bk, 1, GENERIC_THREADS, 0,
                         (-(-M // bm), -(-N // bn)), a_vec=C % 16 == 0 and x_aligned,
                         b_vec=N % 8 == 0 and w_aligned)
     fits = [t for t in TILES
@@ -97,14 +68,8 @@ def plan(B: int, H: int, W: int, C: int, N: int, kh: int, kw: int, dtype,
     blocks = [(-(-M // t[0])) * (-(-N // t[1])) for t in fits]
     full = [t for t, n in zip(fits, blocks) if n >= 2 * sms]
     bm, bn, bk, wm, wn = full[0] if full else fits[blocks.index(max(blocks))]
-    return ConvPlan("tiled", bm, bn, bk, STAGES, 32 * (bm // wm) * (bn // wn),
+    return GemmPlan("tiled", bm, bn, bk, STAGES, 32 * (bm // wm) * (bn // wn),
                     tiled_smem(bm, bn, bk, STAGES), (-(-M // bm), -(-N // bn)))
-
-
-@functools.cache
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:

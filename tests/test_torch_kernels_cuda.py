@@ -19,8 +19,9 @@ vg1k widths in bf16: at most 0.5 % of y differ from plain at all (a
 rounding the kernel skips moves 1.5-2.3 %). flash_attention: float32 within
 1e-4 x max|plain|; bf16 within one bf16 ulp of plain plus that, and at most
 1 % of the outputs differ at all; lse within 1e-5 relative. conv2d_direct at
-shapes with an image boundary and the halo inside one tile, and the test of
-which instance the wrapper launches: chip_smoke.py's phase-4 gate (float32
+shapes with an image boundary and the halo inside one tile, fused_matmul at
+ragged shapes (M, K = 16 and 80, N = 8 and 72), and the tests of which
+instance each wrapper launches: chip_smoke.py's phase-4 gate (float32
 within 1e-4 x max|plain|, bf16 within one bf16 ulp of plain plus that). The flash
 backward (dq and dk/dv kernels): the same bounds on dq, dk and dv (sound runs
 differ from plain at 0.020-0.038 % of bf16 outputs; p or ds rounded to bf16
@@ -256,6 +257,79 @@ def test_conv2d_direct_launches_the_planned_instance(shape, cout, dtype, entry, 
     if p.instance == "tiled":
         assert calls[0][1][13:21] == (p.bm, p.bn, p.bk, p.stages, p.threads, p.smem, *p.grid)
     _check_within_ulp(got, tcd.conv2d_direct_plain(x, w, relu=True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,relu", [
+    (1568, 2048, 512, True), (1000, 16, 72, True), (300, 80, 8, False), (777, 80, 72, True),
+    (129, 48, 264, False), (65, 2064, 136, True),
+])
+def test_fused_matmul_ragged_shapes_match_plain(M, K, N, relu, dtype):
+    """The tiled instance (bf16) at ragged M, K = 16 and 80, N = 8 and 72,
+    under chip_smoke.py's phase-4 gate; float32 takes the generic one. a
+    lies inside a buffer with seeded rows before and after it, so a row past
+    M that the kernel read would be data, not zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(M + K + N + 2)
+    a_all = torch.randn(M + 256, K, device="cuda", generator=g).to(dtype)
+    a = a_all[128:128 + M]
+    b = (torch.randn(K, N, device="cuda", generator=g) / K ** 0.5).to(dtype)
+    bias = 0.1 * torch.randn(N, device="cuda", generator=g)
+    scale = 1.0 + 0.1 * torch.randn(N, device="cuda", generator=g)
+    p = tmm.plan(M, K, N, dtype, dtype, tmm.aligned(a), tmm.aligned(b),
+                 tmm.sm_count(a.device.index))
+    assert p.instance == ("tiled" if dtype == torch.bfloat16 else "generic")
+    before = tmm.launches
+    got = tmm.fused_matmul(a, b, bias, scale, relu=relu)
+    torch.cuda.synchronize()
+    assert tmm.launches == before + 1
+    _check_within_ulp(got, tmm.fused_matmul_plain(a, b, bias, scale, relu=relu), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,dtype,out_dtype,entry", [
+    (6272, 256, 1024, torch.bfloat16, torch.bfloat16, "sgg_fused_matmul_tiled"),
+    (1568, 2048, 512, torch.bfloat16, torch.bfloat16, "sgg_fused_matmul_tiled"),
+    (300, 80, 72, torch.bfloat16, torch.bfloat16, "sgg_fused_matmul_tiled"),
+    (300, 27, 64, torch.bfloat16, torch.bfloat16, "sgg_fused_matmul"),
+    (300, 64, 64, torch.bfloat16, torch.float32, "sgg_fused_matmul"),
+    (300, 64, 64, torch.float32, torch.float32, "sgg_fused_matmul"),
+])
+def test_fused_matmul_launches_the_planned_instance(M, K, N, dtype, out_dtype, entry,
+                                                     monkeypatch):
+    """The wrapper calls the C entry of the instance plan() names, once,
+    with the plan's tile, ring, threads, shared memory and grid (or the
+    generic instance's load flags)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sgg_torch.kernels import build
+
+    lib, calls = build.load_library(), []
+
+    class Recording:
+        def __getattr__(self, name):
+            def call(*args):
+                calls.append((name, args))
+                return getattr(lib, name)(*args)
+            return call
+
+    monkeypatch.setattr(build, "load_library", lambda: Recording())
+    a = torch.randn(M, K, device="cuda").to(dtype)
+    b = (torch.randn(K, N, device="cuda") / K ** 0.5).to(dtype)
+    got = tmm.fused_matmul(a, b, relu=True, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert [name for name, _ in calls] == [entry]
+    p = tmm.plan(M, K, N, dtype, out_dtype, True, True, tmm.sm_count(a.device.index))
+    assert p.instance == ("tiled" if entry == "sgg_fused_matmul_tiled" else "generic")
+    if p.instance == "tiled":
+        assert calls[0][1][:4] == (1, M, N, K)
+        assert calls[0][1][9:17] == (p.bm, p.bn, p.bk, p.stages, p.threads, p.smem, *p.grid)
+    else:
+        assert calls[0][1][11:13] == (int(p.a_vec), int(p.b_vec))
+    _check_within_ulp(got, tmm.fused_matmul_plain(a, b, relu=True, out_dtype=out_dtype),
+                      dtype if out_dtype == dtype else torch.float32)
 
 
 TRAINED_RUN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
