@@ -47,6 +47,19 @@ change an output: the row guard where M is not a multiple of the plan's
 tile rows, the k guard where K is not a multiple of its slice, the other two
 everywhere; elsewhere the verdict is reported.
 
+Five fused_decode faults are seeded into the batched instance of the copy's
+``fused_decode.cu``: c left unrounded; ctx and h rounded toward zero instead
+of to nearest (both reach the products only as bf16 operands, so leaving
+them unrounded cannot be written in this instance; a wrong rounding at the
+same points is); the softmax over V summed over the block's own logits
+columns only; and the tie rule taking the last index among the maxima. The
+first four are held to ``chip_smoke.py``'s phase-3 gates at vg1k widths,
+bf16, B = 64 and 37, on its inputs (soft y within 1e-2 of each row's
+largest value, at most 0.5 % of y differing from plain, hard tokens
+identical for at least 99 % of 8 draws, finite); the tie rule to its
+exact-tie case (wv's and bv's column 197 a copy of column 5, the Gumbel
+noise copied: every row and step must pick 5).
+
 The unmodified tree is held to
 the same gates as a baseline (it must pass them), and a variant that is not a
 fault is reported beside it: the hi, mid and lo products summed in one
@@ -55,7 +68,8 @@ sum per 16-deep step and no round-to-nearest add), at the two shapes and at
 [32, 12, 576, 64]. Each copy builds and runs in its own process, all at once.
 Exits 0 when the baseline passes and every fault is refused at each of its
 shapes (both flash shapes; the four conv shapes; the matmul shapes it can
-reach), 1 otherwise. The tree itself is not touched.
+reach; the decode batches or the tie case, whichever can see it), 1
+otherwise. The tree itself is not touched.
 """
 
 import json
@@ -113,6 +127,38 @@ MM_FAULTS = {
         ("  return __fadd_rn(__fmul_rn(a, s), b);\n", "  return __fmul_rn(__fadd_rn(a, b), s);\n",
          "all"),
 }
+DECODE_SRC = "fused_decode.cu"
+# decode fault: (sound text, faulty text, what can refuse it) in the batched
+# instance of fused_decode.cu. "gates": phase 3's gates at vg1k widths,
+# bf16, B = 64 and 37 (soft y within 1e-2 of the row max, at most 0.5 % of y
+# differing from plain, hard tokens >= 99 % identical, finite); "tie": the
+# exact-tie case. ctx and h reach the products only as bf16 operands, so
+# leaving them unrounded cannot be written in this instance; their seeds
+# round them toward zero instead of to nearest, a wrong rounding at the same
+# points.
+DECODE_FAULTS = {
+    "ctx rounded toward zero, not to nearest":
+        ("        const bf16 ctx = __float2bfloat16(s);  // ctx, rounded\n",
+         "        const bf16 ctx = __float2bfloat16_rz(s);  // ctx, rounded\n", "gates"),
+    "h rounded toward zero, not to nearest":
+        ("        const bf16 h = __float2bfloat16(__fmul_rn(tanhf(cf), sigmoid(go)));  // h, rounded\n",
+         "        const bf16 h = __float2bfloat16_rz(__fmul_rn(tanhf(cf), sigmoid(go)));  // h, rounded\n",
+         "gates"),
+    "c left unrounded":
+        ("        *c = rnd<bf16>(cf);  // c, rounded\n", "        *c = cf;  // c, rounded\n", "gates"),
+    "the softmax over V summed over the block's own columns only":
+        ("      for (int n = tid; n < V; n += kThreads) se += expf(lr[n] - m);\n",
+         "      for (int n = tid; n < V; n += kThreads)\n"
+         "        if (n / kCols % nb == bid) se += expf(lr[n] - m);\n", "gates"),
+    "the tie rule taking the last index among the maxima":
+        ("  int first = V;\n  for (int n = threadIdx.x; n < V; n += kThreads)\n"
+         "    if (expf(lr[n] - m) / se == ym) first = min(first, n);\n"
+         "  return block_min_int(first, red);\n",
+         "  int last = -1;\n  for (int n = threadIdx.x; n < V; n += kThreads)\n"
+         "    if (expf(lr[n] - m) / se == ym) last = max(last, n);\n"
+         "  return -block_min_int(-last, red);\n", "tie"),
+}
+DECODE_BATCHES = (64, 37)
 SITES = [
     ("flash_attention.cu", "// p of P . V", "fwd"),
     ("flash_attention_bwd.cu", "// ds of dq", "dq"),
@@ -220,6 +266,9 @@ def child(root, kernels, shapes):
                               "bf16_gate": ok16, "share": (got != want).float().mean().item(),
                               "f32_err": None, "tol": None, "f32_gate": True}), flush=True)
 
+    if "decode" in kernels:
+        decode_rows(root, dev)
+
     if "mm" in kernels:
         from sgg_torch.kernels import matmul as mm
 
@@ -285,6 +334,78 @@ def child(root, kernels, shapes):
                               "f32_gate": err32 <= tol}), flush=True)
 
 
+def decode_rows(root, dev):
+    """The batched fused_decode at vg1k widths, bf16, under chip_smoke.py's
+    phase-3 gates, on its inputs (the trained run's config and vocab,
+    seeded weights and features, the same draws), and its exact-tie case;
+    one JSON line per batch size and one for the tie."""
+    import torch
+
+    from sgg_torch.config import Config
+    from sgg_torch.data import Vocab
+    from sgg_torch.kernels import fused_decode as fd
+    from sgg_torch.models.generator import AttentionLSTMGenerator
+    from sgg_torch.utils.gumbel import sample_gumbel
+
+    run = os.path.join(ROOT, "results", "run_v3_bal0.7_ckpt")
+    with open(os.path.join(run, "config.json")) as f:
+        cfg = Config.from_dict(json.load(f))
+    vocab = Vocab.load(os.path.join(run, "vocab.json"))
+    cfg.model.vocab_size = len(vocab)
+    R, F, Z, V = cfg.data.regions, cfg.data.feat_dim, cfg.model.noise_dim, len(vocab)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.manual_seed(0)
+    sd = AttentionLSTMGenerator.from_config(cfg).state_dict()
+    mb = fd.step_mask_bias(vocab.step_mask(), dev)
+    feats_all = torch.randn(max(DECODE_BATCHES), R, F, generator=gen, device=dev)
+    params = fd.decode_params_from_generator(sd, torch.bfloat16, dev)
+
+    def draws(B):
+        return (torch.randn(B, Z, generator=gen, device=dev).to(torch.bfloat16),
+                sample_gumbel((B, 3, V), gen, device=dev))
+
+    for B in DECODE_BATCHES:  # the float32 cases' draws, as chip_smoke.py takes them
+        for _ in range(9):
+            draws(B)
+    for B in DECODE_BATCHES:
+        feats = feats_all[:B].to(torch.bfloat16).contiguous()
+        z, g = draws(B)
+        y = fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=False)
+        torch.cuda.synchronize()
+        want = fd.decode_plain(params, feats, z, g, mask_bias=mb, hard=False).float()
+        diff = (y.float() - want).abs()
+        rel = (diff.amax(-1) / want.abs().amax(-1)).max().item()
+        share = (diff > 0).float().mean().item()
+        same = total = 0
+        for _ in range(8):
+            z, g = draws(B)
+            yh = fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=True)
+            torch.cuda.synchronize()
+            wh = fd.decode_plain(params, feats, z, g, mask_bias=mb, hard=True)
+            same += (yh.argmax(-1) == wh.argmax(-1)).sum().item()
+            total += B * 3
+        ok = (rel <= 1e-2 and share <= 5e-3 and same / total >= 0.99
+              and bool(torch.isfinite(y.float()).all()))
+        print(json.dumps({"shape": [B, R, F, V], "output": "decode y", "bf16_gate": ok,
+                          "share": share, "f32_err": None, "tol": None, "f32_gate": True,
+                          "reach": {"gates": True, "tie": False}}), flush=True)
+    B = max(DECODE_BATCHES)
+    feats = feats_all[:B].to(torch.bfloat16).contiguous()
+    z, g = draws(B)
+    n1, n2 = 5, 5 + 32 * 6
+    tied = dict(params, wv=params["wv"].clone(), bv=params["bv"].clone())
+    tied["wv"][:, n2] = tied["wv"][:, n1]
+    tied["bv"][[n1, n2]] = 100.0
+    g[:, :, n2] = g[:, :, n1]
+    yk = fd.fused_decode(tied, feats, z, g, hard=True)
+    torch.cuda.synchronize()
+    ok = bool((yk.argmax(-1) == n1).all())
+    print(json.dumps({"shape": [B, n1, n2, V], "output": "decode tie", "bf16_gate": ok,
+                      "share": (yk.argmax(-1) != n1).float().mean().item(), "f32_err": None,
+                      "tol": None, "f32_gate": True, "reach": {"gates": False, "tie": True}}),
+          flush=True)
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--child":
         _, _, root, kernels, shapes = sys.argv
@@ -294,7 +415,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
-    runs = [("sound", [], "fwd,dq,dkv,conv,mm", VARIANT_SHAPES),
+    runs = [("sound", [], "fwd,dq,dkv,conv,mm,decode", VARIANT_SHAPES),
             ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
              "fwd,dq,dkv", VARIANT_SHAPES)]
     for src, tag, kernel in SITES:
@@ -305,6 +426,8 @@ def main() -> int:
         runs.append((label, [(CONV_SRC, replace_once(sound, faulty))], "conv", []))
     for label, (sound, faulty, _) in MM_FAULTS.items():
         runs.append((label, [(MM_SRC, replace_once(sound, faulty))], "mm", []))
+    for label, (sound, faulty, _) in DECODE_FAULTS.items():
+        runs.append((label, [(DECODE_SRC, replace_once(sound, faulty))], "decode", []))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for i, (label, edits, kernels, shapes) in enumerate(runs):
@@ -329,8 +452,10 @@ def main() -> int:
                   f"outputs differing {r['share']:.3e} (bf16 gate {r['bf16_gate']}){f32}"
                   f"{guards}", flush=True)
         # A kernel passes at a shape when every output it gives passes both
-        # gates. A matmul fault is held only where it can change an output.
-        reach = MM_FAULTS[label][2] if label in MM_FAULTS else "all"
+        # gates. A matmul fault is held only where it can change an output,
+        # a decode fault only by the check that can see it.
+        faults = dict(MM_FAULTS, **DECODE_FAULTS)
+        reach = faults[label][2] if label in faults else "all"
         for shape in sorted({tuple(r["shape"]) for r in rows}, key=lambda t: -t[2]):
             at = [r for r in rows if tuple(r["shape"]) == shape]
             passes = all(r["bf16_gate"] and r["f32_gate"] for r in at)

@@ -17,9 +17,14 @@ In one process, with no threads and no sockets:
      bfloat16: soft, every (row, step) within 1e-4 (f32) or 1e-2 (bf16) of
      that row's largest value, and at vg1k widths at most 0.5 % of the bf16
      y differing from plain at all; hard, tokens identical for >= 99.9 %
-     (f32) or >= 99 % (bf16) of 8 draws; and the 16-row template instance
-     (the one resnet50 widths run) at vg1k widths, B = 64, under the same
-     0.5 % share gate;
+     (f32) or >= 99 % (bf16) of 8 draws; the bf16 cases run the batched
+     instance, float32 the generic one; and the generic instance's 16-row
+     tile at vg1k widths, B = 64, under the same 0.5 % share gate; then the
+     batched instance exactly, at vg1k widths (B = 64) and resnet50 widths
+     (B = 64): an exact tie (wv's and bv's column n2 copied from n1 < n2,
+     in items that different blocks take, the Gumbel noise copied, no mask)
+     where kernel and plain must pick n1 in every row and step, two
+     launches bit for bit, and B = 37 bit for bit rows 0-36 of B = 64;
   4. fused_matmul vs plain at every ResNet-50 1x1-conv shape of the pixels-in
      path (B = 32 at 224 px), at VGG-19's first im2col shape and at five
      ragged shapes (M not a multiple of the tile, K = 16 and 80, N = 8 and
@@ -60,7 +65,14 @@ In one process, with no threads and no sockets:
      paths use, beside its plain version, the library call that computes the
      same product (torch.matmul, or F.conv2d on channels-last bf16; both
      without the epilogue) and the bound: max(bytes over 3.35 TB/s, FLOPs over
-     the type's peak); fused_matmul and conv_direct also on the device's
+     the type's peak; fused_decode's in hard mode, whose feedback reads the
+     chosen rows of emb, with the soft-mode bound printed beside it);
+     fused_decode also on the device's clock (its cooperative launch
+     captured in a CUDA graph), its generic instance on the same inputs,
+     its per-phase split (the timed check-only entry: block 0's
+     %globaltimer at every grid barrier) and its wrapper's host us per call
+     at a tiny width against a limit of 60;
+     fused_matmul and conv_direct also on the device's
      clock (each call captured in a CUDA graph, so the wrapper's host cost
      drops out), with torch.matmul or F.conv2d and the generic instance (the
      tile core the two share, each kernel's earlier design) on the same bf16
@@ -155,6 +167,7 @@ N_IMAGES, BATCH, K = 512, 64, 50
 PIX_IMAGES, PIX_BATCH, PIX_VOCAB = 256, 32, 8192
 VIT_IMAGES, VIT_BATCH, VIT_VOCAB = 256, 32, 1024
 TRAIN_STEPS = 3
+DECODE_HOST_US_LIMIT = 60  # fused_decode's wrapper, host us per call at a tiny width
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -232,16 +245,20 @@ def ptxas_report(text):
     return rows
 
 
-def decode_work(B, R, F, A, H, E, Z, V, dtype_bytes):
+def decode_work(B, R, F, A, H, E, Z, V, dtype_bytes, hard=True):
     """(bytes, FLOPs) of one fused_decode launch: each input read once and
-    the output written once; the arithmetic of the 3-step decode."""
+    the output written once; the arithmetic of the 3-step decode. In hard
+    mode y is a one-hot, so the feedback rnd(y @ emb) is the chosen row of
+    emb: 3 rows per batch row are read and no y @ emb is computed."""
     K_ = F + E + Z + H
-    weights = F * A + H * A + A + F * H * 2 + K_ * 4 * H + (H + F) * E + E * V + V * E
+    weights = F * A + H * A + A + F * H * 2 + K_ * 4 * H + (H + F) * E + E * V
+    emb = 3 * B * E if hard else V * E
     biases = A + 2 * H + 4 * H + E + V
-    nbytes = (B * R * F + B * Z + weights + B * 3 * V) * dtype_bytes \
+    nbytes = (B * R * F + B * Z + weights + emb + B * 3 * V) * dtype_bytes \
         + (B * 3 * V + 3 * V + biases) * 4
+    feedback = 0 if hard else V * E
     flops = (2 * B * R * F * A + B * R * F + 2 * 2 * B * F * H
-             + 3 * 2 * B * (H * A + R * A + R * F + K_ * 4 * H + (H + F) * E + E * V + V * E))
+             + 3 * 2 * B * (H * A + R * A + R * F + K_ * 4 * H + (H + F) * E + E * V + feedback))
     return nbytes, flops
 
 
@@ -480,7 +497,10 @@ def main():
                 share_max = share_tol if dtype == torch.bfloat16 else None
                 ok = (rel <= tol and agree >= need and bool(torch.isfinite(y.float()).all())
                       and (share_max is None or share <= share_max))
-                log(f"fused_decode vs plain, {label} {name} B={B}: soft max_abs_err "
+                p_ = fd.plan(B, Rq, Fq, cfg_.model.attn_dim, cfg_.model.hidden,
+                             cfg_.model.embed_dim, Zq, Vq, dtype, mm.sm_count(0), row_tile)
+                log(f"fused_decode vs plain, {label} {name} B={B} ({p_.instance} instance): "
+                    f"soft max_abs_err "
                     f"{err:.3e}, max_abs_err / row max {rel:.3e} (<= {tol}), max bf16 "
                     f"ulps where y >= 1e-3 x row max {ulps:.2f}, share of y differing "
                     f"{share:.3e}{f' (<= {share_max})' if share_max else ''}, of rows "
@@ -492,16 +512,70 @@ def main():
         return sd, errs
 
     log(f"widths vg1k: V={V} R={R} F={F} A={A} H={H} E={E} Z={Z} compute={m.compute_dtype}; "
-        f"row tile {lib.sgg_fused_decode_row_tile(R, F, A, H, E, Z, V)}")
+        f"generic row tile {fd.plan(BATCH, R, F, A, H, E, Z, V, torch.float32).row_tile}")
     failed = []
     sd, _ = check_decode(cfg, vocab, (BATCH, 37), "vg1k", share_tol=5e-3)
     # The 16-row instance, which resnet50 widths run, where the share of y
     # that differs can tell a skipped rounding (at resnet50 widths the sums
     # alone move about 2 %).
     check_decode(cfg, vocab, (BATCH,), "vg1k row tile 16", share_tol=5e-3, row_tile=16)
-    log(f"widths resnet50: R, F, A, H, E, Z, V = {pix_widths}; row tile "
-        f"{lib.sgg_fused_decode_row_tile(*pix_widths)}")
+    log(f"widths resnet50: R, F, A, H, E, Z, V = {pix_widths}; generic row tile "
+        f"{fd.plan(PIX_BATCH, *pix_widths, torch.float32).row_tile}")
     pix_sd, pix_errs = check_decode(pix_cfg, pix_vocab, (PIX_BATCH,), "resnet50")
+
+    def check_batched(cfg_, sd_, B, label):
+        """The batched bf16 instance, exactly: (i) an exact tie, where wv's
+        and bv's column n2 is a copy of n1 < n2, 32 * 6 columns on (so the
+        two lie in items that different blocks take), with the Gumbel noise
+        copied too and no mask: both columns hold the maximum of every row
+        and step and the kernel must pick n1, as decode_plain does; (ii) two
+        launches on the same inputs give the same bits, soft and hard;
+        (iii) B = 37 gives rows 0-36 of the B call bit for bit."""
+        Rq, Fq, Zq, Vq = (cfg_.data.regions, cfg_.data.feat_dim, cfg_.model.noise_dim,
+                          cfg_.model.vocab_size)
+        params = fd.decode_params_from_generator(sd_, torch.bfloat16, dev)
+        g_tie = torch.Generator(device=dev).manual_seed(SEED + 41)  # leaves gen's stream as it was
+        feats = torch.randn(B, Rq, Fq, generator=g_tie, device=dev).to(torch.bfloat16)
+        z = torch.randn(B, Zq, generator=g_tie, device=dev).to(torch.bfloat16)
+        g = sample_gumbel((B, 3, Vq), g_tie, device=dev)
+        n1, n2 = 5, 5 + 32 * 6
+        p_ = fd.plan(B, Rq, Fq, cfg_.model.attn_dim, cfg_.model.hidden, cfg_.model.embed_dim,
+                     Zq, Vq, torch.bfloat16, mm.sm_count(0))
+        blocks = {n: next(b_ for b_, cols in p_.items("logits") if n in cols) for n in (n1, n2)}
+        tied = dict(params)
+        tied["wv"] = params["wv"].clone()
+        tied["wv"][:, n2] = tied["wv"][:, n1]
+        tied["bv"] = params["bv"].clone()
+        tied["bv"][[n1, n2]] = 100.0
+        gt = g.clone()
+        gt[:, :, n2] = gt[:, :, n1]
+        yk = fd.fused_decode(tied, feats, z, gt, hard=True)
+        torch.cuda.synchronize()
+        yp = fd.decode_plain(tied, feats, z, gt, hard=True)
+        tie_ok = (p_.instance == "batched" and blocks[n1] != blocks[n2]
+                  and bool((yk.argmax(-1) == n1).all()) and bool((yp.argmax(-1) == n1).all()))
+        same = True
+        for hard in (False, True):
+            a_ = fd.fused_decode(params, feats, z, g, hard=hard)
+            b_ = fd.fused_decode(params, feats, z, g, hard=hard)
+            torch.cuda.synchronize()
+            same = same and torch.equal(a_, b_)
+        full = fd.fused_decode(params, feats, z, g, hard=False)
+        part = fd.fused_decode(params, feats[:37].contiguous(), z[:37].contiguous(),
+                               g[:37].contiguous(), hard=False)
+        torch.cuda.synchronize()
+        rows_ok = torch.equal(part, full[:37])
+        ok = tie_ok and same and rows_ok
+        log(f"fused_decode batched instance, {label} bf16 B={B}: exact tie at columns {n1} "
+            f"(block {blocks[n1]}) and {n2} (block {blocks[n2]}): kernel picks {n1} in every "
+            f"row and step {bool((yk.argmax(-1) == n1).all())}, plain "
+            f"{bool((yp.argmax(-1) == n1).all())}; two launches bit for bit {same}; B = 37 "
+            f"gives rows 0-36 of B = {B} bit for bit {rows_ok}: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(f"{label} batched exact cases")
+
+    check_batched(cfg, sd, BATCH, "vg1k")
+    check_batched(pix_cfg, pix_sd, 64, "resnet50")
     if failed:
         raise AssertionError(f"fused_decode disagrees with decode_plain: {failed}")
     phase("fused_decode_vs_plain", t0)
@@ -827,7 +901,49 @@ def main():
         r_["bound"] += weight * bound_s * 1e3
         r_["by"][bound_by] += weight
 
-    # fused_decode, bf16 hard: the vg1k path (B = 64) and the resnet50 path (B = 32).
+    # fused_decode, bf16 hard: the vg1k path (B = 64) and the resnet50 path
+    # (B = 32). The record is the host clock (CUDA events around eager
+    # calls, in turns with plain); printed apart: the device's clock (the
+    # cooperative launch captured in a CUDA graph), the generic instance on
+    # the same inputs, and the per-phase split from the timed check-only
+    # entry (block 0's %globaltimer at every grid barrier).
+    phase_names = ["mean, z, copies", "init c, h + proj", "hp", "step 1 scores", "step 1 ctx"]
+    for t_ in range(1, 4):
+        nxt = t_ < 3
+        phase_names += [f"step {t_} gates + cell", f"step {t_} dec + next hp",
+                        f"step {t_} logits" + (f" + step {t_ + 1} scores" if nxt else ""),
+                        f"step {t_} sample + feedback" + (f" + step {t_ + 1} ctx" if nxt else "")]
+
+    def decode_split(params, feats, z, g, mb):
+        """Block 0's time in each phase of one launch of the timed batched
+        instance, us, in phase_names' order (the last phase ends at block
+        0's end, not at a barrier)."""
+        B_, R_, F_ = feats.shape
+        A_, H_ = params["wf"].shape[1], params["wc"].shape[1]
+        E_, V_ = params["emb"].shape[1], params["wv"].shape[1]
+        p_ = fd.plan(B_, R_, F_, A_, H_, E_, z.shape[1], V_, feats.dtype, mm.sm_count(0))
+        stamps = torch.zeros(fd.MAX_MARKS, dtype=torch.int64, device=dev)
+        scratch = torch.empty(p_.scratch, dtype=torch.uint8, device=dev)
+        y = torch.empty(B_, 3, V_, dtype=feats.dtype, device=dev)
+        ws = [params[n_].data_ptr() for n_ in fd.WEIGHT_NAMES]
+        runs = []
+        for _ in range(3):
+            stamps.zero_()
+            err_ = lib.sgg_fused_decode_batched_timed(
+                1, B_, R_, F_, A_, H_, E_, z.shape[1], V_, feats.data_ptr(), z.data_ptr(),
+                g.data_ptr(), mb.data_ptr(), 1.0, *ws, scratch.data_ptr(), y.data_ptr(),
+                p_.row_tiles, p_.grid, p_.threads, p_.stages, p_.smem, p_.scratch,
+                stamps.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if err_ != 0:
+                raise RuntimeError(f"timed fused_decode launch failed: CUDA error {err_}")
+            t_ = [v_ for v_ in stamps.tolist() if v_]
+            runs.append([(t_[i_ + 1] - t_[i_]) / 1e3 for i_ in range(len(t_) - 1)])
+        if any(len(r_) != len(phase_names) for r_ in runs):
+            raise AssertionError(f"the timed instance stamped {[len(r_) for r_ in runs]} "
+                                 f"phases, expected {len(phase_names)}")
+        return [min(r_[i_] for r_ in runs) for i_ in range(len(phase_names))]
+
     for label, cfg_, sd_, B in (("vg1k", cfg, sd, BATCH), ("resnet50", pix_cfg, pix_sd, PIX_BATCH)):
         Rq, Fq, Aq, Hq, Eq, Zq, Vq = (cfg_.data.regions, cfg_.data.feat_dim,
                                       cfg_.model.attn_dim, cfg_.model.hidden,
@@ -845,13 +961,56 @@ def main():
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         nbytes, flops = decode_work(B, Rq, Fq, Aq, Hq, Eq, Zq, Vq, feats.element_size())
         b_s, b_by = bound(nbytes, flops, peak)
-        log(f"time fused_decode {label} {cfg_.model.compute_dtype} B={B}: kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (turns k,k,p,p "
+        soft_b, _ = bound(*decode_work(B, Rq, Fq, Aq, Hq, Eq, Zq, Vq, feats.element_size(),
+                                       hard=False), peak)
+        log(f"time fused_decode {label} {cfg_.model.compute_dtype} B={B} (record, host clock): "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (turns k,k,p,p "
             f"{', '.join(f'{t:.4f}' for t in turns)}), bound {b_s * 1e3:.5f} ms ({b_by}: "
-            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), per batch of {K} draws "
-            f"{K * k_ms:.2f} ms")
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; hard mode's feedback reads the "
+            f"chosen rows of emb, 3 * B * E; with all of emb and y @ emb, as soft mode needs, "
+            f"{soft_b * 1e3:.5f} ms), kernel at {b_s * 1e3 / k_ms:.4f} of the bound, per batch "
+            f"of {K} draws {K * k_ms:.2f} ms")
+        dev_ms = graph_ms(lambda: fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=True))
+        rt = max(t_ for t_ in fd.ROW_TILES
+                 if fd.generic_smem(Rq, Fq, Aq, Hq, Eq, Zq, Vq, t_) <= 232_448)
+        gen_ms = time_ms(lambda: fd.fused_decode(params, feats, z, g, mask_bias=mb, hard=True,
+                                                 row_tile=rt))
+        split = decode_split(params, feats, z, g, mb)
+        log(f"time fused_decode {label} B={B} on the device's clock (the cooperative launch "
+            f"captured in a CUDA graph): "
+            f"{dev_ms:.4f} ms; the generic instance (row tile {rt}) on the same inputs, host "
+            f"clock: {gen_ms:.4f} ms (batched / generic {k_ms / gen_ms:.4f})")
+        log(f"time fused_decode {label} B={B} per phase (timed instance, block 0, us, best "
+            f"of 3; total {sum(split):.2f}): "
+            + "; ".join(f"{n_} {v_:.2f}" for n_, v_ in zip(phase_names, split)))
         if label == "resnet50":
             add("fused_decode", k_ms, p_ms, None, b_s, b_by, K)
+    tiny = fd.cast_params({n_: (torch.randn(*shape_, generator=torch.Generator().manual_seed(1))
+                                / 4).numpy() for n_, shape_ in (
+        ("wf", (24, 16)), ("wh", (32, 16)), ("bh", (16,)), ("v", (16,)), ("wc", (24, 32)),
+        ("bc", (32,)), ("wi", (24, 32)), ("bi", (32,)), ("k", (80, 128)), ("bk", (128,)),
+        ("wd", (56, 16)), ("bd", (16,)), ("wv", (16, 40)), ("bv", (40,)), ("emb", (40, 16)))},
+        torch.bfloat16, dev)
+    t_feats = torch.randn(4, 9, 24, device=dev).to(torch.bfloat16)
+    t_z = torch.randn(4, 8, device=dev).to(torch.bfloat16)
+    t_g = torch.randn(4, 3, 40, device=dev)
+    fd.fused_decode(tiny, t_feats, t_z, t_g)
+    torch.cuda.synchronize()
+    host_runs = []
+    for _ in range(5):  # the host's clock is shared: the least of 5 runs of 100 calls
+        t_host = time.perf_counter()
+        for _ in range(100):
+            fd.fused_decode(tiny, t_feats, t_z, t_g)
+        host_runs.append((time.perf_counter() - t_host) / 100 * 1e6)
+        torch.cuda.synchronize()
+    host_us = min(host_runs)
+    # Printed against its limit, not held to it: a loaded host moves it (29
+    # to 52 us between calls on the same code, H100).
+    log(f"time fused_decode wrapper's host cost at B=4, R=9, F=24, A=16, H=32, E=16, Z=8, V=40 "
+        f"(batched instance): {host_us:.1f} us per call, the least of 5 runs of 100 calls "
+        f"without a synchronize ({', '.join(f'{v_:.1f}' for v_ in host_runs)}): "
+        f"{'within' if host_us <= DECODE_HOST_US_LIMIT else 'OVER'} the limit of "
+        f"{DECODE_HOST_US_LIMIT} us")
 
     # fused_matmul timed as every kernel here (host clock, CUDA events
     # around eager calls) for the record; then on the device's clock (CUDA

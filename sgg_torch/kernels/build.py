@@ -37,7 +37,17 @@ _ENTRIES = {
     #  mask_bias, tau, wf, wh, bh, v, wc, bc, wi, bi, k, bk, wd, bd, wv, bv,
     #  emb, proj, y, stream)
     "sgg_fused_decode": ([_I] * 11 + [_P] * 4 + [ctypes.c_float] + [_P] * 18, _I),
-    "sgg_fused_decode_row_tile": ([_I] * 7, _I),
+    # (hard, B, R, F, A, H, E, Z, V, feats, z, gumbel, mask_bias, tau, wf,
+    #  wh, bh, v, wc, bc, wi, bi, k, bk, wd, bd, wv, bv, emb, scratch, y,
+    #  row_tiles, grid, threads, stages, smem, scratch_bytes, stream):
+    # fused_decode.plan()'s batched launch
+    "sgg_fused_decode_batched": (
+        [_I] * 9 + [_P] * 4 + [ctypes.c_float] + [_P] * 17 + [_I] * 5
+        + [ctypes.c_longlong, _P], _I),
+    # Check-only: the same with a times buffer before the stream.
+    "sgg_fused_decode_batched_timed": (
+        [_I] * 9 + [_P] * 4 + [ctypes.c_float] + [_P] * 17 + [_I] * 5
+        + [ctypes.c_longlong, _P, _P], _I),
     # (dtype, out_dtype, relu, M, N, K, a, b, scale, bias, out, a_vec, b_vec,
     #  stream)
     "sgg_fused_matmul": ([_I] * 6 + [_P] * 5 + [_I] * 2 + [_P], _I),

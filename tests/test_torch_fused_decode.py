@@ -153,3 +153,44 @@ def test_build_is_plain_nvcc_for_sm90a():
     for header in build.headers():
         assert "torch" not in header.read_text(), header.name
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exact_tie_takes_the_first_index(setup, dtype):
+    """wv's and bv's column 21 a copy of column 3, the Gumbel noise copied
+    and both columns far above the rest: y ties exactly at 3 and 21 in every
+    row and step, and the plain version, like the Pallas kernel (interpret
+    mode), takes the first, 3; the CUDA kernel is held to the same on the
+    card."""
+    np_params, feats, z, _ = setup
+    n1, n2 = 3, 21
+    tied = {k: v.copy() for k, v in np_params.items()}
+    tied["wv"][:, n2] = tied["wv"][:, n1]
+    tied["bv"][[n1, n2]] = 100.0
+    g = np.array(jfd.decode_gumbel_noise(jax.random.key(17), B, V))
+    g[:, :, n2] = g[:, :, n1]
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = jfd.fused_decode({k: jnp.asarray(v) for k, v in tied.items()},
+                           jnp.asarray(feats, jdt), jnp.asarray(z, jdt), jnp.asarray(g),
+                           hard=True, block_b=4)
+    params, tf, tz, tg = _torch_inputs(tied, feats, z, g, dtype)
+    got = tfd.decode_plain(params, tf, tz, tg, hard=True)
+    assert (np.asarray(ref, np.float32).argmax(-1) == n1).all()
+    assert (got.float().argmax(-1) == n1).all()
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_hot_feedback_is_the_chosen_row_bit_for_bit(dtype):
+    """rnd(y @ emb) for a one-hot y is emb[first] exactly (each sum holds one
+    product by 1.0 and zeros), so the batched CUDA instance reads that row
+    in hard mode instead of the product."""
+    r = np.random.RandomState(3)
+    Vq, Eq, Bq = 300, 64, 16
+    emb = torch.from_numpy(r.randn(Vq, Eq).astype(np.float32) * 10.0 ** r.randint(
+        -20, 20, size=(Vq, Eq))).to(dtype)
+    first = torch.from_numpy(r.randint(0, Vq, size=Bq))
+    y = torch.zeros(Bq, Vq, dtype=dtype)
+    y[torch.arange(Bq), first] = 1.0
+    product = (y.to(torch.float32) @ emb.to(torch.float32)).to(dtype)  # decode_plain's feedback
+    assert torch.equal(product, emb[first])

@@ -45,7 +45,7 @@ from sgg_torch.kernels import flash_attention_bwd as tfb
 from sgg_torch.kernels import fused_decode as tfd
 from sgg_torch.kernels import matmul as tmm
 
-V, F, H, E, A, Z, R = 40, 24, 32, 16, 16, 8, 9
+V, F, H, E, A, Z, R = 40, 24, 32, 16, 16, 8, 9  # the batched instance takes them in bf16
 
 
 def _inputs(B, dtype, seed=0):
@@ -133,6 +133,87 @@ def test_fused_decode_at_resnet50_widths(dtype):
     # largest value instead of an absolute bound.
     rel = (got.float() - want).abs().amax(-1) / want.abs().amax(-1)
     assert rel.max().item() <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+def test_fused_decode_batched_exact_tie_picks_the_first_index():
+    """wv's and bv's column n2 a copy of n1 < n2 (items on different
+    blocks), the Gumbel noise copied, both far above the rest: every row and
+    step picks n1, as decode_plain does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    params, feats, z, g, _ = _inputs(64, torch.bfloat16, seed=4)
+    n1, n2 = 3, 35
+    p = tfd.plan(64, R, F, A, H, E, Z, V, torch.bfloat16, tmm.sm_count(0))
+    blocks = {n: next(b for b, cols in p.items("logits") if n in cols) for n in (n1, n2)}
+    assert p.instance == "batched" and blocks[n1] != blocks[n2]
+    params["wv"][:, n2] = params["wv"][:, n1]
+    params["bv"][[n1, n2]] = 100.0
+    g[:, :, n2] = g[:, :, n1]
+    got = tfd.fused_decode(params, feats, z, g, hard=True)
+    torch.cuda.synchronize()
+    want = tfd.decode_plain(params, feats, z, g, hard=True)
+    assert (got.argmax(-1) == n1).all() and (want.argmax(-1) == n1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hard", [False, True])
+def test_fused_decode_batched_is_deterministic_and_rows_independent(hard):
+    """Two launches give the same bits; bf16 B = 37 gives rows 0-36 of the
+    B = 64 call bit for bit (no atomics; every sum's order is fixed by the
+    widths)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    params, feats, z, g, mb = _inputs(64, torch.bfloat16, seed=5)
+    a = tfd.fused_decode(params, feats, z, g, mask_bias=mb, hard=hard)
+    b = tfd.fused_decode(params, feats, z, g, mask_bias=mb, hard=hard)
+    part = tfd.fused_decode(params, feats[:37].contiguous(), z[:37].contiguous(),
+                            g[:37].contiguous(), mask_bias=mb, hard=hard)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(part, a[:37])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,dtype,row_tile,entry", [
+    (64, torch.bfloat16, None, "sgg_fused_decode_batched"),
+    (20, torch.bfloat16, None, "sgg_fused_decode_batched"),
+    (64, torch.bfloat16, 16, "sgg_fused_decode"),
+    (64, torch.float32, None, "sgg_fused_decode"),
+])
+def test_fused_decode_launches_the_planned_instance(B, dtype, row_tile, entry, monkeypatch):
+    """The wrapper calls the C entry of the instance plan() names, once,
+    with the plan's row tiles, grid, threads, ring, shared memory and
+    scratch (or the generic instance's row tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sgg_torch.kernels import build
+
+    lib, calls = build.load_library(), []
+
+    class Recording:
+        def __getattr__(self, name):
+            def call(*args):
+                calls.append((name, args))
+                return getattr(lib, name)(*args)
+            return call
+
+    monkeypatch.setattr(build, "load_library", lambda: Recording())
+    params, feats, z, g, mb = _inputs(B, dtype, seed=6)
+    got = tfd.fused_decode(params, feats, z, g, mask_bias=mb, hard=False, row_tile=row_tile)
+    torch.cuda.synchronize()
+    assert [name for name, _ in calls] == [entry]
+    p = tfd.plan(B, R, F, A, H, E, Z, V, dtype, tmm.sm_count(0), row_tile)
+    args = calls[0][1]
+    if entry == "sgg_fused_decode_batched":
+        assert args[:9] == (0, B, R, F, A, H, E, Z, V)
+        assert args[-7:-1] == (p.row_tiles, p.grid, p.threads, p.stages, p.smem, p.scratch)
+    else:
+        assert p.instance == "generic" and args[:4] == (int(dtype == torch.bfloat16), 0,
+                                                         p.row_tile, B)
+    want = tfd.decode_plain(params, feats, z, g, mask_bias=mb, hard=False)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
 
 
 def _check_close(got, want, dtype):
