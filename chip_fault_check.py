@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Seeded-fault check of the flash, conv_direct and fused_matmul kernels' gates,
-on the card.
+"""Seeded-fault check of the kernels' gates and of the pipeline_v4 gather's
+holds, on the card.
 
   python3 chip_fault_check.py
 
@@ -59,6 +59,17 @@ largest value, at most 0.5 % of y differing from plain, hard tokens
 identical for at least 99 % of 8 draws, finite); the tie rule to its
 exact-tie case (wv's and bv's column 197 a copy of column 5, the Gumbel
 noise copied: every row and step must pick 5).
+
+Two faults are seeded into the port's int8 balanced gather
+(``sgg_torch/data/pipeline.py``, ``gather_super_batch``): the dequant cast to
+the store's dtype before the scale multiply (two roundings, where the
+reference casts the float32 product once), and the inverse CDF with ``>=`` in
+place of ``>``. Each is held to ``chip_smoke.py``'s pipeline_v4 gather holds
+(``gather_holds``) on a seeded float16 corpus of 2,048 images at pipeline_v4's
+widths, on the card: the batch equal to the CPU's and to the reference's
+formula written out in numpy, bit for bit, at draws that put ties on the
+CDF's steps; dequantized values within half a scale step plus one float16
+ulp of the source; draws moved toward the rarer predicates.
 
 The unmodified tree is held to
 the same gates as a baseline (it must pass them), and a variant that is not a
@@ -159,6 +170,17 @@ DECODE_FAULTS = {
          "  return -block_min_int(-last, red);\n", "tie"),
 }
 DECODE_BATCHES = (64, 37)
+GATHER_SRC = "sgg_torch/data/pipeline.py"
+GATHER_IMAGES = 2048
+# gather fault: (sound text, faulty text) in the port's int8 balanced gather.
+GATHER_FAULTS = {
+    "the dequant cast before the scale multiply":
+        ("        x = (x.float() * store.scale[img][..., None]).to(store.store_dtype)\n",
+         "        x = x.to(store.store_dtype) * store.scale[img][..., None].to(store.store_dtype)\n"),
+    "the inverse CDF with >= in place of >":
+        ("        tsel = (u[..., None] > store.cumw[img]).sum(-1)\n",
+         "        tsel = (u[..., None] >= store.cumw[img]).sum(-1)\n"),
+}
 SITES = [
     ("flash_attention.cu", "// p of P . V", "fwd"),
     ("flash_attention_bwd.cu", "// ds of dq", "dq"),
@@ -204,7 +226,7 @@ def make_copy(tmp, name, edits):
     shutil.copytree(os.path.join(ROOT, "sgg_torch"), os.path.join(root, "sgg_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     for src, edit in edits:
-        path = os.path.join(root, CSRC, src)
+        path = os.path.join(root, src if src.startswith("sgg_torch/") else os.path.join(CSRC, src))
         with open(path) as f:
             text = f.read()
         with open(path, "w") as f:
@@ -269,6 +291,9 @@ def child(root, kernels, shapes):
     if "decode" in kernels:
         decode_rows(root, dev)
 
+    if "gather" in kernels:
+        gather_rows(dev)
+
     if "mm" in kernels:
         from sgg_torch.kernels import matmul as mm
 
@@ -332,6 +357,28 @@ def child(root, kernels, shapes):
             print(json.dumps({"shape": list(shape), "output": name, "bf16_gate": ok16,
                               "share": share, "f32_err": err32, "tol": tol,
                               "f32_gate": err32 <= tol}), flush=True)
+
+
+def gather_rows(dev):
+    """chip_smoke.py's pipeline_v4 gather holds on the copy's pipeline, on a
+    seeded corpus of GATHER_IMAGES images at pipeline_v4's widths (the trained
+    run's vocab), its subset size and batch: the card against the CPU, bit
+    for bit; against the reference's formula in numpy, bit for bit, at draws
+    with ties at the steps of the CDF; dequantized values within half a
+    scale step plus one float16 ulp; draws moved toward the rarer
+    predicates. One JSON line."""
+    import chip_smoke
+    from sgg_torch.data import Vocab, pipeline
+
+    vocab = Vocab.load(os.path.join(ROOT, "results", "run_v3_bal0.7_ckpt", "vocab.json"))
+    feats, triples = chip_smoke.v4_corpus(vocab, GATHER_IMAGES, 0, dev)
+    h = chip_smoke.gather_holds(pipeline, feats, triples, 0.7, chip_smoke.V4_BUDGET // 2, 256,
+                                5, dev, 0)
+    names = ("card_vs_cpu", "formula", "dequant", "tail")
+    print(json.dumps({"shape": [GATHER_IMAGES, 196, 512, 256], "output": "gather",
+                      "bf16_gate": all(h[k] for k in names), "share": h["share_differing"],
+                      "f32_err": None, "tol": None, "f32_gate": True,
+                      "holds": {k: h[k] for k in names}}), flush=True)
 
 
 def decode_rows(root, dev):
@@ -415,7 +462,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
-    runs = [("sound", [], "fwd,dq,dkv,conv,mm,decode", VARIANT_SHAPES),
+    runs = [("sound", [], "fwd,dq,dkv,conv,mm,decode,gather", VARIANT_SHAPES),
             ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
              "fwd,dq,dkv", VARIANT_SHAPES)]
     for src, tag, kernel in SITES:
@@ -428,6 +475,8 @@ def main() -> int:
         runs.append((label, [(MM_SRC, replace_once(sound, faulty))], "mm", []))
     for label, (sound, faulty, _) in DECODE_FAULTS.items():
         runs.append((label, [(DECODE_SRC, replace_once(sound, faulty))], "decode", []))
+    for label, (sound, faulty) in GATHER_FAULTS.items():
+        runs.append((label, [(GATHER_SRC, replace_once(sound, faulty))], "gather", []))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for i, (label, edits, kernels, shapes) in enumerate(runs):
@@ -448,6 +497,7 @@ def main() -> int:
             f32 = ("" if r["f32_err"] is None else f", float32 result rel L2 "
                    f"{r['f32_err']:.3e} (<= {r['tol']:.2e}: {r['f32_gate']})")
             guards = "" if "guards" not in r else f", rows around out untouched {r['guards']}"
+            guards += "" if "holds" not in r else f", holds {r['holds']}"
             print(f"[chip_fault_check] {label}, {r['shape']} {r['output']}: share of bf16 "
                   f"outputs differing {r['share']:.3e} (bf16 gate {r['bf16_gate']}){f32}"
                   f"{guards}", flush=True)

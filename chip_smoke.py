@@ -124,8 +124,8 @@ In one process, with no threads and no sockets:
      (worst parameter's rel L2 and the rel L2 over all parameters, each
      within 1.5x); exactly 12 launches of each of the three flash kernels;
  15. main path, training: ``python -m sgg_torch.cli.train --config vit_b16
-     --set train.train_encoder=true`` (in process) at the config's widths,
-     batch 32, n_critic 5, over 256 seeded synthetic 224 px images, 3
+     --set train.train_encoder=true --profile`` (in process) at the config's
+     widths, batch 32, n_critic 5, over 256 seeded synthetic 224 px images, 16
      steps: exactly 72 flash_attention, 60 dq and 60 dk/dv launches per step
      and no other kernel; finite losses; every encoder tensor moved;
      metrics.jsonl and the checkpoint read back; s/step, images/s and peak
@@ -138,17 +138,44 @@ In one process, with no threads and no sockets:
      their plain versions, the backward of ``scaled_dot_product_attention``
      (``torch.autograd.grad`` of its output; timed only) and the bound, with
      the float32 CUDA-core floor of the products that take p or ds as a
-     reference line (the products now run on the tensor cores).
+     reference line (the products now run on the tensor cores);
+ 17. main path, ``pipeline_v4`` (``pipeline_v4_phase``): a seeded corpus with
+     the trained run's vocab (V = 210), 8,192 train and 512 test images of
+     196 x 512 float16 features (VG's 108,077 cut), predicates on a long
+     tail; ``python -m sgg_torch.cli.train --config pipeline_v4 --profile``
+     (in process) at its full widths (B = 256, grad_accum 2, n_critic 5,
+     bf16) for 16 steps with the device budget cut by the corpus's factor
+     (303 MB: 6 rotating int8 subsets), ``rotation_min_steps`` 2, a probe
+     every 8 steps and a checkpoint every 2: finite losses, no kernel
+     launch, at least one full rotation cycle, two probes, the kept
+     checkpoints; s/step, images/s, peak device memory, the subsets' upload
+     seconds and swaps, the probes' recall and seconds, the profile's top
+     device ops and idle share; the gather's holds on the card
+     (``gather_holds``: the batch equal to the CPU's and to the reference's
+     formula in numpy, bit for bit, with ties on the CDF's steps; every
+     dequantized value within half its region's scale plus one float16 ulp;
+     draws moved toward the rarer predicates); ``sgg_torch.cli.evaluate
+     --ema --avg-last 5 --rank logp --k 20,50,100 --zero-shot
+     --per-predicate`` (no kernel launch) and ``--decode fused --rank freq``
+     (exactly 8 x 100 fused_decode launches), each one's recall grid, wall
+     seconds and triples/s; one batch of the sampler with log-probabilities
+     on the card against the CPU's, same noise.
+Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
+10-14) and prints its table.
 
 The kernels' JSON record gives, for each kernel, its launches on the newest
-main path that runs it (phase 7; phase 15 for the three flash kernels) and
+main path that runs it (phase 17 for fused_decode, timed at its vg1k widths,
+B = 64, which pipeline_v4 shares; phase 7 for fused_matmul and conv_direct;
+phase 15 for the three flash kernels) and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
 bound ms. The last two lines are that
 record and the device JSON. A failed check raises, so the exit code is not 0;
 a watchdog turns a hang into a stack trace and a non-zero exit.
 """
 
+import contextlib
 import faulthandler
+import io
 import json
 import math
 import os
@@ -167,6 +194,13 @@ N_IMAGES, BATCH, K = 512, 64, 50
 PIX_IMAGES, PIX_BATCH, PIX_VOCAB = 256, 32, 8192
 VIT_IMAGES, VIT_BATCH, VIT_VOCAB = 256, 32, 1024
 TRAIN_STEPS = 3
+VIT_TRAIN_STEPS = 16  # vit_b16 with --profile: the window is steps 10-14
+# pipeline_v4: VG's 108,077 images cut to 8,192 train and 512 test images;
+# the device budget cut by the same factor keeps VG's ratio of store to
+# budget (10.8 GB of int8 over 4 GB: about 6 subsets).
+V4_TRAIN, V4_TEST, VG_IMAGES = 8192, 512, 108_077
+V4_BUDGET = int(4_000_000_000 * V4_TRAIN / VG_IMAGES)
+V4_STEPS, V4_EVAL_EVERY, V4_CKPT_EVERY, V4_MIN_STEPS = 16, 8, 2, 2
 DECODE_HOST_US_LIMIT = 60  # fused_decode's wrapper, host us per call at a tiny width
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
@@ -210,6 +244,28 @@ CONV_EDGES = [((3, 7, 7, 512), 512, 3), ((2, 9, 13, 64), 72, 3), ((1, 5, 5, 32),
 
 def log(msg):
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+class Tee:
+    """A stream that writes to each of its streams."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def sampled_rate(printed):
+    """Triples/s of evaluate's sampling loop, from its printed line."""
+    line = [ln for ln in printed.splitlines() if "triples/sec" in ln][-1]
+    return float(line.split(" triples/sec")[0].rsplit("(", 1)[1])
 
 
 def phase(name, t0):
@@ -279,6 +335,328 @@ def flash_work(shape, isz):
     return 4 * B * H * S * D * isz, 4 * B * H * S * S * D
 
 
+def v4_corpus(vocab, n, seed, device, R=196, F=512, chunk=512):
+    """A seeded pipeline_v4-like corpus of n images: float16 features [n, R,
+    F] (normal, each region scaled by exp(N(0, 0.5)), so the int8 scales
+    differ), drawn on ``device``; and 1-12 triples per image, objects
+    uniform, predicates on a long tail (the k-th most frequent drawn with
+    weight 1/k^1.2)."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    feats = np.empty((n, R, F), np.float16)
+    for lo in range(0, n, chunk):
+        m = min(chunk, n - lo)
+        x = torch.randn(m, R, F, generator=gen, device=device)
+        x *= torch.exp(0.5 * torch.randn(m, R, 1, generator=gen, device=device))
+        feats[lo:lo + m] = x.half().cpu().numpy()
+    rng = np.random.default_rng(seed)
+    objs, preds = np.flatnonzero(vocab.is_object), np.flatnonzero(vocab.is_predicate)
+    w = 1.0 / np.arange(1, len(preds) + 1) ** 1.2
+    triples = []
+    for k in rng.integers(1, 13, n):
+        triples.append(np.stack([rng.choice(objs, k), rng.choice(preds, k, p=w / w.sum()),
+                                 rng.choice(objs, k)], axis=1).astype(np.int32))
+    return feats, triples
+
+
+def gather_holds(pipeline, feats, triples, alpha, subset_bytes, B, n_critic, device, seed):
+    """The balanced int8 gather of ``pipeline`` (a ``sgg_torch.data.pipeline``
+    module) on ``device``, on the first rotating subset of the corpus (its
+    rows quantized alone, as quantization is per row; the weights from the
+    whole corpus):
+      - card_vs_cpu: the batch equals the same gather on the CPU, bit for bit;
+      - formula: it equals the reference's formula written out in numpy, bit
+        for bit: (q * scale) in float32 cast once to the store's dtype, and
+        the triple (u > cumw[img]).sum(-1), at draws that include ties
+        (u equal to a step of an image's CDF, which takes that step);
+      - dequant: every value within half its region's scale plus one ulp of
+        the store's dtype of the source feature;
+      - tail: the share of draws from the rarer half of the predicates, above
+        the uniform choice's at the same draws.
+    Returns the numbers and a verdict for each."""
+    import numpy as np
+    import torch
+
+    R = feats.shape[1]
+    subset = pipeline.rotation_subsets(len(feats), feats[0].size + R * 4, subset_bytes, seed)[0]
+    full = pipeline.TripleDataset(np.empty((len(triples), 0), np.float16), triples)
+    weights = full.set_predicate_balance(alpha).triple_weights
+    sub_feats, sub_tri = feats[subset], [triples[i] for i in subset]
+    sub_w = [weights[i] for i in subset]
+    shape = (n_critic + 1, B)
+    gen = torch.Generator().manual_seed(seed)
+    img = torch.randint(0, len(subset), shape, generator=gen)
+    u = torch.rand(shape, generator=gen)
+    n_tri = np.array([len(t) for t in sub_tri])
+    cumw = pipeline._dense_cum_weights(sub_tri, sub_w, int(n_tri.max()))
+    for j in range(min(B, 128)):  # ties: u at a step of the image's CDF
+        i = int(img[0, j])
+        if n_tri[i] > 1:
+            u[0, j] = float(cumw[i, int(torch.randint(0, n_tri[i] - 1, (1,), generator=gen))])
+
+    def first_batch(w, dev):
+        ds = pipeline.TripleDataset(sub_feats, sub_tri, triple_weights=w)
+        it = pipeline.make_device_train_iterator(
+            ds, B, n_critic, device=dev, int8_store=True,
+            draws=lambda step: (img.to(dev), u.to(dev)))
+        return {k: v.cpu() for k, v in next(it).items()}
+
+    dev_b, cpu_b, uni_b = first_batch(sub_w, device), first_batch(sub_w, "cpu"), \
+        first_batch(None, "cpu")
+    card_vs_cpu = all(torch.equal(dev_b[k], cpu_b[k]) for k in cpu_b)
+    q, scale = pipeline.quantize_feature_store(sub_feats)
+    dense = np.zeros((len(subset), cumw.shape[1], 3), np.int32)
+    for i, t in enumerate(sub_tri):
+        dense[i, : len(t)] = t
+    img_n, u_n = img.numpy(), u.numpy()
+    x16 = (q[img_n].astype(np.float32) * scale[img_n][..., None]).astype(sub_feats.dtype)
+    trip = dense[img_n, (u_n[..., None] > cumw[img_n]).sum(-1)]
+    got16 = dev_b["features"].numpy()
+    differ = float(np.mean(got16.view(np.uint16) != x16.view(np.uint16)))
+    ties = int(sum(1 for j in range(min(B, 128)) if u_n[0, j] in cumw[img_n[0, j]]))
+    formula = (got16.dtype == sub_feats.dtype and differ == 0.0
+               and np.array_equal(dev_b["triples"].numpy(), trip))
+    src16 = sub_feats[img_n]
+    tol = 0.5 * scale[img_n][..., None] + np.abs(np.spacing(np.abs(src16))).astype(np.float32)
+    err = np.abs(got16.astype(np.float32) - src16.astype(np.float32))
+    dequant_margin = float((err / tol).max())
+    freq = np.bincount(np.concatenate([t[:, 1] for t in triples]))
+    present = np.flatnonzero(freq)
+    rare = present[np.argsort(freq[present], kind="stable")][: len(present) // 2]
+
+    def tail(b):
+        return float(np.isin(b["triples"][..., 1].numpy(), rare).mean())
+
+    t_uni, t_bal = tail(uni_b), tail(dev_b)
+    return {"card_vs_cpu": card_vs_cpu, "formula": formula, "share_differing": differ,
+            "ties": ties, "dequant": dequant_margin <= 1.0, "dequant_margin": dequant_margin,
+            "tail": t_bal > t_uni, "tail_uniform": t_uni, "tail_balanced": t_bal,
+            "subset_images": len(subset), "store_dtype": str(dev_b["features"].dtype)}
+
+
+def read_profile(wd, what):
+    """The --profile table the train CLI wrote, logged; (idle share or
+    None, its text)."""
+    with open(os.path.join(wd, "profile", "top_ops.txt")) as f:
+        table = f.read()
+    if not os.path.getsize(os.path.join(wd, "profile", "trace.json")):
+        raise AssertionError(f"{what}: the profile trace is empty")
+    for line in table.splitlines()[:14]:
+        log(f"profile {what}: {line}")
+    idle = None
+    for line in table.splitlines():
+        if "idle share" in line and "not measured" not in line:
+            idle = float(line.rsplit(" ", 1)[1])
+    return idle, table
+
+
+def pipeline_v4_phase(dev, vocab, run_cli, sizes=None, extra_sets=None):
+    """Phase 17: the pipeline_v4 corpus (``vocab``'s tokens), the train CLI
+    with ``--profile``, the gather's holds, evaluate with the recipe and on
+    fused_decode, and one batch of the sampler with log-probabilities against
+    the CPU's. ``run_cli(main, argv, what)`` → (seconds, launch counts);
+    ``sizes`` and ``extra_sets`` (config overrides) shrink it for a dry run.
+    Returns the launch counts of the fused evaluate run."""
+    import numpy as np
+    import torch
+
+    from sgg_torch.cli import evaluate as evaluate_cli
+    from sgg_torch.cli import train as train_cli
+    from sgg_torch.config import get_config
+    from sgg_torch.data import write_feature_shard
+    from sgg_torch.data import pipeline as v4_pipeline
+    from sgg_torch.data.shards import shard_name
+    from sgg_torch.eval.sampler import make_sampler
+    from sgg_torch.train.checkpoint import CheckpointManager, load_generator, load_workdir
+    from sgg_torch.utils.gumbel import sample_gumbel
+
+    z_ = {"train": V4_TRAIN, "test": V4_TEST, "budget": V4_BUDGET, "steps": V4_STEPS,
+          "batch": BATCH, "draws": 100, "sampler_batch": 16, **(sizes or {})}
+    V4_TRAIN_, V4_TEST_, BUDGET_, STEPS_ = z_["train"], z_["test"], z_["budget"], z_["steps"]
+    EV_BATCH, EV_K = z_["batch"], z_["draws"]
+
+    def read_metrics_v4(wd):
+        """metrics.jsonl of the run: a finite line per step, and the probe's
+        lines."""
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        steps = [r_["step"] for r_ in lines if "d_loss" in r_]
+        if steps != list(range(1, STEPS_ + 1)):
+            raise AssertionError(f"pipeline_v4 metrics.jsonl steps {steps}")
+        for r_ in lines:
+            if not all(math.isfinite(v_) for v_ in r_.values()):
+                raise AssertionError(f"pipeline_v4 metrics.jsonl line {r_} is not finite")
+        return lines
+
+    v4_base = get_config("pipeline_v4").override(
+        [f"{k_}={v_}" for k_, v_ in (extra_sets or {}).items()])
+    R4, F4, Z4, V4 = (v4_base.data.regions, v4_base.data.feat_dim, v4_base.model.noise_dim,
+                      len(vocab))
+    gen4 = torch.Generator(device=dev).manual_seed(SEED + 22)
+    with tempfile.TemporaryDirectory() as root:
+        data_dir, wd = os.path.join(root, "shards"), os.path.join(root, "wd")
+        os.makedirs(os.path.join(data_dir, "test"))
+        vocab.save(os.path.join(data_dir, "vocab.json"))
+        t_c = time.perf_counter()
+        feats_tr, tri_tr = v4_corpus(vocab, V4_TRAIN_, SEED + 20, dev, R4, F4)
+        per_shard = V4_TRAIN_ // 4
+        for s_ in range(4):
+            sl = slice(s_ * per_shard, (s_ + 1) * per_shard)
+            write_feature_shard(os.path.join(data_dir, shard_name(s_, 4)),
+                                np.arange(sl.start, sl.stop), feats_tr[sl], tri_tr[sl])
+        feats_te, tri_te = v4_corpus(vocab, V4_TEST_, SEED + 21, dev, R4, F4)
+        write_feature_shard(os.path.join(data_dir, "test", shard_name(0, 1)),
+                            np.arange(V4_TEST_), feats_te, tri_te)
+        n_tri = sum(len(t_) for t_ in tri_tr)
+        log(f"pipeline_v4 corpus: {V4_TRAIN_} train and {V4_TEST_} test images (VG: "
+            f"{VG_IMAGES}) x {R4} x {F4} float16, {n_tri} train triples, V = {V4}, "
+            f"predicates on a 1/k^1.2 tail; {feats_tr.nbytes / 1e9:.3f} GB float16, "
+            f"{feats_tr.size / 1e9:.3f} GB as int8 (VG: 10.8 GB); device budget "
+            f"data.device_resident_max_bytes = {BUDGET_} (4e9 x {V4_TRAIN_}/{VG_IMAGES}), "
+            f"rotation_min_steps = {V4_MIN_STEPS} (config: 10,000); written in "
+            f"{time.perf_counter() - t_c:.3f} s")
+        sets = {**(extra_sets or {}), "data.data_dir": data_dir, "data.device_resident_max_bytes": BUDGET_,
+                "data.rotation_min_steps": V4_MIN_STEPS, "train.eval_every": V4_EVAL_EVERY,
+                "train.checkpoint_every": V4_CKPT_EVERY, "train.log_every": 1}
+        argv = ["--config", "pipeline_v4", "--workdir", wd, "--steps", str(STEPS_),
+                "--profile"]
+        for k_, v_ in sets.items():
+            argv += ["--set", f"{k_}={v_}"]
+        on_card = torch.device(dev).type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            v4_s, v4_counts = run_cli(train_cli.main, argv, "sgg_torch.cli.train")
+        v4_peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+        out_ = printed.getvalue()
+        lines = read_metrics_v4(wd)
+        v4_cfg, _ = load_workdir(wd)
+        uploads = [ln for ln in out_.splitlines() if "[sgg.data] subset" in ln and "upload" in ln]
+        host_s = sum(float(ln.split("host gather ")[1].split("s")[0]) for ln in uploads)
+        copy_s = sum(float(ln.split("device copy ")[1].split("s")[0]) for ln in uploads)
+        cycles = sum("subset rotation: cycle" in ln for ln in out_.splitlines())
+        summary = [ln for ln in out_.splitlines() if "[sgg.train] rotation: " in ln][-1]
+        swaps = int(summary.split("rotation: ")[1].split(" swaps")[0])
+        n_subsets = int(summary.split(" over ")[1].split(" subsets")[0])
+        alive = int(summary.split("at most ")[1].split(" alive")[0])
+        probes = [r_ for r_ in lines if "eval_recall@50" in r_]
+        losses = [r_ for r_ in lines if "d_loss" in r_]
+        step_lines = [r_ for r_ in losses if "steps_per_sec" in r_]
+        s_per_step = [1 / r_["steps_per_sec"] for r_ in step_lines]
+        v4_idle, _ = read_profile(wd, "pipeline_v4")
+        log(f"train pipeline_v4: {STEPS_} steps in {v4_s:.3f} s in process (set-up "
+            f"included), launches {v4_counts} (none expected); widths R {v4_cfg.data.regions}, "
+            f"F {v4_cfg.data.feat_dim}, H {v4_cfg.model.hidden}, E {v4_cfg.model.embed_dim}, "
+            f"A {v4_cfg.model.attn_dim}, Z {v4_cfg.model.noise_dim}, V "
+            f"{v4_cfg.model.vocab_size}, batch {v4_cfg.train.batch_size}, grad_accum "
+            f"{v4_cfg.train.grad_accum}, n_critic {v4_cfg.train.n_critic}, "
+            f"{v4_cfg.model.compute_dtype}; s/step per logged step "
+            f"{', '.join(f'{x_:.4f}' for x_ in s_per_step)}; last "
+            f"{s_per_step[-1]:.4f} s/step, {step_lines[-1]['images_per_sec']:.1f} images/s; "
+            f"peak device memory {v4_peak:.3f} GB")
+        log(f"rotation: {n_subsets} subsets, {len(uploads)} uploads ({swaps} swaps, {cycles} "
+            f"full cycles, at most {alive} subsets alive), host gather {host_s:.3f} s and "
+            f"device copy {copy_s:.3f} s in all")
+        for r_ in probes:
+            log(f"probe at step {r_['step']}: recall@50 = {r_['eval_recall@50']:.4f} in "
+                f"{r_['eval_seconds']:.3f} s")
+        if any(v_ for v_ in v4_counts.values()):
+            raise AssertionError("pipeline_v4 training launched a kernel")
+        if (len(losses) != STEPS_ or len(probes) != 2 or cycles < 1 or swaps < n_subsets
+                or alive > 2):
+            raise AssertionError(f"pipeline_v4: {len(losses)} logged steps, {len(probes)} "
+                                 f"probes, {cycles} rotation cycles, {swaps} swaps, {alive} "
+                                 "subsets alive at most")
+        if not all(0.0 <= r_["eval_recall@50"] <= 1.0 for r_ in probes):
+            raise AssertionError("a probe's recall is out of range")
+        steps_kept = CheckpointManager(wd, None).all_steps()
+        if steps_kept != list(range(STEPS_ - 10, STEPS_ + 1, V4_CKPT_EVERY)):
+            raise AssertionError(f"checkpoints kept: {steps_kept}")
+
+        # The gather's holds on the card, on the first subset of the run.
+        t_h = time.perf_counter()
+        from sgg_torch.data import pipeline as v4_pipeline
+
+        holds = gather_holds(v4_pipeline, feats_tr, tri_tr, 0.7, BUDGET_ // 2,
+                             v4_cfg.train.batch_size, v4_cfg.train.n_critic, dev, SEED)
+        log(f"gather holds ({time.perf_counter() - t_h:.3f} s, subset of "
+            f"{holds['subset_images']} images, batch [{v4_cfg.train.n_critic + 1}, "
+            f"{v4_cfg.train.batch_size}], store dtype {holds['store_dtype']}): card vs CPU "
+            f"bit for bit {holds['card_vs_cpu']}; vs the reference's formula in numpy bit for "
+            f"bit {holds['formula']} (share differing {holds['share_differing']:.3e}, "
+            f"{holds['ties']} draws at a step of their CDF); dequantized within half a "
+            f"scale step plus one float16 ulp of the source {holds['dequant']} (worst "
+            f"{holds['dequant_margin']:.4f} of the bound); draws from the rarer half of the "
+            f"predicates {holds['tail_balanced']:.4f} balanced vs {holds['tail_uniform']:.4f} "
+            f"uniform")
+        if not all(holds[k_] for k_ in ("card_vs_cpu", "formula", "dequant", "tail")):
+            raise AssertionError("the int8 balanced gather fails a hold")
+        del feats_tr, tri_tr, feats_te, tri_te
+
+        # Evaluate with the recipe (the generator-forward sampler), then on
+        # fused_decode.
+        grid_path = os.path.join(root, "grid.json")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            ev_s, ev_counts = run_cli(evaluate_cli.main, [
+                "--workdir", wd, "--ema", "--avg-last", "5", "--rank", "logp", "--k",
+                "20,50,100", "--zero-shot", "--per-predicate", "--json-out", grid_path,
+                "--num-samples", str(EV_K), "--batch-size", str(EV_BATCH), "--seed", str(SEED)],
+                "sgg_torch.cli.evaluate")
+        ev_tps = sampled_rate(printed.getvalue())
+        with open(grid_path) as f:
+            (combo,) = json.load(f)["combos"]
+        log(f"evaluate --ema --avg-last 5 --rank logp (decode xla): {ev_s:.3f} s in process, "
+            f"{ev_tps:.0f} triples/s in the sampling loop, launches {ev_counts} (none "
+            f"expected); recall {combo['recall']}, zsR {combo['zero_shot_recall']} over "
+            f"{combo['zero_shot_images']} images, mR@100 {combo['mean_recall@100']:.4f}")
+        vals = [*combo["recall"].values(), *combo["zero_shot_recall"].values(),
+                combo["mean_recall@100"]]
+        if any(ev_counts.values()) or not all(0.0 <= x_ <= 1.0 for x_ in vals):
+            raise AssertionError("evaluate (decode xla) launched a kernel or is out of range")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            ef_s, v4_fused_counts = run_cli(evaluate_cli.main, [
+                "--workdir", wd, "--decode", "fused", "--rank", "freq", "--k", "20,50,100",
+                "--num-samples", str(EV_K), "--batch-size", str(EV_BATCH), "--seed", str(SEED)],
+                "sgg_torch.cli.evaluate")
+        ef_tps = sampled_rate(printed.getvalue())
+        fused_recall = printed.getvalue().split(f"samples/image={EV_K} ")[1].splitlines()[0]
+        want_fused = math.ceil(V4_TEST_ / EV_BATCH) * EV_K
+        log(f"evaluate --decode fused --rank freq: {ef_s:.3f} s in process, {ef_tps:.0f} "
+            f"triples/s in the sampling loop, launches {v4_fused_counts} (fused_decode "
+            f"expected {want_fused}, {math.ceil(V4_TEST_ / EV_BATCH)} batches x K = {EV_K}); "
+            f"{fused_recall}")
+        if v4_fused_counts != {k_: (want_fused if k_ == "fused_decode" else 0)
+                               for k_ in v4_fused_counts}:
+            raise AssertionError("evaluate --decode fused did not launch fused_decode as "
+                                 "expected")
+
+        # One batch of the generator-forward sampler with log-probabilities on
+        # the card against the same sampler on the CPU, given the same noise.
+        sd_ema = load_generator(wd)["g_ema"]
+        Ks, Bs = 8, z_['sampler_batch']
+        lp_sampler = make_sampler(v4_cfg, step_mask=vocab.step_mask(), num_samples=Ks,
+                                  with_logp=True)
+        feats_b = torch.randn(Bs, R4, F4, generator=gen4, device=dev).half()
+        z = torch.randn(Ks, Bs, Z4, generator=gen4, device=dev).to(torch.bfloat16)
+        g = sample_gumbel((Ks, Bs, 3, V4), gen4, device=dev)
+        gpu_tok, gpu_lp = lp_sampler({k_: v_.to(dev) for k_, v_ in sd_ema.items()}, feats_b,
+                                     noise=(z, g))
+        cpu_tok, cpu_lp = lp_sampler(sd_ema, feats_b.cpu(), noise=(z.cpu(), g.cpu()))
+        same = gpu_tok.cpu() == cpu_tok
+        agree = same.all(-1).float().mean().item()
+        lp_diff = (gpu_lp.cpu() - cpu_lp).abs()[same.all(-1)].max().item()
+        log(f"sampler with log-probs, CUDA vs CPU, same noise, bf16: {agree:.4f} of draws "
+            f"identical; log_prob max abs difference where identical {lp_diff:.3e}")
+        if agree < 0.99 or not bool(torch.isfinite(gpu_lp).all()):
+            raise AssertionError("the CUDA sampler with log-probs disagrees with the CPU's")
+    return v4_fused_counts
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_SECONDS, exit=True)
     import torch
@@ -291,6 +669,7 @@ def main():
     import numpy as np
     import torch.nn.functional as Fnn
 
+    from sgg_torch.cli import evaluate as evaluate_cli
     from sgg_torch.cli import generate
     from sgg_torch.cli import train as train_cli
     from sgg_torch.config import Config, get_config
@@ -313,7 +692,12 @@ def main():
     from sgg_torch.eval.sampler import make_sampler
     from sgg_torch.data import ArrayImageTripleDataset
     from sgg_torch.data.pipeline import make_device_train_iterator
-    from sgg_torch.train.checkpoint import CheckpointManager, load_workdir, save_generator
+    from sgg_torch.train.checkpoint import (
+        CheckpointManager,
+        load_generator,
+        load_workdir,
+        save_generator,
+    )
     from sgg_torch.train.state import create_train_state
     from sgg_torch.train.step import make_step_fn
     from sgg_torch.utils.gumbel import sample_gumbel
@@ -514,14 +898,14 @@ def main():
     log(f"widths vg1k: V={V} R={R} F={F} A={A} H={H} E={E} Z={Z} compute={m.compute_dtype}; "
         f"generic row tile {fd.plan(BATCH, R, F, A, H, E, Z, V, torch.float32).row_tile}")
     failed = []
-    sd, _ = check_decode(cfg, vocab, (BATCH, 37), "vg1k", share_tol=5e-3)
+    sd, vg_errs = check_decode(cfg, vocab, (BATCH, 37), "vg1k", share_tol=5e-3)
     # The 16-row instance, which resnet50 widths run, where the share of y
     # that differs can tell a skipped rounding (at resnet50 widths the sums
     # alone move about 2 %).
     check_decode(cfg, vocab, (BATCH,), "vg1k row tile 16", share_tol=5e-3, row_tile=16)
     log(f"widths resnet50: R, F, A, H, E, Z, V = {pix_widths}; generic row tile "
         f"{fd.plan(PIX_BATCH, *pix_widths, torch.float32).row_tile}")
-    pix_sd, pix_errs = check_decode(pix_cfg, pix_vocab, (PIX_BATCH,), "resnet50")
+    pix_sd, _ = check_decode(pix_cfg, pix_vocab, (PIX_BATCH,), "resnet50")
 
     def check_batched(cfg_, sd_, B, label):
         """The batched bf16 instance, exactly: (i) an exact tie, where wv's
@@ -983,7 +1367,7 @@ def main():
         log(f"time fused_decode {label} B={B} per phase (timed instance, block 0, us, best "
             f"of 3; total {sum(split):.2f}): "
             + "; ".join(f"{n_} {v_:.2f}" for n_, v_ in zip(phase_names, split)))
-        if label == "resnet50":
+        if label == "vg1k":  # the widths and batch of pipeline_v4's evaluate --decode fused
             add("fused_decode", k_ms, p_ms, None, b_s, b_by, K)
     tiny = fd.cast_params({n_: (torch.randn(*shape_, generator=torch.Generator().manual_seed(1))
                                 / 4).numpy() for n_, shape_ in (
@@ -1564,18 +1948,19 @@ def main():
         train_cli.make_step_fn = counting_step_fn
         try:
             train_s, train_counts = run_cli(train_cli.main, [
-                "--config", "vit_b16", "--workdir", wd, "--steps", str(TRAIN_STEPS),
-                "--set", "train.train_encoder=true",
+                "--config", "vit_b16", "--workdir", wd, "--steps", str(VIT_TRAIN_STEPS),
+                "--profile", "--set", "train.train_encoder=true",
                 "--set", f"data.num_synthetic_images={VIT_IMAGES}", "--set",
                 "train.log_every=1"], "sgg_torch.cli.train")
         finally:
             train_cli.make_step_fn = make_step
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        want_counts = {k_: TRAIN_STEPS * v_ for k_, v_ in enc_counts.items()}
-        lines = read_metrics(wd, TRAIN_STEPS, metric_keys | {"enc_gnorm"})
+        want_counts = {k_: VIT_TRAIN_STEPS * v_ for k_, v_ in enc_counts.items()}
+        lines = read_metrics(wd, VIT_TRAIN_STEPS, metric_keys | {"enc_gnorm"})
+        vit_profile = read_profile(wd, "vit_b16 train_encoder")
         train_cfg, train_vocab = load_workdir(wd)
         train_cfg.model.vocab_size = len(train_vocab)
-        log(f"train vit_b16 train_encoder: {TRAIN_STEPS} steps in {train_s:.3f} s in process, "
+        log(f"train vit_b16 train_encoder: {VIT_TRAIN_STEPS} steps in {train_s:.3f} s in process, "
             f"launches {train_counts} (expected {want_counts}); last step "
             f"{1 / lines[-1]['steps_per_sec']:.4f} s/step, {lines[-1]['images_per_sec']:.1f} "
             f"images/s; peak device memory {peak_gb:.2f} GB; widths: ViT "
@@ -1587,13 +1972,13 @@ def main():
             f"g {lines[-1]['g_loss']:.4f}, gp {lines[-1]['gp']:.4f}, enc_gnorm "
             f"{lines[-1]['enc_gnorm']:.4f}")
         log(f"launches per step: {per_step}")
-        if train_counts != want_counts or per_step != [enc_counts] * TRAIN_STEPS:
+        if train_counts != want_counts or per_step != [enc_counts] * VIT_TRAIN_STEPS:
             raise AssertionError("the training path did not launch its kernels as expected")
         mgr = CheckpointManager(wd, train_cfg)
         fresh = create_train_state(train_cfg, train_cfg.train.seed, device=dev)
         initial = {k_: v_.clone() for k_, v_ in fresh.encoder.state_dict().items()}
-        if mgr.all_steps() != [TRAIN_STEPS] or mgr.restore(fresh) is None \
-                or fresh.step != TRAIN_STEPS:
+        if mgr.all_steps() != [VIT_TRAIN_STEPS] or mgr.restore(fresh) is None \
+                or fresh.step != VIT_TRAIN_STEPS:
             raise AssertionError(f"checkpoint steps {mgr.all_steps()}, restored {fresh.step}")
         trained = fresh.encoder.state_dict()
         moved = sum(not torch.equal(initial[k_], v_) for k_, v_ in trained.items())
@@ -1603,7 +1988,7 @@ def main():
                        for k_, v_ in trained.items())
         log(f"checkpoint {mgr.all_steps()} read back at step {fresh.step}; encoder tensors "
             f"moved {moved} of {len(trained)}; generator.pt holds the trained encoder {same_enc}")
-        if moved != len(trained) or not same_enc or saved["step"] != TRAIN_STEPS:
+        if moved != len(trained) or not same_enc or saved["step"] != VIT_TRAIN_STEPS:
             raise AssertionError("the trained encoder did not move or was not saved")
         del fresh, initial, trained, saved
         out_path = os.path.join(wd, "graphs.json")
@@ -1685,6 +2070,13 @@ def main():
             f"now run split on the tensor cores); kernel at {b_s * 1e3 / k_ms:.3f} of the bound")
         add(name, k_ms, p_ms, l_ms, b_s, b_by, 60)
     phase("timing_backward", t0)
+
+    # 17. Main path, pipeline_v4: a seeded corpus, the train CLI at full
+    # widths (balance, int8, rotating subsets, the probe, --profile), the
+    # gather's holds, then evaluate with its recipe and on fused_decode.
+    t0 = time.perf_counter()
+    v4_fused_counts = pipeline_v4_phase(dev, vocab, run_cli)
+    phase("main_path_pipeline_v4", t0)
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",
@@ -1699,7 +2091,7 @@ def main():
                                           "sgg/kernels/flash_attention_bwd.py:69"),
                "flash_attention_bwd_dkv": ("sgg_torch/kernels/csrc/flash_attention_bwd.cu",
                                            "sgg/kernels/flash_attention_bwd.py:122")}
-    errs = {"fused_decode": pix_errs[("bf16", PIX_BATCH)],
+    errs = {"fused_decode": vg_errs[("bf16", BATCH)],
             "fused_matmul": max(v for k_, v in shape_errs.items()
                                 if k_[0] == "mm" and k_[4] == "bf16"),
             "conv_direct": max(v for k_, v in shape_errs.items()
@@ -1709,6 +2101,7 @@ def main():
             "flash_attention_bwd_dkv": max(bwd_errs[(FLASH_SHAPES[0], "bf16")][1:])}
     path_counts = dict(pix_counts, **{k_: train_counts[k_] for k_ in (
         "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
+    path_counts["fused_decode"] = v4_fused_counts["fused_decode"]
     kernels = []
     for name, (src, replaces) in sources.items():
         r_ = records[name]

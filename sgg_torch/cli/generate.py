@@ -22,9 +22,15 @@ attention), else the library conv and the unfused attention. The ViT is
 built from ``data.image_size`` and ``model.vit_dims``. Only the
 ``synthetic`` image source is ported.
 
+``--temperature``, ``--top-k``/``--top-p`` and ``--rank freq_logp|logp``
+(which samples with per-draw log-probabilities) take the generator-forward
+sampler; ``--decode fused`` refuses them, as the reference does. ``--avg-last
+N`` samples from the mean of the generator's weights over the last N
+retained checkpoints (with ``--ema``, of their EMA).
+
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
-there. ``--rank logp|freq_logp``, ``--top-k``/``--top-p`` and temperatures
-other than 1 come with a later slice of the port.
+there. The encoder's int8 PTQ (``--quant int8``) comes with a later slice of
+the port.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from sgg_torch.eval.sampler import (
 )
 from sgg_torch.kernels.build import load_library
 from sgg_torch.models.encoders import make_encoder, normalize_for
-from sgg_torch.train.checkpoint import load_generator, load_workdir
+from sgg_torch.train.checkpoint import load_workdir, restore_weights
 
 
 def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.device):
@@ -77,13 +83,19 @@ def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.
     return batch_features
 
 
-def _refuse_unported(args) -> str | None:
-    if args.rank != "freq":
-        return f"--rank {args.rank} {LATER}"
+def _refusal(args) -> str | None:
+    if args.quant == "int8":
+        return f"--quant int8 (the encoder's int8 PTQ) {LATER}"
+    if args.decode != "fused":
+        return None
     if args.top_k or args.top_p is not None:
-        return f"--top-k/--top-p {LATER}"
+        return ("--top-k/--top-p filter the sampling distribution, which the fused kernel "
+                "does not implement; use --decode xla")
+    if args.rank != "freq":
+        return ("--rank freq_logp/logp needs per-draw log-probs, which the fused kernel "
+                "does not emit; use --decode xla")
     if args.temperature is not None and args.temperature != 1.0:
-        return f"--temperature other than 1.0 {LATER}"
+        return "the fused kernel samples at temperature 1.0 only; use --decode xla"
     return None
 
 
@@ -93,11 +105,14 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None, help="output JSON path (default: workdir/scene_graphs.json)")
     p.add_argument("--num-samples", type=int, default=50, help="noise draws per image")
     p.add_argument("--temperature", type=float, default=None,
-                   help="sampling temperature; only 1.0 is ported")
-    p.add_argument("--top-p", type=float, default=None, help="not ported yet")
-    p.add_argument("--top-k", type=int, default=0, help="not ported yet")
+                   help="sampling temperature: tokens ~ softmax(logits / T), default 1.0")
+    p.add_argument("--top-p", type=float, default=None,
+                   help="nucleus sampling per decode step (--decode xla only)")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="top-k sampling per decode step, 0 = off (--decode xla only)")
     p.add_argument("--rank", default="freq", choices=["freq", "freq_logp", "logp"],
-                   help="triple order; only freq (sample count) is ported")
+                   help="triple order: sample count (freq, ties lexicographic), count with a "
+                        "log-prob tiebreak (freq_logp) or probability mass (logp)")
     p.add_argument("--num-images", type=int, default=None, help="limit images")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--recall-k", type=int, default=None, help="also report recall@k vs ground truth")
@@ -109,9 +124,14 @@ def main(argv=None) -> int:
                         "'fused' = one fused_decode kernel launch per draw "
                         "(attention-LSTM decoder only)")
     p.add_argument("--ema", action="store_true", help="sample from the EMA generator weights")
+    p.add_argument("--avg-last", type=int, default=0, metavar="N",
+                   help="average the generator's weights over the last N retained "
+                        "checkpoints (see sgg_torch.cli.evaluate --avg-last)")
+    p.add_argument("--quant", default=None, choices=["none", "int8"],
+                   help="the encoder's PTQ mode; int8 is not ported yet")
     add_device_arg(p)
     args = p.parse_args(argv)
-    refusal = _refuse_unported(args)
+    refusal = _refusal(args)
     if refusal:
         print(f"[sgg.generate] {refusal}", file=sys.stderr)
         return 2
@@ -127,31 +147,34 @@ def main(argv=None) -> int:
     ds, _ = load_dataset(cfg, split=args.split)
     n_images = min(args.num_images or len(ds), len(ds))
 
-    ckpt = load_generator(args.workdir, decoder=cfg.model.decoder)
-    if ckpt is None:
+    restored = restore_weights(args.workdir, cfg, args.avg_last, device)
+    if restored is None:
         print(f"[sgg.generate] no generator weights in {args.workdir}", file=sys.stderr)
         return 1
-    print(f"[sgg.generate] restored step {ckpt['step']}", flush=True)
-    g_params = ckpt["g_params"]
+    step, g_params, g_ema, enc_params, avg_steps = restored
+    avg = ("" if avg_steps is None else
+           f" (generator averaged over the last {len(avg_steps)} checkpoints)")
+    print(f"[sgg.generate] restored step {step}{avg}", flush=True)
     if args.ema:
-        if ckpt["g_ema"] is None:
+        if g_ema is None:
             print("[sgg.generate] --ema: checkpoint has no EMA weights "
                   "(train with train.ema_decay > 0)", file=sys.stderr)
             return 1
-        g_params = ckpt["g_ema"]
+        g_params = g_ema
     g_params = {k: v.to(device) for k, v in g_params.items()}
     generator = torch.Generator(device=device).manual_seed(args.seed)
     dtype = cfg.model.dtype
     end_to_end = cfg.model.encoder != "precomputed"
-    if end_to_end and ckpt["enc_params"] is None:
+    if end_to_end and enc_params is None:
         print(f"[sgg.generate] encoder {cfg.model.encoder!r}: no encoder weights "
               f"(enc_params) in {args.workdir}", file=sys.stderr)
         return 1
-    batch_features = make_batch_features(cfg, ds, ckpt["enc_params"], device)
+    batch_features = make_batch_features(cfg, ds, enc_params, device)
 
     # Device-resident path: upload the whole feature set once and gather each
     # batch by index on the device.
     B = args.batch_size
+    with_logp = args.rank != "freq"
     device_resident = (not end_to_end
                        and ds.features.nbytes <= cfg.data.device_resident_max_bytes)
     t_up = 0.0
@@ -163,7 +186,8 @@ def main(argv=None) -> int:
     else:
         sampler = (make_indexed_sampler if device_resident else make_sampler)(
             cfg, step_mask=vocab.step_mask(), num_samples=args.num_samples,
-            tau=args.temperature,
+            tau=args.temperature, with_logp=with_logp, top_k=args.top_k or 0,
+            top_p=args.top_p,
         )
     if device_resident:
         t0 = time.perf_counter()
@@ -197,8 +221,13 @@ def main(argv=None) -> int:
     for pos in range(len(starts)):
         idx, fut = pending
         pending = dispatch(starts[pos + 1]) if pos + 1 < len(starts) else None
-        tokens = fut.cpu().numpy()  # [B, K, 3], the sync point
-        gs, ids = assemble_scene_graphs(tokens[: len(idx)], vocab, idx)
+        if with_logp:  # the sync point
+            tokens, logp = (x.cpu().numpy() for x in fut)
+            logp = logp[: len(idx)]
+        else:
+            tokens, logp = fut.cpu().numpy(), None  # [B, K, 3]
+        gs, ids = assemble_scene_graphs(tokens[: len(idx)], vocab, idx, logp=logp,
+                                        rank=args.rank)
         graphs.extend(gs)
         gen_triples.extend(ids)
         gt_triples.extend([tuple(map(int, t)) for t in ds.triples[i]] for i in idx)

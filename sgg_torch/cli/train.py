@@ -9,19 +9,32 @@ Port of ``sgg/cli/train.py``:
 
 Each step is ``n_critic`` critic updates and one generator update
 (``sgg_torch.train.step``). The data stay on the device when they fit
-``data.device_resident_max_bytes`` (one gather per step), else a host
-iterator with prefetch draws the reference's own batches. Metrics go to stdout
-and ``W/metrics.jsonl`` every ``train.log_every`` steps; the state is saved
+``data.device_resident_max_bytes`` (one gather per step); a larger store
+trains on rotating device-resident subsets of at most half of it, swapped in
+as a thread uploads them (``data.rotate_subsets``, at least
+``data.rotation_min_steps`` steps each); else (``data.device_resident=false``)
+a host iterator with prefetch draws the reference's own batches.
+``data.feature_store_int8`` keeps the features on the device as int8 with a
+float32 scale per region, dequantized per batch; ``data.predicate_balance``
+draws each image's triple by predicate-balanced weights. Metrics go to stdout
+and ``W/metrics.jsonl`` every ``train.log_every`` steps; with
+``train.eval_every`` the held-out probe (``sgg_torch.train.eval_probe``) adds
+recall@``train.eval_k`` and keeps ``W/best_eval.json``. The state is saved
 under ``W/checkpoints/<step>/`` every ``train.checkpoint_every`` steps and at
 the end (keeping ``train.max_checkpoints``), with ``W/generator.pt`` for
-``sgg_torch.cli.generate``; a second run on the same workdir resumes from the
-latest checkpoint. SIGTERM or SIGINT saves the state and exits.
+``sgg_torch.cli.generate`` and ``sgg_torch.cli.evaluate``; a second run on the
+same workdir resumes from the latest checkpoint. ``--profile`` traces steps
+10 to 14 of the run with ``torch.profiler`` into ``W/profile/`` (a trace and
+a table of the top device ops with the device's idle share). SIGTERM or
+SIGINT saves the state and exits.
+
+  python -m sgg_torch.cli.train --config pipeline_v4 --workdir W \\
+      --set data.data_dir=SHARDS [--profile]
 
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
-there. Not ported yet: ``--profile``, ``--debug-nans``, ``train.eval_every``,
-meshes and the distributed tiers, REINFORCE, predicate balance, the int8
-feature store, rotating subsets and grain. ``train.steps_per_dispatch``
-exists for the reference's TPU relay and is not read.
+there. Not ported yet: ``--debug-nans``, meshes and the distributed tiers,
+REINFORCE and grain. ``train.steps_per_dispatch`` exists for the reference's
+TPU relay and is not read.
 """
 
 from __future__ import annotations
@@ -42,26 +55,27 @@ from sgg_torch.cli.common import (
 )
 from sgg_torch.config import Config
 from sgg_torch.convert_flax import encoder_flax_to_state_dict, load_params_npz
-from sgg_torch.data.pipeline import data_store, make_device_train_iterator, make_train_iterator
+from sgg_torch.data import ArrayImageTripleDataset, TripleDataset
+from sgg_torch.data.pipeline import (
+    RotatingDeviceIterator,
+    data_store,
+    make_device_train_iterator,
+    make_train_iterator,
+)
 from sgg_torch.train.checkpoint import CheckpointManager
+from sgg_torch.train.eval_probe import EvalProbe
 from sgg_torch.train.metrics import MetricLogger
 from sgg_torch.train.state import create_train_state, param_count
 from sgg_torch.train.step import make_step_fn, refuse_unported
+from sgg_torch.utils.profiling import StepProfiler
 
 
 def _refusal(args, cfg: Config) -> str | None:
-    if args.profile:
-        return f"--profile {LATER}"
     if args.debug_nans:
         return f"--debug-nans {LATER}"
-    d = cfg.data
-    if cfg.train.eval_every > 0:
-        return f"train.eval_every (the in-loop eval probe) {LATER} (ROADMAP A6)"
-    if d.predicate_balance > 0:
-        return f"data.predicate_balance {LATER}"
-    if d.feature_store_int8:
-        return f"data.feature_store_int8 (the int8 feature store) {LATER}"
-    if d.loader == "grain":
+    if cfg.train.eval_every > 0 and cfg.model.encoder != "precomputed":
+        return f"train.eval_every with a pixels-in encoder {LATER} (ROADMAP A6)"
+    if cfg.data.loader == "grain":
         return f"data.loader=grain {LATER}"
     try:
         refuse_unported(cfg)
@@ -73,15 +87,26 @@ def _refusal(args, cfg: Config) -> str | None:
 def _batches(cfg: Config, ds, device: torch.device):
     """(iterator of super-batches on ``device``, description)."""
     store, _ = data_store(ds)
-    t = cfg.train
-    if cfg.data.device_resident and store.nbytes <= cfg.data.device_resident_max_bytes:
-        it = make_device_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed, device=device)
-        return it, f"device-resident dataset ({store.nbytes / 1e6:.0f} MB on {device})"
-    if cfg.data.device_resident and cfg.data.rotate_subsets:
-        raise NotImplementedError(
-            f"rotating device-resident subsets (a store of {store.nbytes / 1e9:.1f} GB over "
-            f"data.device_resident_max_bytes) {LATER}; set data.device_resident=false for the "
-            "host iterator")
+    t, d = cfg.train, cfg.data
+    int8 = bool(d.feature_store_int8) and hasattr(ds, "features")
+    # Bytes on the device: int8 keeps one byte per value and a float32 scale
+    # per region.
+    nbytes = store.size + store[..., 0].size * 4 if int8 else store.nbytes
+    tag = ", int8+scale" if int8 else ""
+    if d.device_resident and nbytes <= d.device_resident_max_bytes:
+        it = make_device_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed,
+                                        device=device, int8_store=int8)
+        return it, f"device-resident dataset ({nbytes / 1e6:.0f} MB on {device}{tag})"
+    if d.device_resident and d.rotate_subsets and isinstance(
+            ds, (TripleDataset, ArrayImageTripleDataset)):
+        subset_bytes = d.device_resident_max_bytes // 2
+        it = RotatingDeviceIterator(
+            ds, t.batch_size, t.n_critic, seed=t.seed, subset_bytes=subset_bytes,
+            min_steps_per_subset=d.rotation_min_steps, int8_store=int8, device=device,
+            log=lambda m: print(m, flush=True))
+        return it, (f"rotating device-resident subsets ({nbytes / 1e9:.2f} GB over "
+                    f"{it.n_subsets} subsets of {len(it.subsets[0])} images, <= "
+                    f"{subset_bytes / 1e9:.2f} GB each{tag})")
     host = make_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed)
 
     def to_device():
@@ -102,7 +127,8 @@ def main(argv=None) -> int:
     p.add_argument("--encoder-ckpt", default=None,
                    help="initialize the backbone from an encoder_params.npz (or a directory "
                         "holding one) instead of random weights; pixels-in configs only")
-    p.add_argument("--profile", action="store_true", help="not ported yet")
+    p.add_argument("--profile", action="store_true",
+                   help="trace steps 10-14 of this run with torch.profiler into workdir/profile")
     p.add_argument("--debug-nans", action="store_true", help="not ported yet")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
@@ -118,6 +144,10 @@ def main(argv=None) -> int:
     cfg.model.vocab_size = len(vocab)
     print(f"[sgg.train] config={cfg.name} images={len(ds)} vocab={len(vocab)} "
           f"device={device}", flush=True)
+    if cfg.data.predicate_balance > 0 and hasattr(ds, "set_predicate_balance"):
+        ds.set_predicate_balance(cfg.data.predicate_balance)
+        print(f"[sgg.train] predicate-balanced triple sampling "
+              f"(alpha={cfg.data.predicate_balance})", flush=True)
     ckpt = CheckpointManager(cfg.workdir, cfg, max_to_keep=cfg.train.max_checkpoints)
     ckpt.save_vocab(vocab)
 
@@ -145,6 +175,15 @@ def main(argv=None) -> int:
     print(f"[sgg.train] {how}", flush=True)
     logger = MetricLogger(cfg.workdir)
     images_per_step = cfg.train.batch_size * (cfg.train.n_critic + 1)
+    probe = None
+    if cfg.train.eval_every > 0:
+        probe = EvalProbe(cfg, vocab, device, log=lambda m: print(m, flush=True))
+        print(f"[sgg.train] eval probe every {cfg.train.eval_every} steps "
+              f"({probe.n_images} held-out images, recall@{probe.k})", flush=True)
+    profiler = None
+    if args.profile:
+        profiler = StepProfiler(os.path.join(cfg.workdir, "profile"),
+                                start_step=state.step + 10)
 
     # SIGTERM/SIGINT save the current state before exiting; the handlers are
     # put back however the loop ends.
@@ -168,10 +207,18 @@ def main(argv=None) -> int:
                       flush=True)
                 ckpt.save(state)
                 return 0
-            metrics = step_fn(state, next(it))
+            batch = next(it)
+            if profiler:
+                profiler.maybe_start(i)
+            metrics = step_fn(state, batch)
             step = i + 1
+            if profiler and profiler.maybe_stop(step):
+                print(f"[sgg.train] profile trace -> {profiler.logdir}\n"
+                      f"{profiler.summary['table']}", flush=True)
             if step % t.log_every == 0 or step == t.total_steps:
                 logger.log(step, metrics, images_per_step=images_per_step)
+            if probe and (step % t.eval_every == 0 or step == t.total_steps):
+                logger.log(step, probe.run(state, step))
             if step % t.checkpoint_every == 0 or step == t.total_steps:
                 ckpt.save(state)
     finally:
@@ -179,6 +226,11 @@ def main(argv=None) -> int:
             signal.signal(sig, h)
         it.close()
         logger.close()
+        if isinstance(it, RotatingDeviceIterator):
+            print(f"[sgg.train] rotation: {it.swaps} swaps over {it.n_subsets} subsets, at "
+                  f"most {it.max_alive} alive, {len(it.uploads)} uploads (host gather "
+                  f"{sum(u[1] for u in it.uploads):.3f} s, device copy "
+                  f"{sum(u[2] for u in it.uploads):.3f} s)", flush=True)
     print(f"[sgg.train] done at step {state.step} -> {cfg.workdir}", flush=True)
     return 0
 

@@ -67,7 +67,9 @@ class DataConfig:
     max_triples_per_image: int = 32
     test_fraction: float = 0.1
     device_resident: bool = True
-    # Generate uploads the whole feature set once when it is at most this big.
+    # Generate uploads the whole feature set once when it is at most this big;
+    # training keeps its store on the device up to it, else rotates subsets
+    # of at most half of it (rotate_subsets, rotation_min_steps).
     device_resident_max_bytes: int = 4_000_000_000
     rotate_subsets: bool = True
     rotation_min_steps: int = 0
@@ -228,8 +230,36 @@ def _cfg_smoke() -> Config:
     return c
 
 
+def _cfg_pipeline_v4() -> Config:
+    """The north star's main path: predicate-balanced (alpha 0.7) training on
+    precomputed-feature shards with the int8 feature store, bf16, batch 256,
+    grad_accum 2, EMA; evaluated with ``--ema --avg-last 5 --rank logp``.
+    Point ``data.data_dir`` at the shards. A store over
+    ``data.device_resident_max_bytes`` (4 GB, the reference's budget) trains on
+    rotating device-resident subsets of at most half of it each, with at least
+    ``data.rotation_min_steps`` steps per subset; raise the budget with
+    ``--set`` to keep more of the store on the card at once.
+    ``train.steps_per_dispatch`` is the reference's and is not read here."""
+    c = Config(name="pipeline_v4")
+    c.model.compute_dtype = "bfloat16"
+    c.data.source = "shards"
+    c.data.predicate_balance = 0.7
+    c.data.feature_store_int8 = True
+    c.data.device_resident_max_bytes = 4_000_000_000
+    c.data.rotation_min_steps = 10_000
+    c.train.batch_size = 256
+    c.train.total_steps = 100_000
+    c.train.grad_accum = 2
+    c.train.steps_per_dispatch = 32
+    c.train.ema_decay = 0.999
+    c.train.checkpoint_every = 2_000
+    c.train.max_checkpoints = 6
+    c.train.eval_every = 5_000
+    return c
+
+
 CONFIGS = {"vg1k": _cfg_vg1k, "resnet50": _cfg_resnet50, "vit_b16": _cfg_vit_b16,
-           "smoke": _cfg_smoke}
+           "smoke": _cfg_smoke, "pipeline_v4": _cfg_pipeline_v4}
 
 
 def get_config(name: str) -> Config:

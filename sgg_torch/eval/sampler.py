@@ -1,14 +1,20 @@
 """Batched scene-graph sampling, from ``sgg/eval/sampler.py``.
 
-Per image batch, K noise draws, each a hard Gumbel-max triple at temperature
-1.0, then the K triples of each image are deduped and ranked by sample
-frequency. Two samplers draw the tokens:
+Per image batch, K noise draws, each a hard Gumbel-max triple, then the K
+triples of each image are deduped and ranked. Two samplers draw the tokens:
   - :func:`make_sampler` / :func:`make_indexed_sampler` run the generator's
-    own forward (either decoder), the reference's XLA sampler;
+    own forward (either decoder), the reference's XLA sampler, with its
+    options: a sampling temperature (a default ``tau`` and a per-call
+    ``temp``, a number or one per row), top-k/top-p, and ``with_logp``,
+    which draws in the decoders' ``detach_sample`` mode (the same tokens for
+    the same noise) and also returns each draw's untempered joint
+    log-probability;
   - :func:`make_fused_sampler` runs one launch of ``fused_decode`` per draw
-    (attention-LSTM only).
-Log-prob ranking, temperatures other than 1 and top-k/top-p come with a later
-slice (ROADMAP A4).
+    (attention-LSTM only, temperature 1, no log-probabilities).
+:func:`rank_triples` orders an image's draws by frequency (``freq``),
+frequency with a log-probability tiebreak (``freq_logp``) or probability
+mass (``logp``, optionally adjusted per predicate);
+:func:`assemble_scene_graphs` does the same for a batch at once.
 """
 
 from __future__ import annotations
@@ -27,8 +33,6 @@ from sgg_torch.kernels.fused_decode import (
 from sgg_torch.train.state import make_generator
 from sgg_torch.utils.gumbel import sample_gumbel
 
-_LATER_A4 = "is not ported yet; a later slice of the port brings it (ROADMAP A4)"
-
 
 def _draw(noise, i, B, Z, V, dtype, dev, generator):
     """Draw i's z [B, Z] in ``dtype`` and Gumbel noise [B, 3, V] float32:
@@ -43,34 +47,38 @@ def _draw(noise, i, B, Z, V, dtype, dev, generator):
 
 def _sample_body(cfg: Config, step_mask, num_samples: int, tau, with_logp: bool,
                  top_k: int, top_p):
-    """(g_params, feats [B,R,F], generator=None, noise=None) → tokens
-    int32[B, K, 3] through the generator's forward, hard, at temperature 1."""
-    if with_logp:
-        raise NotImplementedError(f"with_logp (log-prob ranking) {_LATER_A4}")
-    if tau is not None and float(tau) != 1.0:
-        raise NotImplementedError(f"sampling temperature other than 1.0 {_LATER_A4}")
-    if top_k or top_p is not None:
-        raise NotImplementedError(f"top-k/top-p sampling {_LATER_A4}")
+    """(g_params, feats [B,R,F], generator=None, noise=None, temp=None) →
+    tokens int32[B, K, 3], or with ``with_logp`` (tokens, logp float32[B, K]),
+    through the generator's forward, hard. ``temp`` (a number or float32
+    [B]) overrides the default temperature ``tau`` (None ≡ 1.0)."""
     gen = make_generator(cfg).requires_grad_(False).eval()
     mask = None if step_mask is None else torch.as_tensor(step_mask, dtype=torch.bool)
     dtype, Z, V = cfg.model.dtype, cfg.model.noise_dim, cfg.model.vocab_size
+    default = 1.0 if tau is None else float(tau)
     loaded = {"params": None}
 
-    def body(g_params, feats, generator=None, noise=None):
+    def body(g_params, feats, generator=None, noise=None, temp=None):
         dev = feats.device
         if loaded["params"] is not g_params:  # load each weights dict once
             gen.load_state_dict(g_params)
             gen.to(dev)
             loaded["params"] = g_params
         m = None if mask is None else mask.to(dev)
+        st = torch.as_tensor(default if temp is None else temp, dtype=torch.float32,
+                             device=dev)
         B = feats.shape[0]
-        toks = []
+        toks, lps = [], []
         with torch.no_grad():
             for i in range(num_samples):
                 z, g = _draw(noise, i, B, Z, V, dtype, dev, generator)
-                out = gen(feats, z, g, tau=1.0, hard=True, step_mask=m)
+                out = gen(feats, z, g, tau=1.0, hard=True, step_mask=m,
+                          detach_sample=with_logp, sample_temp=st,
+                          sample_top_k=top_k, sample_top_p=top_p)
                 toks.append(out["tokens"].to(torch.int32))
-        return torch.stack(toks, dim=1)  # [B, K, 3]
+                if with_logp:
+                    lps.append(out["log_prob"].float())
+        tokens = torch.stack(toks, dim=1)  # [B, K, 3]
+        return (tokens, torch.stack(lps, dim=1)) if with_logp else tokens
 
     return body
 
@@ -79,14 +87,17 @@ def make_sampler(
     cfg: Config, step_mask=None, num_samples: int = 50, tau: float | None = None,
     with_logp: bool = False, top_k: int = 0, top_p: float | None = None,
 ):
-    """Build ``sample(g_params, feats [B,R,F], generator=None, noise=None)`` →
-    tokens int32[B, K, 3] on the feats' device, through the forward of the
-    generator ``cfg.model.decoder`` names. ``g_params`` is its state_dict.
-    Each draw takes z ~ N(0, 1) [B, Z] and Gumbel noise [B, 3, V] from
-    ``generator`` (a torch.Generator on the feats' device), or from ``noise
-    = (z [K,B,Z], gumbel [K,B,3,V])`` when given, so that a test can feed the
-    reference's own draws. Only temperature 1 and ``with_logp=False`` are
-    ported."""
+    """Build ``sample(g_params, feats [B,R,F], generator=None, noise=None,
+    temp=None)`` → tokens int32[B, K, 3] on the feats' device (with
+    ``with_logp``: ``(tokens, logp float32[B, K])``, each draw's untempered
+    joint log-probability), through the forward of the generator
+    ``cfg.model.decoder`` names. ``g_params`` is its state_dict. Each draw
+    takes z ~ N(0, 1) [B, Z] and Gumbel noise [B, 3, V] from ``generator``
+    (a torch.Generator on the feats' device), or from ``noise = (z [K,B,Z],
+    gumbel [K,B,3,V])`` when given, so that a test can feed the reference's
+    own draws. Tokens are drawn at temperature ``temp`` (default ``tau``,
+    None ≡ 1.0; a number or float32 [B] per row) after top-k/top-p
+    filtering (``top_k`` 0 and ``top_p`` None: off)."""
     return _sample_body(cfg, step_mask, num_samples, tau, with_logp, top_k, top_p)
 
 
@@ -96,12 +107,12 @@ def make_indexed_sampler(
 ):
     """As :func:`make_sampler`, gathering the batch from a device-resident
     feature store: ``sample(g_params, feats_dev [N,R,F], idx [B],
-    generator=None, noise=None)``."""
+    generator=None, noise=None, temp=None)``."""
     body = _sample_body(cfg, step_mask, num_samples, tau, with_logp, top_k, top_p)
 
-    def sample(g_params, feats_dev, idx, generator=None, noise=None):
+    def sample(g_params, feats_dev, idx, generator=None, noise=None, temp=None):
         idx = torch.as_tensor(idx, dtype=torch.long, device=feats_dev.device)
-        return body(g_params, feats_dev.index_select(0, idx), generator, noise)
+        return body(g_params, feats_dev.index_select(0, idx), generator, noise, temp)
 
     return sample
 
@@ -130,8 +141,8 @@ def make_fused_sampler(
         # argmax((logits + g) / tau) does not depend on tau, so a requested
         # temperature would silently do nothing.
         raise ValueError(
-            f"fused decode samples at temperature 1.0 only; temperature other "
-            f"than 1.0 {_LATER_A4}"
+            "fused decode samples at temperature 1.0 only; use the generator-forward "
+            "sampler (--decode xla) for --temperature"
         )
     dtype = cfg.model.dtype
     Z = cfg.model.noise_dim
@@ -173,42 +184,101 @@ def device_put_features(
     return store
 
 
-def rank_triples(tokens: np.ndarray, rank: str = "freq") -> list[tuple[int, int, int]]:
-    """Rank one image's K sampled triples → deduped [(s,p,o)], best first:
-    sample count descending, ties by first-sampled order. Only ``freq`` is
-    ported; the log-prob orderings come with a later slice (ROADMAP A4)."""
-    if rank != "freq":
-        raise ValueError(f"rank={rank!r} is not ported yet (only 'freq')")
+def rank_triples(
+    tokens: np.ndarray, logp: np.ndarray | None = None, rank: str = "freq",
+    pred_adjust: np.ndarray | None = None,
+) -> list[tuple[int, int, int]]:
+    """Rank one image's K sampled triples → deduped [(s,p,o)], best first.
+
+    ``tokens`` int[K, 3]; ``logp`` float[K], each draw's joint
+    log-probability (``with_logp=True`` on the samplers), or None. Modes:
+      - ``freq``: sample count descending, ties by first-sampled order;
+      - ``freq_logp``: count descending, ties by the triple's aggregated
+        log-probability descending;
+      - ``logp``: per unique triple, the logsumexp of its draws'
+        log-probabilities, descending.
+    ``pred_adjust`` (float[V], ``logp`` only) is subtracted per predicate
+    from each triple's aggregated score (logit adjustment for the long
+    predicate tail).
+    """
     tokens = np.asarray(tokens).reshape(-1, 3)
+    if rank != "freq" and logp is None:
+        raise ValueError(f"rank={rank!r} needs per-draw log-probs")
     counts: dict = {}
     first: dict = {}
+    agg: dict = {}
     for i, row in enumerate(tokens):
         t = (int(row[0]), int(row[1]), int(row[2]))
         counts[t] = counts.get(t, 0) + 1
         if t not in first:
             first[t] = i
-    return sorted(counts, key=lambda t: (-counts[t], first[t]))
+        if logp is not None:
+            lp = float(logp[i])
+            agg[t] = float(np.logaddexp(agg[t], lp)) if t in agg else lp
+    if pred_adjust is not None and rank != "logp":
+        raise ValueError("pred_adjust applies to rank='logp' only")
+    if rank == "freq":
+        key = lambda t: (-counts[t], first[t])  # noqa: E731
+    elif rank == "freq_logp":
+        key = lambda t: (-counts[t], -agg[t])  # noqa: E731
+    elif rank == "logp":
+        if pred_adjust is not None:
+            adj = np.asarray(pred_adjust, np.float64)
+            key = lambda t: -(agg[t] - adj[t[1]])  # noqa: E731
+        else:
+            key = lambda t: -agg[t]  # noqa: E731
+    else:
+        raise ValueError(f"unknown rank mode {rank!r}")
+    return sorted(counts, key=key)
 
 
 def assemble_scene_graphs(
-    tokens: np.ndarray, vocab: Vocab, image_ids, rank: str = "freq",
+    tokens: np.ndarray, vocab: Vocab, image_ids,
+    logp: np.ndarray | None = None, rank: str = "freq",
 ) -> tuple[list[dict], list[list[tuple[int, int, int]]]]:
     """Batch dedupe/aggregate: tokens int[B, K, 3] → (graphs, id_triples).
 
-    One corpus-wide ``np.unique``; each image's triples ordered by count
-    descending, ties lexicographic. ``id_triples`` lists each image's unique
-    (s,p,o) id triples in the graph's order, for recall scoring.
+    One corpus-wide ``np.unique``. ``freq`` orders each image's triples by
+    count descending, ties lexicographic; with ``logp`` float[B, K]
+    (per-draw log-probabilities) ``freq_logp`` breaks count ties by the
+    triple's aggregated log-probability (a segmented logsumexp) and ``logp``
+    orders by it alone, and each triple dict gains its ``"logp"``.
+    ``id_triples`` lists each image's unique (s,p,o) id triples in the
+    graph's order, for recall scoring.
     """
-    if rank != "freq":
-        raise ValueError(f"rank={rank!r} is not ported yet (only 'freq')")
     tokens = np.asarray(tokens)
     B, K, _ = tokens.shape
     img = np.repeat(np.arange(B, dtype=np.int64), K)[:, None]
     flat = np.concatenate([img, tokens.reshape(-1, 3)], axis=1)
-    uniq, counts = np.unique(flat, axis=0, return_counts=True)
-    order = np.lexsort((-counts,))  # count desc, ties lexicographic
+    uniq, inverse, counts = np.unique(
+        flat, axis=0, return_inverse=True, return_counts=True
+    )
+    inverse = np.asarray(inverse).reshape(-1)
+    group_lp = None
+    if logp is not None:
+        # Segmented logsumexp of draw log-probs per unique (img, s, p, o).
+        lp = np.asarray(logp, np.float64).reshape(-1)
+        order = np.argsort(inverse, kind="stable")
+        starts = np.r_[0, np.cumsum(counts)[:-1]]
+        m = np.maximum.reduceat(lp[order], starts)
+        sums = np.add.reduceat(np.exp(lp[order] - np.repeat(m, counts)), starts)
+        group_lp = m + np.log(sums)
+    if rank == "freq":
+        order = np.lexsort((-counts,))  # count desc, ties lexicographic
+    elif rank == "freq_logp":
+        if group_lp is None:
+            raise ValueError("rank='freq_logp' needs logp")
+        order = np.lexsort((-group_lp, -counts))
+    elif rank == "logp":
+        if group_lp is None:
+            raise ValueError("rank='logp' needs logp")
+        order = np.lexsort((-group_lp,))
+    else:
+        raise ValueError(f"unknown rank mode {rank!r}")
     order = order[np.argsort(uniq[order, 0], kind="stable")]  # image-major
     uniq, counts = uniq[order], counts[order]
+    if group_lp is not None:
+        group_lp = group_lp[order]
     bounds = np.searchsorted(uniq[:, 0], np.arange(B + 1))
 
     decode_cache: dict = {}
@@ -222,8 +292,30 @@ def assemble_scene_graphs(
             names = decode_cache.get(t)
             if names is None:
                 names = decode_cache[t] = vocab.decode_triple(t)
-            triples.append({"subject": names[0], "predicate": names[1],
-                            "object": names[2], "count": int(c)})
+            d = {"subject": names[0], "predicate": names[1],
+                 "object": names[2], "count": int(c)}
+            if group_lp is not None:
+                d["logp"] = float(group_lp[j])
+            triples.append(d)
         graphs.append({"triples": triples, "image_id": int(image_ids[b])})
         id_triples.append(ids)
     return graphs, id_triples
+
+
+def assemble_scene_graph(tokens: np.ndarray, vocab: Vocab, image_id: int | None = None
+                         ) -> dict:
+    """One image's K sampled triples (int[K, 3]) as a deduped scene graph,
+    triples ordered by sample count (ties lexicographic)."""
+    uniq, counts = np.unique(np.asarray(tokens).reshape(-1, 3), axis=0,
+                             return_counts=True)
+    order = np.argsort(-counts, kind="stable")
+    triples = []
+    for i in order:
+        s, p, o = (int(x) for x in uniq[i])
+        subj, pred, obj = vocab.decode_triple((s, p, o))
+        triples.append({"subject": subj, "predicate": pred, "object": obj,
+                        "count": int(counts[i])})
+    out = {"triples": triples}
+    if image_id is not None:
+        out["image_id"] = int(image_id)
+    return out

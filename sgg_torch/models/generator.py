@@ -8,9 +8,12 @@ vocab projection give logits, masked to the step's legal tokens; a
 Gumbel-softmax sample feeds back through the embedding.
 
 The noise is an input: ``gumbel`` holds the [B, 3, V] float32 Gumbel draws
-that the reference makes inside the step loop. Forced steps,
-``detach_sample``/``log_prob``, ``sample_temp`` and top-k/top-p belong to the
-reference's XLA sampler and come with the slice that ports it.
+that the reference makes inside the step loop. The sampler's options are the
+reference's: ``sample_temp`` (scalar or per row) and ``sample_top_k`` /
+``sample_top_p`` shape the distribution tokens are drawn from, and
+``detach_sample`` draws exact Gumbel-max tokens and returns ``log_prob``, the
+untempered joint log-probability in float32. Forced steps (the PredCls
+scorer's conditional decode) come with a later slice (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -22,10 +25,39 @@ from sgg_torch.config import Config
 from sgg_torch.models.attention import AdditiveAttention
 from sgg_torch.models.layers import dense, init_dense_
 from sgg_torch.models.lstm import TF1LSTMCell
-from sgg_torch.utils.gumbel import gumbel_softmax
+from sgg_torch.utils.gumbel import gumbel_softmax, top_k_top_p_filter
 
 TRIPLE_LEN = 3  # (subject, predicate, object)
 MASK_VALUE = -1e9  # the reference masks with -1e9, not -inf
+
+
+def refuse_forced(forced_tokens, forced_steps) -> None:
+    if forced_steps or forced_tokens is not None:
+        raise NotImplementedError(
+            "forced steps (the PredCls scorer's conditional decode) are not ported yet; a "
+            "later slice of the port brings them (ROADMAP A4)")
+
+
+def sampling_logits(logits32: torch.Tensor, sample_temp=None, top_k: int = 0,
+                    top_p=None) -> torch.Tensor:
+    """The float32 logits tokens are drawn from: divided by ``sample_temp``
+    (a number, or float32 [B] per row), then top-k/top-p filtered. The
+    temperature is a tensor on the logits' device, so the division is a true
+    one on every device, as the reference's."""
+    samp = logits32
+    if sample_temp is not None:
+        t = torch.as_tensor(sample_temp, dtype=torch.float32, device=logits32.device)
+        t = t.reshape(-1, *([1] * (logits32.dim() - 1))) if t.dim() == 1 else \
+            t.reshape([1] * logits32.dim())
+        samp = logits32 / t
+    if top_k or top_p is not None:
+        samp = top_k_top_p_filter(samp, top_k, top_p)
+    return samp
+
+
+def token_log_prob(logits32: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """log softmax(logits32) at the chosen tokens ``idx``."""
+    return torch.log_softmax(logits32, dim=-1).gather(-1, idx[..., None])[..., 0]
 
 
 class AttentionLSTMGenerator(nn.Module):
@@ -68,10 +100,21 @@ class AttentionLSTMGenerator(nn.Module):
         tau: float = 1.0,
         hard: bool = False,
         step_mask: torch.Tensor | None = None,  # bool[3, V]
+        detach_sample: bool = False,
+        forced_tokens: torch.Tensor | None = None,
+        forced_steps: tuple = (),
+        sample_temp=None,  # number, or float32 [B]
+        sample_top_k: int = 0,
+        sample_top_p: float | None = None,
     ) -> dict[str, torch.Tensor]:
         """Decode one triple per image → soft [B,3,V], logits [B,3,V],
         attention [B,3,R] and tokens [B,3] (argmax of soft, first index
-        among ties)."""
+        among ties). Each step's token comes from the logits divided by
+        ``sample_temp`` and filtered by ``sample_top_k``/``sample_top_p``
+        plus the step's Gumbel noise. With ``detach_sample`` the token is
+        argmax(those + noise), its one-hot fed back without gradient, and
+        ``log_prob`` float32 [B] = Σₜ log softmax(logitsₜ)[tokenₜ]."""
+        refuse_forced(forced_tokens, forced_steps)
         dt = self.dtype
         feats = feats.to(dt)
         z = z.to(dt)
@@ -88,7 +131,7 @@ class AttentionLSTMGenerator(nn.Module):
         if step_mask is not None:
             step_mask = step_mask.to(device=feats.device, dtype=torch.bool)
 
-        soft_steps, logit_steps, attn_steps = [], [], []
+        soft_steps, logit_steps, attn_steps, logp_steps = [], [], [], []
         for t in range(TRIPLE_LEN):
             ctx, alpha = self.attention(feats, h, proj_feats)
             x = torch.cat([ctx, prev_emb, z], dim=-1)
@@ -100,18 +143,28 @@ class AttentionLSTMGenerator(nn.Module):
                     step_mask[t][None, :], logits,
                     torch.tensor(MASK_VALUE, dtype=logits.dtype, device=logits.device),
                 )
-            y = gumbel_softmax(
-                logits.float(), gumbel[:, t, :].float(), tau=tau, hard=hard
-            ).to(dt)
+            logits32 = logits.float()
+            samp32 = sampling_logits(logits32, sample_temp, sample_top_k, sample_top_p)
+            g = gumbel[:, t, :].float()
+            if detach_sample:
+                # Gumbel-max: an exact draw, its prefix a constant.
+                idx = torch.argmax(samp32 + g, dim=-1)
+                y = torch.zeros_like(samp32).scatter_(-1, idx[:, None], 1.0).to(dt)
+                logp_steps.append(token_log_prob(logits32, idx))
+            else:
+                y = gumbel_softmax(samp32, g, tau=tau, hard=hard).to(dt)
             prev_emb = y @ embedding
             soft_steps.append(y)
             logit_steps.append(logits)
             attn_steps.append(alpha)
 
         soft = torch.stack(soft_steps, dim=1)
-        return {
+        out = {
             "soft": soft,
             "logits": torch.stack(logit_steps, dim=1),
             "attention": torch.stack(attn_steps, dim=1),
             "tokens": torch.argmax(soft, dim=-1),
         }
+        if detach_sample:
+            out["log_prob"] = logp_steps[0] + logp_steps[1] + logp_steps[2]
+        return out

@@ -9,9 +9,10 @@ Gumbel noise is an input ([B, 3, V] float32), and hard tokens are the argmax
 of the straight-through Gumbel-softmax sample cast to the compute dtype.
 
 Attention here is plain tensor code, as in the reference (its cross-attention
-has 3 queries, and its ``use_pallas`` is reserved). ``detach_sample``, forced
-steps, ``sample_temp`` other than 1 and top-k/top-p come with the slice that
-ports the rest of the XLA sampler (ROADMAP A4).
+has 3 queries, and its ``use_pallas`` is reserved). ``sample_temp``,
+``sample_top_k``/``sample_top_p`` and ``detach_sample`` (with ``log_prob``)
+are the attention-LSTM generator's; forced steps come with a later slice
+(ROADMAP A4).
 
 Parameter names and layouts are the flax module's (``feat_proj``,
 ``slot_embed``, ``noise_proj``, ``ln_self{i}``, ``self_qkv{i}``,
@@ -26,7 +27,13 @@ import torch
 from torch import nn
 
 from sgg_torch.config import Config
-from sgg_torch.models.generator import MASK_VALUE, TRIPLE_LEN
+from sgg_torch.models.generator import (
+    MASK_VALUE,
+    TRIPLE_LEN,
+    refuse_forced,
+    sampling_logits,
+    token_log_prob,
+)
 from sgg_torch.models.layers import Dense, LayerNorm, gelu
 from sgg_torch.utils.gumbel import gumbel_softmax
 
@@ -104,26 +111,16 @@ class TransformerTripleGenerator(nn.Module):
         detach_sample: bool = False,
         forced_tokens: torch.Tensor | None = None,
         forced_steps: tuple = (),
-        sample_temp: float | None = None,
+        sample_temp=None,  # number, or float32 [B]
         sample_top_k: int = 0,
         sample_top_p: float | None = None,
     ) -> dict[str, torch.Tensor]:
         """Decode one triple per image → soft [B,3,V], logits [B,3,V],
         attention [B,3,R] (the last layer's head-averaged cross-attention)
-        and tokens [B,3]."""
-        later = []
-        if detach_sample:
-            later.append("detach_sample")
-        if forced_steps or forced_tokens is not None:
-            later.append("forced steps")
-        if sample_temp is not None and float(sample_temp) != 1.0:
-            later.append("sample_temp other than 1")
-        if sample_top_k or sample_top_p is not None:
-            later.append("top-k/top-p")
-        if later:
-            raise NotImplementedError(
-                f"{', '.join(later)}: not ported yet; a later slice of the port brings "
-                f"it (ROADMAP A4)")
+        and tokens [B,3]; with ``detach_sample`` exact Gumbel-max tokens and
+        ``log_prob`` float32 [B], the sum of the three slots' untempered
+        log-probabilities (the slots are independent given z)."""
+        refuse_forced(forced_tokens, forced_steps)
         dt = self.dtype
         feats = feats.to(dt)
         z = z.to(dt)
@@ -156,7 +153,14 @@ class TransformerTripleGenerator(nn.Module):
             m = step_mask.to(device=logits.device, dtype=torch.bool)[None]
             logits = torch.where(
                 m, logits, torch.tensor(MASK_VALUE, dtype=logits.dtype, device=logits.device))
-        y = gumbel_softmax(logits.float(), gumbel.float(), tau=tau, hard=hard).to(dt)
+        logits32 = logits.float()
+        samp32 = sampling_logits(logits32, sample_temp, sample_top_k, sample_top_p)
+        if detach_sample:
+            idx = torch.argmax(samp32 + gumbel.float(), dim=-1)  # [B, 3]
+            y = torch.zeros_like(samp32).scatter_(-1, idx[..., None], 1.0).to(dt)
+            return {"soft": y, "logits": logits, "attention": attn_map, "tokens": idx,
+                    "log_prob": token_log_prob(logits32, idx).sum(dim=-1)}
+        y = gumbel_softmax(samp32, gumbel.float(), tau=tau, hard=hard).to(dt)
         return {
             "soft": y,
             "logits": logits,

@@ -6,9 +6,10 @@ the encoder's (``enc_params``), are port state_dicts in one torch file,
 ``generator.pt``, which ``sgg_torch.cli.generate`` reads. Training keeps its
 whole state (the modules, their Adam states, the step) as
 ``checkpoints/<step>/state.pt``, at most ``max_to_keep`` of them, and
-rewrites ``generator.pt`` at every save. The reference's orbax checkpoints are
-not read here: ``sgg_torch.convert_flax`` turns restored flax trees into
-state_dicts.
+rewrites ``generator.pt`` at every save; ``restore_averaged`` and
+:func:`restore_weights` read the mean of the last N. The reference's orbax
+checkpoints are not read here: ``sgg_torch.convert_flax`` turns restored flax
+trees into state_dicts.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from sgg_torch.config import Config
 from sgg_torch.data.vocab import Vocab
+from sgg_torch.train.state import create_train_state
 
 GENERATOR_FILE = "generator.pt"
 STATE_FILE = "state.pt"
@@ -82,13 +84,16 @@ class CheckpointManager:
     """Train-state checkpoints under ``workdir/checkpoints/<step>/``, with
     ``max_to_keep`` retention and resume from the latest."""
 
-    def __init__(self, workdir: str, cfg: Config, max_to_keep: int = 3):
+    def __init__(self, workdir: str, cfg: Config | None, max_to_keep: int = 3):
+        """``cfg``, when given, is written to ``workdir/config.json``; a reader
+        of an existing workdir passes None."""
         self.workdir = os.path.abspath(workdir)
         self.ckpt_dir = os.path.join(self.workdir, "checkpoints")
         self.max_to_keep = max_to_keep
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        with open(os.path.join(self.workdir, "config.json"), "w") as f:
-            f.write(cfg.to_json())
+        if cfg is not None:
+            with open(os.path.join(self.workdir, "config.json"), "w") as f:
+                f.write(cfg.to_json())
 
     def save_vocab(self, vocab: Vocab) -> None:
         vocab.save(os.path.join(self.workdir, "vocab.json"))
@@ -123,7 +128,69 @@ class CheckpointManager:
             return None
         # Loaded to the CPU: each module and optimizer moves its own tensors
         # to its parameters' device.
-        sd = torch.load(os.path.join(self.ckpt_dir, str(step), STATE_FILE),
-                        map_location="cpu", weights_only=True)
-        state.load_state_dict(sd)
+        state.load_state_dict(self._load(step))
         return state
+
+    def _load(self, step: int) -> dict:
+        return torch.load(os.path.join(self.ckpt_dir, str(step), STATE_FILE),
+                          map_location="cpu", weights_only=True)
+
+    def restore_averaged(self, state, last_n: int):
+        """The latest checkpoint in ``state``, with the generator's weights
+        (and their EMA, when tracked) replaced by their mean over the last
+        ``last_n`` retained checkpoints; None when there is none.
+
+        The sums run in float32 on the host, the latest checkpoint first and
+        then the others oldest first, as the reference adds them; each mean
+        is cast back to its tensor's dtype. Everything else (critic,
+        optimizers, step, encoder) is the latest checkpoint's. One
+        checkpoint is read at a time."""
+        steps = self.all_steps()[-max(1, int(last_n)):]
+        if not steps:
+            return None
+        self.restore(state, step=steps[-1])
+        if len(steps) == 1:
+            return state
+
+        def f32(sd):
+            return {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in sd.items()}
+
+        ref_g = state.generator.state_dict()
+        sum_g = f32(ref_g)
+        sum_e = None if state.g_ema is None else f32(state.g_ema)
+        for s in steps[:-1]:
+            sd = self._load(s)
+            for k, v in sd["g_params"].items():
+                sum_g[k] += v.float()
+            if sum_e is not None:
+                for k, v in sd["g_ema"].items():
+                    sum_e[k] += v.float()
+            del sd
+
+        def mean_like(acc, ref):
+            return {k: (a / torch.full_like(a, float(len(steps)))).to(ref[k].dtype)
+                    for k, a in acc.items()}
+
+        state.generator.load_state_dict(mean_like(sum_g, ref_g))
+        if sum_e is not None:
+            for k, v in mean_like(sum_e, state.g_ema).items():
+                state.g_ema[k].copy_(v)
+        return state
+
+
+def restore_weights(workdir: str, cfg, avg_last: int, device):
+    """(step, g_params, g_ema, enc_params, steps averaged) from the workdir:
+    ``generator.pt``, or with ``avg_last > 1`` the mean over the last
+    retained checkpoints; None when there are no weights."""
+    if avg_last > 1:
+        mgr = CheckpointManager(workdir, None)
+        steps = mgr.all_steps()[-avg_last:]
+        state = create_train_state(cfg, cfg.train.seed, device=device)
+        if mgr.restore_averaged(state, avg_last) is None:
+            return None
+        enc = None if state.encoder is None else state.encoder.state_dict()
+        return state.step, state.generator.state_dict(), state.g_ema, enc, steps
+    ckpt = load_generator(workdir, decoder=cfg.model.decoder)
+    if ckpt is None:
+        return None
+    return ckpt["step"], ckpt["g_params"], ckpt["g_ema"], ckpt["enc_params"], None

@@ -23,7 +23,7 @@ class MetricLogger:
 
     def log(self, step: int, metrics: dict, images_per_step: int | None = None) -> dict:
         """Write the scalars of ``metrics`` (numbers or 0-dim tensors) for
-        ``step`` and print the losses; returns what was written."""
+        ``step`` and print the losses, if any; returns what was written."""
         scalars = {k: float(v) for k, v in metrics.items()}
         now = time.perf_counter()
         if self._last_time is not None and images_per_step and step > self._last_step:
@@ -37,8 +37,9 @@ class MetricLogger:
         msg = " ".join(f"{k}={scalars[k]:.4f}" for k in ("d_loss", "g_loss", "w_dist", "gp")
                        if k in scalars)
         ips = scalars.get("images_per_sec")
-        print(f"[sgg.train] step {step}: {msg}{f' img/s={ips:.1f}' if ips else ''}",
-              flush=True)
+        if msg or ips:
+            print(f"[sgg.train] step {step}: {msg}{f' img/s={ips:.1f}' if ips else ''}",
+                  flush=True)
         return scalars
 
     def close(self) -> None:

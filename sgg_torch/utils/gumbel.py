@@ -37,3 +37,24 @@ def gumbel_softmax(
     idx = torch.argmax(y_soft, dim=dim, keepdim=True)
     y_hard = torch.zeros_like(y_soft).scatter_(dim, idx, 1.0)
     return y_soft + (y_hard - y_soft).detach()
+
+
+def top_k_top_p_filter(logits: torch.Tensor, top_k: int = 0, top_p=None) -> torch.Tensor:
+    """Top-k, then nucleus (top-p), filtering of the tempered logits for
+    sampling: ``top_k`` > 0 keeps the k highest per row (ties with the k-th
+    kept); ``top_p`` in (0, 1] keeps the smallest set of tokens whose
+    cumulative probability reaches p (the most likely token always survives).
+    Filtered tokens get -1e9, the step mask's value."""
+    neg = torch.tensor(-1e9, dtype=logits.dtype, device=logits.device)
+    if top_k:
+        kth = torch.sort(logits, dim=-1).values[..., -int(top_k), None]
+        logits = torch.where(logits >= kth, logits, neg)
+    if top_p is not None:
+        sorted_desc = -torch.sort(-logits, dim=-1).values
+        probs = torch.softmax(sorted_desc, dim=-1)
+        cum_before = torch.cumsum(probs, dim=-1) - probs
+        keep = cum_before < torch.as_tensor(top_p, dtype=logits.dtype, device=logits.device)
+        inf = torch.tensor(float("inf"), dtype=logits.dtype, device=logits.device)
+        thresh = torch.where(keep, sorted_desc, inf).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits >= thresh, logits, neg)
+    return logits

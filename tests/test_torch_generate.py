@@ -255,12 +255,17 @@ def test_generate_cli_needs_cuda_or_cpu_flag(smoke_workdir, monkeypatch):
         generate.main(["--workdir", wd, "--num-samples", "2"])
 
 
-@pytest.mark.parametrize("flags", [["--top-p", "0.9"], ["--rank", "logp"],
-                                   ["--top-k", "5"], ["--temperature", "0.5"]])
-def test_generate_cli_refuses_unported_options(smoke_workdir, capsys, flags):
+@pytest.mark.parametrize("flags,message", [
+    (["--quant", "int8"], "not ported yet"),
+    (["--decode", "fused", "--top-p", "0.9"], "--top-k/--top-p"),
+    (["--decode", "fused", "--rank", "logp"], "log-probs"),
+    (["--decode", "fused", "--temperature", "0.5"], "temperature 1.0")])
+def test_generate_cli_refuses_unported_options(smoke_workdir, capsys, flags, message):
+    """What the port has not ported, and what the fused kernel cannot do (as
+    in the reference)."""
     wd, _ = smoke_workdir
     assert generate.main(["--workdir", wd, "--device", "cpu", *flags]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_generate_cli_decode_xla_and_fused_agree(smoke_workdir, capsys):
@@ -291,6 +296,7 @@ def test_port_imports_no_jax_and_no_sgg():
         "import sgg_torch.cli.train, sgg_torch.cli.common, sgg_torch.kernels.flash_attention_bwd\n"
         "import sgg_torch.models.discriminator, sgg_torch.train.losses, sgg_torch.train.step\n"
         "import sgg_torch.train.metrics, sgg_torch.train.checkpoint, sgg_torch.data.pipeline\n"
+        "import sgg_torch.cli.evaluate, sgg_torch.train.eval_probe, sgg_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sgg'))\n"
         "assert not bad, bad\n"
         "from sgg_torch.kernels import build\n"

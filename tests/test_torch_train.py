@@ -519,10 +519,10 @@ def test_noise_layout_and_refusals():
             make_step_fn(_configs("smoke", sets)[1])
     with pytest.raises(NotImplementedError, match="conv kernels"):
         make_step_fn(_configs("resnet50", {"train.train_encoder": True})[1])
+    # Triple weights, which the iterators refused before predicate balance
+    # was ported, are now drawn from (tests/test_torch_data_balance.py).
     data = jax_synthetic_dataset(num_images=8, regions=2, feat_dim=4, seed=0)
     tds = TripleDataset(features=data["features"], triples=data["triples"],
                         triple_weights=[np.ones(len(t)) / len(t) for t in data["triples"]])
-    with pytest.raises(NotImplementedError, match="predicate"):
-        next(make_train_iterator(tds, 2, 1, prefetch=0))
-    with pytest.raises(NotImplementedError, match="predicate"):
-        make_device_train_iterator(tds, 2, 1, device="cpu")
+    assert next(make_train_iterator(tds, 2, 1, prefetch=0))["triples"].shape == (2, 2, 3)
+    assert next(make_device_train_iterator(tds, 2, 1, device="cpu"))["triples"].shape == (2, 2, 3)

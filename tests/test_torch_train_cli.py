@@ -6,7 +6,9 @@ the logger's throughput; ``train.max_checkpoints`` prunes old checkpoints; a
 second run resumes at the saved step; SIGTERM saves and exits, and the signal
 handlers are put back; the host iterator's prefetch thread stops with the
 run; ``sgg_torch.cli.generate`` samples the trained workdir; options that a
-later slice brings are refused.
+later slice brings are refused. ``pipeline_v4`` at smoke widths runs predicate
+balance, the int8 store on rotating subsets, the held-out probe and
+``--profile``.
 """
 
 import json
@@ -133,11 +135,48 @@ def test_cuda_is_the_default_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--profile"], ["--debug-nans"], ["--set", "train.eval_every=5"],
-    ["--set", "data.predicate_balance=0.5"], ["--set", "data.feature_store_int8=true"],
+    ["--debug-nans"], ["--set", "train.eval_every=5", "--set", "model.encoder=vgg19"],
+    ["--set", "model.moe_experts=4"], ["--set", "model.sp_mode=ring"],
+    ["--set", "mesh.data=2"],
     ["--set", "data.loader=grain"], ["--set", "train.estimator=reinforce"],
     ["--set", "mesh.model=2"]])
 def test_unported_options_are_refused(tmp_path, capsys, extra):
     argv = ["--config", "smoke", "--device", "cpu", "--workdir", str(tmp_path), *extra]
     assert train.main(argv) == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+def test_pipeline_v4_runs_balance_int8_rotation_probe_and_profile(tmp_path, capsys):
+    from test_torch_evaluate import SMOKE, _sets, write_corpus
+
+    corpus = str(tmp_path / "corpus")
+    write_corpus(corpus)
+    wd = tmp_path / "wd"
+    sets = dict(SMOKE, **{"data.data_dir": corpus, "train.batch_size": 8, "train.n_critic": 2,
+                          "train.log_every": 1, "train.checkpoint_every": 4,
+                          "train.eval_every": 8, "train.eval_images": 12,
+                          "train.eval_samples": 4, "data.device_resident_max_bytes": 6000,
+                          "data.rotation_min_steps": 3})
+    argv = ["--config", "pipeline_v4", "--device", "cpu", "--workdir", str(wd), "--steps", "16",
+            "--profile", *_sets(sets)]
+    assert train.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "predicate-balanced triple sampling (alpha=0.7)" in out
+    assert "rotating device-resident subsets" in out and "int8+scale" in out
+    assert "subset rotation: cycle 1 complete" in out and "subsets, at most 2 alive" in out
+    assert out.count("eval step") == 2 and "profile trace ->" in out
+    cfg, _ = load_workdir(wd)
+    assert cfg.name == "pipeline_v4" and cfg.model.compute_dtype == "bfloat16"
+    assert cfg.train.grad_accum == 2 and cfg.data.feature_store_int8
+    lines = _metrics(wd)
+    evals = [r for r in lines if "eval_recall@50" in r]
+    assert [r["step"] for r in evals] == [8, 16]
+    assert all(0.0 <= r["eval_recall@50"] <= 1.0 and r["eval_seconds"] > 0 for r in evals)
+    with open(os.path.join(wd, "best_eval.json")) as f:
+        best = json.load(f)
+    assert best["ema"] and best["k"] == 50 and best["step"] in (8, 16)
+    with open(os.path.join(wd, "profile", "top_ops.txt")) as f:
+        table = f.read()
+    assert table.startswith("steps 10-14 (5 steps)") and "top ops by" in table
+    assert os.path.getsize(os.path.join(wd, "profile", "trace.json")) > 0
+    assert CheckpointManager(wd, None, max_to_keep=6).all_steps() == [4, 8, 12, 16]

@@ -82,14 +82,19 @@ def test_forward_matches_reference(setup, masked):
 
 
 def test_forward_refuses_unported_sampling_options(setup):
+    """Forced steps (the PredCls scorer's) are not ported; the sampling
+    options are, and give the straight-through path's tokens."""
     _, port_cfg, _, _, sd, feats, z, _ = setup
     port = make_generator(port_cfg)
     port.load_state_dict(sd)
     args = (torch.from_numpy(feats), torch.from_numpy(z), torch.zeros(B, 3, V))
-    for kw in (dict(detach_sample=True), dict(forced_steps=(1,)), dict(sample_temp=0.5),
-               dict(sample_top_k=5), dict(sample_top_p=0.9)):
+    for kw in (dict(forced_steps=(1,)), dict(forced_tokens=torch.zeros(B, 3, dtype=torch.long))):
         with pytest.raises(NotImplementedError, match="A4"):
             port(*args, **kw)
+    with torch.no_grad():
+        for kw in (dict(sample_temp=0.5), dict(sample_top_k=5), dict(sample_top_p=0.9)):
+            detached = port(*args, hard=True, detach_sample=True, **kw)
+            assert torch.equal(detached["tokens"], port(*args, hard=True, **kw)["tokens"])
 
 
 def _reference_noise(cfg, rng, n):
@@ -133,8 +138,12 @@ def test_sampler_own_noise_and_refusals(setup):
     toks = a.reshape(-1, 3).numpy()
     assert (toks[:, 0] < 20).all() and (toks[:, 1] >= 20).all() and (toks[:, 2] < 20).all()
     for kw in (dict(tau=0.5), dict(with_logp=True), dict(top_k=3), dict(top_p=0.9)):
-        with pytest.raises(NotImplementedError, match="A4"):
-            make_sampler(port_cfg, **kw)
+        out = make_sampler(port_cfg, step_mask=mask, num_samples=5, **kw)(
+            sd, torch.from_numpy(feats), torch.Generator().manual_seed(3))
+        toks = out[0] if kw.get("with_logp") else out
+        assert toks.shape == (B, 5, 3) and (toks[..., 1] >= 20).all()
+        if kw.get("with_logp"):
+            assert torch.equal(toks, a) and bool((out[1] <= 0).all())
     with pytest.raises(ValueError, match="attention-LSTM"):
         make_fused_sampler(port_cfg)
 
