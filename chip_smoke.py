@@ -3,7 +3,13 @@
 
   python3 chip_smoke.py
 
-In one process, with no threads and no sockets:
+In one process. Phases 1-17 open no thread and no socket; phase 18 opens an
+HTTP server on 127.0.0.1 with its handler threads, a batcher's worker thread,
+client threads and one subprocess, and closes each in a ``finally``: the
+server is shut down and closed (which joins its handler threads), the batcher
+closed (which joins its worker), the client threads joined with a timeout, the
+subprocess's process group killed if it has not exited; the phase fails if a
+thread of it is alive at its end:
   1. device: CUDA present, compute capability 9.0; prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: nvcc compiles ``sgg_torch/kernels/csrc/*.cu`` for sm_90a, one
@@ -160,6 +166,30 @@ In one process, with no threads and no sockets:
      (exactly 8 x 100 fused_decode launches), each one's recall grid, wall
      seconds and triples/s; one batch of the sampler with log-probabilities
      on the card against the CPU's, same noise.
+ 18. serving (``serve_phase``), on phase 17's workdir before it is removed:
+     (a) ``sgg_torch.serve.InferenceEngine.from_workdir(W, ema=True,
+     avg_last=5, rank='logp', batch_size=32, num_samples=50)``, warmed up,
+     behind a ``DynamicBatcher`` and ``make_http_server`` on a free port: 8
+     client threads send 4 binary float16 and then 4 JSON requests each (1-6
+     images, a few JSON ones at temperature 0.5), every urllib call with a
+     60 s timeout; each request gets its graphs, every triple type-legal;
+     ``/stats`` counts the requests and images sent and fewer batches than
+     images, and ``/metrics`` agrees with it; a wrong shape and a ``paths``
+     request get 400; requests/s, images/s and triples/s for each wire
+     format, batch latency p50/p95/p99 and average fill; and one padded batch
+     (20 rows of 32, K = 8) of a card engine against a CPU engine on the same
+     weights and noise (>= 99 % of draws identical, log_prob finite);
+     (b) a resnet50 workdir (phase 7's widths, seeded weights) on binary
+     uint8 requests of 1-32 images from 3 client threads: exactly 13
+     conv_direct and 36 fused_matmul launches per encoder chunk (warmup's
+     included), no fused_decode; images/s through HTTP; the served features
+     of a 32-image request equal ``make_batch_features``' bit for bit;
+     (c) a vit_b16 workdir, one request of 32 images: exactly 12
+     flash_attention launches and no other kernel;
+     (d) ``python -m sgg_torch.cli.serve --workdir W --ema --avg-last 5
+     --port 0`` in a subprocess with its own process group: its ready line
+     within 180 s, ``/healthz`` and one binary request answered, exit code 0
+     within 30 s of SIGTERM.
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -168,7 +198,8 @@ main path that runs it (phase 17 for fused_decode, timed at its vg1k widths,
 B = 64, which pipeline_v4 shares; phase 7 for fused_matmul and conv_direct;
 phase 15 for the three flash kernels) and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
-bound ms. The last two lines are that
+bound ms. Phase 18's serving launch counts are printed on a line of their own
+before it. The last two lines are that
 record and the device JSON. A failed check raises, so the exit code is not 0;
 a watchdog turns a hang into a stack trace and a non-zero exit.
 """
@@ -201,6 +232,14 @@ VIT_TRAIN_STEPS = 16  # vit_b16 with --profile: the window is steps 10-14
 V4_TRAIN, V4_TEST, VG_IMAGES = 8192, 512, 108_077
 V4_BUDGET = int(4_000_000_000 * V4_TRAIN / VG_IMAGES)
 V4_STEPS, V4_EVAL_EVERY, V4_CKPT_EVERY, V4_MIN_STEPS = 16, 8, 2, 2
+# Phase 18, serving.
+SERVE_BATCH, SERVE_K = 32, 50
+SERVE_CLIENTS, SERVE_PER_CLIENT = 8, 8  # requests per client thread: half binary, half JSON
+SERVE_HOLD_K, SERVE_HOLD_N = 8, 20  # the card-vs-CPU hold: draws, rows (12 padded)
+PIX_REQUESTS = [1, 32, 9, 24, 32, 5]  # images per resnet50 request
+HTTP_TIMEOUT = 60
+CLI_READY_S, CLI_EXIT_S = 180, 30
+CLI_BOUND_S = CLI_READY_S + 2 * HTTP_TIMEOUT + CLI_EXIT_S
 DECODE_HOST_US_LIMIT = 60  # fused_decode's wrapper, host us per call at a tiny width
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
@@ -452,13 +491,14 @@ def read_profile(wd, what):
     return idle, table
 
 
-def pipeline_v4_phase(dev, vocab, run_cli, sizes=None, extra_sets=None):
+def pipeline_v4_phase(dev, vocab, run_cli, sizes=None, extra_sets=None, on_workdir=None):
     """Phase 17: the pipeline_v4 corpus (``vocab``'s tokens), the train CLI
     with ``--profile``, the gather's holds, evaluate with the recipe and on
     fused_decode, and one batch of the sampler with log-probabilities against
     the CPU's. ``run_cli(main, argv, what)`` → (seconds, launch counts);
-    ``sizes`` and ``extra_sets`` (config overrides) shrink it for a dry run.
-    Returns the launch counts of the fused evaluate run."""
+    ``sizes`` and ``extra_sets`` (config overrides) shrink it for a dry run;
+    ``on_workdir(wd)``, when given, runs last, before the trained workdir is
+    removed. Returns the launch counts of the fused evaluate run."""
     import numpy as np
     import torch
 
@@ -654,7 +694,425 @@ def pipeline_v4_phase(dev, vocab, run_cli, sizes=None, extra_sets=None):
             f"identical; log_prob max abs difference where identical {lp_diff:.3e}")
         if agree < 0.99 or not bool(torch.isfinite(gpu_lp).all()):
             raise AssertionError("the CUDA sampler with log-probs disagrees with the CPU's")
+        if on_workdir is not None:
+            on_workdir(wd)
     return v4_fused_counts
+
+
+def http(url, data=None, ctype="application/json"):
+    """(status, body) of one call with a 60 s timeout; JSON bodies parsed."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            status, body, kind = r.status, r.read(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        status, body, kind = e.code, e.read(), e.headers["Content-Type"]
+    return status, json.loads(body) if kind == "application/json" else body.decode()
+
+
+@contextlib.contextmanager
+def served(engine):
+    """A DynamicBatcher and an HTTP server on 127.0.0.1 (a free port) in a
+    daemon thread → (base url, batcher); all three stopped on exit."""
+    import threading
+
+    from sgg_torch.serve import DynamicBatcher, make_http_server
+
+    batcher = DynamicBatcher(engine, max_wait_ms=5.0)
+    server = thread = None
+    try:
+        server = make_http_server(batcher, host="127.0.0.1", port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True,
+                                  name="smoke-http")
+        thread.start()
+        yield f"http://127.0.0.1:{server.server_address[1]}", batcher
+    finally:
+        if thread is not None:
+            server.shutdown()
+        if server is not None:
+            server.server_close()
+        batcher.close()
+        if thread is not None:
+            thread.join(timeout=HTTP_TIMEOUT)
+
+
+def in_threads(fn, args_list):
+    """fn(*args) for each args in its own thread, all at once → (results,
+    wall seconds); raises the first error, and if a thread outlives its
+    join."""
+    import threading
+
+    results, errors = [None] * len(args_list), []
+
+    def run(i):
+        try:
+            results[i] = fn(*args_list[i])
+        except BaseException as e:  # noqa: BLE001 — raised below, in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,), name=f"smoke-client-{i}")
+               for i in range(len(args_list))]
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+    finally:
+        for th in threads:
+            if th.ident is not None:
+                th.join(timeout=4 * HTTP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a client thread outlived its join")
+    if errors:
+        raise errors[0]
+    return results, wall
+
+
+def legal_graphs(graphs, vocab_, k_draws, what):
+    """Every triple's subject and object are objects and its predicate a
+    predicate of the vocab, and each graph's counts sum to k_draws; → the
+    number of unique triples."""
+    import numpy as np
+
+    obj_names = {vocab_.tokens[i] for i in np.flatnonzero(vocab_.is_object)}
+    pred_names = {vocab_.tokens[i] for i in np.flatnonzero(vocab_.is_predicate)}
+    for gr in graphs:
+        if sum(t["count"] for t in gr["triples"]) != k_draws:
+            raise AssertionError(f"{what}: a graph's counts do not sum to {k_draws}")
+        for t in gr["triples"]:
+            if not (t["subject"] in obj_names and t["object"] in obj_names
+                    and t["predicate"] in pred_names):
+                raise AssertionError(f"{what}: illegal triple {t}")
+    return sum(len(gr["triples"]) for gr in graphs)
+
+
+def with_noise(engine, noise):
+    """``engine`` with its sampler fed ``noise`` = (z [K,B,Z], gumbel
+    [K,B,3,V]) on every dispatch, for a hold against another device."""
+    inner = engine._sampler
+    engine._sampler = lambda g_params, feats, generator=None, temp=None: inner(
+        g_params, feats, noise=noise, temp=temp)
+    return engine
+
+
+def serve_phase(dev, v4_wd, v4_vocab, pix, vit, zero_counts, read_counts, sizes=None):
+    """Phase 18: the serving tier. (a) ``pipeline_v4``'s workdir ``v4_wd``
+    served with --ema --avg-last 5 --rank logp over HTTP: binary and JSON
+    traffic from client threads, the responses, /stats and /metrics, the 400s,
+    and one padded batch of a card engine against a CPU engine on the same
+    noise; (b) a resnet50 workdir (``pix`` = (cfg, vocab, generator
+    state_dict, encoder state_dict)) on binary uint8 requests, with exact
+    launch counts and the served features against ``make_batch_features``;
+    (c) a vit_b16 workdir (``vit``, the same four) on one request of 32
+    images; (d) ``python -m sgg_torch.cli.serve`` in a subprocess. ``sizes``
+    shrinks it for a dry run on the CPU, where no kernel launches and the
+    counts are not held. Returns the serving launch counts."""
+    import math
+    import signal
+    import threading
+    import types
+
+    import numpy as np
+    import torch
+
+    from sgg_torch.cli.generate import make_batch_features
+    from sgg_torch.serve import InferenceEngine, encode_binary_request
+    from sgg_torch.train.checkpoint import load_workdir, save_generator
+    from sgg_torch.utils.gumbel import sample_gumbel
+
+    z_ = {"batch": SERVE_BATCH, "draws": SERVE_K, "clients": SERVE_CLIENTS,
+          "per_client": SERVE_PER_CLIENT, "hold_draws": SERVE_HOLD_K, "hold_rows": SERVE_HOLD_N,
+          "pix_requests": PIX_REQUESTS, **(sizes or {})}
+    B, K = z_["batch"], z_["draws"]
+    on_card = torch.device(dev).type == "cuda"
+    threads_before = set(threading.enumerate())
+    rs = np.random.RandomState(SEED + 30)
+    out = {}
+
+    # (a) The v4 recipe's serve step, in process.
+    t_a = time.perf_counter()
+    eng = InferenceEngine.from_workdir(v4_wd, ema=True, avg_last=5, rank="logp", batch_size=B,
+                                       num_samples=K, device=dev)
+    warm = eng.warmup()
+    R4, F4 = eng.feature_shape
+    log(f"serve pipeline_v4: restored step {eng.step} (EMA, mean of the last 5 checkpoints), "
+        f"rank logp, batch {B}, K = {K}, {eng.cfg.model.compute_dtype}; warmup {warm:.3f} s")
+    half = z_["per_client"] // 2
+    counts_ = rs.randint(1, 7, (z_["clients"], 2 * half))
+    bodies = {"binary": [], "json": []}
+    for c in range(z_["clients"]):
+        for kind, col in (("binary", 0), ("json", half)):
+            reqs = []
+            for j in range(half):
+                n = int(counts_[c, col + j])
+                f16 = rs.standard_normal((n, R4, F4)).astype(np.float16)
+                if kind == "binary":
+                    reqs.append((n, encode_binary_request(f16), "application/octet-stream"))
+                else:
+                    payload = {"features": f16.astype(np.float32).tolist()}
+                    if j == 0 and c % 2 == 0:
+                        payload["temperature"] = 0.5
+                    reqs.append((n, json.dumps(payload).encode(), "application/json"))
+            bodies[kind].append(reqs)
+    n_temp = z_["clients"] // 2 + z_["clients"] % 2
+
+    with served(eng) as (url, _):
+        def client(reqs):
+            got = []
+            for n, body, ctype in reqs:
+                status, resp = http(url + "/v1/generate", body, ctype)
+                if status != 200 or len(resp["scene_graphs"]) != n:
+                    raise AssertionError(f"serve pipeline_v4: status {status}, "
+                                         f"{len(resp.get('scene_graphs', []))} graphs for {n}")
+                got.append(resp["scene_graphs"])
+            return got
+
+        rates = {}
+        for kind in ("binary", "json"):
+            res, wall = in_threads(client, [(r,) for r in bodies[kind]])
+            n_req = sum(len(r) for r in bodies[kind])
+            n_img = sum(n for r in bodies[kind] for n, _, _ in r)
+            uniq = sum(legal_graphs(g, v4_vocab, K, "serve pipeline_v4") for r in res for g in r)
+            rates[kind] = (n_req, n_img, wall)
+            log(f"serve pipeline_v4 {kind} ({'float16' if kind == 'binary' else 'JSON float32'}"
+                f"{', ' + str(n_temp) + ' requests at temperature 0.5' if kind == 'json' else ''}"
+                f"): {z_['clients']} client threads, {n_req} requests, {n_img} images in "
+                f"{wall:.3f} s: {n_req / wall:.2f} requests/s, {n_img / wall:.2f} images/s, "
+                f"{n_img * K / wall:.1f} triples/s; {uniq} unique triples, all type-legal")
+            _, so_far = http(url + "/stats")
+            log(f"serve pipeline_v4 /stats after the {kind} wave (cumulative): "
+                f"{so_far['batches']} batches, average fill {so_far['avg_batch_fill']:.4f}, "
+                f"batch latency {so_far['batch_latency_ms']} ms")
+        status, stats = http(url + "/stats")
+        _, metrics = http(url + "/metrics")
+        n_req = sum(v[0] for v in rates.values())
+        n_img = sum(v[1] for v in rates.values())
+        lat = stats["batch_latency_ms"]
+        log(f"serve pipeline_v4 /stats: {stats['requests']} requests, {stats['items']} items, "
+            f"{stats['batches']} batches (average fill {stats['avg_batch_fill']:.4f} of {B}), "
+            f"{stats['errors']} errors; batch latency p50 {lat['p50']} ms, p95 {lat['p95']} ms, "
+            f"p99 {lat['p99']} ms")
+        if (stats["requests"] != n_req or stats["items"] != n_img or stats["errors"]
+                or not stats["batches"] < stats["items"]):
+            raise AssertionError(f"serve pipeline_v4 /stats {stats}: expected {n_req} requests, "
+                                 f"{n_img} items, fewer batches than items, no error")
+        prom = {ln.split()[0]: ln.split()[1] for ln in metrics.splitlines()
+                if ln and not ln.startswith("#")}
+        want_prom = {"sgg_requests_total": str(stats["requests"]),
+                     "sgg_items_total": str(stats["items"]),
+                     "sgg_batches_total": str(stats["batches"]),
+                     "sgg_errors_total": str(stats["errors"]),
+                     "sgg_batch_fill_avg": f"{stats['avg_batch_fill']:.4f}",
+                     "sgg_batch_size": str(B),
+                     'sgg_batch_latency_ms{quantile="0.5"}': str(lat["p50"]),
+                     'sgg_batch_latency_ms{quantile="0.95"}': str(lat["p95"]),
+                     'sgg_batch_latency_ms{quantile="0.99"}': str(lat["p99"])}
+        if prom != want_prom:
+            raise AssertionError(f"/metrics {prom} disagrees with /stats {want_prom}")
+        bad = http(url + "/v1/generate", json.dumps({"features": [[[1.0, 2.0]]]}).encode())
+        paths = http(url + "/v1/generate", json.dumps({"paths": ["a.jpg"]}).encode())
+        log(f"serve pipeline_v4 refusals: wrong shape {bad[0]} ({bad[1]['error']}); paths "
+            f"{paths[0]} ({paths[1]['error']})")
+        if bad[0] != 400 or paths[0] != 400 or "not ported yet" not in paths[1]["error"]:
+            raise AssertionError("serve pipeline_v4: a bad request was not refused with 400")
+    out["pipeline_v4"] = {k: {"requests": v[0], "images": v[1], "seconds": v[2]}
+                          for k, v in rates.items()}
+    out["pipeline_v4"]["stats"] = stats
+    del eng
+
+    # One padded batch of a card engine against a CPU engine, the same
+    # weights and noise (z in the compute dtype and Gumbel noise in float32
+    # drawn on the card).
+    Kh, n_h = z_["hold_draws"], z_["hold_rows"]
+    gen_h = torch.Generator(device=dev).manual_seed(SEED + 31)
+    card_eng, cpu_eng = (InferenceEngine.from_workdir(
+        v4_wd, ema=True, avg_last=5, rank="logp", batch_size=B, num_samples=Kh, device=where)
+        for where in (dev, "cpu"))
+    V4 = card_eng.cfg.model.vocab_size
+    z = torch.randn(Kh, B, card_eng.cfg.model.noise_dim, generator=gen_h,
+                    device=dev).to(card_eng.cfg.model.dtype)
+    g = sample_gumbel((Kh, B, 3, V4), gen_h, device=dev)
+    feats_h = torch.from_numpy(rs.standard_normal((n_h, R4, F4)).astype(np.float16).astype(
+        np.float32))
+    (c_tok, c_lp), (p_tok, p_lp) = (
+        with_noise(e, (z.to(e.device), g.to(e.device)))._sample_tokens(feats_h)
+        for e in (card_eng, cpu_eng))
+    same = (c_tok == p_tok).all(-1)
+    agree = float(same.mean())
+    lp_diff = float(np.abs(c_lp - p_lp)[same].max()) if same.any() else float("nan")
+    log(f"serve hold: one padded batch ({n_h} rows of {B}, K = {Kh}) of the {dev} engine "
+        f"against the CPU engine, same weights and noise: {agree:.4f} of draws identical "
+        f"(>= 0.99); log_prob finite {bool(np.isfinite(c_lp).all())}, max abs difference "
+        f"where identical {lp_diff:.3e}")
+    if c_tok.shape != (n_h, Kh, 3) or agree < 0.99 or not np.isfinite(c_lp).all():
+        raise AssertionError("serve: the card engine disagrees with the CPU engine")
+    del card_eng, cpu_eng
+    out["hold_agree"] = agree
+    log(f"serve (a) pipeline_v4: {time.perf_counter() - t_a:.3f} s")
+
+    def pix_workdir(root, cfg_, vocab_, g_sd, enc_sd):
+        with open(os.path.join(root, "config.json"), "w") as f:
+            f.write(cfg_.to_json())
+        vocab_.save(os.path.join(root, "vocab.json"))
+        save_generator(root, g_sd, step=0, enc_params=enc_sd)
+
+    def expect(name, counts):
+        want = {k_: counts.get(k_, 0) for k_ in read_counts()}
+        got = read_counts()
+        log(f"serve {name} launches {got} (expected {want})")
+        if on_card and got != want:
+            raise AssertionError(f"serve {name}: the kernels did not launch as expected")
+        return got
+
+    # (b) Pixels in, resnet50.
+    t_b = time.perf_counter()
+    pix_cfg, pix_vocab, pix_g, pix_enc = pix
+    S = pix_cfg.data.image_size
+    with tempfile.TemporaryDirectory() as root:
+        pix_workdir(root, pix_cfg, pix_vocab, pix_g, pix_enc)
+        zero_counts()
+        eng = InferenceEngine.from_workdir(root, rank="logp", batch_size=B, num_samples=K,
+                                           device=dev)
+        warm = eng.warmup()
+        imgs = [rs.randint(0, 256, (n, S, S, 3)).astype(np.uint8) for n in z_["pix_requests"]]
+        with served(eng) as (url, _):
+            def pix_client(batch):
+                got = []
+                for im in batch:
+                    status, resp = http(url + "/v1/generate", encode_binary_request(im),
+                                        "application/octet-stream")
+                    if status != 200 or len(resp["scene_graphs"]) != len(im):
+                        raise AssertionError(f"serve resnet50: status {status}")
+                    got.append(resp["scene_graphs"])
+                return got
+
+            res, wall = in_threads(pix_client, [(imgs[i::3],) for i in range(3)])
+        if on_card:
+            torch.cuda.synchronize()
+        chunks = 1 + sum(math.ceil(len(im) / B) for im in imgs)
+        pix_counts = expect("resnet50", {"conv_direct": 13 * chunks, "fused_matmul": 36 * chunks})
+        uniq = sum(legal_graphs(g_, pix_vocab, K, "serve resnet50") for r in res for g_ in r)
+        n_img = sum(len(im) for im in imgs)
+        log(f"serve resnet50 (binary uint8, {len(imgs)} requests of {[len(i) for i in imgs]} "
+            f"images from 3 client threads; warmup {warm:.3f} s): {n_img} images in {wall:.3f} s, "
+            f"{n_img / wall:.2f} images/s through HTTP, {n_img * K / wall:.1f} triples/s; "
+            f"{chunks} encoder chunks with warmup's; {uniq} unique triples, all type-legal")
+        full = next(im for im in imgs if len(im) == B)
+        served_feats = eng.encode_images(full)
+        wd_cfg, _ = load_workdir(root)
+        want = make_batch_features(wd_cfg, types.SimpleNamespace(images=full), pix_enc,
+                                   torch.device(dev))(np.arange(B))
+        bit_equal = served_feats.dtype == want.dtype and torch.equal(served_feats, want)
+        log(f"serve resnet50 features of one {B}-image request {tuple(served_feats.shape)} "
+            f"{served_feats.dtype} against make_batch_features: bit for bit {bit_equal}")
+        if not bit_equal:
+            raise AssertionError("serve resnet50: the served features differ from "
+                                 "make_batch_features'")
+        del eng
+    out["resnet50"] = {"images": n_img, "seconds": wall, "launches": pix_counts,
+                       "chunks": chunks}
+    log(f"serve (b) resnet50: {time.perf_counter() - t_b:.3f} s")
+
+    # (c) vit_b16, one request of 32 images.
+    t_c = time.perf_counter()
+    vit_cfg, vit_vocab, vit_g, vit_enc = vit
+    S = vit_cfg.data.image_size
+    with tempfile.TemporaryDirectory() as root:
+        pix_workdir(root, vit_cfg, vit_vocab, vit_g, vit_enc)
+        eng = InferenceEngine.from_workdir(root, rank="logp", batch_size=B, num_samples=K,
+                                           device=dev)
+        eng.warmup()
+        im = rs.randint(0, 256, (B, S, S, 3)).astype(np.uint8)
+        with served(eng) as (url, _):
+            zero_counts()
+            t_r = time.perf_counter()
+            status, resp = http(url + "/v1/generate", encode_binary_request(im),
+                                "application/octet-stream")
+            req_s = time.perf_counter() - t_r
+            if on_card:
+                torch.cuda.synchronize()
+            vit_counts = expect("vit_b16", {"flash_attention": 12})
+        if status != 200 or len(resp["scene_graphs"]) != B:
+            raise AssertionError(f"serve vit_b16: status {status}")
+        uniq = legal_graphs(resp["scene_graphs"], vit_vocab, K, "serve vit_b16")
+        log(f"serve vit_b16: one request of {B} images in {req_s:.3f} s through HTTP; {uniq} "
+            "unique triples, all type-legal")
+        del eng
+    out["vit_b16"] = {"images": B, "seconds": req_s, "launches": vit_counts}
+    log(f"serve (c) vit_b16: {time.perf_counter() - t_c:.3f} s")
+
+    # (d) The entry point, in a subprocess with its own process group.
+    t_d = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        log_path = os.path.join(root, "serve.log")
+        # Under coreutils' timeout (which passes SIGTERM on), so that the
+        # server ends within CLI_BOUND_S even if this process is killed.
+        argv = ["timeout", "-k", "5", str(CLI_BOUND_S), sys.executable, "-m",
+                "sgg_torch.cli.serve", "--workdir", v4_wd, "--ema", "--avg-last", "5",
+                "--port", "0"]
+        if not on_card:
+            argv += ["--device", "cpu"]
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(argv, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        try:
+            deadline, url = time.monotonic() + CLI_READY_S, None
+            while url is None and time.monotonic() < deadline and proc.poll() is None:
+                time.sleep(0.2)
+                with open(log_path) as f:
+                    ready = [ln for ln in f if "ready on http://" in ln]
+                if ready:
+                    url = ready[0].split("ready on ")[1].split()[0]
+            ready_s = time.perf_counter() - t_d
+            if url is None:
+                with open(log_path) as f:
+                    raise AssertionError(f"sgg_torch.cli.serve printed no ready line within "
+                                         f"{CLI_READY_S} s (rc {proc.poll()}):\n{f.read()}")
+            status, health = http(url + "/healthz")
+            f16 = rs.standard_normal((2, R4, F4)).astype(np.float16)
+            status_p, resp = http(url + "/v1/generate", encode_binary_request(f16),
+                                  "application/octet-stream")
+            if (status != 200 or not health["ok"] or status_p != 200
+                    or len(resp["scene_graphs"]) != 2):
+                raise AssertionError(f"sgg_torch.cli.serve: /healthz {status} {health}, "
+                                     f"generate {status_p}")
+            legal_graphs(resp["scene_graphs"], v4_vocab, 50, "sgg_torch.cli.serve")
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=CLI_EXIT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"sgg_torch.cli.serve did not exit within {CLI_EXIT_S} s "
+                                     "of SIGTERM") from None
+            exit_s = time.perf_counter() - t_term
+            with open(log_path) as f:
+                printed = f.read()
+            log(f"sgg_torch.cli.serve --workdir W --ema --avg-last 5 --port 0: ready in "
+                f"{ready_s:.3f} s at {url}, /healthz {health}; one binary request answered; "
+                f"exit code {rc} {exit_s:.3f} s after SIGTERM")
+            if rc != 0 or "draining and shutting down" not in printed:
+                raise AssertionError(f"sgg_torch.cli.serve exited {rc}:\n{printed}")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+    log(f"serve (d) the entry point: {time.perf_counter() - t_d:.3f} s")
+
+    deadline = time.monotonic() + 10
+    while True:
+        alive = [t_ for t_ in threading.enumerate()
+                 if t_ not in threads_before and t_.is_alive()]
+        if not alive or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    log(f"serve: threads of the phase alive at its end: {[t_.name for t_ in alive]}")
+    if alive:
+        raise AssertionError(f"serve: threads outlived the phase: {alive}")
+    return out
 
 
 def main():
@@ -1173,16 +1631,7 @@ def main():
         graphs = out["scene_graphs"]
         if out["num_images"] != n_images or len(graphs) != n_images:
             raise AssertionError("wrong number of scene graphs")
-        obj_names = {vocab_.tokens[i] for i in np.flatnonzero(vocab_.is_object)}
-        pred_names = {vocab_.tokens[i] for i in np.flatnonzero(vocab_.is_predicate)}
-        for gr in graphs:
-            if sum(t["count"] for t in gr["triples"]) != k_draws:
-                raise AssertionError(f"image {gr['image_id']}: counts do not sum to {k_draws}")
-            for t in gr["triples"]:
-                if not (t["subject"] in obj_names and t["object"] in obj_names
-                        and t["predicate"] in pred_names):
-                    raise AssertionError(f"illegal triple {t}")
-        n_unique = sum(len(gr["triples"]) for gr in graphs)
+        n_unique = legal_graphs(graphs, vocab_, k_draws, out_path)
         log(f"output: {len(graphs)} graphs, {n_unique} unique triples, all type-legal")
 
     # 6. Main path, precomputed features: the generate CLI end to end.
@@ -2074,9 +2523,24 @@ def main():
     # 17. Main path, pipeline_v4: a seeded corpus, the train CLI at full
     # widths (balance, int8, rotating subsets, the probe, --profile), the
     # gather's holds, then evaluate with its recipe and on fused_decode.
+    # 18. The serving tier, on phase 17's workdir before it is removed, then
+    # on resnet50 and vit_b16 workdirs, and its entry point in a subprocess.
     t0 = time.perf_counter()
-    v4_fused_counts = pipeline_v4_phase(dev, vocab, run_cli)
-    phase("main_path_pipeline_v4", t0)
+    serving = {}
+
+    def serve_v4(wd):
+        t18 = time.perf_counter()
+        serving.update(serve_phase(
+            dev, wd, vocab, (pix_cfg, pix_vocab, pix_g, seeded_encoder_state("resnet50")),
+            (vit_cfg, vit_vocab, vit_g, vit_state), zero_counts, read_counts))
+        phase("serve", t18)
+
+    v4_fused_counts = pipeline_v4_phase(dev, vocab, run_cli, on_workdir=serve_v4)
+    phase("main_path_pipeline_v4 and serve", t0)
+    log(f"serving launches: resnet50 {serving['resnet50']['launches']} over "
+        f"{serving['resnet50']['chunks']} encoder chunks (warmup's included); vit_b16 "
+        f"{serving['vit_b16']['launches']} for one request of {serving['vit_b16']['images']} "
+        "images")
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",

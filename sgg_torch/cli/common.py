@@ -52,13 +52,15 @@ def resolve_config(args: argparse.Namespace) -> Config:
     return cfg
 
 
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` (the default) or ``cpu``; never falls back silently."""
-    if name == "cuda" and not torch.cuda.is_available():
+def resolve_device(name) -> torch.device:
+    """``cuda`` (the default) or ``cpu``, a name or a torch.device; raises
+    for CUDA when there is none (never falls back to the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available; pass --device cpu to run on the CPU"
+            "CUDA is not available; pass --device cpu (device='cpu') to run on the CPU"
         )
-    return torch.device(name)
+    return device
 
 
 def load_dataset(cfg: Config, split: str = "train"):

@@ -55,7 +55,7 @@ from sgg_torch.eval.sampler import (
     make_sampler,
 )
 from sgg_torch.kernels.build import load_library
-from sgg_torch.models.encoders import make_encoder, normalize_for
+from sgg_torch.models.encoders import make_image_encoder
 from sgg_torch.train.checkpoint import load_workdir, restore_weights
 
 
@@ -68,19 +68,8 @@ def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.
     a round trip through the host."""
     if cfg.model.encoder == "precomputed":
         return lambda idx: torch.from_numpy(ds.features[idx]).to(device)
-    m = cfg.model
-    enc = make_encoder(m.encoder, use_pallas=m.use_pallas, dtype=m.dtype, quant=m.quant,
-                       image_size=cfg.data.image_size, vit_dims=m.vit_dims,
-                       moe_experts=m.moe_experts)
-    enc.load_state_dict(enc_params)
-    enc.to(device)
-
-    def batch_features(idx):
-        images = torch.from_numpy(ds.images[idx]).to(device)
-        with torch.no_grad():
-            return enc(normalize_for(cfg.model.encoder, images))
-
-    return batch_features
+    encode = make_image_encoder(cfg, enc_params, device)
+    return lambda idx: encode(torch.from_numpy(ds.images[idx]).to(device))
 
 
 def _refusal(args) -> str | None:

@@ -67,3 +67,23 @@ def make_encoder(
     else:
         raise ValueError(f"unknown encoder {name!r}")
     return enc.requires_grad_(trainable).eval()
+
+
+def make_image_encoder(cfg, enc_params: dict, device: torch.device):
+    """uint8 images [n, S, S, 3] on ``device`` → features [n, R, F] in the
+    compute dtype, on ``device``: the config's encoder (``cfg.model``, a
+    ``sgg_torch.config.Config``) on ``model.use_pallas``'s route with the
+    weights ``enc_params`` (a port state_dict), after ``normalize_for``.
+    ``sgg_torch.cli.generate`` and ``sgg_torch.serve`` encode through it."""
+    m = cfg.model
+    enc = make_encoder(m.encoder, use_pallas=m.use_pallas, dtype=m.dtype, quant=m.quant,
+                       image_size=cfg.data.image_size, vit_dims=m.vit_dims,
+                       moe_experts=m.moe_experts)
+    enc.load_state_dict(enc_params)
+    enc.to(device)
+
+    def encode(images_u8: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return enc(normalize_for(m.encoder, images_u8))
+
+    return encode
