@@ -9,7 +9,8 @@ client threads and one subprocess, and closes each in a ``finally``: the
 server is shut down and closed (which joins its handler threads), the batcher
 closed (which joins its worker), the client threads joined with a timeout, the
 subprocess's process group killed if it has not exited; the phase fails if a
-thread of it is alive at its end:
+thread of it is alive at its end. Phase 19 opens no socket and starts no
+process; its training runs stop their data threads as phase 17's does:
   1. device: CUDA present, compute capability 9.0; prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: nvcc compiles ``sgg_torch/kernels/csrc/*.cu`` for sm_90a, one
@@ -190,6 +191,31 @@ thread of it is alive at its end:
      --port 0`` in a subprocess with its own process group: its ready line
      within 180 s, ``/healthz`` and one binary request answered, exit code 0
      within 30 s of SIGTERM.
+ 19. the main path's last options: (a) and (b) on phase 17's workdir and
+     corpus, after phase 18 and before they are removed
+     (``v4_predcls_reinforce_phase``): (a) ``sgg_torch.cli.evaluate --ema
+     --avg-last 5 --predcls --predcls-samples 16`` at B = 64 (P-R@k, wall
+     seconds, rows/s, every held-out GT triple scored, no kernel launch) and
+     one chunk of the float32 PredCls scorer on the card against the CPU's
+     (same weights and z: scores within 1e-4 x max|score| over the legal
+     predicates, the same GT rank on every row); (b) ``train --set
+     train.estimator=reinforce --set train.rl_entropy=0.01`` with phase 17's
+     config (B = 256, grad_accum 2, n_critic 5, bf16) for 4 steps (finite
+     losses, the ``rl_*`` keys in metrics.jsonl, no kernel launch, s/step
+     beside phase 17's Gumbel s/step) and one generator update's surrogate
+     gradient in float32, card against CPU (128 rows of the corpus, same
+     weights and noise: the same tokens, each tensor within 1e-4 x its
+     max|CPU| plus 1e-6 x the largest); (c) ``train --config vit_b16 --set
+     train.train_encoder=true --set train.estimator=reinforce`` for 3 steps:
+     exactly 72 flash_attention, 60 dq and 60 dk/dv launches per step, as
+     the step's structure gives them (the comment at the phase); (d)
+     ``synthetic_vg_json(2048, vocab_objects=300, vocab_predicates=80,
+     max_rels=20)`` through ``sgg_torch.cli.preprocess --encoder random
+     --max-objects 150 --max-predicates 50 --regions 196 --feat-dim 512
+     --feat-dtype float16`` (about 0.4 GB of shards) and 2 steps of ``train
+     --config pipeline_v4`` on them (``preprocess_phase``: the vocab sizes,
+     the split, finite losses). Each part's directories go in a
+     ``finally``.
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -198,8 +224,8 @@ main path that runs it (phase 17 for fused_decode, timed at its vg1k widths,
 B = 64, which pipeline_v4 shares; phase 7 for fused_matmul and conv_direct;
 phase 15 for the three flash kernels) and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
-bound ms. Phase 18's serving launch counts are printed on a line of their own
-before it. The last two lines are that
+bound ms. Phase 18's serving launch counts and phase 19's are printed on lines of
+their own before it. The last two lines are that
 record and the device JSON. A failed check raises, so the exit code is not 0;
 a watchdog turns a hang into a stack trace and a non-zero exit.
 """
@@ -210,6 +236,7 @@ import io
 import json
 import math
 import os
+import re
 import resource
 import statistics
 import subprocess
@@ -240,6 +267,9 @@ PIX_REQUESTS = [1, 32, 9, 24, 32, 5]  # images per resnet50 request
 HTTP_TIMEOUT = 60
 CLI_READY_S, CLI_EXIT_S = 180, 30
 CLI_BOUND_S = CLI_READY_S + 2 * HTTP_TIMEOUT + CLI_EXIT_S
+# Phase 19: PredCls draws per row, REINFORCE steps (pipeline_v4 and vit_b16)
+# and the images of the preprocessed VG-shaped corpus.
+PREDCLS_K, RL_STEPS, VIT_RL_STEPS, PP_IMAGES = 16, 4, 3, 2048
 DECODE_HOST_US_LIMIT = 60  # fused_decode's wrapper, host us per call at a tiny width
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
@@ -1113,6 +1143,269 @@ def serve_phase(dev, v4_wd, v4_vocab, pix, vit, zero_counts, read_counts, sizes=
     if alive:
         raise AssertionError(f"serve: threads outlived the phase: {alive}")
     return out
+
+
+def read_metric_lines(wd):
+    with open(os.path.join(wd, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def predcls_hold(dev, cfg, sd, vocab, feats, rows, K, seed):
+    """One chunk of the float32 PredCls scorer on ``dev`` against the CPU's:
+    the same weights ``sd``, features [B, R, F], GT ``rows`` (image, s, p, o)
+    and z [K, B, Z]. Returns (max abs difference over the legal predicates,
+    max |CPU score| there, the masked scores below -1e8 in both, the GT's rank
+    equal on every row)."""
+    import numpy as np
+    import torch
+
+    from sgg_torch.eval.sampler import make_predcls_scorer
+
+    cfg32 = cfg.override(["model.compute_dtype=float32"])
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.randn(K, len(rows), cfg32.model.noise_dim, generator=gen)
+    subj, obj = rows[:, 1], rows[:, 3]
+    out = {}
+    for where in (dev, "cpu"):
+        score = make_predcls_scorer(cfg32, step_mask=vocab.step_mask(), num_samples=K)
+        s_ = score({k_: v_.to(where) for k_, v_ in sd.items()}, feats.to(where), subj, obj,
+                   z=z.to(where))
+        out[str(where)] = s_.cpu().numpy()
+    card, cpu = out[str(dev)], out["cpu"]
+    legal = vocab.step_mask()[1]
+    err = float(np.abs(card[:, legal] - cpu[:, legal]).max())
+    scale = float(np.abs(cpu[:, legal]).max())
+    masked = bool((card[:, ~legal] < -1e8).all() and (cpu[:, ~legal] < -1e8).all())
+    gt = rows[:, 2]
+
+    def rank(s_):
+        return (s_ > s_[np.arange(len(gt)), gt][:, None]).sum(1)
+
+    return err, scale, masked, bool(np.array_equal(rank(card), rank(cpu)))
+
+
+def reinforce_grad_hold(dev, cfg, vocab, feats, seed, entropy):
+    """One REINFORCE generator update's surrogate gradient in float32 on
+    ``dev`` against the CPU's: the same seeded generator and critic, features
+    [B, R, F] and noise (z [B, Z], Gumbel [B, 3, V]). Returns (tokens equal,
+    worst per-tensor |card - CPU| over (1e-4 x max|CPU tensor| + 1e-6 x the
+    largest |CPU| gradient), the largest gradient)."""
+    import copy
+
+    import torch
+
+    from sgg_torch.train.losses import reinforce_generator_loss
+    from sgg_torch.train.state import create_train_state
+    from sgg_torch.utils.gumbel import sample_gumbel
+
+    cfg32 = cfg.override(["model.compute_dtype=float32"])
+    state = create_train_state(cfg32, seed)
+    B, V = feats.shape[0], cfg32.model.vocab_size
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.randn(B, cfg32.model.noise_dim, generator=gen)
+    g = sample_gumbel((B, 3, V), gen)
+    mask = torch.as_tensor(vocab.step_mask())
+    got = {}
+    for where in (dev, "cpu"):
+        gen_m = copy.deepcopy(state.generator).to(where)
+        critic = copy.deepcopy(state.critic).to(where)
+        f_ = feats.to(where)
+        out = gen_m(f_, z.to(where), g.to(where), tau=1.0, hard=True,
+                    step_mask=mask.to(where), detach_sample=True)
+        loss, _ = reinforce_generator_loss(critic, f_, out["soft"], out["log_prob"],
+                                           logits=out["logits"], entropy_coef=entropy)
+        params = list(gen_m.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        got[str(where)] = ([torch.zeros_like(p_) if d_ is None else d_.detach().cpu()
+                            for p_, d_ in zip(params, grads)], out["tokens"].cpu())
+    (gc, tc), (gp, tp) = got[str(dev)], got["cpu"]
+    largest = max(float(x_.abs().max()) for x_ in gp)
+    worst = max(float((a_.cpu() - b_).abs().max())
+                / (1e-4 * float(b_.abs().max()) + 1e-6 * largest) for a_, b_ in zip(gc, gp))
+    return bool(torch.equal(tc, tp)), worst, largest
+
+
+def v4_predcls_reinforce_phase(dev, v4_wd, vocab, run_cli, sizes=None, extra_sets=None):
+    """Phase 19 (a) and (b), on phase 17's workdir ``v4_wd`` and corpus before
+    they are removed. (a) ``sgg_torch.cli.evaluate --ema --avg-last 5
+    --predcls --predcls-samples 16`` (B = 64): P-R@k, wall seconds, rows/s,
+    no kernel launch, every GT triple of the held-out split scored; and one
+    chunk of the float32 scorer on the card against the CPU's (``predcls_hold``:
+    scores within 1e-4 x max|score| over the legal predicates, the same GT
+    rank on every row). (b) ``train --set train.estimator=reinforce --set
+    train.rl_entropy=0.01`` with phase 17's config (B = 256, grad_accum 2,
+    n_critic 5, bf16, the same budget and rotation) for 4 steps: finite
+    losses, the ``rl_*`` keys in metrics.jsonl, no kernel launch, s/step
+    beside phase 17's; and one generator update's surrogate gradient in
+    float32, card against CPU (``reinforce_grad_hold``, one microbatch of
+    128 rows of the corpus). ``sizes`` and ``extra_sets`` shrink it for a dry
+    run. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from sgg_torch.cli import evaluate as evaluate_cli
+    from sgg_torch.cli import train as train_cli
+    from sgg_torch.cli.common import load_dataset
+    from sgg_torch.data import list_shards, read_feature_shard
+    from sgg_torch.train.checkpoint import load_generator, load_workdir
+
+    z_ = {"batch": BATCH, "predcls_k": PREDCLS_K, "draws": 100, "rl_steps": RL_STEPS,
+          "hold_rows": 128, **(sizes or {})}
+    out = {}
+    cfg, _ = load_workdir(v4_wd)
+    cfg.model.vocab_size = len(vocab)
+    test_ds, _ = load_dataset(cfg, split="test")
+    n_gt = sum(len(t_) for t_ in test_ds.triples)
+
+    # (a) PredCls through the CLI, then the card-vs-CPU hold.
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+        pc_s, pc_counts = run_cli(evaluate_cli.main, [
+            "--workdir", v4_wd, "--ema", "--avg-last", "5", "--predcls", "--predcls-samples",
+            str(z_["predcls_k"]), "--batch-size", str(z_["batch"]), "--k", "1,5,20,50",
+            "--num-samples", str(z_["draws"]), "--rank", "freq", "--seed", str(SEED)],
+            "sgg_torch.cli.evaluate --predcls")
+    text = printed.getvalue()
+    (pc_line,) = [ln for ln in text.splitlines() if "predcls (" in ln]
+    (rate_line,) = [ln for ln in text.splitlines() if "rows scored in" in ln]
+    n_rows = int(pc_line.split("predcls (")[1].split(" GT")[0])
+    pr = {int(k_): float(v_) for k_, v_ in re.findall(r"P-R@(\d+) = ([0-9.]+)", pc_line)}
+    loop_s = float(rate_line.split("scored in ")[1].split("s ")[0])
+    rows_s = float(rate_line.split("(")[1].split(" rows/sec")[0])
+    log(f"evaluate --ema --avg-last 5 --predcls --predcls-samples {z_['predcls_k']} (B = "
+        f"{z_['batch']}, V = {len(vocab)}): {pc_s:.3f} s in process (the K = {z_['draws']} "
+        f"sampling pass included), launches {pc_counts} (none expected); PredCls {n_rows} GT "
+        f"triples of {len(test_ds)} held-out images in {loop_s:.3f} s, {rows_s:.0f} rows/s; "
+        f"P-R@k {pr}")
+    ordered = [pr[k_] for k_ in sorted(pr)]
+    if (any(pc_counts.values()) or n_rows != n_gt or sorted(pr) != [1, 5, 20, 50]
+            or not all(0.0 <= a_ <= b_ <= 1.0 for a_, b_ in zip(ordered, ordered[1:]))):
+        raise AssertionError(f"evaluate --predcls: {n_rows} rows of {n_gt}, P-R@k {pr}, "
+                             f"launches {pc_counts}")
+    rows = np.asarray([(i_, *t_) for i_, trips in enumerate(test_ds.triples)
+                       for t_ in trips][: z_["batch"]], np.int64)
+    feats = torch.from_numpy(test_ds.features[rows[:, 0]])
+    sd = load_generator(v4_wd)["g_ema"]
+    t_h = time.perf_counter()
+    err, scale, masked, same_rank = predcls_hold(dev, cfg, sd, vocab, feats, rows,
+                                                 z_["predcls_k"], SEED + 40)
+    log(f"PredCls scorer float32, card vs CPU, same weights (EMA) and z, {len(rows)} rows x "
+        f"K = {z_['predcls_k']} ({time.perf_counter() - t_h:.3f} s): max abs difference over "
+        f"the legal predicates {err:.3e} (limit 1e-4 x {scale:.4f}); masked scores below -1e8 "
+        f"in both {masked}; GT rank equal on every row {same_rank}")
+    if not (err <= 1e-4 * scale and masked and same_rank):
+        raise AssertionError("the PredCls scorer on the card disagrees with the CPU's")
+    out["predcls"] = {"seconds": pc_s, "loop_s": loop_s, "rows_per_s": rows_s,
+                      "rows": n_rows, "pr": pr, "err": err, "scale": scale}
+
+    # (b) REINFORCE with phase 17's config, then the gradient hold.
+    gumbel_lines = [r_ for r_ in read_metric_lines(v4_wd) if "steps_per_sec" in r_
+                    and "d_loss" in r_]
+    gumbel_s = [1 / r_["steps_per_sec"] for r_ in gumbel_lines]
+    steps = z_["rl_steps"]
+    with tempfile.TemporaryDirectory() as rl_wd:
+        argv = ["--config-file", os.path.join(v4_wd, "config.json"), "--workdir", rl_wd,
+                "--steps", str(steps), "--set", "train.estimator=reinforce",
+                "--set", "train.rl_entropy=0.01", "--set", "train.eval_every=0",
+                "--set", "train.log_every=1"]
+        for k_, v_ in (extra_sets or {}).items():
+            argv += ["--set", f"{k_}={v_}"]
+        rl_s, rl_counts = run_cli(train_cli.main, argv, "sgg_torch.cli.train reinforce")
+        lines = read_metric_lines(rl_wd)
+        rl_cfg, _ = load_workdir(rl_wd)
+    rl_keys = {"rl_surrogate", "rl_adv_std", "rl_log_prob", "rl_entropy", "d_loss", "g_loss"}
+    s_per_step = [1 / r_["steps_per_sec"] for r_ in lines if "steps_per_sec" in r_]
+    log(f"train pipeline_v4 --set train.estimator=reinforce --set train.rl_entropy=0.01: "
+        f"{steps} steps in {rl_s:.3f} s in process (set-up included), launches {rl_counts} "
+        f"(none expected); batch {rl_cfg.train.batch_size}, grad_accum "
+        f"{rl_cfg.train.grad_accum}, n_critic {rl_cfg.train.n_critic}, "
+        f"{rl_cfg.model.compute_dtype}; s/step per logged step "
+        f"{', '.join(f'{x_:.4f}' for x_ in s_per_step)} (phase 17's Gumbel step: "
+        f"{', '.join(f'{x_:.4f}' for x_ in gumbel_s[-4:])}); last line "
+        f"{ {k_: round(lines[-1][k_], 4) for k_ in sorted(rl_keys)} }")
+    if ([r_["step"] for r_ in lines] != list(range(1, steps + 1)) or any(rl_counts.values())
+            or not all(rl_keys <= set(r_) and all(math.isfinite(v_) for v_ in r_.values())
+                       for r_ in lines)):
+        raise AssertionError("REINFORCE on pipeline_v4 launched a kernel, lacks an rl_ key "
+                             "or is not finite")
+    shard = read_feature_shard(list_shards(cfg.data.data_dir)[0])
+    feats = torch.from_numpy(shard["features"][: z_["hold_rows"]].astype(np.float32))
+    t_h = time.perf_counter()
+    same_tok, worst, largest = reinforce_grad_hold(dev, cfg, vocab, feats, SEED + 41, 0.01)
+    log(f"REINFORCE generator gradient float32, card vs CPU, same weights, batch "
+        f"({len(feats)} rows of the corpus) and noise ({time.perf_counter() - t_h:.3f} s): "
+        f"tokens identical {same_tok}; worst tensor at {worst:.4f} of its bound (1e-4 x "
+        f"max|CPU tensor| + 1e-6 x {largest:.4e})")
+    if not (same_tok and worst <= 1.0 and largest > 0):
+        raise AssertionError("the REINFORCE gradient on the card disagrees with the CPU's")
+    out["reinforce"] = {"seconds": rl_s, "s_per_step": s_per_step, "gumbel_s": gumbel_s,
+                        "worst": worst}
+    return out
+
+
+def preprocess_phase(dev, run_cli, sizes=None, extra_sets=None):
+    """Phase 19 (d): ``synthetic_vg_json(2048, vocab_objects=300,
+    vocab_predicates=80, max_rels=20)`` as relationships.json, then
+    ``python -m sgg_torch.cli.preprocess --vg-dir D --encoder random
+    --max-objects 150 --max-predicates 50 --regions 196 --feat-dim 512
+    --feat-dtype float16`` (in process; VG150's vocabulary cut at pipeline_v4's
+    feature widths) and 2 steps of ``train --config pipeline_v4`` on the shards.
+    Gates: 150 objects and 50 predicates in vocab.json, train and test
+    disjoint with the test share the reference's round(0.1 x kept), finite
+    losses, no kernel launch. Returns the numbers."""
+    from sgg_torch.cli import preprocess as preprocess_cli
+    from sgg_torch.cli import train as train_cli
+    from sgg_torch.data import Vocab, list_shards, read_feature_shard, synthetic_vg_json
+
+    z_ = {"images": PP_IMAGES, "regions": 196, "feat_dim": 512, **(sizes or {})}
+    with tempfile.TemporaryDirectory() as root:
+        vg_dir, out_dir, wd = (os.path.join(root, d_) for d_ in ("vg", "shards", "wd"))
+        os.makedirs(vg_dir)
+        t_j = time.perf_counter()
+        data = synthetic_vg_json(z_["images"], vocab_objects=300, vocab_predicates=80,
+                                 max_rels=20)
+        with open(os.path.join(vg_dir, "relationships.json"), "w") as f:
+            json.dump(data, f)
+        n_rels = sum(len(e_["relationships"]) for e_ in data)
+        json_s = time.perf_counter() - t_j
+        pp_s, pp_counts = run_cli(preprocess_cli.main, [
+            "--out-dir", out_dir, "--vg-dir", vg_dir, "--encoder", "random", "--max-objects",
+            "150", "--max-predicates", "50", "--regions", str(z_["regions"]), "--feat-dim",
+            str(z_["feat_dim"]), "--feat-dtype", "float16"], "sgg_torch.cli.preprocess")
+        vocab = Vocab.load(os.path.join(out_dir, "vocab.json"))
+        n_obj, n_pred = sum(vocab.is_object), sum(vocab.is_predicate)
+        split = {}
+        nbytes = 0
+        for name, d_ in (("train", out_dir), ("test", os.path.join(out_dir, "test"))):
+            paths = list_shards(d_)
+            nbytes += sum(os.path.getsize(p_) for p_ in paths)
+            split[name] = [int(i_) for p_ in paths for i_ in read_feature_shard(p_)["image_ids"]]
+        kept = len(split["train"]) + len(split["test"])
+        disjoint = not set(split["train"]) & set(split["test"])
+        log(f"preprocess: synthetic_vg_json({z_['images']}, vocab_objects=300, "
+            f"vocab_predicates=80, max_rels=20), {n_rels} relationships, written in "
+            f"{json_s:.3f} s; sgg_torch.cli.preprocess --encoder random {pp_s:.3f} s, launches "
+            f"{pp_counts} (none expected); vocab {len(vocab)} ({n_obj} objects, {n_pred} "
+            f"predicates); {kept} images kept, {len(split['train'])} train and "
+            f"{len(split['test'])} test, disjoint {disjoint}; shards "
+            f"{nbytes / 1e9:.3f} GB ({z_['regions']} x {z_['feat_dim']} float16)")
+        if (n_obj != 150 or n_pred != 50 or not disjoint or len(split["test"]) != round(
+                0.1 * kept) or any(pp_counts.values())):
+            raise AssertionError("preprocess: vocab sizes, split or launches are wrong")
+        argv = ["--config", "pipeline_v4", "--workdir", wd, "--steps", "2", "--set",
+                f"data.data_dir={out_dir}", "--set", "train.log_every=1"]
+        for k_, v_ in (extra_sets or {}).items():
+            argv += ["--set", f"{k_}={v_}"]
+        tr_s, tr_counts = run_cli(train_cli.main, argv, "sgg_torch.cli.train on preprocess")
+        lines = [r_ for r_ in read_metric_lines(wd) if "d_loss" in r_]
+        losses = [{k_: round(r_[k_], 4) for k_ in ("d_loss", "g_loss", "gp")} for r_ in lines]
+        log(f"train pipeline_v4 on the preprocessed shards: 2 steps in {tr_s:.3f} s in process "
+            f"(set-up and the final probe included), launches {tr_counts} (none expected); "
+            f"losses {losses}")
+        if ([r_["step"] for r_ in lines] != [1, 2] or any(tr_counts.values())
+                or not all(math.isfinite(v_) for r_ in lines for v_ in r_.values())):
+            raise AssertionError("training on the preprocessed shards failed")
+    return {"preprocess_s": pp_s, "train_s": tr_s, "gb": nbytes / 1e9, "kept": kept}
 
 
 def main():
@@ -2528,12 +2821,18 @@ def main():
     t0 = time.perf_counter()
     serving = {}
 
+    v19 = {}
+
     def serve_v4(wd):
         t18 = time.perf_counter()
         serving.update(serve_phase(
             dev, wd, vocab, (pix_cfg, pix_vocab, pix_g, seeded_encoder_state("resnet50")),
             (vit_cfg, vit_vocab, vit_g, vit_state), zero_counts, read_counts))
         phase("serve", t18)
+        # 19 (a) and (b): PredCls and REINFORCE on phase 17's workdir and corpus.
+        t19 = time.perf_counter()
+        v19.update(v4_predcls_reinforce_phase(dev, wd, vocab, run_cli))
+        phase("predcls and reinforce on pipeline_v4", t19)
 
     v4_fused_counts = pipeline_v4_phase(dev, vocab, run_cli, on_workdir=serve_v4)
     phase("main_path_pipeline_v4 and serve", t0)
@@ -2541,6 +2840,47 @@ def main():
         f"{serving['resnet50']['chunks']} encoder chunks (warmup's included); vit_b16 "
         f"{serving['vit_b16']['launches']} for one request of {serving['vit_b16']['images']} "
         "images")
+
+    # 19 (c). REINFORCE on vit_b16 with train_encoder: the estimator changes
+    # only the generator's loss, so each step launches what phase 15's does
+    # (enc_counts): the 12 attention layers of the encoder run forward with
+    # gradient and backward in each of the n_critic = 5 critic updates (12 x 5
+    # flash, dq and dk/dv launches) and forward once more, without gradient,
+    # for the generator update (12 flash): 72, 60 and 60; the transformer
+    # decoder's attention, the fakes and the surrogate launch none.
+    t0 = time.perf_counter()
+    per_step.clear()
+    with tempfile.TemporaryDirectory() as wd:
+        train_cli.make_step_fn = counting_step_fn
+        try:
+            vrl_s, vrl_counts = run_cli(train_cli.main, [
+                "--config", "vit_b16", "--workdir", wd, "--steps", str(VIT_RL_STEPS),
+                "--set", "train.train_encoder=true", "--set", "train.estimator=reinforce",
+                "--set", "train.rl_entropy=0.01", "--set",
+                f"data.num_synthetic_images={VIT_IMAGES}", "--set", "train.log_every=1"],
+                "sgg_torch.cli.train vit_b16 reinforce")
+        finally:
+            train_cli.make_step_fn = make_step
+        vrl_lines = read_metrics(wd, VIT_RL_STEPS, metric_keys | {
+            "enc_gnorm", "rl_surrogate", "rl_adv_std", "rl_log_prob", "rl_entropy"})
+    want_vrl = {k_: VIT_RL_STEPS * v_ for k_, v_ in enc_counts.items()}
+    log(f"train vit_b16 train_encoder --set train.estimator=reinforce: {VIT_RL_STEPS} steps in "
+        f"{vrl_s:.3f} s in process, launches {vrl_counts} (expected {want_vrl}), per step "
+        f"{per_step}; last step {1 / vrl_lines[-1]['steps_per_sec']:.4f} s/step; last losses "
+        f"d {vrl_lines[-1]['d_loss']:.4f}, g {vrl_lines[-1]['g_loss']:.4f}, rl_surrogate "
+        f"{vrl_lines[-1]['rl_surrogate']:.4f}, rl_entropy {vrl_lines[-1]['rl_entropy']:.4f}")
+    if vrl_counts != want_vrl or per_step != [enc_counts] * VIT_RL_STEPS:
+        raise AssertionError("REINFORCE on vit_b16 did not launch the flash kernels as expected")
+    phase("reinforce on vit_b16", t0)
+
+    # 19 (d). preprocess on a VG-shaped corpus, then pipeline_v4 on its shards.
+    t0 = time.perf_counter()
+    v19["preprocess"] = preprocess_phase(dev, run_cli)
+    phase("preprocess and train on its shards", t0)
+    log(f"phase 19 launches: flash_attention {vrl_counts['flash_attention']}, dq "
+        f"{vrl_counts['flash_attention_bwd_dq']}, dk/dv {vrl_counts['flash_attention_bwd_dkv']} "
+        f"({VIT_RL_STEPS} REINFORCE steps on vit_b16); none on PredCls, REINFORCE on "
+        f"pipeline_v4 or preprocess")
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",

@@ -19,8 +19,12 @@ the last N retained checkpoints; ``--ema`` samples from the EMA weights.
 ``--decode fused`` one ``fused_decode`` launch per draw and batch, which
 draws at temperature 1 without log-probabilities, so it refuses ``--rank
 freq_logp|logp``, a temperature sweep and ``--top-k``/``--top-p``, as the
-reference does. It runs on CUDA unless ``--device cpu`` is given. PredCls
-(``--predcls``) comes with a later slice of the port.
+reference does. ``--predcls`` also reports predicate classification: every
+ground-truth triple of the evaluated images is a row, the decode is clamped to
+its subject and object, the predicate's log-probability is mixture-averaged
+over ``--predcls-samples`` draws (``sgg_torch.eval.sampler.make_predcls_scorer``)
+and P-R@k counts the rows whose true predicate ranks in the top k. It runs on
+CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -35,15 +39,21 @@ import time
 import numpy as np
 import torch
 
-from sgg_torch.cli.common import LATER, add_device_arg, load_dataset, resolve_device
+from sgg_torch.cli.common import add_device_arg, load_dataset, resolve_device
 from sgg_torch.cli.generate import make_batch_features
 from sgg_torch.eval.recall import (
     corpus_mean_recall,
     corpus_recall_bootstrap,
     corpus_recall_multi,
     corpus_zero_shot_recall,
+    predicate_recall,
 )
-from sgg_torch.eval.sampler import make_fused_sampler, make_sampler, rank_triples
+from sgg_torch.eval.sampler import (
+    make_fused_sampler,
+    make_predcls_scorer,
+    make_sampler,
+    rank_triples,
+)
 from sgg_torch.kernels.build import load_library
 from sgg_torch.train.checkpoint import load_workdir, restore_weights
 
@@ -87,8 +97,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "retained checkpoints; 0 or 1 = the latest")
     p.add_argument("--zero-shot", action="store_true",
                    help="also report recall over held-out triples never seen in training")
-    p.add_argument("--predcls", action="store_true", help="not ported yet")
-    p.add_argument("--predcls-samples", type=int, default=16, help="not ported yet")
+    p.add_argument("--predcls", action="store_true",
+                   help="also report predicate classification (PredCls): rank predicates "
+                        "with the decode clamped to each GT (subject, object) pair; P-R@k = "
+                        "GT predicate in the top k of the conditional distribution")
+    p.add_argument("--predcls-samples", type=int, default=16,
+                   help="noise draws mixture-averaged per PredCls row")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bootstrap", type=int, default=0, metavar="N",
                    help="also report 95%% percentile-bootstrap intervals over images "
@@ -108,9 +122,6 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     say = lambda m: print(f"[sgg.evaluate] {m}", flush=True)  # noqa: E731
     err = lambda m: print(f"[sgg.evaluate] {m}", file=sys.stderr)  # noqa: E731
-    if args.predcls:
-        err(f"--predcls (predicate classification) {LATER} (ROADMAP A4)")
-        return 2
     temps = ([None] if args.temperature in (None, "") else
              [float(x) for x in str(args.temperature).split(",") if x.strip()])
     ranks = [r.strip() for r in str(args.rank).split(",") if r.strip()]
@@ -245,7 +256,39 @@ def main(argv=None) -> int:
         f"{dt:.2f}s ({n_sampled / dt if dt > 0 else 0.0:.0f} triples/sec, decode "
         f"{args.decode})")
     report(args, temps, kss, rcombos, gen, gt_triples, seen, vocab, n_images)
+    if args.predcls:
+        # Last, as the reference runs it: the grid's JSON is written already.
+        scorer = make_predcls_scorer(cfg, step_mask=vocab.step_mask(),
+                                     num_samples=args.predcls_samples, tau=temps[0])
+        predcls(args, scorer, g_params, batch_features, gt_triples, len(vocab), generator)
     return 0
+
+
+def predcls(args, scorer, g_params, batch_features, gt_triples, V: int, generator) -> dict:
+    """Score every GT triple of ``gt_triples`` (one list per image) in chunks
+    of ``--batch-size`` rows, the last padded with its last row, and print
+    P-R@k; returns {k: P-R@k}."""
+    rows = np.asarray([(i, s, p, o) for i, trips in enumerate(gt_triples) for s, p, o in trips],
+                      np.int64).reshape(-1, 4)
+    n_rows, B = len(rows), args.batch_size
+    scores = np.zeros((n_rows, V), np.float32)
+    t0 = time.perf_counter()
+    for lo in range(0, n_rows, B):
+        chunk = rows[lo:lo + B]
+        if len(chunk) < B:  # pad to the batch shape with the last row
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], B - len(chunk), axis=0)])
+        feats = batch_features(chunk[:, 0])
+        out = scorer(g_params, feats, chunk[:, 1], chunk[:, 3], generator)
+        scores[lo:lo + B] = out.cpu().numpy()[:min(B, n_rows - lo)]
+    dt = time.perf_counter() - t0
+    ks = sorted({int(k) for k in str(args.k).split(",") if k.strip()})
+    pr = predicate_recall(scores, rows[:, 2], ks)
+    rep = " ".join(f"P-R@{k} = {pr[k]:.4f}" for k in ks)
+    print(f"[sgg.evaluate] predcls ({n_rows} GT triples, {args.predcls_samples} draws/row): "
+          f"{rep}", flush=True)
+    print(f"[sgg.evaluate] predcls: {n_rows} rows scored in {dt:.3f}s "
+          f"({n_rows / dt if dt > 0 else 0.0:.0f} rows/sec)", flush=True)
+    return pr
 
 
 def score_batch(gen: dict, tokens, logp, n: int, kss, rcombos, adj_map, seen, ti) -> None:

@@ -26,15 +26,19 @@ the end (keeping ``train.max_checkpoints``), with ``W/generator.pt`` for
 same workdir resumes from the latest checkpoint. ``--profile`` traces steps
 10 to 14 of the run with ``torch.profiler`` into ``W/profile/`` (a trace and
 a table of the top device ops with the device's idle share). SIGTERM or
-SIGINT saves the state and exits.
+SIGINT saves the state and exits. ``--debug-nans`` fails the run at the first
+step whose forward or backward makes a NaN (``sgg_torch.utils.debug``).
+``--set train.estimator=reinforce`` trains the generator with the
+score-function estimator (``--set train.rl_entropy=C`` adds its entropy
+bonus).
 
   python -m sgg_torch.cli.train --config pipeline_v4 --workdir W \\
       --set data.data_dir=SHARDS [--profile]
 
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
-there. Not ported yet: ``--debug-nans``, meshes and the distributed tiers,
-REINFORCE and grain. ``train.steps_per_dispatch`` exists for the reference's
-TPU relay and is not read.
+there. Not ported yet: meshes and the distributed tiers, and grain.
+``train.steps_per_dispatch`` and ``train.host_rss_exit_gb`` exist for the
+reference's TPU relay and are not read.
 """
 
 from __future__ import annotations
@@ -67,12 +71,11 @@ from sgg_torch.train.eval_probe import EvalProbe
 from sgg_torch.train.metrics import MetricLogger
 from sgg_torch.train.state import create_train_state, param_count
 from sgg_torch.train.step import make_step_fn, refuse_unported
+from sgg_torch.utils.debug import assert_super_batch, enable_nan_checks
 from sgg_torch.utils.profiling import StepProfiler
 
 
-def _refusal(args, cfg: Config) -> str | None:
-    if args.debug_nans:
-        return f"--debug-nans {LATER}"
+def _refusal(cfg: Config) -> str | None:
     if cfg.train.eval_every > 0 and cfg.model.encoder != "precomputed":
         return f"train.eval_every with a pixels-in encoder {LATER} (ROADMAP A6)"
     if cfg.data.loader == "grain":
@@ -129,13 +132,14 @@ def main(argv=None) -> int:
                         "holding one) instead of random weights; pixels-in configs only")
     p.add_argument("--profile", action="store_true",
                    help="trace steps 10-14 of this run with torch.profiler into workdir/profile")
-    p.add_argument("--debug-nans", action="store_true", help="not ported yet")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail at the first step whose forward or backward makes a NaN")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     cfg = resolve_config(args)
     if args.steps is not None:
         cfg.train.total_steps = args.steps
-    refusal = _refusal(args, cfg)
+    refusal = _refusal(cfg)
     if refusal:
         print(f"[sgg.train] {refusal}", file=sys.stderr)
         return 2
@@ -171,6 +175,8 @@ def main(argv=None) -> int:
           f"D={param_count(state.critic):,}{enc_n}", flush=True)
 
     step_fn = make_step_fn(cfg, step_mask=vocab.step_mask())
+    if args.debug_nans:
+        step_fn = enable_nan_checks(step_fn)
     it, how = _batches(cfg, ds, device)
     print(f"[sgg.train] {how}", flush=True)
     logger = MetricLogger(cfg.workdir)
@@ -200,14 +206,17 @@ def main(argv=None) -> int:
             pass  # not the main thread
 
     t = cfg.train
+    first = state.step
     try:
-        for i in range(state.step, t.total_steps):
+        for i in range(first, t.total_steps):
             if preempted["flag"]:
                 print(f"[sgg.train] preemption signal: checkpointing at step {i} and exiting",
                       flush=True)
                 ckpt.save(state)
                 return 0
             batch = next(it)
+            if i == first:
+                assert_super_batch(batch, t.n_critic, t.batch_size)
             if profiler:
                 profiler.maybe_start(i)
             metrics = step_fn(state, batch)

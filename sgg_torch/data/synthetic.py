@@ -1,8 +1,10 @@
 """Synthetic Visual-Genome-like data, the ``synthetic`` data source.
 
-Only ``synthetic_dataset`` of ``sgg/data/synthetic.py`` is ported: features
-are drawn around per-token centroids, so the data has structure a model can
-learn. Same seed, same arrays as the reference.
+``synthetic_dataset`` and ``synthetic_vg_json`` of ``sgg/data/synthetic.py``
+are ported. ``synthetic_dataset`` draws features around per-token centroids,
+so the data has structure a model can learn; ``synthetic_vg_json`` makes a
+VG-shaped ``relationships.json`` object (no images) for ``preprocess``. Same
+seed, same arrays and the same JSON as the reference.
 """
 
 from __future__ import annotations
@@ -18,6 +20,50 @@ _OBJECTS = [
     "table", "chair", "horse", "bus", "window", "shirt", "hat", "plate",
 ]
 _PREDICATES = ["on", "has", "wearing", "behind", "in front of", "near", "riding", "holding"]
+
+
+def synthetic_vg_json(
+    num_images: int = 5,
+    seed: int = 0,
+    max_rels: int = 6,
+    vocab_objects: int | None = None,
+    vocab_predicates: int | None = None,
+) -> list[dict]:
+    """A relationships.json-shaped object (the schema of ``sgg_torch.data.vg``).
+
+    With ``vocab_objects``/``vocab_predicates`` set beyond the base lists,
+    synthesizes extra token names (``obj_017``…) drawn Zipf-style so the
+    frequency-cut vocab build sees a realistic long tail."""
+    rng = np.random.RandomState(seed)
+    objs = list(_OBJECTS)
+    preds = list(_PREDICATES)
+    if vocab_objects is not None and vocab_objects > len(objs):
+        objs += [f"obj_{i:03d}" for i in range(len(objs), vocab_objects)]
+    if vocab_predicates is not None and vocab_predicates > len(preds):
+        preds += [f"rel_{i:02d}" for i in range(len(preds), vocab_predicates)]
+
+    def zipf(n, size):
+        w = 1.0 / np.arange(1, n + 1)
+        return rng.choice(n, size=size, p=w / w.sum())
+
+    out = []
+    for i in range(num_images):
+        n_r = int(rng.randint(1, max_rels + 1))
+        ss, oo = zipf(len(objs), n_r), zipf(len(objs), n_r)
+        pp = zipf(len(preds), n_r)
+        rels = []
+        for s, p, o in zip(ss, pp, oo):
+            if s == o:
+                o = (o + 1) % len(objs)
+            rels.append(
+                {
+                    "predicate": preds[p].upper(),  # exercise normalization
+                    "subject": {"names": [objs[s]]},
+                    "object": {"name": objs[o]},
+                }
+            )
+        out.append({"image_id": 1000 + i, "relationships": rels})
+    return out
 
 
 def synthetic_dataset(

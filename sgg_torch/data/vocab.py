@@ -149,3 +149,8 @@ class Vocab:
         with open(path) as f:
             return cls.from_json(f.read())
 
+
+
+def normalize_name(name: str) -> str:
+    """Canonicalize a VG object/predicate name: lowercase, collapse whitespace."""
+    return " ".join(name.lower().strip().split())

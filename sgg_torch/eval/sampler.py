@@ -11,6 +11,8 @@ triples of each image are deduped and ranked. Two samplers draw the tokens:
     log-probability;
   - :func:`make_fused_sampler` runs one launch of ``fused_decode`` per draw
     (attention-LSTM only, temperature 1, no log-probabilities).
+:func:`make_predcls_scorer` scores predicates given the ground-truth
+subject and object (PredCls) through the same forward, clamped.
 :func:`rank_triples` orders an image's draws by frequency (``freq``),
 frequency with a log-probability tiebreak (``freq_logp``) or probability
 mass (``logp``, optionally adjusted per predicate);
@@ -18,6 +20,8 @@ mass (``logp``, optionally adjusted per predicate);
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -115,6 +119,55 @@ def make_indexed_sampler(
         return body(g_params, feats_dev.index_select(0, idx), generator, noise, temp)
 
     return sample
+
+
+def make_predcls_scorer(cfg: Config, step_mask=None, num_samples: int = 16,
+                        tau: float | None = None):
+    """Build the PredCls scorer ``score(g_params, feats [B,R,F], subj [B],
+    obj [B], generator=None, z=None)`` → float32 [B, V], log p(predicate |
+    subject, object, image).
+
+    The decode is clamped to the ground-truth subject at step 0 and object at
+    step 2 (inert for the predicate step's logits under the s→p→o order), and
+    the predicate step's log-softmax is mixture-averaged over K =
+    ``num_samples`` noise draws: logsumexp_k log_softmax(logits_k[:, 1]) −
+    log K. The predicate logits come before any unclamped draw, so z [K, B, Z]
+    is the only noise: given, or drawn from ``generator`` (a torch.Generator
+    on the feats' device). The K draws run as one forward over K·B rows (k
+    major); rows are independent. For the slot decoder the clamp cannot
+    condition the predicate slot, so this scores the marginal predicate
+    distribution, as the reference does. ``tau`` is accepted for the CLI's
+    symmetry and unused: the score reads the logits, not a draw."""
+    del tau
+    gen = make_generator(cfg).requires_grad_(False).eval()
+    mask = None if step_mask is None else torch.as_tensor(step_mask, dtype=torch.bool)
+    dtype, Z, V, K = cfg.model.dtype, cfg.model.noise_dim, cfg.model.vocab_size, num_samples
+    loaded = {"params": None}
+
+    def score(g_params, feats, subj, obj, generator=None, z=None):
+        dev = feats.device
+        if loaded["params"] is not g_params:  # load each weights dict once
+            gen.load_state_dict(g_params)
+            gen.to(dev)
+            loaded["params"] = g_params
+        B = feats.shape[0]
+        if z is None:
+            z = torch.randn(K, B, Z, generator=generator, device=dev)
+        z = z.to(device=dev, dtype=dtype).reshape(K * B, Z)
+        subj = torch.as_tensor(subj, dtype=torch.long, device=dev)
+        obj = torch.as_tensor(obj, dtype=torch.long, device=dev)
+        forced = torch.stack([subj, torch.zeros_like(subj), obj], dim=1).repeat(K, 1)
+        rows = feats.unsqueeze(0).expand(K, *feats.shape).reshape(K * B, *feats.shape[1:])
+        m = None if mask is None else mask.to(dev)
+        # Step 1's draw does not reach its own logits; its noise is zero.
+        g = torch.zeros(K * B, TRIPLE_LEN, V, device=dev)
+        with torch.no_grad():
+            out = gen(rows, z, g, tau=1.0, hard=True, step_mask=m, forced_tokens=forced,
+                      forced_steps=(0, 2))
+            lps = torch.log_softmax(out["logits"][:, 1].float(), dim=-1).reshape(K, B, V)
+            return torch.logsumexp(lps, dim=0) - math.log(K)
+
+    return score
 
 
 def make_fused_sampler(

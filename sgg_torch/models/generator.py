@@ -12,8 +12,9 @@ that the reference makes inside the step loop. The sampler's options are the
 reference's: ``sample_temp`` (scalar or per row) and ``sample_top_k`` /
 ``sample_top_p`` shape the distribution tokens are drawn from, and
 ``detach_sample`` draws exact Gumbel-max tokens and returns ``log_prob``, the
-untempered joint log-probability in float32. Forced steps (the PredCls
-scorer's conditional decode) come with a later slice (ROADMAP A4).
+untempered joint log-probability in float32. ``forced_steps`` clamp steps to
+``forced_tokens`` (the PredCls scorer's conditional decode): a forced step's
+one-hot feeds back through the embedding, so later steps condition on it.
 """
 
 from __future__ import annotations
@@ -29,13 +30,6 @@ from sgg_torch.utils.gumbel import gumbel_softmax, top_k_top_p_filter
 
 TRIPLE_LEN = 3  # (subject, predicate, object)
 MASK_VALUE = -1e9  # the reference masks with -1e9, not -inf
-
-
-def refuse_forced(forced_tokens, forced_steps) -> None:
-    if forced_steps or forced_tokens is not None:
-        raise NotImplementedError(
-            "forced steps (the PredCls scorer's conditional decode) are not ported yet; a "
-            "later slice of the port brings them (ROADMAP A4)")
 
 
 def sampling_logits(logits32: torch.Tensor, sample_temp=None, top_k: int = 0,
@@ -101,8 +95,8 @@ class AttentionLSTMGenerator(nn.Module):
         hard: bool = False,
         step_mask: torch.Tensor | None = None,  # bool[3, V]
         detach_sample: bool = False,
-        forced_tokens: torch.Tensor | None = None,
-        forced_steps: tuple = (),
+        forced_tokens: torch.Tensor | None = None,  # int [B, 3]
+        forced_steps: tuple = (),  # the steps to clamp to forced_tokens
         sample_temp=None,  # number, or float32 [B]
         sample_top_k: int = 0,
         sample_top_p: float | None = None,
@@ -113,8 +107,10 @@ class AttentionLSTMGenerator(nn.Module):
         ``sample_temp`` and filtered by ``sample_top_k``/``sample_top_p``
         plus the step's Gumbel noise. With ``detach_sample`` the token is
         argmax(those + noise), its one-hot fed back without gradient, and
-        ``log_prob`` float32 [B] = Σₜ log softmax(logitsₜ)[tokenₜ]."""
-        refuse_forced(forced_tokens, forced_steps)
+        ``log_prob`` float32 [B] = Σₜ log softmax(logitsₜ)[tokenₜ]. A step
+        in ``forced_steps`` takes ``forced_tokens[:, t]`` instead (its
+        log-probability joins ``log_prob``) and leaves ``gumbel[:, t]``
+        unused."""
         dt = self.dtype
         feats = feats.to(dt)
         z = z.to(dt)
@@ -145,14 +141,18 @@ class AttentionLSTMGenerator(nn.Module):
                 )
             logits32 = logits.float()
             samp32 = sampling_logits(logits32, sample_temp, sample_top_k, sample_top_p)
-            g = gumbel[:, t, :].float()
-            if detach_sample:
+            if t in forced_steps:
+                idx = forced_tokens[:, t].to(device=feats.device, dtype=torch.long)
+                y = torch.zeros_like(logits32).scatter_(-1, idx[:, None], 1.0).to(dt)
+                if detach_sample:  # the clamped token's conditional likelihood
+                    logp_steps.append(token_log_prob(logits32, idx))
+            elif detach_sample:
                 # Gumbel-max: an exact draw, its prefix a constant.
-                idx = torch.argmax(samp32 + g, dim=-1)
+                idx = torch.argmax(samp32 + gumbel[:, t, :].float(), dim=-1)
                 y = torch.zeros_like(samp32).scatter_(-1, idx[:, None], 1.0).to(dt)
                 logp_steps.append(token_log_prob(logits32, idx))
             else:
-                y = gumbel_softmax(samp32, g, tau=tau, hard=hard).to(dt)
+                y = gumbel_softmax(samp32, gumbel[:, t, :].float(), tau=tau, hard=hard).to(dt)
             prev_emb = y @ embedding
             soft_steps.append(y)
             logit_steps.append(logits)

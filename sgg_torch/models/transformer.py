@@ -10,9 +10,11 @@ of the straight-through Gumbel-softmax sample cast to the compute dtype.
 
 Attention here is plain tensor code, as in the reference (its cross-attention
 has 3 queries, and its ``use_pallas`` is reserved). ``sample_temp``,
-``sample_top_k``/``sample_top_p`` and ``detach_sample`` (with ``log_prob``)
-are the attention-LSTM generator's; forced steps come with a later slice
-(ROADMAP A4).
+``sample_top_k``/``sample_top_p``, ``detach_sample`` (with ``log_prob``) and
+``forced_steps`` are the attention-LSTM generator's. The slots are decoded in
+parallel, so a forced slot replaces that slot's one-hot and token but cannot
+condition the other slots' logits: PredCls through this decoder scores the
+marginal predicate distribution, as the reference's does.
 
 Parameter names and layouts are the flax module's (``feat_proj``,
 ``slot_embed``, ``noise_proj``, ``ln_self{i}``, ``self_qkv{i}``,
@@ -30,7 +32,6 @@ from sgg_torch.config import Config
 from sgg_torch.models.generator import (
     MASK_VALUE,
     TRIPLE_LEN,
-    refuse_forced,
     sampling_logits,
     token_log_prob,
 )
@@ -109,8 +110,8 @@ class TransformerTripleGenerator(nn.Module):
         hard: bool = False,
         step_mask: torch.Tensor | None = None,  # bool[3, V]
         detach_sample: bool = False,
-        forced_tokens: torch.Tensor | None = None,
-        forced_steps: tuple = (),
+        forced_tokens: torch.Tensor | None = None,  # int [B, 3]
+        forced_steps: tuple = (),  # the slots to clamp to forced_tokens
         sample_temp=None,  # number, or float32 [B]
         sample_top_k: int = 0,
         sample_top_p: float | None = None,
@@ -119,8 +120,9 @@ class TransformerTripleGenerator(nn.Module):
         attention [B,3,R] (the last layer's head-averaged cross-attention)
         and tokens [B,3]; with ``detach_sample`` exact Gumbel-max tokens and
         ``log_prob`` float32 [B], the sum of the three slots' untempered
-        log-probabilities (the slots are independent given z)."""
-        refuse_forced(forced_tokens, forced_steps)
+        log-probabilities (the slots are independent given z). The slots in
+        ``forced_steps`` take ``forced_tokens`` as their one-hot and token
+        (and in ``log_prob``)."""
         dt = self.dtype
         feats = feats.to(dt)
         z = z.to(dt)
@@ -155,15 +157,27 @@ class TransformerTripleGenerator(nn.Module):
                 m, logits, torch.tensor(MASK_VALUE, dtype=logits.dtype, device=logits.device))
         logits32 = logits.float()
         samp32 = sampling_logits(logits32, sample_temp, sample_top_k, sample_top_p)
+
+        def clamp(y, idx):
+            if not forced_steps:
+                return y, idx
+            forced = forced_tokens.to(device=idx.device, dtype=torch.long)
+            fy = torch.zeros_like(logits32).scatter_(-1, forced[..., None], 1.0).to(dt)
+            keep = torch.tensor([t in forced_steps for t in range(TRIPLE_LEN)],
+                                device=idx.device)[None, :]
+            return torch.where(keep[..., None], fy, y), torch.where(keep, forced, idx)
+
         if detach_sample:
             idx = torch.argmax(samp32 + gumbel.float(), dim=-1)  # [B, 3]
             y = torch.zeros_like(samp32).scatter_(-1, idx[..., None], 1.0).to(dt)
+            y, idx = clamp(y, idx)
             return {"soft": y, "logits": logits, "attention": attn_map, "tokens": idx,
                     "log_prob": token_log_prob(logits32, idx).sum(dim=-1)}
         y = gumbel_softmax(samp32, gumbel.float(), tau=tau, hard=hard).to(dt)
+        y, tokens = clamp(y, torch.argmax(y, dim=-1))
         return {
             "soft": y,
             "logits": logits,
             "attention": attn_map,
-            "tokens": torch.argmax(y, dim=-1),
+            "tokens": tokens,
         }

@@ -7,8 +7,8 @@
 with x̂ = ε·real + (1−ε)·fake between the real one-hot triples and the fake
 soft ones. The penalty's gradient is taken with ``create_graph=True``, so the
 critic's own gradient differentiates through it. The noise ε is an input
-([B, 1, 1] in ``real.dtype``). The REINFORCE generator objective comes with
-the slice that ports ``detach_sample``/``log_prob`` (ROADMAP A4).
+([B, 1, 1] in ``real.dtype``). :func:`reinforce_generator_loss` is the
+score-function generator objective, on exact samples and their ``log_prob``.
 """
 
 from __future__ import annotations
@@ -50,3 +50,32 @@ def generator_loss(critic: Critic, feats: torch.Tensor, fake: torch.Tensor
     fake_score = critic(feats, fake)
     loss = -fake_score.mean()
     return loss, {"g_loss": loss, "g_fake_score": fake_score.mean()}
+
+
+def reinforce_generator_loss(critic: Critic, feats: torch.Tensor, fake: torch.Tensor,
+                             log_prob: torch.Tensor, logits: torch.Tensor | None = None,
+                             entropy_coef: float = 0.0) -> tuple[torch.Tensor, dict]:
+    """Score-function generator objective: ∇θ E[D(x)] = E[(D(x) − b)·∇θ log πθ(x)]
+    with x an exact categorical sample (``fake``, one-hot [B, 3, V] without
+    gradient), ``log_prob`` float32 [B] its Σₜ log πₜ(tokenₜ) (which carries
+    the gradient) and b the leave-one-out batch baseline (the mean of the other
+    rows' rewards; 0 at B = 1). The critic's score is the reward, without
+    gradient. With ``entropy_coef`` and ``logits`` [B, 3, V] the loss also
+    subtracts coef · E[H(πₜ)]. ``g_loss`` keeps the Gumbel estimator's meaning,
+    −E[D(fake)]; the surrogate is ``rl_surrogate``."""
+    with torch.no_grad():
+        reward = critic(feats, fake).float()
+    B = reward.shape[0]
+    baseline = (reward.sum() - reward) / (B - 1) if B > 1 else torch.zeros_like(reward)
+    adv = reward - baseline
+    loss = -(adv * log_prob.float()).mean()
+    aux = {"g_loss": -reward.mean(), "g_fake_score": reward.mean(), "rl_surrogate": loss,
+           "rl_adv_std": adv.std(correction=0), "rl_log_prob": log_prob.mean()}
+    if entropy_coef and logits is not None:
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        # Masked entries sit near -1e9: p underflows to 0 and adds nothing.
+        ent = -(lp.exp() * lp).sum(-1).mean()
+        loss = loss - entropy_coef * ent
+        aux["rl_entropy"] = ent
+        aux["rl_surrogate"] = loss
+    return loss, aux

@@ -15,7 +15,12 @@ as in the reference:
     the updated encoder, without gradient;
   - a frozen encoder: features and fakes without gradient.
 ``train.grad_accum`` splits each update's batch into equal microbatches and
-averages their losses, aux values and gradients.
+averages their losses, aux values and gradients. ``train.estimator`` picks the
+generator update's gradient: ``gumbel`` differentiates the critic's score of
+the straight-through sample; ``reinforce`` draws exact samples
+(``detach_sample``) and differentiates the score-function surrogate
+(:func:`~sgg_torch.train.losses.reinforce_generator_loss`, with
+``train.rl_entropy``), the critic's score a reward without gradient.
 
 All noise is an input (:func:`noise_shapes` gives its layout): the fakes' z and
 Gumbel draws, the penalty's ε and the generator update's draws, per
@@ -34,7 +39,7 @@ import torch.nn.functional as F
 from sgg_torch.config import Config
 from sgg_torch.models.encoders import normalize_for
 from sgg_torch.models.generator import TRIPLE_LEN
-from sgg_torch.train.losses import critic_loss, generator_loss
+from sgg_torch.train.losses import critic_loss, generator_loss, reinforce_generator_loss
 from sgg_torch.train.state import GANTrainState, global_norm
 from sgg_torch.utils.gumbel import sample_gumbel
 
@@ -44,11 +49,7 @@ _LATER = "is not ported yet; a later slice of the port brings it"
 def refuse_unported(cfg: Config) -> None:
     """Raise for the training options that only a later slice brings."""
     m, t, mesh = cfg.model, cfg.train, cfg.mesh
-    if t.estimator == "reinforce":
-        raise NotImplementedError(
-            f"train.estimator='reinforce' {_LATER} (it needs the generator's "
-            "detach_sample/log_prob, ROADMAP A4)")
-    if t.estimator != "gumbel":
+    if t.estimator not in ("gumbel", "reinforce"):
         raise ValueError(f"unknown train.estimator {t.estimator!r} (expected 'gumbel' or "
                          "'reinforce')")
     if m.sp_mode or m.pp_microbatches or m.moe_experts:
@@ -144,6 +145,7 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
     accum = max(1, int(t.grad_accum))
     mask = None if step_mask is None else torch.as_tensor(np.asarray(step_mask), dtype=torch.bool)
     train_enc = bool(t.train_encoder)
+    reinforce = t.estimator == "reinforce"
 
     def step_fn(state: GANTrainState, batch: dict, noise: dict | None = None) -> dict:
         gen, critic, encoder = state.generator, state.critic, state.encoder
@@ -225,8 +227,15 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
         g_params = list(gen.parameters())
 
         def g_vg(mb, k):
-            fake = sample_fake(mb[0], noise["gen_z"][k], noise["gen_gumbel"][k])
-            loss, aux = generator_loss(critic, mb[0], fake)
+            if reinforce:
+                out = gen(mb[0], noise["gen_z"][k], noise["gen_gumbel"][k], tau=tau, hard=True,
+                          step_mask=step_mask_d, detach_sample=True)
+                loss, aux = reinforce_generator_loss(critic, mb[0], out["soft"],
+                                                     out["log_prob"], logits=out["logits"],
+                                                     entropy_coef=t.rl_entropy)
+            else:
+                fake = sample_fake(mb[0], noise["gen_z"][k], noise["gen_gumbel"][k])
+                loss, aux = generator_loss(critic, mb[0], fake)
             grads = torch.autograd.grad(loss, g_params, allow_unused=True)
             return loss, aux, [torch.zeros_like(p) if g is None else g
                                for p, g in zip(g_params, grads)]

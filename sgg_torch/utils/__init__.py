@@ -1,1 +1,1 @@
-"""sgg_torch.utils — noise helpers."""
+"""sgg_torch.utils — noise, profiling and numerics-debugging helpers."""

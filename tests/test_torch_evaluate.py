@@ -286,7 +286,7 @@ def test_evaluate_cli_on_a_pipeline_v4_workdir(v4_workdir, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--predcls"], "not ported yet"),
+    (["--decode", "fused", "--top-p", "0.9"], "--top-k/--top-p"),
     (["--decode", "fused", "--rank", "logp"], "log-probs"),
     (["--decode", "fused", "--temperature", "0.5,1"], "temperature 1.0"),
     (["--decode", "fused", "--top-k", "3"], "--top-k/--top-p"),

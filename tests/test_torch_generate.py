@@ -298,6 +298,7 @@ def test_port_imports_no_jax_and_no_sgg():
         "import sgg_torch.train.metrics, sgg_torch.train.checkpoint, sgg_torch.data.pipeline\n"
         "import sgg_torch.cli.evaluate, sgg_torch.train.eval_probe, sgg_torch.utils.profiling\n"
         "import sgg_torch.serve, sgg_torch.api, sgg_torch.cli.serve\n"
+        "import sgg_torch.cli.preprocess, sgg_torch.data.vg, sgg_torch.utils.debug\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sgg'))\n"
         "assert not bad, bad\n"
         "from sgg_torch.kernels import build\n"

@@ -28,7 +28,10 @@ differ from plain at 0.020-0.038 % of bf16 outputs; p or ds rounded to bf16
 moves about 41 %). The bf16 flash kernels' float32 results before the cast
 (their check-only entries) within a relative L2 distance of
 ``flash_attention.F32_RESULT_TOL`` of the plain versions in float32 (p or ds
-split cut to hi + mid moves them by 2.0e-6 to 2.5e-6).
+split cut to hi + mid moves them by 2.0e-6 to 2.5e-6). The float32 PredCls
+scorer and one REINFORCE generator gradient, card against CPU, at
+``chip_smoke.py`` phase 19's tolerances (``predcls_hold``,
+``reinforce_grad_hold``).
 """
 
 import json
@@ -598,3 +601,54 @@ def test_flash_attention_bwd_f32_result_matches_plain(shape):
         assert a.dtype == torch.float32 and a.shape == q.shape
         assert tfa.f32_result_error(a, w) <= tfa.F32_RESULT_TOL
         assert torch.equal(a.to(torch.bfloat16), c)
+
+
+def _trained_cfg_vocab():
+    from sgg_torch.config import Config
+
+    with open(os.path.join(TRAINED_RUN, "config.json")) as f:
+        cfg = Config.from_dict(json.load(f))
+    vocab = Vocab.load(os.path.join(TRAINED_RUN, "vocab.json"))
+    cfg.model.vocab_size = len(vocab)
+    return cfg, vocab
+
+
+@pytest.mark.cuda
+def test_predcls_scorer_card_matches_cpu():
+    """chip_smoke.py phase 19 (a)'s hold at vg1k widths: the float32 PredCls
+    scorer on the card against the CPU's, seeded weights, features and z,
+    within 1e-4 x max|score| over the legal predicates, the same GT rank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import predcls_hold
+    from sgg_torch.models.generator import AttentionLSTMGenerator
+
+    cfg, vocab = _trained_cfg_vocab()
+    torch.manual_seed(0)
+    sd = AttentionLSTMGenerator.from_config(cfg).state_dict()
+    r = np.random.RandomState(0)
+    objs, preds = np.flatnonzero(vocab.is_object), np.flatnonzero(vocab.is_predicate)
+    rows = np.stack([np.arange(16), r.choice(objs, 16), r.choice(preds, 16),
+                     r.choice(objs, 16)], axis=1)
+    feats = torch.from_numpy(r.randn(16, cfg.data.regions, cfg.data.feat_dim).astype(np.float16))
+    err, scale, masked, same_rank = predcls_hold(torch.device("cuda"), cfg, sd, vocab, feats,
+                                                 rows, 16, 1)
+    assert err <= 1e-4 * scale and masked and same_rank
+
+
+@pytest.mark.cuda
+def test_reinforce_update_card_matches_cpu():
+    """chip_smoke.py phase 19 (b)'s hold at vg1k widths: one REINFORCE
+    generator update's surrogate gradient in float32 on the card against the
+    CPU's (same tokens; each tensor within 1e-4 x its max|CPU| plus 1e-6 x
+    the largest gradient)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import reinforce_grad_hold
+
+    cfg, vocab = _trained_cfg_vocab()
+    feats = torch.from_numpy(np.random.RandomState(1).randn(
+        32, cfg.data.regions, cfg.data.feat_dim).astype(np.float32))
+    same_tok, worst, largest = reinforce_grad_hold(torch.device("cuda"), cfg, vocab, feats, 2,
+                                                   0.01)
+    assert same_tok and worst <= 1.0 and largest > 0

@@ -112,8 +112,14 @@ def test_detach_sample_tokens_and_log_prob_match_reference(setup):
         np.testing.assert_allclose(got["log_prob"].numpy(), np.asarray(want["log_prob"]),
                                    rtol=0, atol=LOGP_TOL)
         np.testing.assert_array_equal(got["soft"].numpy(), np.asarray(want["soft"]))
-    with pytest.raises(NotImplementedError, match="forced steps"):
-        port(*args, forced_steps=(0,), forced_tokens=torch.zeros(B, 3, dtype=torch.long))
+    # Forced steps, refused before PredCls was ported, clamp the draw
+    # (tests/test_torch_predcls.py holds them against the reference).
+    forced = torch.full((B, 3), 21, dtype=torch.long)
+    with torch.no_grad():
+        got = port(*args, tau=1.0, hard=True, step_mask=torch.from_numpy(mask),
+                   detach_sample=True, forced_steps=(1,), forced_tokens=forced)
+    assert torch.equal(got["tokens"][:, 1], forced[:, 1])
+    assert bool(torch.isfinite(got["log_prob"]).all())
 
 
 SAMPLER_CASES = [

@@ -508,8 +508,11 @@ def test_noise_layout_and_refusals():
                                    "train.grad_accum": 2})
     shapes = noise_shapes(pcfg, 4)
     assert shapes["fake_z"] == (2, 2, 2, 8) and shapes["gp_eps"] == (2, 2, 2, 1, 1)
+    # REINFORCE, refused before it was ported, builds a step
+    # (tests/test_torch_reinforce.py holds it against the reference).
+    assert callable(make_step_fn(_configs("smoke", {"train.estimator": "reinforce"})[1]))
     for sets, err, match in (
-            ({"train.estimator": "reinforce"}, NotImplementedError, "A4"),
+            ({"model.pp_microbatches": 2}, NotImplementedError, "A8"),
             ({"train.estimator": "ppo"}, ValueError, "estimator"),
             ({"mesh.data": 4}, NotImplementedError, "mesh"),
             ({"model.sp_mode": "ring"}, NotImplementedError, "A8"),

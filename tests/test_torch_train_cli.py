@@ -135,10 +135,11 @@ def test_cuda_is_the_default_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--debug-nans"], ["--set", "train.eval_every=5", "--set", "model.encoder=vgg19"],
+    ["--set", "model.pp_microbatches=2"],
+    ["--set", "train.eval_every=5", "--set", "model.encoder=vgg19"],
     ["--set", "model.moe_experts=4"], ["--set", "model.sp_mode=ring"],
     ["--set", "mesh.data=2"],
-    ["--set", "data.loader=grain"], ["--set", "train.estimator=reinforce"],
+    ["--set", "data.loader=grain"], ["--set", "mesh.seq=2"],
     ["--set", "mesh.model=2"]])
 def test_unported_options_are_refused(tmp_path, capsys, extra):
     argv = ["--config", "smoke", "--device", "cpu", "--workdir", str(tmp_path), *extra]

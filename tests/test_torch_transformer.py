@@ -82,15 +82,20 @@ def test_forward_matches_reference(setup, masked):
 
 
 def test_forward_refuses_unported_sampling_options(setup):
-    """Forced steps (the PredCls scorer's) are not ported; the sampling
-    options are, and give the straight-through path's tokens."""
+    """Forced slots (the PredCls scorer's, refused before they were ported)
+    replace the slot's one-hot and token and leave the other slots as they
+    were; the sampling options give the straight-through path's tokens."""
     _, port_cfg, _, _, sd, feats, z, _ = setup
     port = make_generator(port_cfg)
     port.load_state_dict(sd)
     args = (torch.from_numpy(feats), torch.from_numpy(z), torch.zeros(B, 3, V))
-    for kw in (dict(forced_steps=(1,)), dict(forced_tokens=torch.zeros(B, 3, dtype=torch.long))):
-        with pytest.raises(NotImplementedError, match="A4"):
-            port(*args, **kw)
+    forced = torch.full((B, 3), 3, dtype=torch.long)
+    with torch.no_grad():
+        free = port(*args, hard=True)
+        clamped = port(*args, hard=True, forced_steps=(1,), forced_tokens=forced)
+    assert torch.equal(clamped["tokens"][:, 1], forced[:, 1])
+    assert torch.equal(clamped["tokens"][:, ::2], free["tokens"][:, ::2])
+    assert torch.equal(clamped["logits"], free["logits"])
     with torch.no_grad():
         for kw in (dict(sample_temp=0.5), dict(sample_top_k=5), dict(sample_top_p=0.9)):
             detached = port(*args, hard=True, detach_sample=True, **kw)
