@@ -71,6 +71,14 @@ formula written out in numpy, bit for bit, at draws that put ties on the
 CDF's steps; dequantized values within half a scale step plus one float16
 ulp of the source; draws moved toward the rarer predicates.
 
+One fault is seeded into the fused stepper (``sgg_torch/data/pipeline.py``,
+``FusedStepper._body``): the step counter that the captured step reads is
+never advanced, so the graph reads stale draws and replays step k's draws
+twice. It is held to ``chip_smoke.py``'s phase-20 hold (``fused_hold``) at
+pipeline_v4's widths on a seeded int8 corpus of 1,024 images: 4 eager steps
+against 2 dispatches of 2 on the card, every tensor of the state and the
+last step's metrics bit for bit.
+
 The unmodified tree is held to
 the same gates as a baseline (it must pass them), and a variant that is not a
 fault is reported beside it: the hi, mid and lo products summed in one
@@ -79,8 +87,8 @@ sum per 16-deep step and no round-to-nearest add), at the two shapes and at
 [32, 12, 576, 64]. Each copy builds and runs in its own process, all at once.
 Exits 0 when the baseline passes and every fault is refused at each of its
 shapes (both flash shapes; the four conv shapes; the matmul shapes it can
-reach; the decode batches or the tie case, whichever can see it), 1
-otherwise. The tree itself is not touched.
+reach; the decode batches or the tie case, whichever can see it; the gather
+and graph holds), 1 otherwise. The tree itself is not touched.
 """
 
 import json
@@ -180,6 +188,12 @@ GATHER_FAULTS = {
     "the inverse CDF with >= in place of >":
         ("        tsel = (u[..., None] > store.cumw[img]).sum(-1)\n",
          "        tsel = (u[..., None] >= store.cumw[img]).sum(-1)\n"),
+}
+GRAPH_IMAGES = 1024
+# fused-stepper fault: (sound text, faulty text), the counter never advanced.
+GRAPH_FAULTS = {
+    "a stale step counter in the graph":
+        ("        self._pos.add_(1)\n", ""),
 }
 SITES = [
     ("flash_attention.cu", "// p of P . V", "fwd"),
@@ -294,6 +308,9 @@ def child(root, kernels, shapes):
     if "gather" in kernels:
         gather_rows(dev)
 
+    if "graph" in kernels:
+        graph_rows(dev)
+
     if "mm" in kernels:
         from sgg_torch.kernels import matmul as mm
 
@@ -381,6 +398,30 @@ def gather_rows(dev):
                       "holds": {k: h[k] for k in names}}), flush=True)
 
 
+def graph_rows(dev):
+    """chip_smoke.py's phase-20 hold on the copy's fused stepper at
+    pipeline_v4's widths, on a seeded int8 corpus of GRAPH_IMAGES images
+    with predicate balance: 4 eager steps against 2 dispatches of 2, bit for
+    bit. One JSON line."""
+    import chip_smoke
+    from sgg_torch.config import get_config
+    from sgg_torch.data import TripleDataset, Vocab
+
+    vocab = Vocab.load(os.path.join(ROOT, "results", "run_v3_bal0.7_ckpt", "vocab.json"))
+    feats, triples = chip_smoke.v4_corpus(vocab, GRAPH_IMAGES, 0, dev)
+    ds = TripleDataset(feats, triples)
+    ds.set_predicate_balance(0.7)
+    cfg = get_config("pipeline_v4")
+    cfg.model.vocab_size = len(vocab)
+    h = chip_smoke.fused_hold(dev, cfg, ds, vocab, 4, 2, int8=True)
+    ok = h["equal"] and h["metrics_equal"] and h["graph"]
+    print(json.dumps({"shape": [GRAPH_IMAGES, 196, 512, 256], "output": "graph",
+                      "bf16_gate": ok, "share": len(h["differ"]) / h["tensors"],
+                      "f32_err": None, "tol": None, "f32_gate": True,
+                      "holds": {"tensors": h["equal"], "metrics": h["metrics_equal"]}}),
+          flush=True)
+
+
 def decode_rows(root, dev):
     """The batched fused_decode at vg1k widths, bf16, under chip_smoke.py's
     phase-3 gates, on its inputs (the trained run's config and vocab,
@@ -462,7 +503,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
-    runs = [("sound", [], "fwd,dq,dkv,conv,mm,decode,gather", VARIANT_SHAPES),
+    runs = [("sound", [], "fwd,dq,dkv,conv,mm,decode,gather,graph", VARIANT_SHAPES),
             ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
              "fwd,dq,dkv", VARIANT_SHAPES)]
     for src, tag, kernel in SITES:
@@ -477,6 +518,8 @@ def main() -> int:
         runs.append((label, [(DECODE_SRC, replace_once(sound, faulty))], "decode", []))
     for label, (sound, faulty) in GATHER_FAULTS.items():
         runs.append((label, [(GATHER_SRC, replace_once(sound, faulty))], "gather", []))
+    for label, (sound, faulty) in GRAPH_FAULTS.items():
+        runs.append((label, [(GATHER_SRC, replace_once(sound, faulty))], "graph", []))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for i, (label, edits, kernels, shapes) in enumerate(runs):

@@ -3,7 +3,9 @@
 
   python3 chip_smoke.py
 
-In one process. Phases 1-17 open no thread and no socket; phase 18 opens an
+In one process. Phases 1-17 open no socket, and their only threads are
+the train CLI's stall watchdog and phase 17's upload thread, each stopped and
+joined when its run ends; phase 18 opens an
 HTTP server on 127.0.0.1 with its handler threads, a batcher's worker thread,
 client threads and one subprocess, and closes each in a ``finally``: the
 server is shut down and closed (which joins its handler threads), the batcher
@@ -216,6 +218,39 @@ process; its training runs stop their data threads as phase 17's does:
      --config pipeline_v4`` on them (``preprocess_phase``: the vocab sizes,
      the split, finite losses). Each part's directories go in a
      ``finally``.
+ 20. ``train.steps_per_dispatch`` (``fused_dispatch_phase``, from phase 17's
+     hook after phase 19 (a) and (b), on its corpus of 8,192 images with a
+     device budget of 2 GB, so the whole int8 store (0.82 GB) stays on the
+     card), a checkpoint at the end and no probe (``--set
+     train.checkpoint_every=96 --set train.eval_every=0``; the config's 2,000
+     and 5,000 would round N = 32 to 8): (a) ``train --config pipeline_v4
+     --profile --set train.log_every=16 --set train.steps_per_dispatch=1``
+     for 32 steps, the eager step; (b) ``--steps 96 --set train.log_every=32
+     --set train.steps_per_dispatch=32``: each dispatch 32 replays of one
+     captured CUDA graph, the profile window the dispatch of steps 32-63.
+     For each: s/step and images/s from metrics.jsonl over its last logged
+     interval (16 or 32 steps, past the profile window; a logged step reads
+     the metrics back once), the window's idle share, top device ops and host
+     syncs a step, peak device memory, and for (b) the capture's seconds and
+     the memory it reserved; finite losses at every logged step, no kernel
+     launch. (c) ``fused_hold`` at pipeline_v4's widths on the corpus's first
+     1,024 images (int8, balance 0.7): 4 steps eagerly against 2 dispatches
+     of 2 from the same seeded state, draws and noise; (d) ``fused_hold`` on
+     vit_b16 with ``train_encoder`` over its 256 synthetic images: 8 steps
+     against 2 dispatches of 4, and exactly 72/60/60 flash, dq and dk/dv
+     launches per eager step, 2 x 72/60/60 in the first dispatch (its
+     warm-up step and the captured step) and none in the second (replays
+     call no wrapper). The holds' bound is bit for bit: every parameter and
+     buffer, the EMA, each optimizer's count, mu and nu, the step, and the
+     last step's metrics. No op of either step accumulates with atomics
+     (no index, gather or scatter backward; GEMMs and reductions keep their
+     order on one stream), and a replay runs the kernels that the eager
+     step launches, in its order, on the same buffers. The process's first
+     train step is the exception, found on the card: it sums the critic's
+     first LayerNorm scale gradient in another order (one ulp in about half
+     its elements, the same in every process; one earlier forward and
+     backward of the critic, at any batch, takes the process past it), so
+     each hold first steps a state that it then drops.
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -244,7 +279,7 @@ import sys
 import tempfile
 import time
 
-WATCHDOG_SECONDS = 600
+WATCHDOG_SECONDS = 900
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAINED_RUN = os.path.join(ROOT, "results", "run_v3_bal0.7_ckpt")
 SEED = 0
@@ -270,6 +305,11 @@ CLI_BOUND_S = CLI_READY_S + 2 * HTTP_TIMEOUT + CLI_EXIT_S
 # Phase 19: PredCls draws per row, REINFORCE steps (pipeline_v4 and vit_b16)
 # and the images of the preprocessed VG-shaped corpus.
 PREDCLS_K, RL_STEPS, VIT_RL_STEPS, PP_IMAGES = 16, 4, 3, 2048
+# Phase 20, train.steps_per_dispatch: a budget that holds phase 17's whole int8
+# store (0.82 GB), N, the eager and fused runs' steps (log_every N / 2 and N),
+# the holds' steps, steps per dispatch and images.
+V20_BUDGET, V20_N, V20_EAGER_STEPS, V20_FUSED_STEPS = 2_000_000_000, 32, 32, 96
+V20_HOLD_STEPS, V20_HOLD_N, V20_HOLD_IMAGES, V20_VIT_STEPS, V20_VIT_N = 4, 2, 1024, 8, 4
 DECODE_HOST_US_LIMIT = 60  # fused_decode's wrapper, host us per call at a tiny width
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
@@ -1340,6 +1380,229 @@ def v4_predcls_reinforce_phase(dev, v4_wd, vocab, run_cli, sizes=None, extra_set
         raise AssertionError("the REINFORCE gradient on the card disagrees with the CPU's")
     out["reinforce"] = {"seconds": rl_s, "s_per_step": s_per_step, "gumbel_s": gumbel_s,
                         "worst": worst}
+    return out
+
+
+def state_tensors(state):
+    """Every tensor of a train state by name: the modules' parameters and
+    buffers, the EMA, each optimizer's count and moments, and the step."""
+    import torch
+
+    out = {"step": torch.tensor(state.step)}
+    for name, mod in (("g", state.generator), ("d", state.critic), ("enc", state.encoder)):
+        if mod is not None:
+            out.update({f"{name}.{k_}": v_ for k_, v_ in mod.state_dict().items()})
+    out.update({f"ema.{k_}": v_ for k_, v_ in (state.g_ema or {}).items()})
+    for name, tx in (("g_tx", state.g_tx), ("d_tx", state.d_tx), ("enc_tx", state.enc_tx)):
+        if tx is not None:
+            out[f"{name}.count"] = torch.tensor(tx.count)
+            out.update({f"{name}.mu{i_}": m_ for i_, m_ in enumerate(tx.mu)})
+            out.update({f"{name}.nu{i_}": m_ for i_, m_ in enumerate(tx.nu)})
+    return out
+
+
+def fused_hold(dev, cfg, ds, vocab, steps, n_steps, int8=False, read_counts=None):
+    """Phase 20's hold: ``steps`` train steps from one seeded state run
+    eagerly (``make_device_train_iterator`` and the step, as the train CLI
+    runs them with ``steps_per_dispatch`` = 1), and from the same seeded
+    state through ``make_fused_device_stepper`` at ``n_steps`` per dispatch
+    (on the card: warm-up, capture, replays), with the same draws (each the
+    default generator seeded ``train.seed``) and the same step noise, after
+    one step on a dropped state (the process's first step differs, below).
+    Returns
+    ``equal`` (every tensor of ``state_tensors`` bit for bit), ``metrics_equal``
+    (the last step's metrics bit for bit), the tensors and metrics that differ
+    with their largest difference, the capture's seconds and reserved bytes,
+    and with ``read_counts`` the kernel launches of the eager run and of each
+    dispatch."""
+    import torch
+
+    from sgg_torch.data.pipeline import make_device_train_iterator, make_fused_device_stepper
+    from sgg_torch.train.state import create_train_state
+    from sgg_torch.train.step import make_step_fn
+
+    t = cfg.train
+    counts = read_counts or dict
+    on_card = torch.device(dev).type == "cuda"
+
+    def since(before):
+        return {k_: v_ - before[k_] for k_, v_ in counts().items()}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    step_fn = make_step_fn(cfg, step_mask=vocab.step_mask())
+    it = make_device_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed, device=dev,
+                                    int8_store=int8)
+    # The first train step of a process sums one gradient in another order
+    # (on the card: the critic's first LayerNorm scale, one ulp in about half
+    # its elements, the same in every process; one earlier forward and
+    # backward of the critic, at any batch, takes the process past it). One
+    # step on a state that is then dropped takes both runs past it.
+    step_fn(create_train_state(cfg, t.seed, device=dev), next(it))
+    eager = create_train_state(cfg, t.seed, device=dev)
+    it = make_device_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed, device=dev,
+                                    int8_store=int8)
+    c0 = counts()
+    for _ in range(steps):
+        want = step_fn(eager, next(it))
+    sync()
+    eager_launches = since(c0)
+    del it
+    fused = create_train_state(cfg, t.seed, device=dev)
+    stepper = make_fused_device_stepper(ds, make_step_fn(cfg, step_mask=vocab.step_mask()),
+                                        t.batch_size, t.n_critic, n_steps, seed=t.seed,
+                                        device=dev, int8_store=int8)
+    per_dispatch = []
+    for d_ in range(steps // n_steps):
+        c_ = counts()
+        got = stepper(fused, d_ * n_steps)
+        sync()
+        per_dispatch.append(since(c_))
+
+    def diff(a, b):
+        return {k_: float((a[k_].double() - b[k_].double()).abs().max())
+                for k_ in a if not torch.equal(a[k_], b[k_])}
+
+    a_, b_ = state_tensors(eager), state_tensors(fused)
+    if a_.keys() != b_.keys() or want.keys() != got.keys():
+        raise AssertionError("the eager and the fused state hold different tensors")
+    return {"equal": not diff(a_, b_), "differ": diff(a_, b_), "tensors": len(a_),
+            "metrics_equal": not diff(want, got), "metrics_differ": diff(want, got),
+            "last": {k_: float(v_) for k_, v_ in got.items()}, "graph": stepper.graph is not None,
+            "capture_s": stepper.capture_s, "capture_bytes": stepper.capture_bytes,
+            "eager_launches": eager_launches, "per_dispatch": per_dispatch}
+
+
+def fused_dispatch_phase(dev, data_dir, vocab, run_cli, read_counts, sizes=None,
+                         extra_sets=None):
+    """Phase 20, ``train.steps_per_dispatch``, on phase 17's corpus in
+    ``data_dir`` (its vocab ``vocab``) with a device budget that holds its
+    whole int8 store: (a) and (b) the train CLI eager and fused with
+    ``--profile``; (c) ``fused_hold`` at pipeline_v4's widths; (d)
+    ``fused_hold`` on vit_b16 with ``train_encoder``. ``run_cli`` and
+    ``read_counts`` as in ``main``; ``sizes`` and ``extra_sets`` shrink it
+    for a dry run on the CPU. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from sgg_torch.cli import train as train_cli
+    from sgg_torch.cli.common import load_dataset
+    from sgg_torch.config import get_config
+    from sgg_torch.data import TripleDataset, list_shards
+
+    z_ = {"eager_steps": V20_EAGER_STEPS, "fused_steps": V20_FUSED_STEPS, "n": V20_N,
+          "hold_images": V20_HOLD_IMAGES, "vit_images": VIT_IMAGES, **(sizes or {})}
+    on_card = torch.device(dev).type == "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        # The eager run logs every N / 2 steps, so that its last interval
+        # lies past the profile window; each logged step reads the metrics
+        # back once. Checkpoint and probe cadences that N divides keep it
+        # unrounded (the config's 2,000 and 5,000 would round 32 to 8).
+        for label, steps, n, every in (("eager", z_["eager_steps"], 1, z_["n"] // 2),
+                                       ("fused", z_["fused_steps"], z_["n"], z_["n"])):
+            wd = os.path.join(root, label)
+            sets = {**(extra_sets or {}), "data.data_dir": data_dir,
+                    "data.device_resident_max_bytes": V20_BUDGET, "train.log_every": every,
+                    "train.checkpoint_every": z_["fused_steps"], "train.eval_every": 0,
+                    "train.steps_per_dispatch": n}
+            argv = ["--config", "pipeline_v4", "--workdir", wd, "--steps", str(steps),
+                    "--profile"]
+            for k_, v_ in sets.items():
+                argv += ["--set", f"{k_}={v_}"]
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+                run_s, counts = run_cli(train_cli.main, argv, f"sgg_torch.cli.train {label}")
+            peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+            text = printed.getvalue()
+            lines = [r_ for r_ in read_metric_lines(wd) if "d_loss" in r_]
+            if ([r_["step"] for r_ in lines] != list(range(every, steps + 1, every))
+                    or not all(math.isfinite(v_) for r_ in lines for v_ in r_.values())):
+                raise AssertionError(f"phase 20 ({label}): metrics.jsonl {lines}")
+            idle, table = read_profile(wd, f"pipeline_v4 {label}")
+            first = table.splitlines()[0]
+            # The window opens at the first dispatch boundary at or after step
+            # 10 and closes at the first one at or after step 15.
+            lo = -(-10 // n) * n
+            want_first = f"steps {lo}-{max(lo + n, -(-15 // n) * n) - 1} "
+            syncs = float(re.search(r"host syncs \d+ \(([\d.]+) a step\)", table).group(1)) \
+                if "host syncs" in table else float("nan")
+            fused_line = f"fused dispatch: {n} steps/program" in text
+            cap = re.search(r"captured in ([\d.]+) s, ([\d.]+) GB reserved", text)
+            r_ = {"s": run_s, "s_per_step": 1 / lines[-1]["steps_per_sec"],
+                  "images_per_s": lines[-1]["images_per_sec"], "idle": idle, "syncs": syncs,
+                  "peak_gb": peak, "window": first, "launches": counts,
+                  "capture_s": float(cap.group(1)) if cap else None,
+                  "capture_gb": float(cap.group(2)) if cap else None}
+            out[label] = r_
+            log(f"phase 20 ({'a' if n == 1 else 'b'}) train pipeline_v4 {label}, "
+                f"steps_per_dispatch {n}, log_every {every}: {steps} steps in {run_s:.3f} s in "
+                f"process (set-up and checkpoint included); {r_['s_per_step']:.4f} s/step and "
+                f"{r_['images_per_s']:.1f} images/s over steps {lines[-2]['step']}-"
+                f"{lines[-1]['step']} (metrics.jsonl); profile window '{first}', idle share "
+                f"{idle}, host syncs {syncs} a step; peak device memory {peak:.3f} GB; "
+                f"capture {r_['capture_s']} s, {r_['capture_gb']} GB reserved; launches "
+                f"{counts} (none expected)")
+            if (any(counts.values()) or not first.startswith(want_first)
+                    or fused_line != (n > 1) or (n > 1 and on_card and cap is None)):
+                raise AssertionError(f"phase 20 ({label}): launches {counts}, window "
+                                     f"{first!r}, fused line {fused_line}, capture {cap}")
+
+    # (c) The hold at pipeline_v4's widths, on the first images of the corpus.
+    full = TripleDataset.from_shards(list_shards(data_dir))
+    n_h = min(z_["hold_images"], len(full))
+    ds = TripleDataset(np.ascontiguousarray(full.features[:n_h]), full.triples[:n_h])
+    del full
+    ds.set_predicate_balance(0.7)
+    cfg = get_config("pipeline_v4").override(
+        [f"{k_}={v_}" for k_, v_ in (extra_sets or {}).items()])
+    cfg.model.vocab_size = len(vocab)
+    h = fused_hold(dev, cfg, ds, vocab, V20_HOLD_STEPS, V20_HOLD_N, int8=True)
+    out["hold_v4"] = h
+    log(f"phase 20 (c) hold, pipeline_v4 (B {cfg.train.batch_size}, grad_accum "
+        f"{cfg.train.grad_accum}, n_critic {cfg.train.n_critic}, {cfg.model.compute_dtype}, "
+        f"int8 store of {n_h} images, balance 0.7): {V20_HOLD_STEPS} eager steps against "
+        f"{V20_HOLD_STEPS // V20_HOLD_N} dispatches of {V20_HOLD_N}: {h['tensors']} tensors "
+        f"bit for bit {h['equal']} (differing: {dict(list(h['differ'].items())[:8])}); last "
+        f"metrics bit for bit {h['metrics_equal']} {h['metrics_differ']}; graph {h['graph']}, "
+        f"captured in {h['capture_s']} s, {h['capture_bytes']} bytes reserved; last losses "
+        f"d {h['last']['d_loss']:.4f}, g {h['last']['g_loss']:.4f}")
+    if not (h["equal"] and h["metrics_equal"] and h["graph"] == on_card):
+        raise AssertionError("phase 20 (c): the fused steps differ from the eager steps")
+    del ds
+
+    # (d) vit_b16 with train_encoder: the three flash kernels inside the graph.
+    vcfg = get_config("vit_b16").override(
+        ["train.train_encoder=true", f"data.num_synthetic_images={z_['vit_images']}",
+         *(f"{k_}={v_}" for k_, v_ in (z_.get("vit_sets") or {}).items())])
+    vds, vvocab = load_dataset(vcfg)
+    vcfg.model.vocab_size = len(vvocab)
+    hv = fused_hold(dev, vcfg, vds, vvocab, V20_VIT_STEPS, V20_VIT_N, read_counts=read_counts)
+    out["hold_vit"] = hv
+    per_step = {"flash_attention": 72, "flash_attention_bwd_dq": 60,
+                "flash_attention_bwd_dkv": 60}
+    want_eager = {k_: (V20_VIT_STEPS * per_step.get(k_, 0) if on_card else 0)
+                  for k_ in hv["eager_launches"]}
+    want_first = {k_: (2 * per_step.get(k_, 0) if on_card else 0)
+                  for k_ in hv["eager_launches"]}
+    zero = {k_: 0 for k_ in hv["eager_launches"]}
+    log(f"phase 20 (d) hold, vit_b16 train_encoder (B {vcfg.train.batch_size}, n_critic "
+        f"{vcfg.train.n_critic}, {vcfg.model.compute_dtype}): {V20_VIT_STEPS} eager steps "
+        f"against {V20_VIT_STEPS // V20_VIT_N} dispatches of {V20_VIT_N}: {hv['tensors']} "
+        f"tensors bit for bit {hv['equal']} (differing: "
+        f"{dict(list(hv['differ'].items())[:8])}); last metrics bit for bit "
+        f"{hv['metrics_equal']} {hv['metrics_differ']}; captured in {hv['capture_s']} s, "
+        f"{hv['capture_bytes']} bytes reserved; launches: eager {hv['eager_launches']}, per "
+        f"dispatch {hv['per_dispatch']} (the first dispatch: one warm-up step and the "
+        f"captured step, 72/60/60 each; replays add none)")
+    if not (hv["equal"] and hv["metrics_equal"] and hv["eager_launches"] == want_eager
+            and hv["per_dispatch"] == [want_first] + [zero] * (len(hv["per_dispatch"]) - 1)):
+        raise AssertionError("phase 20 (d): the fused vit_b16 steps differ from the eager "
+                             "steps or launched unexpectedly")
     return out
 
 
@@ -2821,7 +3084,7 @@ def main():
     t0 = time.perf_counter()
     serving = {}
 
-    v19 = {}
+    v19, v20 = {}, {}
 
     def serve_v4(wd):
         t18 = time.perf_counter()
@@ -2833,6 +3096,11 @@ def main():
         t19 = time.perf_counter()
         v19.update(v4_predcls_reinforce_phase(dev, wd, vocab, run_cli))
         phase("predcls and reinforce on pipeline_v4", t19)
+        # 20. train.steps_per_dispatch on phase 17's corpus, then the holds.
+        t20 = time.perf_counter()
+        v20.update(fused_dispatch_phase(dev, os.path.join(os.path.dirname(wd), "shards"),
+                                        vocab, run_cli, read_counts))
+        phase("fused dispatch (phase 20)", t20)
 
     v4_fused_counts = pipeline_v4_phase(dev, vocab, run_cli, on_workdir=serve_v4)
     phase("main_path_pipeline_v4 and serve", t0)
@@ -2881,6 +3149,13 @@ def main():
         f"{vrl_counts['flash_attention_bwd_dq']}, dk/dv {vrl_counts['flash_attention_bwd_dkv']} "
         f"({VIT_RL_STEPS} REINFORCE steps on vit_b16); none on PredCls, REINFORCE on "
         f"pipeline_v4 or preprocess")
+    e20, f20 = v20["eager"], v20["fused"]
+    log(f"phase 20: pipeline_v4 eager {e20['s_per_step']:.4f} s/step, idle {e20['idle']}, "
+        f"{e20['syncs']} syncs a step, peak {e20['peak_gb']:.3f} GB; fused (N = {V20_N}) "
+        f"{f20['s_per_step']:.4f} s/step, idle {f20['idle']}, {f20['syncs']} syncs a step, "
+        f"peak {f20['peak_gb']:.3f} GB, capture {f20['capture_s']} s and {f20['capture_gb']} "
+        f"GB; {e20['s_per_step'] / f20['s_per_step']:.2f}x; holds bit for bit: pipeline_v4 "
+        f"{v20['hold_v4']['equal']}, vit_b16 {v20['hold_vit']['equal']}")
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",

@@ -28,6 +28,19 @@ same workdir resumes from the latest checkpoint. ``--profile`` traces steps
 a table of the top device ops with the device's idle share). SIGTERM or
 SIGINT saves the state and exits. ``--debug-nans`` fails the run at the first
 step whose forward or backward makes a NaN (``sgg_torch.utils.debug``).
+``train.steps_per_dispatch`` = N > 1 on the device-resident store runs N
+sample-and-step iterations per dispatch (``make_fused_device_stepper``: on
+CUDA N replays of one captured CUDA graph), N rounded as the reference rounds
+it (:func:`dispatch_stride`); log, probe, checkpoint, SIGTERM and the
+watchdogs then act at dispatch boundaries, and the profile window opens at
+the first boundary at or after its step. The rotating and the host iterators,
+and ``--debug-nans``, fall back to one step per dispatch, each with a line
+that says so. Two watchdogs hand a run over to a supervisor, as the
+reference's do: with ``train.stall_exit_sec`` > 0 a thread exits the process
+with 86 when no log boundary, probe or checkpoint has landed for that long;
+with ``train.host_rss_exit_gb`` > 0 the run checkpoints and returns 75 at a
+log or checkpoint boundary before the last step where the process's resident
+memory exceeds it. A relaunch on the same workdir resumes.
 ``--set train.estimator=reinforce`` trains the generator with the
 score-function estimator (``--set train.rl_entropy=C`` adds its entropy
 bonus).
@@ -35,18 +48,28 @@ bonus).
   python -m sgg_torch.cli.train --config pipeline_v4 --workdir W \\
       --set data.data_dir=SHARDS [--profile]
 
+pipeline_v4's cadences (log 50, checkpoint 2,000, eval 5,000) round its
+N = 32 to 2, in both packages. On the card, set the three to multiples of N
+and a budget that holds the whole int8 store (VG's is about 10.8 GB):
+
+  python -m sgg_torch.cli.train --config pipeline_v4 --workdir W \\
+      --set data.data_dir=SHARDS --set data.device_resident_max_bytes=12000000000 \\
+      --set train.log_every=32 --set train.checkpoint_every=2048 \\
+      --set train.eval_every=5120
+
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
 there. Not ported yet: meshes and the distributed tiers, and grain.
-``train.steps_per_dispatch`` and ``train.host_rss_exit_gb`` exist for the
-reference's TPU relay and are not read.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import signal
 import sys
+import threading
+import time
 
 import torch
 
@@ -64,6 +87,7 @@ from sgg_torch.data.pipeline import (
     RotatingDeviceIterator,
     data_store,
     make_device_train_iterator,
+    make_fused_device_stepper,
     make_train_iterator,
 )
 from sgg_torch.train.checkpoint import CheckpointManager
@@ -71,8 +95,10 @@ from sgg_torch.train.eval_probe import EvalProbe
 from sgg_torch.train.metrics import MetricLogger
 from sgg_torch.train.state import create_train_state, param_count
 from sgg_torch.train.step import make_step_fn, refuse_unported
-from sgg_torch.utils.debug import assert_super_batch, enable_nan_checks
+from sgg_torch.utils.debug import assert_super_batch, enable_nan_checks, host_rss_gb
 from sgg_torch.utils.profiling import StepProfiler
+
+STALL_POLL_SEC = 30.0  # how often the stall watchdog looks
 
 
 def _refusal(cfg: Config) -> str | None:
@@ -87,21 +113,64 @@ def _refusal(cfg: Config) -> str | None:
     return None
 
 
-def _batches(cfg: Config, ds, device: torch.device):
-    """(iterator of super-batches on ``device``, description)."""
+def data_route(cfg: Config, ds) -> tuple[str, int, bool]:
+    """Which iterator feeds the run: ``device`` (the whole store on the
+    device), ``rotating`` or ``host``; with the store's bytes on the device
+    and whether it is int8."""
     store, _ = data_store(ds)
-    t, d = cfg.train, cfg.data
+    d = cfg.data
     int8 = bool(d.feature_store_int8) and hasattr(ds, "features")
     # Bytes on the device: int8 keeps one byte per value and a float32 scale
     # per region.
     nbytes = store.size + store[..., 0].size * 4 if int8 else store.nbytes
-    tag = ", int8+scale" if int8 else ""
     if d.device_resident and nbytes <= d.device_resident_max_bytes:
-        it = make_device_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed,
-                                        device=device, int8_store=int8)
-        return it, f"device-resident dataset ({nbytes / 1e6:.0f} MB on {device}{tag})"
+        return "device", nbytes, int8
     if d.device_resident and d.rotate_subsets and isinstance(
             ds, (TripleDataset, ArrayImageTripleDataset)):
+        return "rotating", nbytes, int8
+    return "host", nbytes, int8
+
+
+def dispatch_stride(cfg: Config, route: str, resume_step: int,
+                    debug_nans: bool = False) -> tuple[int, list[str]]:
+    """(steps per dispatch, the lines to print), the reference's rule: N =
+    ``train.steps_per_dispatch`` runs fused only on the device-resident store
+    (``route`` as :func:`data_route` gives it), else the run falls back to one
+    step per dispatch; N is rounded to the gcd of N, the log, checkpoint and
+    eval cadences, the total steps and the resume step, so every boundary
+    falls between two dispatches. ``--debug-nans`` checks every step, so it
+    falls back too (the reference has no such case)."""
+    t = cfg.train
+    stride = max(1, int(t.steps_per_dispatch))
+    if stride == 1:
+        return 1, []
+    if route != "device":
+        return 1, ["[sgg.train] steps_per_dispatch needs the single-process device-resident "
+                   "data path — falling back to per-step dispatch"]
+    if debug_nans:
+        return 1, ["[sgg.train] steps_per_dispatch with --debug-nans, which checks every "
+                   "step — falling back to per-step dispatch"]
+    for v in (t.log_every, t.checkpoint_every, t.eval_every or stride, t.total_steps,
+              resume_step or stride):
+        stride = math.gcd(stride, v)
+    lines = []
+    if stride != t.steps_per_dispatch:
+        lines.append(f"[sgg.train] steps_per_dispatch rounded to {stride} (gcd of "
+                     "log/checkpoint/eval cadences + resume step)")
+    if stride > 1:
+        lines.append(f"[sgg.train] fused dispatch: {stride} steps/program")
+    return stride, lines
+
+
+def _batches(cfg: Config, ds, device: torch.device, route: str, nbytes: int, int8: bool):
+    """(iterator of super-batches on ``device``, description)."""
+    t, d = cfg.train, cfg.data
+    tag = ", int8+scale" if int8 else ""
+    if route == "device":
+        it = make_device_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed,
+                                        device=device, int8_store=int8)
+        return it, _resident(nbytes, device, tag)
+    if route == "rotating":
         subset_bytes = d.device_resident_max_bytes // 2
         it = RotatingDeviceIterator(
             ds, t.batch_size, t.n_critic, seed=t.seed, subset_bytes=subset_bytes,
@@ -120,6 +189,45 @@ def _batches(cfg: Config, ds, device: torch.device):
             host.close()
 
     return to_device(), "host iterator with prefetch"
+
+
+def _resident(nbytes: int, device: torch.device, tag: str) -> str:
+    return f"device-resident dataset ({nbytes / 1e6:.0f} MB on {device}{tag})"
+
+
+class StallWatchdog:
+    """The reference's stall watchdog: with ``limit_s`` > 0 a daemon thread
+    looks every ``STALL_POLL_SEC`` and exits the process with 86 when nothing
+    has called :meth:`stamp` for ``limit_s`` seconds. The loop's own thread
+    may be stuck inside a hung device call, so only another thread can see
+    the stall; a supervisor relaunches into the resume. :meth:`stop` ends
+    the thread."""
+
+    def __init__(self, limit_s: float):
+        self.limit_s = limit_s
+        self.last = time.time()
+        self._stop = threading.Event()
+        self.thread = None
+        if limit_s > 0:
+            self.thread = threading.Thread(target=self._watch, daemon=True,
+                                           name="sgg-torch-stall-watchdog")
+            self.thread.start()
+
+    def stamp(self) -> None:
+        self.last = time.time()
+
+    def _watch(self) -> None:
+        while not self._stop.wait(STALL_POLL_SEC):
+            dt = time.time() - self.last
+            if dt > self.limit_s:
+                print(f"[sgg.train] STALL: no log readback for {dt:.0f}s (hung device "
+                      "call?) — exit 86 for supervised relaunch", flush=True)
+                os._exit(86)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self.thread is not None:
+            self.thread.join(timeout=10)
 
 
 def main(argv=None) -> int:
@@ -177,14 +285,25 @@ def main(argv=None) -> int:
     step_fn = make_step_fn(cfg, step_mask=vocab.step_mask())
     if args.debug_nans:
         step_fn = enable_nan_checks(step_fn)
-    it, how = _batches(cfg, ds, device)
+    t = cfg.train
+    route, nbytes, int8 = data_route(cfg, ds)
+    stride, notes = dispatch_stride(cfg, route, state.step, debug_nans=args.debug_nans)
+    it = stepper = None
+    if stride > 1:
+        stepper = make_fused_device_stepper(ds, step_fn, t.batch_size, t.n_critic, stride,
+                                            seed=t.seed, device=device, int8_store=int8)
+        how = _resident(nbytes, device, ", int8+scale" if int8 else "")
+    else:
+        it, how = _batches(cfg, ds, device, route, nbytes, int8)
     print(f"[sgg.train] {how}", flush=True)
+    for line in notes:
+        print(line, flush=True)
     logger = MetricLogger(cfg.workdir)
-    images_per_step = cfg.train.batch_size * (cfg.train.n_critic + 1)
+    images_per_step = t.batch_size * (t.n_critic + 1)
     probe = None
-    if cfg.train.eval_every > 0:
+    if t.eval_every > 0:
         probe = EvalProbe(cfg, vocab, device, log=lambda m: print(m, flush=True))
-        print(f"[sgg.train] eval probe every {cfg.train.eval_every} steps "
+        print(f"[sgg.train] eval probe every {t.eval_every} steps "
               f"({probe.n_images} held-out images, recall@{probe.k})", flush=True)
     profiler = None
     if args.profile:
@@ -205,41 +324,66 @@ def main(argv=None) -> int:
         except ValueError:
             pass  # not the main thread
 
-    t = cfg.train
+    # Progress is stamped at every log boundary, probe and checkpoint.
+    watchdog = StallWatchdog(t.stall_exit_sec)
     first = state.step
     try:
-        for i in range(first, t.total_steps):
+        for i in range(first, t.total_steps, stride):
             if preempted["flag"]:
                 print(f"[sgg.train] preemption signal: checkpointing at step {i} and exiting",
                       flush=True)
                 ckpt.save(state)
                 return 0
-            batch = next(it)
-            if i == first:
-                assert_super_batch(batch, t.n_critic, t.batch_size)
             if profiler:
                 profiler.maybe_start(i)
-            metrics = step_fn(state, batch)
-            step = i + 1
+            if stepper is not None:
+                metrics = stepper(state, i - first)  # sample steps count from this launch
+            else:
+                batch = next(it)
+                if i == first:
+                    assert_super_batch(batch, t.n_critic, t.batch_size)
+                metrics = step_fn(state, batch)
+            step = i + stride
             if profiler and profiler.maybe_stop(step):
                 print(f"[sgg.train] profile trace -> {profiler.logdir}\n"
                       f"{profiler.summary['table']}", flush=True)
             if step % t.log_every == 0 or step == t.total_steps:
                 logger.log(step, metrics, images_per_step=images_per_step)
+                watchdog.stamp()
             if probe and (step % t.eval_every == 0 or step == t.total_steps):
                 logger.log(step, probe.run(state, step))
-            if step % t.checkpoint_every == 0 or step == t.total_steps:
+                watchdog.stamp()
+            at_ckpt = step % t.checkpoint_every == 0 or step == t.total_steps
+            if at_ckpt:
                 ckpt.save(state)
+                watchdog.stamp()
+            # The host-RSS handover, at every log or checkpoint boundary
+            # before the last step.
+            limit = t.host_rss_exit_gb
+            if limit > 0 and step < t.total_steps and (at_ckpt or step % t.log_every == 0):
+                rss = host_rss_gb()
+                if rss > limit:
+                    if not at_ckpt:
+                        ckpt.save(state)
+                    print(f"[sgg.train] host RSS {rss:.1f} GB > {limit:.0f} GB limit — "
+                          f"checkpointed at step {step}, exiting 75 for supervised relaunch",
+                          flush=True)
+                    return 75
     finally:
+        watchdog.stop()
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
-        it.close()
+        if it is not None:
+            it.close()
         logger.close()
         if isinstance(it, RotatingDeviceIterator):
             print(f"[sgg.train] rotation: {it.swaps} swaps over {it.n_subsets} subsets, at "
                   f"most {it.max_alive} alive, {len(it.uploads)} uploads (host gather "
                   f"{sum(u[1] for u in it.uploads):.3f} s, device copy "
                   f"{sum(u[2] for u in it.uploads):.3f} s)", flush=True)
+        if stepper is not None and stepper.capture_s is not None:
+            print(f"[sgg.train] CUDA graph of one step: captured in {stepper.capture_s:.3f} s, "
+                  f"{stepper.capture_bytes / 1e9:.3f} GB reserved", flush=True)
     print(f"[sgg.train] done at step {state.step} -> {cfg.workdir}", flush=True)
     return 0
 

@@ -239,7 +239,11 @@ def _cfg_pipeline_v4() -> Config:
     rotating device-resident subsets of at most half of it each, with at least
     ``data.rotation_min_steps`` steps per subset; raise the budget with
     ``--set`` to keep more of the store on the card at once.
-    ``train.steps_per_dispatch`` is the reference's and is not read here."""
+    ``train.steps_per_dispatch`` = 32 fuses 32 steps per dispatch when the
+    whole store is on the device, rounded to the gcd of 32 and the log,
+    checkpoint and eval cadences (50, 2,000 and 5,000 give 2); the card's
+    recipe sets all three to multiples of 32 and a budget that holds the
+    store (``sgg_torch.cli.train``)."""
     c = Config(name="pipeline_v4")
     c.model.compute_dtype = "bfloat16"
     c.data.source = "shards"

@@ -23,6 +23,9 @@ has set them.
     resident subset while a thread uploads the next, and the iterator swaps
     once it is ready and the subset has served ``min_steps_per_subset``
     steps.
+  - :func:`make_fused_device_stepper`: the device-resident store, N
+    sample-and-step iterations per call, on the card N replays of one
+    captured CUDA graph (``train.steps_per_dispatch``).
 The grain loader comes with a later slice.
 """
 
@@ -298,6 +301,18 @@ def make_train_iterator(dataset, batch_size: int, n_critic: int, seed: int = 0,
         thread.join(timeout=10)
 
 
+def device_store(dataset, int8_store: bool, device) -> DeviceStore:
+    """The dataset's store (features, int8 features with their scale, or
+    uint8 images) and its triple tables on ``device``."""
+    store_host, scale_host, key, store_dtype = _store_parts(dataset, int8_store)
+    tri = dataset.triples
+    weights = getattr(dataset, "triple_weights", None)
+    dense, counts, cumw = _triple_tables(tri, weights, max(t.shape[0] for t in tri))
+    put = lambda a: None if a is None else to_tensor(a).to(device)  # noqa: E731
+    return DeviceStore(put(store_host), put(scale_host), put(dense), put(counts), put(cumw),
+                       store_dtype, key)
+
+
 def make_device_train_iterator(dataset, batch_size: int, n_critic: int, seed: int = 0,
                                device: torch.device | str = "cuda", int8_store: bool = False,
                                draws: Callable | None = None) -> Iterator[dict]:
@@ -307,14 +322,8 @@ def make_device_train_iterator(dataset, batch_size: int, n_critic: int, seed: in
     → (img, u)`` gives each step's draws (default: a ``torch.Generator`` on
     the device seeded with ``seed``: img uniform over the images, u uniform
     in [0, 1))."""
-    store_host, scale_host, key, store_dtype = _store_parts(dataset, int8_store)
-    tri = dataset.triples
-    weights = getattr(dataset, "triple_weights", None)
-    dense, counts, cumw = _triple_tables(tri, weights, max(t.shape[0] for t in tri))
-    put = lambda a: None if a is None else to_tensor(a).to(device)  # noqa: E731
-    store = DeviceStore(put(store_host), put(scale_host), put(dense), put(counts), put(cumw),
-                        store_dtype, key)
-    draws = draws or _draw_fn(device, seed, (n_critic + 1, batch_size), len(tri))
+    store = device_store(dataset, int8_store, device)
+    draws = draws or _draw_fn(device, seed, (n_critic + 1, batch_size), len(store))
 
     def gen_batches():
         step = 0
@@ -324,6 +333,123 @@ def make_device_train_iterator(dataset, batch_size: int, n_critic: int, seed: in
             step += 1
 
     return gen_batches()
+
+
+class FusedStepper:
+    """``n_steps`` sample-and-step iterations per call, the counterpart of
+    the reference's ``lax.scan(step ∘ sample)``
+    (:func:`make_fused_device_stepper` builds it).
+
+    ``stepper(state, step0) → metrics`` runs sample steps ``step0`` to
+    ``step0 + n_steps − 1`` and train steps ``state.step`` onwards, leaves
+    the state advanced and returns the last step's metrics. Before each call
+    the host fills a static buffer with the steps' draws, in order: each
+    step's ``(img, u)`` from ``draws`` and its noise and ``tau`` from
+    ``step_fn.inputs`` (what ``step_fn`` draws when given no noise). One
+    iteration (:meth:`_body`) reads its row of the buffer at a device
+    counter, gathers the super-batch (:func:`gather_super_batch`), runs
+    ``step_fn`` and advances the counter, so it reads nothing else from the
+    host.
+
+    On CUDA the first call runs ``WARMUP`` iterations eagerly on a side
+    stream (kernel builds, library plans, the allocator), then captures one
+    iteration in a ``torch.cuda.CUDAGraph`` (it does not run while captured)
+    and replays it for the rest of the steps; every later call is
+    ``n_steps`` replays with no wait for the device. A failed capture
+    raises. The warm-up iterations are steps of the sequence, so the state
+    after a call does not depend on where the capture fell.
+    ``capture_s`` and ``capture_bytes`` (the device memory the capture
+    reserved) record it. On the CPU a call runs the ``n_steps`` iterations
+    eagerly, with no graph.
+    """
+
+    WARMUP = 1
+
+    def __init__(self, store: DeviceStore, step_fn: Callable, shape: tuple, n_steps: int,
+                 draws: Callable, device: torch.device):
+        self.store, self.step_fn, self.shape, self.n_steps = store, step_fn, shape, n_steps
+        self.draws, self.device = draws, device
+        self.graph = None
+        self.capture_s = self.capture_bytes = None
+        self._buf: dict | None = None
+        self._pos = torch.zeros(1, dtype=torch.long, device=device)
+        self._out: dict | None = None
+
+    def _fill(self, state, step0: int) -> None:
+        for k in range(self.n_steps):
+            img, u = self.draws(step0 + k)
+            row = {"img": img, "u": u,
+                   **self.step_fn.inputs(state.step + k, self.shape[1], self.device)}
+            if self._buf is None:
+                self._buf = {name: torch.empty((self.n_steps, *t.shape), dtype=t.dtype,
+                                               device=self.device) for name, t in row.items()}
+            for name, t in row.items():
+                self._buf[name][k].copy_(t)
+        self._pos.zero_()
+
+    def _body(self, state) -> dict:
+        row = {name: b.index_select(0, self._pos).squeeze(0) for name, b in self._buf.items()}
+        batch = gather_super_batch(self.store, row.pop("img"), row.pop("u"))
+        metrics = self.step_fn(state, batch, row)
+        self._pos.add_(1)
+        return metrics
+
+    def _capture(self, state) -> int:
+        """Warm-up iterations, then the capture; returns the steps run."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(main)
+        warm = min(self.WARMUP, self.n_steps - 1)
+        with torch.cuda.stream(side):
+            for _ in range(warm):
+                self._body(state)
+        main.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()  # as the capture does; what it reserves then is the graph's
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        graph, step = torch.cuda.CUDAGraph(), state.step
+        with torch.cuda.graph(graph):
+            self._out = self._body(state)
+        state.step = step  # captured, not run
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.capture_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph = graph
+        return warm
+
+    def __call__(self, state, step0: int) -> dict:
+        self._fill(state, step0)
+        if self.device.type != "cuda":
+            for _ in range(self.n_steps):
+                metrics = self._body(state)
+            return metrics
+        first = state.step
+        ran = self._capture(state) if self.graph is None else 0
+        for _ in range(self.n_steps - ran):
+            self.graph.replay()
+        state.step = first + self.n_steps
+        return {k: v.clone() for k, v in self._out.items()}
+
+
+def make_fused_device_stepper(dataset, step_fn: Callable, batch_size: int, n_critic: int,
+                              n_steps: int, seed: int = 0, device: torch.device | str = "cuda",
+                              int8_store: bool = False, draws: Callable | None = None
+                              ) -> FusedStepper:
+    """N train steps per call over the device-resident store, from the
+    reference's ``make_fused_device_stepper``: a :class:`FusedStepper`,
+    ``stepper(state, step0) → last metrics``, where ``step0`` counts sample
+    steps from this process's launch (the per-step iterator also restarts
+    its draws on relaunch). Its draws are :func:`make_device_train_iterator`'s
+    (the same ``draws``, default the same seeded generator, drawn in the
+    same order) and its step noise is what ``step_fn`` draws per step, so
+    N is a pure scheduling choice: N steps of it equal N steps of the
+    iterator and ``step_fn``."""
+    device = torch.device(device)
+    store = device_store(dataset, int8_store, device)
+    shape = (n_critic + 1, batch_size)
+    return FusedStepper(store, step_fn, shape, n_steps,
+                        draws or _draw_fn(device, seed, shape, len(store)), device)
 
 
 def rotation_subsets(n: int, per_image_bytes: int, subset_bytes: int, seed: int

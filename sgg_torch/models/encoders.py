@@ -10,6 +10,7 @@ from torch import nn
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
+_STATS: dict = {}  # device → (mean, std) float32 [3]
 _LATER = "is not ported yet; a later slice of the port brings it"
 
 
@@ -21,8 +22,10 @@ def normalize_for(name: str, images_u8: torch.Tensor) -> torch.Tensor:
 
         return vgg_preprocess(images_u8)
     x = images_u8.float() / 255.0
-    mean = torch.tensor(_IMAGENET_MEAN, device=x.device)
-    std = torch.tensor(_IMAGENET_STD, device=x.device)
+    if x.device not in _STATS:  # copied to each device once, not at every call
+        _STATS[x.device] = (torch.tensor(_IMAGENET_MEAN).to(x.device),
+                            torch.tensor(_IMAGENET_STD).to(x.device))
+    mean, std = _STATS[x.device]
     return (x - mean) / std
 
 

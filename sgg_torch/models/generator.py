@@ -137,7 +137,7 @@ class AttentionLSTMGenerator(nn.Module):
             if step_mask is not None:
                 logits = torch.where(
                     step_mask[t][None, :], logits,
-                    torch.tensor(MASK_VALUE, dtype=logits.dtype, device=logits.device),
+                    torch.full((), MASK_VALUE, dtype=logits.dtype, device=logits.device),
                 )
             logits32 = logits.float()
             samp32 = sampling_logits(logits32, sample_temp, sample_top_k, sample_top_p)

@@ -79,8 +79,9 @@ class LayerNorm(nn.Module):
 
 
 def _const(v: float, x: torch.Tensor) -> torch.Tensor:
-    """A Python float as JAX combines it with an array: rounded to x's dtype."""
-    return torch.tensor(v, dtype=x.dtype, device=x.device)
+    """A Python float as JAX combines it with an array: rounded to x's dtype
+    (a fill on x's device, no copy from the host)."""
+    return torch.full((), v, dtype=x.dtype, device=x.device)
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -42,7 +42,7 @@ from sgg_torch.utils.gumbel import gumbel_softmax
 def _scaled(s: torch.Tensor, D: int) -> torch.Tensor:
     """s · D^-0.5 with the scale rounded to s's dtype first, as JAX multiplies
     an array by a Python float."""
-    return s * torch.tensor(D ** -0.5, dtype=s.dtype, device=s.device)
+    return s * torch.full((), D ** -0.5, dtype=s.dtype, device=s.device)
 
 
 class _CrossAttention(nn.Module):
@@ -154,7 +154,7 @@ class TransformerTripleGenerator(nn.Module):
         if step_mask is not None:
             m = step_mask.to(device=logits.device, dtype=torch.bool)[None]
             logits = torch.where(
-                m, logits, torch.tensor(MASK_VALUE, dtype=logits.dtype, device=logits.device))
+                m, logits, torch.full((), MASK_VALUE, dtype=logits.dtype, device=logits.device))
         logits32 = logits.float()
         samp32 = sampling_logits(logits32, sample_temp, sample_top_k, sample_top_p)
 

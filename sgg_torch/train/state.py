@@ -4,10 +4,11 @@
 ``g_params``/``d_params``/``enc_params`` trees), an :class:`Adam` per module
 (its ``*_opt_state``), the step and the generator's EMA. The step updates it
 in place. Optimizers follow optax's ``adam`` with β = (0.5, 0.9), eps 1e-8,
-behind an optional ``clip_by_global_norm`` (:func:`clip_by_global_norm`,
-optax's function: scale by max/‖g‖ only when ‖g‖ ≥ max) and an optional
-schedule that counts updates from 0 (:func:`lr_schedule_fn`, the critic's and
-the encoder's horizons stretched by n_critic).
+written out in tensor ops, behind an optional ``clip_by_global_norm``
+(:func:`clip_by_global_norm`, optax's function: scale by max/‖g‖ only when
+‖g‖ ≥ max) and an optional schedule that counts updates from 0
+(:func:`lr_schedule_fn`, the critic's and the encoder's horizons stretched by
+n_critic).
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def lr_schedule_fn(cfg: Config, peak: float, updates_per_step: int
     """count → lr of one optimizer in float32, or None when both the
     schedule and the warmup are off (a constant lr). ``count`` is the number
     of updates before this one, from 0; ``updates_per_step`` stretches the
-    warmup and decay horizons (n_critic for the critic and the encoder)."""
+    warmup and decay horizons (n_critic for the critic and the encoder). The
+    function also takes an integer array of counts and returns their lrs."""
     t = cfg.train
     if t.lr_schedule == "constant" and t.warmup_steps <= 0:
         return None
@@ -62,17 +64,21 @@ def lr_schedule_fn(cfg: Config, peak: float, updates_per_step: int
     total = f32(max(t.total_steps, 1) * updates_per_step)
     pk, end, kind = f32(peak), f32(peak * t.lr_final_frac), t.lr_schedule
 
-    def sched(count: int) -> float:
-        c = f32(count)
-        if c < warm:
-            return float(pk * (c + f32(1.0)) / max(warm, f32(1.0)))
+    def sched(count):
+        c = np.asarray(count).astype(f32)
+        warm_lr = pk * (c + f32(1.0)) / max(warm, f32(1.0))
         frac = np.clip((c - warm) / max(total - warm, f32(1.0)), f32(0.0), f32(1.0))
         if kind == "cosine":
-            return float(end + (pk - end) * f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * frac)))
-        if kind == "linear":
-            return float(pk + (end - pk) * frac)
-        return float(pk)
+            lr = end + (pk - end) * f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * frac))
+        elif kind == "linear":
+            lr = pk + (end - pk) * frac
+        else:
+            lr = np.full_like(c, pk)
+        lr = np.where(c < warm, warm_lr, lr).astype(f32)
+        return float(lr) if lr.ndim == 0 else lr
 
+    # Past max(warm, total) + 1 updates the lr stays where it is.
+    sched.horizon = int(max(warm, total)) + 2
     return sched
 
 
@@ -90,36 +96,79 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torc
 
 
 class Adam:
-    """``optax.chain(clip_by_global_norm(clip), adam(lr, b1, b2))`` over a
-    module's parameters, on ``torch.optim.Adam`` (eps 1e-8). :meth:`update`
-    takes the gradients in ``parameters()`` order."""
+    """``optax.chain(clip_by_global_norm(clip), adam(lr, b1, b2, eps=1e-8))``
+    over a module's parameters. :meth:`update` takes the gradients in
+    ``parameters()`` order and applies optax's update in float32 tensor ops
+    (``torch._foreach_*``): mu and nu, their bias corrections at the count
+    after this update, then p -= lr·mû / (√nû + eps). The count lives on the
+    device, and a scheduled lr is read at it from a device table of the
+    schedule's float32 values, so the update reads nothing from the host and
+    runs alike eagerly and inside a captured CUDA graph."""
 
     def __init__(self, module: nn.Module, peak: float, cfg: Config, updates_per_step: int):
         t = cfg.train
         self.params = [p for p in module.parameters()]
-        self.sched = lr_schedule_fn(cfg, peak, updates_per_step)
+        dev = self.params[0].device
+        self.b1, self.b2, self.eps = float(t.beta1), float(t.beta2), 1e-8
         self.clip = t.grad_clip
-        self.count = 0
-        self.opt = torch.optim.Adam(self.params, lr=peak, betas=(t.beta1, t.beta2), eps=1e-8)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self._count = torch.zeros((), dtype=torch.int64, device=dev)
+        sched = lr_schedule_fn(cfg, peak, updates_per_step)
+        self.lr = peak
+        self._lr_table = None
+        if sched is not None:
+            self._lr_table = torch.from_numpy(sched(np.arange(sched.horizon))).to(dev)
 
+    @property
+    def count(self) -> int:
+        """Updates so far (a read from the device)."""
+        return int(self._count)
+
+    @torch.no_grad()
     def update(self, grads: list[torch.Tensor]) -> None:
         if self.clip > 0:
             grads = clip_by_global_norm(grads, self.clip)
-        for p, g in zip(self.params, grads, strict=True):
-            p.grad = g.to(p.dtype)
-        if self.sched is not None:
-            for group in self.opt.param_groups:
-                group["lr"] = self.sched(self.count)
-        self.opt.step()
-        self.opt.zero_grad(set_to_none=True)
-        self.count += 1
+        grads = [g.to(p.dtype) for p, g in zip(self.params, grads, strict=True)]
+        lr = self.lr
+        if self._lr_table is not None:
+            at = self._count.clamp(max=self._lr_table.shape[0] - 1).reshape(1)
+            lr = self._lr_table.index_select(0, at).reshape(())
+        self._count.add_(1)
+        c = self._count.to(torch.float32)
+        bc1, bc2 = 1.0 - torch.pow(self.b1, c), 1.0 - torch.pow(self.b2, c)
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+        step = torch._foreach_div(self.mu, bc1)
+        den = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        torch._foreach_div_(step, den)
+        torch._foreach_mul_(step, lr)
+        torch._foreach_sub_(self.params, step)
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "adam": self.opt.state_dict()}
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
 
     def load_state_dict(self, sd: dict) -> None:
-        self.count = int(sd["count"])
-        self.opt.load_state_dict(sd["adam"])
+        """Copies into the live tensors (a captured graph keeps reading
+        them). Also reads the layout written before the update was
+        spelled out here, ``{"count", "adam": torch.optim.Adam.state_dict()}``,
+        whose ``exp_avg`` and ``exp_avg_sq`` are mu and nu."""
+        self._count.fill_(int(sd["count"]))
+        if "adam" in sd:
+            state = sd["adam"]["state"]
+            mu = [state[i]["exp_avg"] if i in state else None for i in range(len(self.params))]
+            nu = [state[i]["exp_avg_sq"] if i in state else None for i in range(len(self.params))]
+        else:
+            mu, nu = sd["mu"], sd["nu"]
+        for dst, src in zip(self.mu + self.nu, mu + nu, strict=True):
+            if src is None:
+                dst.zero_()
+            else:
+                dst.copy_(src)
 
 
 def make_optimizers(cfg: Config, generator: nn.Module, critic: nn.Module) -> tuple[Adam, Adam]:

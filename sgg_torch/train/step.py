@@ -24,8 +24,13 @@ the straight-through sample; ``reinforce`` draws exact samples
 
 All noise is an input (:func:`noise_shapes` gives its layout): the fakes' z and
 Gumbel draws, the penalty's ε and the generator update's draws, per
-microbatch. Without it the step draws from a ``torch.Generator`` seeded from
-``train.seed`` and the step.
+microbatch, and optionally ``tau``, the step's Gumbel temperature as a 0-dim
+float32 tensor. Without it the step draws from a ``torch.Generator`` seeded
+from ``train.seed`` and the step (``step_fn.inputs``). The step reads nothing
+else from the host that changes between steps (the optimizers keep their
+counts on the device) and does not wait for the device, so one step can be
+captured in a CUDA graph and replayed
+(:func:`sgg_torch.data.pipeline.make_fused_device_stepper`).
 """
 
 from __future__ import annotations
@@ -131,7 +136,9 @@ def draw_noise(cfg: Config, B: int, generator: torch.Generator, device) -> dict:
 
 
 def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
-    """Build ``step(state, batch, noise=None) → metrics``.
+    """Build ``step(state, batch, noise=None) → metrics``, with
+    ``step.inputs(step, B, device)``: the noise and ``tau`` that the step
+    draws at ``step`` when it is given none.
 
     ``batch``: ``features`` [n_critic+1, B, R, F] (or ``images`` uint8
     [n_critic+1, B, H, W, 3] for pixels-in configs) and ``triples`` int
@@ -146,6 +153,16 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
     mask = None if step_mask is None else torch.as_tensor(np.asarray(step_mask), dtype=torch.bool)
     train_enc = bool(t.train_encoder)
     reinforce = t.estimator == "reinforce"
+    masks: dict = {}  # the step mask on each device, copied there once
+
+    def tau_at(step: int, device) -> torch.Tensor:
+        return torch.full((), tau_schedule(cfg, step), dtype=torch.float32, device=device)
+
+    def inputs(step: int, B: int, device) -> dict:
+        """The noise and tau of ``step``: its noise from a ``torch.Generator``
+        seeded ``train.seed``·1,000,003 + step."""
+        generator = torch.Generator(device=device).manual_seed(int(t.seed) * 1_000_003 + step)
+        return {**draw_noise(cfg, B, generator, device), "tau": tau_at(step, device)}
 
     def step_fn(state: GANTrainState, batch: dict, noise: dict | None = None) -> dict:
         gen, critic, encoder = state.generator, state.critic, state.encoder
@@ -155,12 +172,12 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
         if accum > 1 and B % accum:
             raise ValueError(f"train.grad_accum={accum} must divide the batch ({B})")
         if noise is None:
-            generator = torch.Generator(device=dev).manual_seed(
-                int(t.seed) * 1_000_003 + state.step)
-            noise = draw_noise(cfg, B, generator, dev)
+            noise = inputs(state.step, B, dev)
         noise = {k: v.to(dev) for k, v in noise.items()}
-        step_mask_d = None if mask is None else mask.to(dev)
-        tau = tau_schedule(cfg, state.step)
+        tau = noise["tau"] if "tau" in noise else tau_at(state.step, dev)
+        if mask is not None and dev not in masks:
+            masks[dev] = mask.to(dev)
+        step_mask_d = None if mask is None else masks[dev]
 
         def sample_fake(feats, z, g):
             return gen(feats, z, g, tau=tau, hard=t.hard, step_mask=step_mask_d)["soft"]
@@ -253,7 +270,8 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
 
         state.step += 1
         metrics = {k: v.detach() for k, v in {**d_aux, **g_aux}.items()}
-        metrics["tau"] = torch.tensor(tau)
+        metrics["tau"] = tau
         return metrics
 
+    step_fn.inputs = inputs
     return step_fn

@@ -45,7 +45,7 @@ def top_k_top_p_filter(logits: torch.Tensor, top_k: int = 0, top_p=None) -> torc
     kept); ``top_p`` in (0, 1] keeps the smallest set of tokens whose
     cumulative probability reaches p (the most likely token always survives).
     Filtered tokens get -1e9, the step mask's value."""
-    neg = torch.tensor(-1e9, dtype=logits.dtype, device=logits.device)
+    neg = torch.full((), -1e9, dtype=logits.dtype, device=logits.device)
     if top_k:
         kth = torch.sort(logits, dim=-1).values[..., -int(top_k), None]
         logits = torch.where(logits >= kth, logits, neg)
@@ -53,8 +53,8 @@ def top_k_top_p_filter(logits: torch.Tensor, top_k: int = 0, top_p=None) -> torc
         sorted_desc = -torch.sort(-logits, dim=-1).values
         probs = torch.softmax(sorted_desc, dim=-1)
         cum_before = torch.cumsum(probs, dim=-1) - probs
-        keep = cum_before < torch.as_tensor(top_p, dtype=logits.dtype, device=logits.device)
-        inf = torch.tensor(float("inf"), dtype=logits.dtype, device=logits.device)
+        keep = cum_before < torch.full((), top_p, dtype=logits.dtype, device=logits.device)
+        inf = torch.full((), float("inf"), dtype=logits.dtype, device=logits.device)
         thresh = torch.where(keep, sorted_desc, inf).amin(dim=-1, keepdim=True)
         logits = torch.where(logits >= thresh, logits, neg)
     return logits

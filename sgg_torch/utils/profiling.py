@@ -6,8 +6,10 @@ reference's window: its first step is the run's step 10) into
 chrome://tracing) and ``top_ops.txt``, a table of the kernels and copies
 with the most time on the device (of the ops with the most inclusive CPU time
 when nothing ran on a device), with the window's wall seconds, the device's
-busy seconds (the union of its kernels' and copies' intervals) and its idle
-share, 1 − busy / wall.
+busy seconds (the union of its kernels' and copies' intervals), its idle
+share, 1 − busy / wall, and the host's waits for the device: the CUDA runtime
+calls of ``SYNC_CALLS`` in the window (a ``.item()``, a blocking copy, a
+synchronize; the window's own closing synchronize among them).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ TOP_OPS = 25
 
 
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
 
 
 def trace_events(path: str) -> list[tuple[str, str, float, float]]:
@@ -36,6 +40,32 @@ def trace_events(path: str) -> list[tuple[str, str, float, float]]:
         trace = json.load(f)
     return [(e.get("name", ""), e.get("cat", ""), float(e["ts"]), float(e.get("dur", 0.0)))
             for e in trace.get("traceEvents", []) if e.get("ph") == "X" and "ts" in e]
+
+
+def sync_sites(path: str) -> dict[str, int]:
+    """Where the host waited for the device in a Chrome trace that
+    ``export_chrome_trace`` wrote: for each runtime call of ``SYNC_CALLS``,
+    the chain of ``cpu_op`` events that enclose it on its thread, outermost
+    first, as one string; and how many calls each chain made."""
+    with open(path) as f:
+        trace = json.load(f)
+    ops: dict = {}
+    syncs = []
+    for e in trace.get("traceEvents", []):
+        if e.get("ph") != "X" or "ts" not in e:
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e.get("name", ""))
+        if e.get("cat") == "cpu_op":
+            ops.setdefault(e.get("tid"), []).append(span)
+        elif e.get("cat") == "cuda_runtime" and e.get("name") in SYNC_CALLS:
+            syncs.append((e.get("tid"), span))
+    sites: dict[str, int] = {}
+    for tid, (t0, t1, name) in syncs:
+        around = sorted((a for a in ops.get(tid, []) if a[0] <= t0 and t1 <= a[1]),
+                        key=lambda a: (a[0], -a[1]))
+        key = " > ".join([a[2] for a in around] + [name])
+        sites[key] = sites.get(key, 0) + 1
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
 
 
 def busy_time(spans) -> float:
@@ -53,15 +83,23 @@ def busy_time(spans) -> float:
 
 
 class StepProfiler:
-    """Trace a [start_step, start_step + num_steps) window of train steps from
-    inside the loop: ``maybe_start(i)`` before step i runs, ``maybe_stop(n)``
-    after it (n = i + 1 steps done); the device is synchronized at both ends."""
+    """Trace a window of train steps from inside the loop: ``maybe_start(i)``
+    before step i runs, ``maybe_stop(n)`` after the steps up to n have run;
+    the device is synchronized at both ends. The window opens at the first
+    call of ``maybe_start`` at or after ``start_step`` and closes at the
+    first ``maybe_stop`` at or after ``start_step + num_steps``, so a loop
+    that runs several steps per call (``train.steps_per_dispatch``) traces
+    whole calls; with one step per call it is [start_step, start_step +
+    num_steps). (The reference opens only at ``start_step`` itself, so with a
+    stride that does not reach it its window never opens.)"""
 
     def __init__(self, logdir: str, start_step: int, num_steps: int = 5):
         self.logdir = logdir
         self.start_step = start_step
         self.stop_step = start_step + num_steps
         self._prof = None
+        self._opened = False
+        self._first = start_step
         self._t0 = 0.0
         self.summary: dict | None = None
 
@@ -71,7 +109,8 @@ class StepProfiler:
             torch.cuda.synchronize()
 
     def maybe_start(self, step: int) -> None:
-        if self._prof is None and step == self.start_step:
+        if not self._opened and step >= self.start_step:
+            self._opened, self._first = True, step
             os.makedirs(self.logdir, exist_ok=True)
             acts = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -105,15 +144,18 @@ class StepProfiler:
         total = sum(v[0] for v in per_op.values()) or 1.0
         busy = busy_time([(t0, d) for _, t0, d in dev]) / 1e6
         idle = 1.0 - busy / wall if on_device else None
-        steps = self.stop_step - self.start_step
+        syncs = sum(1 for n, cat, _, _ in events if cat == "cuda_runtime" and n in SYNC_CALLS)
+        steps = step - self._first
         what = "device time (kernels and copies)" if on_device else "CPU time, inclusive"
-        lines = [f"steps {self.start_step}-{step - 1} ({steps} steps), wall {wall:.4f} s "
+        lines = [f"steps {self._first}-{step - 1} ({steps} steps), wall {wall:.4f} s "
                  f"({wall / steps:.4f} s/step)",
                  (f"device busy {busy:.4f} s over {len(dev)} kernels and copies, idle share "
                   f"{idle:.4f}" if on_device else "no device kernel traced: device busy and "
                   "idle share not measured"),
                  f"top ops by {what}:",
                  f"{'ms':>10} {'share':>7} {'calls':>7}  op"]
+        if on_device:
+            lines.insert(2, f"host syncs {syncs} ({syncs / steps:.2f} a step)")
         top = []
         for name, (us, calls) in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:TOP_OPS]:
             lines.append(f"{us / 1e3:10.3f} {us / total:7.3f} {calls:7d}  {name}")
@@ -121,5 +163,6 @@ class StepProfiler:
         with open(os.path.join(self.logdir, "top_ops.txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
         return {"wall_s": wall, "steps": steps, "device_busy_s": busy if on_device else None,
-                "idle_share": idle, "events": len(events), "top": top,
+                "idle_share": idle, "syncs": syncs if on_device else None,
+                "events": len(events), "top": top,
                 "table": "\n".join(lines)}

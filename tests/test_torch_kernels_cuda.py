@@ -31,7 +31,9 @@ moves about 41 %). The bf16 flash kernels' float32 results before the cast
 split cut to hi + mid moves them by 2.0e-6 to 2.5e-6). The float32 PredCls
 scorer and one REINFORCE generator gradient, card against CPU, at
 ``chip_smoke.py`` phase 19's tolerances (``predcls_hold``,
-``reinforce_grad_hold``).
+``reinforce_grad_hold``). The fused stepper's CUDA-graph replays against the
+eager steps, bit for bit, as ``chip_smoke.py`` phase 20 holds them
+(``fused_hold``).
 """
 
 import json
@@ -652,3 +654,38 @@ def test_reinforce_update_card_matches_cpu():
     same_tok, worst, largest = reinforce_grad_hold(torch.device("cuda"), cfg, vocab, feats, 2,
                                                    0.01)
     assert same_tok and worst <= 1.0 and largest > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", ["smoke", "pipeline_v4"])
+def test_fused_graph_matches_eager_steps(widths):
+    """chip_smoke.py phase 20 (c)'s hold: 4 train steps eagerly against 2
+    dispatches of 2 through the fused stepper (warm-up, CUDA-graph capture,
+    replays) from the same seeded state, draws and noise: every parameter,
+    the EMA, the optimizers' counts and moments and the last step's metrics
+    bit for bit; at smoke widths on the synthetic store, and at
+    pipeline_v4's on a seeded int8 corpus of 512 images with predicate
+    balance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import fused_hold, v4_corpus
+    from sgg_torch.config import get_config
+    from sgg_torch.data import TripleDataset, synthetic_dataset
+
+    dev = torch.device("cuda")
+    if widths == "smoke":
+        cfg = get_config("smoke").override(["train.ema_decay=0.9", "train.tau_anneal=0.05",
+                                            "train.lr_schedule=cosine"])
+        data = synthetic_dataset(num_images=64, regions=cfg.data.regions,
+                                 feat_dim=cfg.data.feat_dim, seed=0)
+        vocab = data["vocab"]
+        ds = TripleDataset(data["features"], data["triples"])
+    else:
+        cfg = get_config("pipeline_v4")
+        vocab = Vocab.load(os.path.join(TRAINED_RUN, "vocab.json"))
+        feats, triples = v4_corpus(vocab, 512, 0, dev)
+        ds = TripleDataset(feats, triples)
+    ds.set_predicate_balance(0.7)
+    cfg.model.vocab_size = len(vocab)
+    h = fused_hold(dev, cfg, ds, vocab, 4, 2, int8=widths != "smoke")
+    assert h["graph"] and h["equal"] and h["metrics_equal"], (h["differ"], h["metrics_differ"])

@@ -8,12 +8,18 @@ handlers are put back; the host iterator's prefetch thread stops with the
 run; ``sgg_torch.cli.generate`` samples the trained workdir; options that a
 later slice brings are refused. ``pipeline_v4`` at smoke widths runs predicate
 balance, the int8 store on rotating subsets, the held-out probe and
-``--profile``.
+``--profile``. The two watchdogs, as the reference's: the host-RSS handover
+(checkpoint and exit 75 at a checkpoint or a log boundary, then a relaunch
+finishes; the reference's own two cases) and the stall watchdog (exit 86 from
+its thread when a step hangs, in a subprocess; none with
+``train.stall_exit_sec=0``).
 """
 
 import json
 import os
 import signal
+import subprocess
+import sys
 import threading
 
 import jax
@@ -181,3 +187,87 @@ def test_pipeline_v4_runs_balance_int8_rotation_probe_and_profile(tmp_path, caps
     assert table.startswith("steps 10-14 (5 steps)") and "top ops by" in table
     assert os.path.getsize(os.path.join(wd, "profile", "trace.json")) > 0
     assert CheckpointManager(wd, None, max_to_keep=6).all_steps() == [4, 8, 12, 16]
+
+
+def _rss_args(wd, *sets):
+    argv = ["--config", "smoke", "--device", "cpu", "--workdir", str(wd),
+            "--set", "train.total_steps=20"]
+    for s in sets:
+        argv += ["--set", s]
+    return argv
+
+
+def test_host_rss_handover_at_a_checkpoint_boundary_and_resume(tmp_path, capsys):
+    args = _rss_args(tmp_path, "train.checkpoint_every=5")
+    before = signal.getsignal(signal.SIGTERM)
+    assert train.main(args + ["--set", "train.host_rss_exit_gb=0.0001"]) == 75
+    out = capsys.readouterr().out
+    assert "checkpointed at step 5, exiting 75 for supervised relaunch" in out
+    assert signal.getsignal(signal.SIGTERM) is before
+    assert train.main(args) == 0
+    assert "resumed from step 5" in capsys.readouterr().out
+    cfg, _ = load_workdir(tmp_path)
+    assert CheckpointManager(tmp_path, cfg).latest_step() == 20
+
+
+def test_host_rss_handover_at_a_log_boundary(tmp_path, capsys):
+    args = _rss_args(tmp_path, "train.log_every=3", "train.checkpoint_every=1000")
+    assert train.main(args + ["--set", "train.host_rss_exit_gb=0.0001"]) == 75
+    assert os.path.isdir(os.path.join(tmp_path, "checkpoints", "3"))  # the log step
+    assert train.main(args) == 0
+    assert "resumed from step 3" in capsys.readouterr().out
+
+
+STALL_SCRIPT = """
+import sys, time
+import sgg_torch.cli.train as t
+
+t.STALL_POLL_SEC = 0.1
+make = t.make_step_fn
+
+def hanging(cfg, step_mask=None):
+    step = make(cfg, step_mask)
+
+    def hang(state, batch, *a, **kw):
+        if state.step == 1:
+            time.sleep(120)
+        return step(state, batch, *a, **kw)
+
+    return hang
+
+t.make_step_fn = hanging
+sys.exit(t.main(sys.argv[1:]))
+"""
+
+
+def test_stall_watchdog_exits_86_when_a_step_hangs(tmp_path):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", STALL_SCRIPT, *_rss_args(tmp_path, "train.stall_exit_sec=1",
+                                                        "train.log_every=1")],
+        capture_output=True, text=True, timeout=120, env=env, cwd=root)
+    assert proc.returncode == 86, proc.stdout + proc.stderr
+    assert "STALL: no log readback for" in proc.stdout
+    assert "exit 86 for supervised relaunch" in proc.stdout
+
+
+@pytest.mark.parametrize("limit", [0.0, 900.0])
+def test_stall_watchdog_runs_only_when_on(tmp_path, monkeypatch, limit):
+    make = train.make_step_fn
+    seen = []
+
+    def watching(cfg, step_mask=None):
+        step = make(cfg, step_mask)
+
+        def look(state, batch, *a, **kw):
+            seen.append(any(th.name == "sgg-torch-stall-watchdog" and th.is_alive()
+                            for th in threading.enumerate()))
+            return step(state, batch, *a, **kw)
+
+        return look
+
+    monkeypatch.setattr(train, "make_step_fn", watching)
+    assert _train(tmp_path, f"train.stall_exit_sec={limit}", steps=2) == 0
+    assert seen == [limit > 0] * 2
+    assert not any(th.name == "sgg-torch-stall-watchdog" for th in threading.enumerate())
