@@ -71,6 +71,15 @@ formula written out in numpy, bit for bit, at draws that put ties on the
 CDF's steps; dequantized values within half a scale step plus one float16
 ulp of the source; draws moved toward the rarer predicates.
 
+Two faults are seeded into the copy's JPEG loader
+(``sgg_torch/native/jpeg_loader.cc``): the resize's source row shifted by
+half a pixel (the fixed-point coordinate without its -0.5), and the channels
+written as BGR. Each is held to ``chip_smoke.py``'s phase-21 (a) gates
+(``loader_phase``): the fixture's JPEGs at 224 px against the reference
+decoder's committed bytes, and every fixture JPEG at 224 and 64 px bit for
+bit against the plain numpy resize of the loader's own decode before the
+resize.
+
 One fault is seeded into the fused stepper (``sgg_torch/data/pipeline.py``,
 ``FusedStepper._body``): the step counter that the captured step reads is
 never advanced, so the graph reads stale draws and replays step k's draws
@@ -88,7 +97,7 @@ sum per 16-deep step and no round-to-nearest add), at the two shapes and at
 Exits 0 when the baseline passes and every fault is refused at each of its
 shapes (both flash shapes; the four conv shapes; the matmul shapes it can
 reach; the decode batches or the tie case, whichever can see it; the gather
-and graph holds), 1 otherwise. The tree itself is not touched.
+and graph holds; the loader's gates), 1 otherwise. The tree itself is not touched.
 """
 
 import json
@@ -189,6 +198,18 @@ GATHER_FAULTS = {
         ("        tsel = (u[..., None] > store.cumw[img]).sum(-1)\n",
          "        tsel = (u[..., None] >= store.cumw[img]).sum(-1)\n"),
 }
+LOADER_SRC = "sgg_torch/native/jpeg_loader.cc"
+# loader fault: (sound text, faulty text) in the port's JPEG loader's resize.
+LOADER_FAULTS = {
+    "the resize's source row shifted by half a pixel":
+        ("    long fy = y * sy + (sy >> 1) - (1 << 15);\n",
+         "    long fy = y * sy + (sy >> 1);\n"),
+    "the channels written as BGR":
+        ("        d[x * 3 + c] = static_cast<unsigned char>((top * (256 - wy) + bot * wy) "
+         ">> 16);\n",
+         "        d[x * 3 + 2 - c] = static_cast<unsigned char>((top * (256 - wy) + bot * wy) "
+         ">> 16);\n"),
+}
 GRAPH_IMAGES = 1024
 # fused-stepper fault: (sound text, faulty text), the counter never advanced.
 GRAPH_FAULTS = {
@@ -270,7 +291,8 @@ def child(root, kernels, shapes):
     if not fb.__file__.startswith(root):
         raise SystemExit(f"chip_fault_check: imported {fb.__file__}, not the copy")
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.load_library()
+    if set(kernels) - {"loader"}:  # the loader builds with g++ alone
+        build.load_library()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -310,6 +332,13 @@ def child(root, kernels, shapes):
 
     if "graph" in kernels:
         graph_rows(dev)
+
+    if "loader" in kernels:
+        from sgg_torch.native import loader
+
+        if not loader.__file__.startswith(root):
+            raise SystemExit(f"chip_fault_check: imported {loader.__file__}, not the copy")
+        loader_rows()
 
     if "mm" in kernels:
         from sgg_torch.kernels import matmul as mm
@@ -422,6 +451,24 @@ def graph_rows(dev):
           flush=True)
 
 
+def loader_rows():
+    """chip_smoke.py's phase-21 (a) gates on the copy's JPEG loader: the
+    fixture's JPEGs against the reference decoder's committed bytes, and the
+    resize and the batch bit for bit against the plain resize of the
+    loader's own decode. One JSON line."""
+    import chip_smoke
+
+    try:
+        r = chip_smoke.loader_phase()
+        ok, holds = True, {"route": r["route"], "mean": r["mean"], "max": r["max"]}
+    except AssertionError as e:
+        ok, holds = False, {"error": str(e)}
+    print(json.dumps({"shape": [32, 224, 224, 3], "output": "loader", "bf16_gate": ok,
+                      "share": 0.0,
+                      "f32_err": None, "tol": None, "f32_gate": True, "holds": holds}),
+          flush=True)
+
+
 def decode_rows(root, dev):
     """The batched fused_decode at vg1k widths, bf16, under chip_smoke.py's
     phase-3 gates, on its inputs (the trained run's config and vocab,
@@ -503,7 +550,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
-    runs = [("sound", [], "fwd,dq,dkv,conv,mm,decode,gather,graph", VARIANT_SHAPES),
+    runs = [("sound", [], "fwd,dq,dkv,conv,mm,decode,gather,graph,loader", VARIANT_SHAPES),
             ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
              "fwd,dq,dkv", VARIANT_SHAPES)]
     for src, tag, kernel in SITES:
@@ -520,6 +567,8 @@ def main() -> int:
         runs.append((label, [(GATHER_SRC, replace_once(sound, faulty))], "gather", []))
     for label, (sound, faulty) in GRAPH_FAULTS.items():
         runs.append((label, [(GATHER_SRC, replace_once(sound, faulty))], "graph", []))
+    for label, (sound, faulty) in LOADER_FAULTS.items():
+        runs.append((label, [(LOADER_SRC, replace_once(sound, faulty))], "loader", []))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for i, (label, edits, kernels, shapes) in enumerate(runs):

@@ -251,6 +251,35 @@ process; its training runs stop their data threads as phase 17's does:
      its elements, the same in every process; one earlier forward and
      backward of the critic, at any batch, takes the process past it), so
      each hold first steps a state that it then drops.
+ 21. ``vg_full`` from JPEGs (``vg_full_phase``): (a) the JPEG loader
+     (``loader_phase``; ``loader_probe`` first prints what the machine has:
+     libjpeg's headers, nvJPEG, g++, host cores): its build's wall time and
+     decoder, the fixture's JPEGs at 224 px against the reference decoder's
+     bytes committed beside them (libjpeg: identical, or mean |d| <= 1.0 and
+     max <= 8; nvJPEG: mean |d| < 6.0), every fixture JPEG at 224 and 64 px
+     bit for bit against the plain numpy resize of the loader's own decode,
+     and ``decode_batch``'s images/s in one thread per host core; (b) a
+     corpus of 2,048 VG-shaped ids cycling the fixture's JPEGs and entries,
+     without PIL; (c) ``sgg_torch.cli.preprocess --encoder vgg19
+     --encoder-ckpt`` (a seeded VGG-19 saved as ``encoder_params.npz`` and
+     ``pretrain_meta.json``) in bfloat16, batch 64: images/s, decode-wait
+     share, shard GB, exactly 16 conv_direct launches a batch, and 64 written
+     features against the library conv route in bf16 on the same decoded
+     images (phase 5's VGG-19 gate); (d) ``train --config vg_full`` at full
+     width (VGG-19 at 224 px, bf16, batch 256, n_critic 5) for 16 steps with
+     ``--profile`` and the pixels-in probe at steps 8 and 16: materialized
+     (the decoded corpus, about 0.28 GB, on the device) and on the
+     host-prefetch route (a budget under it, 1,536 JPEGs decoded a step), each
+     with s/step, images/s, the host's decode time a step, the probes'
+     recall and seconds, peak device memory, exactly 16 x 6 = 96 conv_direct
+     launches a step and the idle share; then 16 steps with
+     ``train.steps_per_dispatch=8`` on the materialized store (2 x 96
+     launches, the warm-up and captured steps; replays launch none); (e)
+     ``generate --split test`` and ``evaluate`` with ``--decode fused`` on
+     the path-backed held-out split (triples/s; conv_direct and fused_decode
+     launched), and the workdir served in process, where a ``paths`` request
+     and an ``images`` request of the same decoded JPEGs on the same noise
+     give equal graphs.
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -265,8 +294,10 @@ record and the device JSON. A failed check raises, so the exit code is not 0;
 a watchdog turns a hang into a stack trace and a non-zero exit.
 """
 
+import ast
 import contextlib
 import faulthandler
+import functools
 import io
 import json
 import math
@@ -279,7 +310,7 @@ import sys
 import tempfile
 import time
 
-WATCHDOG_SECONDS = 900
+WATCHDOG_SECONDS = 1100
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAINED_RUN = os.path.join(ROOT, "results", "run_v3_bal0.7_ckpt")
 SEED = 0
@@ -311,6 +342,13 @@ PREDCLS_K, RL_STEPS, VIT_RL_STEPS, PP_IMAGES = 16, 4, 3, 2048
 V20_BUDGET, V20_N, V20_EAGER_STEPS, V20_FUSED_STEPS = 2_000_000_000, 32, 32, 96
 V20_HOLD_STEPS, V20_HOLD_N, V20_HOLD_IMAGES, V20_VIT_STEPS, V20_VIT_N = 4, 2, 1024, 8, 4
 DECODE_HOST_US_LIMIT = 60  # fused_decode's wrapper, host us per call at a tiny width
+# Phase 21, vg_full: the committed VG-shaped JPEG fixture and the images of the
+# loader's rate.
+FIXTURE = os.path.join(ROOT, "tests", "fixtures_torch", "vg_jpeg")
+LOADER_RATE_IMAGES = 1536  # one vg_full step's images: 256 x (5 + 1)
+# VG's 108,077 images cut to 2,048 ids; train steps (the profile window is steps
+# 10-14), the fused run's steps and N, and the extraction hold's features.
+VG_IMAGES_21, VG_STEPS_21, VG_FUSED_STEPS_21, VG_N_21, VG_HOLD_21 = 2048, 16, 16, 8, 64
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -987,7 +1025,7 @@ def serve_phase(dev, v4_wd, v4_vocab, pix, vit, zero_counts, read_counts, sizes=
         paths = http(url + "/v1/generate", json.dumps({"paths": ["a.jpg"]}).encode())
         log(f"serve pipeline_v4 refusals: wrong shape {bad[0]} ({bad[1]['error']}); paths "
             f"{paths[0]} ({paths[1]['error']})")
-        if bad[0] != 400 or paths[0] != 400 or "not ported yet" not in paths[1]["error"]:
+        if bad[0] != 400 or paths[0] != 400 or "precomputed features" not in paths[1]["error"]:
             raise AssertionError("serve pipeline_v4: a bad request was not refused with 400")
     out["pipeline_v4"] = {k: {"requests": v[0], "images": v[1], "seconds": v[2]}
                           for k, v in rates.items()}
@@ -1669,6 +1707,368 @@ def preprocess_phase(dev, run_cli, sizes=None, extra_sets=None):
                 or not all(math.isfinite(v_) for r_ in lines for v_ in r_.values())):
             raise AssertionError("training on the preprocessed shards failed")
     return {"preprocess_s": pp_s, "train_s": tr_s, "gb": nbytes / 1e9, "kept": kept}
+
+
+def loader_probe():
+    """What the machine offers the JPEG loader: libjpeg's headers (through
+    g++), nvJPEG's header and library under the CUDA toolkit, g++ and the
+    host's cores."""
+    from sgg_torch.native import loader
+
+    cuda = loader.cuda_home()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    return {"jpeglib.h": loader.has_libjpeg_headers(),
+            "nvjpeg.h": (cuda / "include" / "nvjpeg.h").exists(),
+            "libnvjpeg": sorted(p_.name for p_ in (cuda / "lib64").glob("libnvjpeg.so*")),
+            "g++": gxx.stdout.splitlines()[0] if gxx.returncode == 0 else None,
+            "cpu_count": os.cpu_count(), "affinity": len(os.sched_getaffinity(0))}
+
+
+def loader_phase(fixture=FIXTURE):
+    """Phase 21 (a), the JPEG loader: build it (wall time, decoder), decode
+    the fixture's JPEGs at 224 px and hold them against the reference
+    decoder's bytes committed beside them (libjpeg: identical, or, where the
+    card's libjpeg differs from the one that wrote them, mean |d| <= 1.0 and
+    max |d| <= 8; nvJPEG: mean |d| < 6.0, the reference's own bound against
+    PIL); hold every fixture image at 224 and 64 px bit for bit against the
+    plain resize (``resize_plain``) of the loader's own decode before the
+    resize, and ``decode_batch`` bit for bit against ``decode_file``; time
+    ``decode_batch`` with one thread per host core. Returns the numbers."""
+    import numpy as np
+
+    from sgg_torch.native import loader
+
+    probe = loader_probe()
+    log(f"loader probe: {probe}")
+    t_b = time.perf_counter()
+    if not loader.native_available():
+        loader.route()  # raises NativeUnavailable with the reason
+    build_wall = time.perf_counter() - t_b
+    route = loader.route()
+    log(f"loader build: {loader.build_seconds:.3f} s of g++ ({build_wall:.3f} s with the "
+        f"load), decoder {route}")
+    ref = np.load(os.path.join(fixture, "decoded_224.npz"))
+    img_dir = os.path.join(fixture, "images")
+    got = loader.decode_batch([os.path.join(img_dir, str(n_)) for n_ in ref["names"]], 224)
+    d_ = np.abs(got.astype(np.int32) - ref["images"].astype(np.int32))
+    mean_d, max_d = float(d_.mean()), int(d_.max())
+    if route == "libjpeg":
+        ok = max_d == 0 or (mean_d <= 1.0 and max_d <= 8)
+        gate = "identical, or mean <= 1.0 and max <= 8"
+    else:
+        ok = mean_d < 6.0
+        gate = "mean < 6.0"
+    log(f"loader vs the reference decoder's bytes ({len(got)} fixture JPEGs at 224 px): mean "
+        f"|d| {mean_d:.4f}, max |d| {max_d} ({gate}): {'ok' if ok else 'FAILED'}")
+    paths = sorted(os.path.join(img_dir, f_) for f_ in os.listdir(img_dir))
+    exact = True
+    for size in (224, 64):
+        batch = loader.decode_batch(paths, size, n_threads=4)
+        for j_, p_ in enumerate(paths):
+            single = loader.decode_file(p_, size)
+            plain = loader.resize_plain(loader.decode_raw(p_, size), size)
+            exact &= bool((single == plain).all() and (batch[j_] == single).all())
+    log(f"loader resize and batch vs plain ({len(paths)} JPEGs at 224 and 64 px; decode_file "
+        f"= resize_plain(decode_raw) and decode_batch = decode_file, bit for bit): "
+        f"{'ok' if exact else 'FAILED'}")
+    many = paths * (LOADER_RATE_IMAGES // len(paths))
+    threads = len(os.sched_getaffinity(0))
+    loader.decode_batch(many[:threads], 224, n_threads=threads)
+    t_r = time.perf_counter()
+    loader.decode_batch(many, 224, n_threads=threads)
+    rate = len(many) / (time.perf_counter() - t_r)
+    log(f"loader decode_batch: {len(many)} JPEGs (500 x 375) at 224 px in {threads} threads: "
+        f"{rate:.1f} images/s")
+    if not (ok and exact):
+        raise AssertionError("phase 21 (a): the JPEG loader disagrees")
+    return {"route": route, "build_s": loader.build_seconds, "mean": mean_d, "max": max_d,
+            "images_per_s": rate, "threads": threads, "probe": probe}
+
+
+def vg_corpus(root, n_images, fixture=FIXTURE):
+    """Phase 21 (b): a VG-shaped corpus in ``root``: ``images/<id>.jpg`` for
+    ids 1..n_images, hard links (or copies) of the fixture's JPEGs in turn,
+    and a ``relationships.json`` whose entries cycle the fixture's under the
+    new ids. No PIL. Returns the number of relationships."""
+    import shutil
+
+    with open(os.path.join(fixture, "relationships.json")) as f:
+        entries = json.load(f)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    out = []
+    for i in range(n_images):
+        e_ = dict(entries[i % len(entries)], image_id=i + 1)
+        src = os.path.join(fixture, "images", f"{entries[i % len(entries)]['image_id']}.jpg")
+        dst = os.path.join(img_dir, f"{i + 1}.jpg")
+        try:
+            os.link(src, dst)
+        except OSError:
+            shutil.copyfile(src, dst)
+        out.append(e_)
+    with open(os.path.join(root, "relationships.json"), "w") as f:
+        json.dump(out, f)
+    return sum(len(e_["relationships"]) for e_ in out)
+
+
+def vg_full_phase(dev, run_cli, read_counts, sizes=None, extra_sets=None):
+    """Phase 21, ``vg_full`` from JPEGs: (a) the loader (``loader_phase``);
+    (b) a corpus of 2,048 VG-shaped image ids (``vg_corpus``); (c)
+    ``sgg_torch.cli.preprocess --encoder vgg19 --encoder-ckpt`` with a seeded
+    VGG-19 (``encoder_params.npz`` + ``pretrain_meta.json``) in bfloat16, 64
+    written features held against the library conv route in bfloat16 on the
+    same decoded images (phase 5's VGG-19 gate: within 2e-2 x max, rel L2
+    within 1.5e-2); (d) ``train --config vg_full`` 16 steps with the probe and
+    ``--profile``, materialized (the decoded corpus on the device) and on the
+    host-prefetch route (a budget under it), and with
+    ``train.steps_per_dispatch``; (e) ``generate --split test`` and
+    ``evaluate`` with ``--decode fused`` on the path-backed held-out split,
+    and the workdir served in process, where a ``paths`` request and an
+    ``images`` request of the same decoded images, on the same noise, give
+    the same graphs. ``run_cli`` and ``read_counts`` as in ``main``;
+    ``sizes`` and ``extra_sets`` shrink it for a dry run on the CPU. Returns
+    the numbers."""
+    import numpy as np
+    import torch
+
+    from sgg_torch.cli import evaluate as evaluate_cli
+    from sgg_torch.cli import generate as generate_cli
+    from sgg_torch.cli import preprocess as preprocess_cli
+    from sgg_torch.cli import train as train_cli
+    from sgg_torch.cli.common import load_dataset
+    from sgg_torch.convert_flax import encoder_state_dict_to_flax
+    from sgg_torch.data import list_shards, read_feature_shard
+    from sgg_torch.data.extract import load_batch
+    from sgg_torch.models.encoders import make_encoder, normalize_for
+    from sgg_torch.serve import InferenceEngine
+    from sgg_torch.train.checkpoint import load_workdir
+
+    z_ = {"images": VG_IMAGES_21, "steps": VG_STEPS_21, "fused_steps": VG_FUSED_STEPS_21,
+          "n": VG_N_21, "hold": VG_HOLD_21, "image_size": 224, "batch": 64,
+          "serve_images": 8, **(sizes or {})}
+    S, on_card = z_["image_size"], torch.device(dev).type == "cuda"
+    out = {"loader": loader_phase()}
+    with tempfile.TemporaryDirectory() as root:
+        vg_dir, shards, ckpt = (os.path.join(root, d_) for d_ in ("vg", "shards", "ckpt"))
+        t_c = time.perf_counter()
+        n_rels = vg_corpus(vg_dir, z_["images"])
+        log(f"phase 21 (b) corpus: {z_['images']} image ids (the fixture's 32 JPEGs, 500 x "
+            f"375, in turn), {n_rels} relationships, written in "
+            f"{time.perf_counter() - t_c:.3f} s")
+
+        # (c) preprocess --encoder vgg19 with a seeded VGG-19 checkpoint.
+        torch.manual_seed(SEED + 30)
+        enc_sd = make_encoder("vgg19").state_dict()
+        os.makedirs(ckpt)
+        np.savez(os.path.join(ckpt, "encoder_params.npz"),
+                 **encoder_state_dict_to_flax(enc_sd, "vgg19")["params"])
+        with open(os.path.join(ckpt, "pretrain_meta.json"), "w") as f:
+            json.dump({"encoder": "vgg19", "image_size": S, "vit_dims": [768, 12, 12],
+                       "moe_experts": 0, "moe_top_k": 2}, f)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            pp_s, pp_counts = run_cli(preprocess_cli.main, [
+                "--out-dir", shards, "--vg-dir", vg_dir, "--image-dir",
+                os.path.join(vg_dir, "images"), "--encoder", "vgg19", "--encoder-ckpt", ckpt,
+                "--batch-size", str(z_["batch"]), "--feat-dtype", "float16",
+                "--compute-dtype", "bfloat16"]
+                + ([] if on_card else ["--device", "cpu"]), "sgg_torch.cli.preprocess vgg19")
+        stats = [ast.literal_eval(ln.split(": ", 1)[1])
+                 for ln in printed.getvalue().splitlines()
+                 if ln.startswith(("[sgg.preprocess] train: ", "[sgg.preprocess] test: "))]
+        paths_tr, paths_te = list_shards(shards), list_shards(os.path.join(shards, "test"))
+        n_done = sum(s_["num_images"] for s_ in stats)
+        batches = sum(-(-s_["num_images"] // z_["batch"]) for s_ in stats)
+        gb = sum(os.path.getsize(p_) for p_ in paths_tr + paths_te) / 1e9
+        first = read_feature_shard(paths_tr[0])
+        ids = first["image_ids"][:z_["hold"]]
+        imgs = load_batch([os.path.join(vg_dir, "images", f"{i_}.jpg") for i_ in ids], S)
+        lib = make_encoder("vgg19", dtype=torch.bfloat16)  # use_pallas off: the library conv
+        lib.load_state_dict(enc_sd)
+        lib.to(dev)
+        with torch.no_grad():
+            want = lib(normalize_for("vgg19", torch.from_numpy(imgs).to(dev))).float().cpu()
+        got = torch.from_numpy(first["features"][:z_["hold"]].astype(np.float32))
+        err = float((got - want).abs().max())
+        rel = float((got - want).norm() / want.norm())
+        scale = float(want.abs().max())
+        per_batch = pp_counts["conv_direct"] / max(batches, 1)
+        ok_c = (err <= 2e-2 * scale and rel <= 1.5e-2 and bool(torch.isfinite(got).all())
+                and len(stats) == 2 and n_done > 0.95 * z_["images"]
+                and (per_batch == 16 or not on_card))
+        log(f"phase 21 (c) preprocess --encoder vgg19 (bfloat16, batch {z_['batch']}, "
+            f"{S} px): {n_done} images in {pp_s:.3f} s in process; " + "; ".join(
+                f"{'train' if j_ == 0 else 'test'} {s_['num_images']} images at "
+                f"{s_['images_per_sec']} images/s, decode-wait {s_['decode_wait_frac']}"
+                for j_, s_ in enumerate(stats))
+            + f"; shards {gb:.3f} GB float16; conv_direct launches {pp_counts['conv_direct']}"
+            f" over {batches} batches ({per_batch:g} a batch, 16 expected); {len(ids)} written "
+            f"features vs the library conv route in bf16 on the same decoded images: max_abs_err "
+            f"{err:.3e} (<= 2e-2 x {scale:.3e}), rel L2 {rel:.3e} (<= 1.5e-2): "
+            f"{'ok' if ok_c else 'FAILED'}")
+        if not ok_c:
+            raise AssertionError("phase 21 (c): extraction disagrees or missed the kernel")
+        out["extract"] = {"s": pp_s, "stats": stats, "gb": gb, "err": err, "rel": rel,
+                          "per_batch": per_batch}
+
+        # (d) train --config vg_full: materialized, host-prefetch, fused.
+        def train_run(label, steps, sets_, profile=True):
+            wd = os.path.join(root, f"wd_{label}")
+            sets = {**(extra_sets or {}), "data.data_dir": vg_dir, "train.log_every": 1,
+                    **sets_}
+            argv = ["--config", "vg_full", "--workdir", wd, "--steps", str(steps),
+                    "--encoder-ckpt", ckpt] + (["--profile"] if profile else [])
+            for k_, v_ in sets.items():
+                argv += ["--set", f"{k_}={v_}"]
+            if not on_card:
+                argv += ["--device", "cpu"]
+            per_step = []
+            make_step = train_cli.make_step_fn
+
+            def counting(cfg_, step_mask=None):
+                step_fn = make_step(cfg_, step_mask)
+
+                @functools.wraps(step_fn)  # with its attributes, as the fused stepper reads
+                def counted(state, batch, *a, **k):
+                    before = read_counts()["conv_direct"]
+                    r_ = step_fn(state, batch, *a, **k)
+                    per_step.append(read_counts()["conv_direct"] - before)
+                    return r_
+
+                return counted
+
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            printed = io.StringIO()
+            train_cli.make_step_fn = counting
+            try:
+                with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+                    run_s, counts = run_cli(train_cli.main, argv,
+                                            f"sgg_torch.cli.train vg_full {label}")
+            finally:
+                train_cli.make_step_fn = make_step
+            peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+            text = printed.getvalue()
+            lines = read_metric_lines(wd)
+            logged = [r_ for r_ in lines if "d_loss" in r_]
+            probes = [r_ for r_ in lines if "eval_recall@50" in r_]
+            idle = read_profile(wd, f"vg_full {label}")[0] if profile else None
+            dec = re.search(r"host decode: (\d+) images in ([\d.]+) s \(([\d.]+) s per step",
+                            text)
+            r_ = {"s": run_s, "s_per_step": 1 / logged[-1]["steps_per_sec"],
+                  "images_per_s": logged[-1]["images_per_sec"], "peak_gb": peak,
+                  "idle": idle, "counts": counts, "per_step": per_step,
+                  "decode_s_per_step": float(dec.group(3)) if dec else None,
+                  "probes": [(p_["step"], p_["eval_recall@50"], p_["eval_seconds"])
+                             for p_ in probes], "text": text, "wd": wd, "logged": logged}
+            log(f"phase 21 (d) train vg_full {label}: {steps} steps in {run_s:.3f} s in "
+                f"process (set-up, probes and checkpoint included); last step "
+                f"{r_['s_per_step']:.4f} s/step, {r_['images_per_s']:.1f} images/s; host decode "
+                f"{r_['decode_s_per_step']} s per step; probes (step, recall@50, s) "
+                f"{r_['probes']}; peak device memory {peak:.3f} GB; conv_direct launches "
+                f"{counts['conv_direct']} ({per_step[:3]}... a step); idle share {idle}")
+            if (not all(math.isfinite(v_) for x_ in lines for v_ in x_.values())
+                    or [x_["step"] for x_ in logged] != list(range(
+                        sets.get("train.log_every", 1), steps + 1,
+                        sets.get("train.log_every", 1)))):
+                raise AssertionError(f"phase 21 (d) {label}: metrics.jsonl {lines}")
+            return r_
+
+        est = z_["images"] * 0.9 * S * S * 3  # about the decoded train split's bytes
+        common = {"train.eval_every": z_["steps"] // 2, "train.checkpoint_every": z_["steps"]}
+        mat = train_run("materialized", z_["steps"], common)
+        host = train_run("host", z_["steps"], {**common,
+                                               "data.device_resident_max_bytes": int(est // 4)})
+        cfg21, vocab21 = load_workdir(mat["wd"])
+        per_enc = 16 * (cfg21.train.n_critic + 1)
+        for label, r_ in (("materialized", mat), ("host", host)):
+            want_lines = ("materializing" in r_["text"]) == (label == "materialized") and (
+                ("host iterator with prefetch, decoding" in r_["text"]) == (label == "host"))
+            if ((on_card and r_["per_step"] != [per_enc] * z_["steps"]) or len(r_["probes"]) != 2
+                    or not want_lines or (label == "host" and r_["decode_s_per_step"] is None)
+                    or not all(0.0 <= p_[1] <= 1.0 for p_ in r_["probes"])):
+                raise AssertionError(f"phase 21 (d) {label}: launches {r_['per_step']} "
+                                     f"(expected {per_enc} a step), probes {r_['probes']}, "
+                                     f"route lines {want_lines}")
+        out["train"] = {k_: {x_: v_ for x_, v_ in r_.items() if x_ not in ("text", "logged")}
+                        for k_, r_ in (("materialized", mat), ("host", host))}
+        if z_["fused_steps"]:
+            n_ = z_["n"]
+            fused = train_run("fused", z_["fused_steps"], {
+                "train.steps_per_dispatch": n_, "train.log_every": n_,
+                "train.eval_every": z_["fused_steps"], "train.checkpoint_every":
+                    z_["fused_steps"]}, profile=False)
+            cap = re.search(r"captured in ([\d.]+) s, ([\d.]+) GB reserved", fused["text"])
+            log(f"phase 21 (d) fused: steps_per_dispatch {n_}, {fused['s_per_step']:.4f} s/step "
+                f"against {mat['s_per_step']:.4f} eager (materialized); capture "
+                f"{cap.group(0) if cap else None}; conv_direct launches "
+                f"{fused['counts']['conv_direct']}, {fused['per_step']} in the steps (the "
+                f"first dispatch's warm-up and captured steps: {per_enc} each expected; replays "
+                f"call no wrapper), the rest the probe's encoder")
+            if f"fused dispatch: {n_} steps/program" not in fused["text"] or (
+                    on_card and (cap is None or fused["per_step"] != [per_enc] * 2)):
+                raise AssertionError("phase 21 (d) fused: no fused dispatch, capture or the "
+                                     "wrong launches")
+            out["train"]["fused"] = {x_: v_ for x_, v_ in fused.items()
+                                     if x_ not in ("text", "logged")}
+
+        # (e) generate and evaluate on the path-backed held-out split, and serving.
+        wd = mat["wd"]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            gen_s, gen_counts = run_cli(generate_cli.main, [
+                "--workdir", wd, "--split", "test", "--decode", "fused", "--out",
+                os.path.join(root, "graphs.json")] + ([] if on_card else ["--device", "cpu"]),
+                "sgg_torch.cli.generate vg_full")
+            ev_s, ev_counts = run_cli(evaluate_cli.main, [
+                "--workdir", wd, "--decode", "fused", "--json-out",
+                os.path.join(root, "eval.json")] + ([] if on_card else ["--device", "cpu"]),
+                "sgg_torch.cli.evaluate vg_full")
+        # Each CLI's own rate: triples over its loop (JPEG decode, encoder and
+        # sampling), as it prints it.
+        gen_tps, ev_tps = (float(x_) for x_ in re.findall(r"([\d.]+) triples/sec",
+                                                          printed.getvalue())[:2])
+        with open(os.path.join(root, "graphs.json")) as f:
+            graphs = json.load(f)
+        with open(os.path.join(root, "eval.json")) as f:
+            ev = json.load(f)
+        n_te, k_ = graphs["num_images"], 50  # generate's default --num-samples
+        log(f"phase 21 (e) generate --split test --decode fused: {n_te} held-out images x "
+            f"{k_} draws, {gen_tps:.1f} triples/s in its loop, {gen_s:.3f} s in process, "
+            f"launches {gen_counts}; evaluate --decode fused: {ev_tps:.1f} triples/s in its "
+            f"loop, {ev_s:.3f} s in process, launches {ev_counts}, recall "
+            f"{ev['combos'][0]['recall']}")
+        legal_graphs(graphs["scene_graphs"], vocab21, k_, "vg_full generate")
+        if on_card and (gen_counts["conv_direct"] == 0 or gen_counts["fused_decode"] == 0
+                        or ev_counts["conv_direct"] == 0 or ev_counts["fused_decode"] == 0):
+            raise AssertionError("phase 21 (e): generate or evaluate missed a kernel")
+        test_paths = load_dataset(cfg21, split="test")[0].paths[:z_["serve_images"]]
+        engine = InferenceEngine.from_workdir(wd, device=dev, batch_size=z_["serve_images"],
+                                              num_samples=8)
+        engine.warmup()
+        gz = torch.Generator(device=dev).manual_seed(SEED + 31)
+        V_ = cfg21.model.vocab_size
+        noise = (torch.randn(8, z_["serve_images"], cfg21.model.noise_dim, generator=gz,
+                             device=dev).to(cfg21.model.dtype),
+                 -torch.log(-torch.log(torch.rand(8, z_["serve_images"], 3, V_, generator=gz,
+                                                  device=dev).clamp_min(1e-20))))
+        with_noise(engine, noise)
+        decoded = load_batch(test_paths, cfg21.data.image_size)
+        with served(engine) as (url, _):
+            st_p, by_paths = http(url + "/v1/generate", json.dumps(
+                {"paths": test_paths}).encode())
+            st_i, by_images = http(url + "/v1/generate", json.dumps(
+                {"images": decoded.tolist()}).encode())
+        same = st_p == st_i == 200 and by_paths["scene_graphs"] == by_images["scene_graphs"]
+        log(f"phase 21 (e) serve: a paths request and an images request of the same "
+            f"{len(test_paths)} decoded JPEGs on the same noise: status {st_p}/{st_i}, graphs "
+            f"equal {same}, latency {by_paths.get('latency_ms')} / "
+            f"{by_images.get('latency_ms')} ms")
+        if not same:
+            raise AssertionError("phase 21 (e): paths and images requests differ")
+        out["infer"] = {"generate_tps": gen_tps, "evaluate_tps": ev_tps,
+                        "gen_counts": gen_counts, "ev_counts": ev_counts}
+    return out
 
 
 def main():
@@ -3145,6 +3545,13 @@ def main():
     t0 = time.perf_counter()
     v19["preprocess"] = preprocess_phase(dev, run_cli)
     phase("preprocess and train on its shards", t0)
+
+    # 21. vg_full from JPEGs: the loader, extraction on the conv kernel, the
+    # train CLI on both image routes with the pixels-in probe, and inference
+    # on the path-backed held-out split.
+    t0 = time.perf_counter()
+    v21 = vg_full_phase(dev, run_cli, read_counts)
+    phase("vg_full from JPEGs (phase 21)", t0)
     log(f"phase 19 launches: flash_attention {vrl_counts['flash_attention']}, dq "
         f"{vrl_counts['flash_attention_bwd_dq']}, dk/dv {vrl_counts['flash_attention_bwd_dkv']} "
         f"({VIT_RL_STEPS} REINFORCE steps on vit_b16); none on PredCls, REINFORCE on "
@@ -3156,6 +3563,16 @@ def main():
         f"peak {f20['peak_gb']:.3f} GB, capture {f20['capture_s']} s and {f20['capture_gb']} "
         f"GB; {e20['s_per_step'] / f20['s_per_step']:.2f}x; holds bit for bit: pipeline_v4 "
         f"{v20['hold_v4']['equal']}, vit_b16 {v20['hold_vit']['equal']}")
+    ld, tr = v21["loader"], v21["train"]
+    log(f"phase 21: loader {ld['route']} (build {ld['build_s']:.3f} s, mean |d| "
+        f"{ld['mean']:.4f}, max {ld['max']}, {ld['images_per_s']:.1f} images/s in "
+        f"{ld['threads']} threads); extraction " + ", ".join(
+            f"{s_['images_per_sec']} images/s (decode-wait {s_['decode_wait_frac']})"
+            for s_ in v21["extract"]["stats"]) + "; vg_full " + "; ".join(
+            f"{k_} {r_['s_per_step']:.4f} s/step, {r_['images_per_s']:.1f} images/s, idle "
+            f"{r_['idle']}, peak {r_['peak_gb']:.3f} GB" for k_, r_ in tr.items())
+        + f"; generate {v21['infer']['generate_tps']:.1f} and evaluate "
+        f"{v21['infer']['evaluate_tps']:.1f} triples/s")
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",

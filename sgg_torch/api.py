@@ -5,10 +5,12 @@ workdir to scene graphs.
     g = SceneGraphGenerator.from_workdir("/runs/vg1k")          # on the card
     graphs = g.generate_from_features(feats)          # [B, R, F]
     graphs = g.generate_from_images(images_u8)        # [B, H, W, 3] (encoder configs)
+    graphs = g.generate_from_paths(["a.jpg", "b.jpg"])  # JPEGs (encoder configs)
 
 It runs on CUDA unless it is given ``device='cpu'``. Pixels-in configs
-encode on ``model.use_pallas``'s route, as ``sgg_torch.cli.generate`` does.
-``generate_from_paths`` (JPEG decoding) is not ported yet.
+encode on ``model.use_pallas``'s route, as ``sgg_torch.cli.generate`` does;
+``generate_from_paths`` decodes with the native loader at
+``data.image_size`` first.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sgg_torch.cli.common import LATER, resolve_device
+from sgg_torch.cli.common import resolve_device
+from sgg_torch.data.extract import load_batch
 from sgg_torch.eval.sampler import assemble_scene_graph, make_sampler, rank_triples
 from sgg_torch.models.encoders import make_image_encoder
 from sgg_torch.serve import ServeWeights, read_workdir_weights
@@ -99,4 +102,10 @@ class SceneGraphGenerator:
         return self.generate_from_features(self._encode(images.to(self.device)), temperature)
 
     def generate_from_paths(self, paths: list[str], temperature=None) -> list[dict]:
-        raise NotImplementedError(f"generate_from_paths (JPEG decoding) {LATER}")
+        """JPEG paths → scene graphs (requires an encoder config)."""
+        if self._encode is None:
+            raise ValueError(
+                "this run used precomputed features; call generate_from_features"
+            )
+        return self.generate_from_images(
+            load_batch(list(paths), self.cfg.data.image_size), temperature)

@@ -23,8 +23,10 @@ reference does. ``--predcls`` also reports predicate classification: every
 ground-truth triple of the evaluated images is a row, the decode is clamped to
 its subject and object, the predicate's log-probability is mixture-averaged
 over ``--predcls-samples`` draws (``sgg_torch.eval.sampler.make_predcls_scorer``)
-and P-R@k counts the rows whose true predicate ranks in the top k. It runs on
-CUDA unless ``--device cpu`` is given.
+and P-R@k counts the rows whose true predicate ranks in the top k.
+Pixels-in workdirs encode each batch as ``sgg_torch.cli.generate`` does (the
+``vg`` source's held-out JPEGs decoded per batch). It runs on CUDA unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations

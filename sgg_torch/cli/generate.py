@@ -19,8 +19,10 @@ backbone in the compute dtype), and the features stay on the device for the
 sampler. The encoder's kernel route comes from ``model.use_pallas``: when
 set, ``'auto'`` (the CUDA conv kernels; for the ViT the CUDA flash
 attention), else the library conv and the unfused attention. The ViT is
-built from ``data.image_size`` and ``model.vit_dims``. Only the
-``synthetic`` image source is ported.
+built from ``data.image_size`` and ``model.vit_dims``. The images come from
+the ``synthetic`` source (in memory) or the ``vg`` source (the JPEGs of
+``data.data_dir/images``, decoded per batch by the native loader; ``--split
+test`` takes the held-out ids).
 
 ``--temperature``, ``--top-k``/``--top-p`` and ``--rank freq_logp|logp``
 (which samples with per-draw log-probabilities) take the generator-forward
@@ -46,6 +48,7 @@ import torch
 
 from sgg_torch.cli.common import LATER, add_device_arg, load_dataset, resolve_device
 from sgg_torch.config import Config
+from sgg_torch.data.extract import load_batch
 from sgg_torch.eval.recall import corpus_recall
 from sgg_torch.eval.sampler import (
     assemble_scene_graphs,
@@ -60,21 +63,29 @@ from sgg_torch.train.checkpoint import load_workdir, restore_weights
 
 
 def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.device):
-    """indices → features [n, R, F] on ``device``, as ``sgg.cli.common``'s.
+    """indices → features [n, R, F] on ``device``, as ``sgg.cli.common``'s
+    (``sgg/cli/common.py:224-262``).
 
     Precomputed configs index the dataset's feature array; pixels-in configs
     run the encoder (weights ``enc_params``, a port state_dict) on the
-    batch's uint8 images and return its output in the compute dtype, without
-    a round trip through the host."""
+    batch's uint8 images (in memory, or decoded from a path-backed dataset's
+    JPEGs by ``load_batch``) and return its output in the compute dtype,
+    without a round trip through the host."""
     if cfg.model.encoder == "precomputed":
         return lambda idx: torch.from_numpy(ds.features[idx]).to(device)
     encode = make_image_encoder(cfg, enc_params, device)
-    return lambda idx: encode(torch.from_numpy(ds.images[idx]).to(device))
+
+    def images(idx) -> np.ndarray:
+        if hasattr(ds, "images"):  # in-memory uint8 images
+            return ds.images[idx]
+        return load_batch([ds.paths[int(i)] for i in idx], ds.image_size)
+
+    return lambda idx: encode(torch.from_numpy(images(idx)).to(device))
 
 
 def _refusal(args) -> str | None:
     if args.quant == "int8":
-        return f"--quant int8 (the encoder's int8 PTQ) {LATER}"
+        return f"--quant int8 (the encoder's int8 PTQ) {LATER} (ROADMAP A7)"
     if args.decode != "fused":
         return None
     if args.top_k or args.top_p is not None:

@@ -11,24 +11,35 @@ with usable triples, split them, and write feature + triple shards:
   python -m sgg_torch.cli.preprocess --out-dir D --synthetic 64
   python -m sgg_torch.cli.preprocess --out-dir D --vg-dir VG --encoder random \\
       --max-objects 150 --max-predicates 50 --feat-dtype float16
+  python -m sgg_torch.cli.preprocess --out-dir D --vg-dir VG --image-dir VG/images \\
+      --encoder vgg19 --vgg-weights vgg19.npy [--compute-dtype bfloat16] [--device cpu]
 
 Modes: ``--synthetic N``, a synthetic dataset (no VG needed); ``--vg-dir DIR``,
 VG's JSON, with the features from ``--encoder``: ``random`` draws seeded
 features (the reference's own values), which trains the pipeline without
-images; ``vgg19`` runs an encoder over JPEGs, which the port cannot decode
-yet. ``vocab.json`` is written last, so that it marks a finished output
-directory. The features come from numpy on the host; no device is used.
+images, on the host; ``vgg19`` runs an encoder over the JPEGs of
+``--image-dir`` (``<image_id>.jpg``), streaming them through
+``sgg_torch.data.extract.extract_to_shards`` (the native loader's threads
+decode the next batch while the device encodes this one). Its weights come
+from ``--vgg-weights`` (a ``.npy`` dict), from ``--encoder-ckpt`` (an
+``encoder_params.npz``, or a directory holding one and a
+``pretrain_meta.json``, whose ``encoder``, ``image_size`` and ``vit_dims`` it
+takes), or are seeded. The encoder runs on the CUDA kernels unless
+``--device cpu`` is given, in ``--compute-dtype`` (float32, the reference's;
+bfloat16 is the port's option). ``vocab.json`` is written last, so that it
+marks a finished output directory.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
 import numpy as np
 
-from sgg_torch.cli.common import LATER
+from sgg_torch.cli.common import add_device_arg
 from sgg_torch.data import (
     build_vocab_from_relationships,
     filter_and_encode,
@@ -74,7 +85,7 @@ def main(argv=None) -> int:
                    help="generate N synthetic images instead of reading VG")
     p.add_argument("--vg-dir", default=None, help="directory with relationships.json")
     p.add_argument("--encoder", default="vgg19", choices=["vgg19", "random"],
-                   help="random: seeded features; vgg19: not ported yet (JPEG decoding)")
+                   help="random: seeded features; vgg19: an encoder over the JPEGs")
     p.add_argument("--image-dir", default=None, help="directory with VG JPEGs (vgg19)")
     p.add_argument("--vgg-weights", default=None, help=".npy weight dict for VGG-19 (vgg19)")
     p.add_argument("--encoder-ckpt", default=None, help="encoder weights (vgg19)")
@@ -92,16 +103,15 @@ def main(argv=None) -> int:
     p.add_argument("--feat-dim", type=int, default=512)
     p.add_argument("--feat-dtype", default="float32", choices=["float32", "float16"],
                    help="shard feature dtype (float16 halves storage and transfer)")
+    p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="the encoder's compute dtype (vgg19)")
     p.add_argument("--seed", type=int, default=0)
+    add_device_arg(p)
     args = p.parse_args(argv)
     say = lambda m: print(f"[sgg.preprocess] {m}", flush=True)  # noqa: E731
 
     if args.synthetic is None and not args.vg_dir:
         p.error("either --synthetic N or --vg-dir is required")
-    if args.synthetic is None and args.encoder == "vgg19":
-        print(f"[sgg.preprocess] --encoder vgg19 (features from VG's JPEGs) {LATER} "
-              "(ROADMAP A7: JPEG decoding); use --encoder random", file=sys.stderr)
-        return 2
     os.makedirs(args.out_dir, exist_ok=True)
 
     if args.synthetic is not None:
@@ -144,15 +154,76 @@ def main(argv=None) -> int:
     train_ids, test_ids = train_test_split(ids, args.test_fraction, args.seed)
     pos = {im: i for i, im in enumerate(ids)}
     tr_idx, te_idx = [pos[i] for i in train_ids], [pos[i] for i in test_ids]
-    feats = random_features(len(ids), args.regions, args.feat_dim, args.feat_dtype, args.seed)
-    n_shards = _write_split(args.out_dir, train_ids, feats[tr_idx], [enc[i] for i in tr_idx],
-                            args.shard_size)
-    if te_idx:
-        _write_split(os.path.join(args.out_dir, "test"), test_ids, feats[te_idx],
-                     [enc[i] for i in te_idx], args.shard_size)
+    if args.encoder == "random":
+        feats = random_features(len(ids), args.regions, args.feat_dim, args.feat_dtype,
+                                args.seed)
+        n_shards = _write_split(args.out_dir, train_ids, feats[tr_idx],
+                                [enc[i] for i in tr_idx], args.shard_size)
+        if te_idx:
+            _write_split(os.path.join(args.out_dir, "test"), test_ids, feats[te_idx],
+                         [enc[i] for i in te_idx], args.shard_size)
+        vocab.save(os.path.join(args.out_dir, "vocab.json"))
+        say(f"wrote {n_shards} train shard(s), {len(test_ids)} test images -> {args.out_dir}")
+        return 0
+
+    if not args.image_dir:
+        print("[sgg.preprocess] --encoder vgg19 requires --image-dir "
+              "(use --encoder random for a pipeline smoke)", file=sys.stderr)
+        return 1
+    try:
+        enc_name, image_size, vit_dims, params = _encoder_weights(args, say)
+    except NotImplementedError as e:
+        print(f"[sgg.preprocess] {e}", file=sys.stderr)
+        return 2
+    import torch
+
+    from sgg_torch.data.extract import extract_to_shards, resolve_image_paths
+
+    for split_name, split_ids, split_idx in (("train", train_ids, tr_idx),
+                                            ("test", test_ids, te_idx)):
+        if not split_ids:
+            continue
+        out = args.out_dir if split_name == "train" else os.path.join(args.out_dir, "test")
+        stats = extract_to_shards(
+            enc_name, split_ids, resolve_image_paths(split_ids, args.image_dir),
+            [enc[i] for i in split_idx], out, shard_size=args.shard_size,
+            encoder_params=params, batch_size=args.batch_size, image_size=image_size,
+            dtype=getattr(torch, args.compute_dtype), feat_dtype=np.dtype(args.feat_dtype),
+            seed=args.seed, vit_dims=vit_dims, device=args.device)
+        say(f"{split_name}: {stats}")
     vocab.save(os.path.join(args.out_dir, "vocab.json"))
-    say(f"wrote {n_shards} train shard(s), {len(test_ids)} test images -> {args.out_dir}")
     return 0
+
+
+def _encoder_weights(args, say):
+    """(encoder, image size, vit_dims, port state_dict or None) from
+    ``--vgg-weights`` or ``--encoder-ckpt``; None draws seeded weights."""
+    enc_name, image_size, vit_dims = "vgg19", 224, (768, 12, 12)
+    if args.vgg_weights:
+        from sgg_torch.models.vgg import load_npy_weights
+
+        return enc_name, image_size, vit_dims, load_npy_weights(args.vgg_weights)
+    if not args.encoder_ckpt:
+        return enc_name, image_size, vit_dims, None
+    from sgg_torch.convert_flax import encoder_flax_to_state_dict, load_params_npz
+
+    ckpt = args.encoder_ckpt
+    if os.path.isdir(ckpt):
+        meta_path = os.path.join(ckpt, "pretrain_meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            if int(meta.get("moe_experts", 0)) > 0:
+                raise NotImplementedError(
+                    "an MoE encoder (pretrain_meta.json moe_experts > 0) is not ported yet; a "
+                    "later slice of the port brings it (ROADMAP A8)")
+            enc_name = meta.get("encoder", enc_name)
+            image_size = int(meta.get("image_size", image_size))
+            vit_dims = tuple(meta.get("vit_dims", vit_dims))
+        ckpt = os.path.join(ckpt, "encoder_params.npz")
+    params = encoder_flax_to_state_dict(load_params_npz(ckpt))
+    say(f"encoder weights <- {ckpt} ({enc_name} @ {image_size}px)")
+    return enc_name, image_size, vit_dims, params
 
 
 if __name__ == "__main__":

@@ -30,11 +30,11 @@ def _refusal(args) -> str | None:
     if bool(args.workdir) == bool(args.artifact):
         return "pass exactly one of --workdir / --artifact"
     if args.artifact:
-        return f"--artifact (serving an exported .sgx program) {LATER}"
+        return f"--artifact (serving an exported .sgx program) {LATER} (ROADMAP A9)"
     if args.dp:
-        return f"--dp (data-parallel serving over a mesh) {LATER}"
+        return f"--dp (data-parallel serving over a mesh) {LATER} (ROADMAP A8)"
     if args.quant == "int8":
-        return f"--quant int8 (the encoder's int8 PTQ) {LATER}"
+        return f"--quant int8 (the encoder's int8 PTQ) {LATER} (ROADMAP A7)"
     return None
 
 

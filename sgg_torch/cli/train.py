@@ -57,8 +57,20 @@ and a budget that holds the whole int8 store (VG's is about 10.8 GB):
       --set train.log_every=32 --set train.checkpoint_every=2048 \\
       --set train.eval_every=5120
 
+``--config vg_full`` trains on VG's JPEGs (``data.source=vg``,
+``sgg/cli/train.py:157-175``): a path-backed dataset whose decoded corpus
+fits ``data.device_resident_max_bytes`` is decoded once, with the reference's
+lines, and trains on the device-resident store like any in-memory image
+dataset (``train.steps_per_dispatch`` included); a larger one, as full VG's
+16.3 GB, trains on the host iterator, decoding each step's images in its
+prefetch thread, and the run ends with the host's decode time a step:
+
+  python -m sgg_torch.cli.train --config vg_full --workdir W --set data.data_dir=VG \\
+      --encoder-ckpt ENC
+
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
-there. Not ported yet: meshes and the distributed tiers, and grain.
+there. Not ported yet: meshes and the distributed tiers (ROADMAP A8), and
+grain (A9).
 """
 
 from __future__ import annotations
@@ -82,7 +94,7 @@ from sgg_torch.cli.common import (
 )
 from sgg_torch.config import Config
 from sgg_torch.convert_flax import encoder_flax_to_state_dict, load_params_npz
-from sgg_torch.data import ArrayImageTripleDataset, TripleDataset
+from sgg_torch.data import ArrayImageTripleDataset, ImageTripleDataset, TripleDataset
 from sgg_torch.data.pipeline import (
     RotatingDeviceIterator,
     data_store,
@@ -102,10 +114,8 @@ STALL_POLL_SEC = 30.0  # how often the stall watchdog looks
 
 
 def _refusal(cfg: Config) -> str | None:
-    if cfg.train.eval_every > 0 and cfg.model.encoder != "precomputed":
-        return f"train.eval_every with a pixels-in encoder {LATER} (ROADMAP A6)"
     if cfg.data.loader == "grain":
-        return f"data.loader=grain {LATER}"
+        return f"data.loader=grain {LATER} (ROADMAP A9)"
     try:
         refuse_unported(cfg)
     except (NotImplementedError, ValueError) as e:
@@ -117,8 +127,10 @@ def data_route(cfg: Config, ds) -> tuple[str, int, bool]:
     """Which iterator feeds the run: ``device`` (the whole store on the
     device), ``rotating`` or ``host``; with the store's bytes on the device
     and whether it is int8."""
-    store, _ = data_store(ds)
     d = cfg.data
+    if isinstance(ds, ImageTripleDataset):  # JPEGs decoded per step on the host
+        return "host", ds.est_bytes, False
+    store, _ = data_store(ds)
     int8 = bool(d.feature_store_int8) and hasattr(ds, "features")
     # Bytes on the device: int8 keeps one byte per value and a float32 scale
     # per region.
@@ -188,6 +200,11 @@ def _batches(cfg: Config, ds, device: torch.device, route: str, nbytes: int, int
         finally:
             host.close()
 
+    if isinstance(ds, ImageTripleDataset):
+        return to_device(), (f"host iterator with prefetch, decoding "
+                             f"{t.batch_size * (t.n_critic + 1)} JPEGs a step ({nbytes / 1e9:.2f} "
+                             f"GB decoded over the {d.device_resident_max_bytes / 1e9:.2f} GB "
+                             "budget)")
     return to_device(), "host iterator with prefetch"
 
 
@@ -260,6 +277,13 @@ def main(argv=None) -> int:
         ds.set_predicate_balance(cfg.data.predicate_balance)
         print(f"[sgg.train] predicate-balanced triple sampling "
               f"(alpha={cfg.data.predicate_balance})", flush=True)
+    # A path-backed image dataset whose decoded corpus fits the budget is
+    # decoded once and trains on the device-resident store.
+    if (cfg.data.device_resident and isinstance(ds, ImageTripleDataset)
+            and ds.est_bytes <= cfg.data.device_resident_max_bytes):
+        print(f"[sgg.train] materializing {len(ds)} images "
+              f"({ds.est_bytes / 1e9:.1f} GB uint8) for device residency", flush=True)
+        ds = ds.materialize(log=lambda m: print(m, flush=True))
     ckpt = CheckpointManager(cfg.workdir, cfg, max_to_keep=cfg.train.max_checkpoints)
     ckpt.save_vocab(vocab)
 
@@ -381,6 +405,11 @@ def main(argv=None) -> int:
                   f"most {it.max_alive} alive, {len(it.uploads)} uploads (host gather "
                   f"{sum(u[1] for u in it.uploads):.3f} s, device copy "
                   f"{sum(u[2] for u in it.uploads):.3f} s)", flush=True)
+        if isinstance(ds, ImageTripleDataset) and ds.decoded_images:
+            per_step = ds.decode_seconds * images_per_step / ds.decoded_images
+            print(f"[sgg.train] host decode: {ds.decoded_images} images in "
+                  f"{ds.decode_seconds:.3f} s ({per_step:.4f} s per step of {images_per_step} "
+                  "images)", flush=True)
         if stepper is not None and stepper.capture_s is not None:
             print(f"[sgg.train] CUDA graph of one step: captured in {stepper.capture_s:.3f} s, "
                   f"{stepper.capture_bytes / 1e9:.3f} GB reserved", flush=True)

@@ -186,6 +186,26 @@ def _cfg_vg1k() -> Config:
     return c
 
 
+def _cfg_vg_full() -> Config:
+    """Full Visual Genome end to end: VG's JPEGs decoded on the host (the
+    native loader), VGG-19 on the CUDA conv kernels in bfloat16, then the
+    GAN, batch 256. Point ``data.data_dir`` at a directory holding
+    ``relationships.json`` and ``images/<id>.jpg``; the held-out split is
+    preprocess's (``data.split_seed`` = its ``--seed``). A decoded corpus
+    within ``data.device_resident_max_bytes`` trains on the device-resident
+    store; full VG's (16.3 GB) trains on the host-prefetch route, decoding
+    each step's images (``sgg_torch.cli.train``). ``mesh.data = -1`` is the
+    reference's "every device"; the port trains on one."""
+    c = Config(name="vg_full")
+    c.model.encoder = "vgg19"
+    c.model.compute_dtype = "bfloat16"
+    c.model.use_pallas = True
+    c.data.source = "vg"
+    c.train.batch_size = 256
+    c.mesh.data = -1
+    return c
+
+
 def _cfg_resnet50() -> Config:
     """ResNet-50 backbone on pixels, fused conv + BN + ReLU, larger vocab."""
     c = Config(name="resnet50")
@@ -262,8 +282,8 @@ def _cfg_pipeline_v4() -> Config:
     return c
 
 
-CONFIGS = {"vg1k": _cfg_vg1k, "resnet50": _cfg_resnet50, "vit_b16": _cfg_vit_b16,
-           "smoke": _cfg_smoke, "pipeline_v4": _cfg_pipeline_v4}
+CONFIGS = {"vg1k": _cfg_vg1k, "vg_full": _cfg_vg_full, "resnet50": _cfg_resnet50,
+           "vit_b16": _cfg_vit_b16, "smoke": _cfg_smoke, "pipeline_v4": _cfg_pipeline_v4}
 
 
 def get_config(name: str) -> Config:

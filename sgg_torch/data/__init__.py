@@ -1,6 +1,6 @@
 """sgg_torch.data — VG parsing, vocab, feature shards and datasets for the port."""
 
-from sgg_torch.data.images import ArrayImageTripleDataset
+from sgg_torch.data.images import ArrayImageTripleDataset, ImageTripleDataset
 from sgg_torch.data.pipeline import TripleDataset
 from sgg_torch.data.shards import list_shards, read_feature_shard, write_feature_shard
 from sgg_torch.data.synthetic import synthetic_dataset, synthetic_vg_json
@@ -16,6 +16,7 @@ from sgg_torch.data.vocab import Vocab, normalize_name
 
 __all__ = [
     "ArrayImageTripleDataset",
+    "ImageTripleDataset",
     "ImageTriples",
     "TripleDataset",
     "Vocab",

@@ -26,7 +26,7 @@ has set them.
   - :func:`make_fused_device_stepper`: the device-resident store, N
     sample-and-step iterations per call, on the card N replays of one
     captured CUDA graph (``train.steps_per_dispatch``).
-The grain loader comes with a later slice.
+The grain loader comes with a later slice (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -44,18 +44,26 @@ import torch
 from sgg_torch.data.shards import read_feature_shard
 
 
-def sample_rows(store: np.ndarray, triples: list, rng: np.random.RandomState,
-                indices: np.ndarray, batch_size: int,
-                weights: list | None = None) -> tuple[np.ndarray, np.ndarray]:
-    """(store rows, one triple of each) for ``batch_size`` images drawn from
-    ``indices``, the reference's ``sample_batch`` draws: the triple uniformly,
-    or by ``weights[i]`` (``rng.choice``) when given."""
+def sample_indices(triples: list, rng: np.random.RandomState, indices: np.ndarray,
+                   batch_size: int, weights: list | None = None
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """(image indices, one triple of each) for ``batch_size`` images drawn
+    from ``indices``, the reference's ``sample_batch`` draws: the triple
+    uniformly, or by ``weights[i]`` (``rng.choice``) when given."""
     img = indices[rng.randint(len(indices), size=batch_size)]
     if weights is None:
         pick = [triples[i][rng.randint(triples[i].shape[0])] for i in img]
     else:
         pick = [triples[i][rng.choice(triples[i].shape[0], p=weights[i])] for i in img]
-    return store[img], np.stack(pick).astype(np.int32)
+    return img, np.stack(pick).astype(np.int32)
+
+
+def sample_rows(store: np.ndarray, triples: list, rng: np.random.RandomState,
+                indices: np.ndarray, batch_size: int,
+                weights: list | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """(store rows, one triple of each): :func:`sample_indices` on ``store``."""
+    img, trip = sample_indices(triples, rng, indices, batch_size, weights)
+    return store[img], trip
 
 
 @dataclass

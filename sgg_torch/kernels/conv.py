@@ -63,7 +63,8 @@ def conv2d_fused(
         impl = "auto" if use_pallas else "xla"
     if impl == "int8":
         raise NotImplementedError(
-            "conv impl 'int8' is not ported yet; a later slice of the port brings it"
+            "conv impl 'int8' is not ported yet; a later slice of the port brings it "
+            "(ROADMAP A7)"
         )
     if impl not in IMPLS:
         raise ValueError(f"unknown conv impl {impl!r}; one of {IMPLS}")

@@ -47,7 +47,7 @@ def make_encoder(
     if quant not in ("", "int8"):
         raise ValueError(f"unknown quant mode {quant!r} (want '' or 'int8')")
     if quant == "int8":
-        raise NotImplementedError(f"quant 'int8' {_LATER}")
+        raise NotImplementedError(f"quant 'int8' {_LATER} (ROADMAP A7)")
     if name == "precomputed":
         return None
     if name == "vgg19":

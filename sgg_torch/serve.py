@@ -13,7 +13,9 @@ after the first queued one). The front end is the stdlib's
 
 Endpoints (JSON over HTTP):
   POST /v1/generate   {"features": [[[...]]]}  → {"scene_graphs": [...]}
-                      or {"images": [[[[u8]]]]} on pixels-in configs.
+                      or {"images": [[[[u8]]]]} or {"paths": ["a.jpg", ...]}
+                      (JPEGs the server reads, decoded by the native loader at
+                      ``data.image_size``) on pixels-in configs.
   GET  /healthz       {"ok": true, "step": N, ...}
   GET  /stats         batching and latency counters (JSON).
   GET  /metrics       the same counters in Prometheus text exposition.
@@ -31,9 +33,8 @@ plans and counters and the sampler's lazy weight load are never entered by
 two threads at once. The engine runs on CUDA unless it is given
 ``device='cpu'``.
 
-Not ported yet: the AOT artifact engine (``sgg.export``), data-parallel
-serving over a mesh, the encoder's int8 PTQ, and ``paths`` requests (JPEG
-decoding); a ``paths`` request gets a 400 that says so.
+Not ported yet: the AOT artifact engine (``sgg.export``, ROADMAP A9),
+data-parallel serving over a mesh (A8) and the encoder's int8 PTQ (A7).
 
 Usage: ``python -m sgg_torch.cli.serve --workdir W --port 8500``.
 """
@@ -55,6 +56,7 @@ import torch
 
 from sgg_torch.cli.common import LATER, resolve_device
 from sgg_torch.config import Config
+from sgg_torch.data.extract import load_batch
 from sgg_torch.data.vocab import Vocab
 from sgg_torch.eval.sampler import assemble_scene_graphs, make_sampler
 from sgg_torch.models.encoders import make_image_encoder
@@ -201,7 +203,8 @@ class InferenceEngine:
                  quant: str | None = None, ema: bool = False, rank: str = "freq",
                  top_k: int = 0, top_p: float | None = None):
         if quant == "int8":
-            raise NotImplementedError(f"quant 'int8' (the encoder's int8 PTQ) {LATER}")
+            raise NotImplementedError(
+                f"quant 'int8' (the encoder's int8 PTQ) {LATER} (ROADMAP A7)")
         if quant is not None:  # override of cfg.model.quant
             cfg.model.quant = "" if quant == "none" else quant
         self.device = resolve_device(device)
@@ -351,6 +354,15 @@ class InferenceEngine:
         return self.generate(
             self.encode_images(np.asarray(images_u8, np.uint8)), temps
         )
+
+    def decode_paths(self, paths) -> np.ndarray:
+        """JPEG paths → uint8 [n, S, S, 3] at ``data.image_size`` (the native
+        loader); a precomputed-feature engine refuses them."""
+        if self._encode is None:
+            raise ValueError("this run used precomputed features; POST 'features' instead")
+        if isinstance(paths, str) or not len(paths):
+            raise ValueError("'paths' must be a non-empty list of image paths")
+        return load_batch([str(p) for p in paths], self.cfg.data.image_size)
 
 
 class DynamicBatcher:
@@ -548,13 +560,15 @@ def make_http_server(batcher: DynamicBatcher, host: str = "127.0.0.1",
                     graphs = engine.generate_from_images(
                         imgs, None if temp is None else np.full(len(imgs), temp, np.float32))
                 elif "paths" in req:
-                    raise ValueError(f"'paths' requests (JPEG decoding) {LATER}; "
-                                     "POST 'images' instead")
+                    imgs = engine.decode_paths(req["paths"])
+                    t0 = time.perf_counter()
+                    graphs = engine.generate_from_images(
+                        imgs, None if temp is None else np.full(len(imgs), temp, np.float32))
                 else:
                     self._send(400, {"error":
                                      "need 'features', 'images' or 'paths'"})
                     return
-            except (ValueError, KeyError, json.JSONDecodeError) as e:
+            except (ValueError, KeyError, json.JSONDecodeError, OSError) as e:
                 self._send(400, {"error": str(e)})
                 return
             self._send(200, {

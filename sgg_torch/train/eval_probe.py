@@ -9,6 +9,10 @@ ranked by frequency as ``sgg_torch.cli.evaluate`` ranks by default. The best
 value and its step are kept in ``W/best_eval.json``. Each probe's noise comes
 from a ``torch.Generator`` seeded by (``train.seed + 1``, step): probes at
 different steps draw different noise, and a rerun reproduces the curve.
+Pixels-in configs encode the held-out images at each probe with the run's
+current encoder (``sgg/train/eval_probe.py:59-89``): its in-memory images, or
+the path-backed split's JPEGs decoded per batch; the last batch's features are
+padded with its last row, as the reference pads them.
 """
 
 from __future__ import annotations
@@ -35,10 +39,6 @@ class EvalProbe:
         from sgg_torch.cli.common import load_dataset
         from sgg_torch.eval.sampler import make_sampler
 
-        if cfg.model.encoder != "precomputed":
-            raise NotImplementedError(
-                "train.eval_every with a pixels-in encoder is not ported yet; a later slice "
-                "of the port brings it (ROADMAP A6)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.k = int(cfg.train.eval_k)
@@ -48,7 +48,7 @@ class EvalProbe:
         self.n_images = n
         self.batch = min(cfg.train.batch_size, n)
         self.gt = [[tuple(int(x) for x in t) for t in ds.triples[i]] for i in range(n)]
-        self._features = ds.features
+        self._ds = ds
         self._sampler = make_sampler(cfg, step_mask=vocab.step_mask(),
                                      num_samples=int(cfg.train.eval_samples))
         self.best = None  # (recall, step)
@@ -60,6 +60,25 @@ class EvalProbe:
                 self.best = (float(prev["recall"]), int(prev["step"]))
             except (ValueError, KeyError, OSError):
                 pass  # an unreadable best file: start afresh
+
+    def _batch_features(self, state, idx: np.ndarray) -> torch.Tensor:
+        """Features [n, R, F] of held-out images ``idx`` on the device: the
+        stored features, or the run's current encoder (``state.encoder``, the
+        fine-tuned weights with ``train_encoder``) on their uint8 images, in
+        memory or decoded from their JPEGs."""
+        ds = self._ds
+        if state.encoder is None:
+            return torch.from_numpy(ds.features[idx]).to(self.device)
+        from sgg_torch.data.extract import load_batch
+        from sgg_torch.models.encoders import normalize_for
+
+        if hasattr(ds, "images"):
+            imgs = ds.images[idx]
+        else:
+            imgs = load_batch([ds.paths[int(i)] for i in idx], ds.image_size)
+        x = torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
+        with torch.no_grad():
+            return state.encoder(normalize_for(self.cfg.model.encoder, x))
 
     def run(self, state, step: int, noise: list | None = None) -> dict:
         """Probe the current weights → {"eval_recall@k": v, "eval_seconds": s}.
@@ -78,9 +97,9 @@ class EvalProbe:
         gen_triples = []
         for b, lo in enumerate(range(0, self.n_images, B)):
             idx = np.arange(lo, min(lo + B, self.n_images))
-            if len(idx) < B:
-                idx = np.concatenate([idx, np.repeat(idx[-1:], B - len(idx))])
-            feats = torch.from_numpy(self._features[idx]).to(self.device)
+            feats = self._batch_features(state, idx)
+            if len(idx) < B:  # the last batch padded with its last row
+                feats = torch.cat([feats, feats[-1:].expand(B - len(idx), *feats.shape[1:])])
             tokens = self._sampler(g, feats, generator,
                                    None if noise is None else noise[b]).cpu().numpy()
             for j in range(min(B, self.n_images - lo)):

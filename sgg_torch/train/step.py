@@ -70,8 +70,9 @@ def refuse_unported(cfg: Config) -> None:
                              "(model.encoder != 'precomputed')")
         if m.encoder != "vit_b16" and m.use_pallas:
             raise NotImplementedError(
-                f"train.train_encoder through the CNN conv kernels {_LATER} (they have no "
-                "backward); set model.use_pallas=false for the library conv route")
+                f"train.train_encoder through the CNN conv kernels {_LATER} (ROADMAP A7: "
+                "they have no backward); set model.use_pallas=false for the library conv "
+                "route")
 
 
 def tau_schedule(cfg: Config, step: int) -> float:

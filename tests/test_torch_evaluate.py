@@ -28,7 +28,12 @@ from sgg.train.eval_probe import EvalProbe as JaxEvalProbe
 from sgg.train.state import create_train_state as jax_create_train_state
 from sgg_torch.cli import evaluate, train
 from sgg_torch.config import Config as PortConfig
-from sgg_torch.convert_flax import generator_flax_to_state_dict, train_state_from_flax
+from sgg_torch.convert_flax import (
+    encoder_state_dict_to_flax,
+    generator_flax_to_state_dict,
+    generator_state_dict_to_flax,
+    train_state_from_flax,
+)
 from sgg_torch.data import write_feature_shard
 from sgg_torch.data.shards import shard_name
 from sgg_torch.train.checkpoint import CheckpointManager
@@ -297,3 +302,61 @@ def test_evaluate_cli_refusals(v4_workdir, capsys, flags, message):
     assert evaluate.main(["--workdir", v4_workdir, "--device", "cpu", "--num-samples", "2",
                           *flags]) == 2
     assert message in capsys.readouterr().err
+
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures_torch",
+                       "vg_jpeg")
+
+
+@pytest.mark.parametrize("source", ["synthetic", "vg"])
+def test_pixels_in_probe_matches_reference(tmp_path, monkeypatch, source):
+    """The pixels-in probe on a small VGG-19 config (32 px, float32): held-out
+    images in memory (the synthetic source) or decoded from the fixture's
+    JPEGs (the vg source), encoded with the state's encoder weights, the last
+    of three batches padded; the same recall and best_eval.json as the
+    reference's on its own draws, and each image's ranked triples identical."""
+    import sgg.eval as jax_eval
+    import sgg_torch.eval.sampler as port_sampler
+
+    from sgg.cli.common import load_dataset as jax_load_dataset
+    from sgg_torch.cli.common import load_dataset
+
+    cfg = jax_get_config("vg_full")
+    cfg.model.compute_dtype = "float32"
+    cfg.model.hidden, cfg.model.embed_dim, cfg.model.attn_dim = 32, 16, 16
+    cfg.model.noise_dim, cfg.model.critic_hidden = 8, 32
+    cfg.data.image_size, cfg.data.regions, cfg.data.feat_dim = 32, 4, 512
+    cfg.data.source = source
+    cfg.data.data_dir, cfg.data.test_fraction = FIXTURE, 0.4
+    cfg.data.num_synthetic_images = 12
+    cfg.train.batch_size, cfg.train.eval_images, cfg.train.eval_samples = 4, 10, 3
+    cfg.train.eval_k = 5
+    vocab = jax_load_dataset(cfg, split="test")[1]
+    cfg.model.vocab_size = len(vocab)
+    pcfg = PortConfig.from_json(cfg.to_json())
+    pvocab = load_dataset(pcfg, split="test")[1]
+    cfg.workdir, pcfg.workdir = str(tmp_path / "ref"), str(tmp_path / "port")
+    os.makedirs(cfg.workdir)
+    os.makedirs(pcfg.workdir)
+    # The port's seeded state, and the reference's sampler and encoder fed its
+    # weights (a reference init compiles every initializer, tens of seconds).
+    state = create_train_state(pcfg, 0, device="cpu")
+    assert state.encoder is not None and state.g_ema is None
+    st = types.SimpleNamespace(
+        g_ema=None, g_params=generator_state_dict_to_flax(state.generator.state_dict()),
+        enc_params=encoder_state_dict_to_flax(state.encoder.state_dict(), "vgg19"))
+    ref_probe = JaxEvalProbe(cfg, vocab)
+    probe = EvalProbe(pcfg, pvocab, "cpu")
+    assert (probe.n_images, probe.batch) == (ref_probe.n_images, ref_probe.batch) == (10, 4)
+    ranked = {"ref": [], "port": []}
+    for mod, key in ((jax_eval, "ref"), (port_sampler, "port")):
+        monkeypatch.setattr(mod, "rank_triples", lambda *a, _f=mod.rank_triples, _k=key, **k:
+                            ranked[_k].append(_f(*a, **k)) or ranked[_k][-1])
+    for step in (3, 6):
+        want = ref_probe.run(st, step)
+        got = probe.run(state, step, noise=_reference_probe_noise(cfg, step, 3, 4, len(vocab)))
+        assert got["eval_recall@5"] == want["eval_recall@5"]
+    assert len(ranked["port"]) == 20 and ranked["port"] == ranked["ref"]
+    with open(os.path.join(cfg.workdir, "best_eval.json")) as f, \
+            open(os.path.join(pcfg.workdir, "best_eval.json")) as g:
+        assert json.load(g) == json.load(f)

@@ -299,10 +299,14 @@ def test_port_imports_no_jax_and_no_sgg():
         "import sgg_torch.cli.evaluate, sgg_torch.train.eval_probe, sgg_torch.utils.profiling\n"
         "import sgg_torch.serve, sgg_torch.api, sgg_torch.cli.serve\n"
         "import sgg_torch.cli.preprocess, sgg_torch.data.vg, sgg_torch.utils.debug\n"
+        "import sgg_torch.native, sgg_torch.native.loader, sgg_torch.data.extract\n"
+        "import sgg_torch.data.images\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sgg'))\n"
         "assert not bad, bad\n"
         "from sgg_torch.kernels import build\n"
         "assert not build.load_library.cache_info().currsize  # nothing built at import\n"
+        "from sgg_torch.native import loader\n"
+        "assert loader._lib is None and loader._error is None  # the loader neither\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -10,7 +10,8 @@
   give byte-identical ``vocab.json`` and equal shard arrays; the reference's
   random route returns before it writes ``vocab.json``, so the port's is held
   against the vocab the reference built and would have saved; ``--encoder
-  vgg19`` is refused with exit 2.
+  vgg19`` without ``--image-dir`` returns 1 with the reference's message
+  (``tests/test_torch_extract.py`` holds its extraction).
 - ``assert_super_batch`` on good and malformed batches, numpy and tensors,
   where ``sgg``'s raises too; ``--debug-nans``: a NaN in the features fails
   both train CLIs (``FloatingPointError``), and on sound data the port's
@@ -172,12 +173,18 @@ def test_preprocess_vg_random_matches_reference(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [[], ["--vgg-weights", "w.npy"], ["--encoder-ckpt", "e"]])
 def test_preprocess_refuses_vgg19(tmp_path, capsys, extra):
+    """``--encoder vgg19`` without ``--image-dir``: both CLIs return 1 with the
+    same message before they read any weights, and write no vocab.json."""
     (tmp_path / "vg").mkdir()
-    assert preprocess.main(["--out-dir", str(tmp_path / "out"), "--vg-dir",
-                            str(tmp_path / "vg"), "--encoder", "vgg19", *extra]) == 2
+    with open(tmp_path / "vg" / "relationships.json", "w") as f:
+        json.dump(synthetic_vg_json(12, seed=1, max_rels=4), f)
+    args = ["--vg-dir", str(tmp_path / "vg"), "--encoder", "vgg19", *extra]
+    assert jax_preprocess.main(["--out-dir", str(tmp_path / "ref"), *args]) == 1
+    want = capsys.readouterr().err
+    assert preprocess.main(["--out-dir", str(tmp_path / "out"), *args]) == 1
     err = capsys.readouterr().err
-    assert "not ported yet" in err and "A7" in err
-    assert not os.path.exists(tmp_path / "out")
+    assert err == want and "--encoder vgg19 requires --image-dir" in err
+    assert not os.path.exists(tmp_path / "out" / "vocab.json")
 
 
 def _batch(nc=2, B=4, images=False, lib=np):

@@ -556,7 +556,7 @@ def test_http_bad_requests(http_server):
     status, body = _post(http_server, {"features": [[[1.0, 2.0]]]})
     assert status == 400 and "expected features" in body["error"]
     status, body = _post(http_server, {"paths": ["a.jpg"]})
-    assert status == 400 and "not ported yet" in body["error"] and "paths" in body["error"]
+    assert status == 400 and "precomputed features" in body["error"]
     status, body = _request(http_server + "/v1/generate", b"{not json")
     assert status == 400
     status, body = _request(http_server + "/v1/generate", b"NOPE" + b"\x00" * 20,
@@ -671,7 +671,7 @@ def test_scene_graph_generator_matches_reference(decoder, rank):
         assert port.generate_from_features(feats, t) == ref.generate_from_features(feats, t)
     with pytest.raises(ValueError, match="precomputed"):
         port.generate_from_images(np.zeros((1, 8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="precomputed"):
         port.generate_from_paths(["a.jpg"])
 
 
@@ -683,3 +683,50 @@ def test_scene_graph_generator_from_workdir(serve_workdir):
     assert len(graphs) == 2 and all(1 <= len(x["triples"]) <= 3 for x in graphs)
     with pytest.raises(FileNotFoundError):
         api.SceneGraphGenerator.from_workdir(os.path.dirname(serve_workdir), device="cpu")
+
+
+FIXTURE_JPEGS = [os.path.join(REPO, "tests", "fixtures_torch", "vg_jpeg", "images",
+                              f"{1000 + i}.jpg") for i in range(3)]
+
+
+def test_paths_requests_equal_images_requests(tmp_path):
+    """A pixels-in engine (resnet50 at 32 px) whose every dispatch takes the
+    same draws: a ``paths`` request over HTTP and
+    ``SceneGraphGenerator.generate_from_paths`` give the graphs of an
+    ``images`` request of the same JPEGs decoded by ``load_batch``; a missing
+    file is a 400."""
+    from sgg_torch.data.extract import load_batch
+    from sgg_torch.models.encoders import make_encoder
+
+    _, pvocab = _vocab_pair(str(tmp_path))
+    jcfg = _resnet50_cfg(len(pvocab))
+    cfg = PortConfig.from_json(jcfg.to_json())
+    torch.manual_seed(0)
+    enc = make_encoder("resnet50").state_dict()
+    weights = serve.ServeWeights(
+        2, generator_flax_to_state_dict(_generator_params(jcfg, 1), jcfg), None, enc)
+    noise = _reference_noise(jcfg, jax.random.key(5), 4, K)
+    eng = serve.InferenceEngine(cfg, pvocab, weights, device="cpu", batch_size=4,
+                                num_samples=K, rank="logp")
+    inner = eng._sampler
+    eng._sampler = lambda g, f, generator=None, temp=None: inner(g, f, noise=noise, temp=temp)
+    imgs = load_batch(FIXTURE_JPEGS, 32)
+    want = eng.generate_from_images(imgs)
+    assert len(want) == 3 and all(g_["triples"] for g_ in want)
+    s = Served(serve, eng)
+    try:
+        status, body = _post(s.url, {"paths": FIXTURE_JPEGS})
+        assert status == 200 and body["scene_graphs"] == want
+        status, body = _post(s.url, {"images": imgs.tolist()})
+        assert status == 200 and body["scene_graphs"] == want
+        status, body = _post(s.url, {"paths": [FIXTURE_JPEGS[0], str(tmp_path / "no.jpg")]})
+        assert status == 400 and "no.jpg" in body["error"]
+    finally:
+        s.close()
+    gen = api.SceneGraphGenerator(cfg, pvocab, weights, num_samples=K, rank="logp",
+                                  device="cpu")
+    inner_g = gen._sampler
+    noise3 = _reference_noise(jcfg, jax.random.key(6), 3, K)
+    gen._sampler = lambda g, f, generator=None, temp=None: inner_g(g, f, noise=noise3,
+                                                                  temp=temp)
+    assert gen.generate_from_paths(FIXTURE_JPEGS) == gen.generate_from_images(imgs)

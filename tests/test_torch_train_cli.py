@@ -142,7 +142,8 @@ def test_cuda_is_the_default_device(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--set", "model.pp_microbatches=2"],
-    ["--set", "train.eval_every=5", "--set", "model.encoder=vgg19"],
+    ["--set", "train.train_encoder=true", "--set", "model.encoder=vgg19", "--set",
+     "model.use_pallas=true"],
     ["--set", "model.moe_experts=4"], ["--set", "model.sp_mode=ring"],
     ["--set", "mesh.data=2"],
     ["--set", "data.loader=grain"], ["--set", "mesh.seq=2"],
@@ -271,3 +272,51 @@ def test_stall_watchdog_runs_only_when_on(tmp_path, monkeypatch, limit):
     assert _train(tmp_path, f"train.stall_exit_sec={limit}", steps=2) == 0
     assert seen == [limit > 0] * 2
     assert not any(th.name == "sgg-torch-stall-watchdog" for th in threading.enumerate())
+
+
+VG_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures_torch",
+                          "vg_jpeg")
+
+
+@pytest.mark.parametrize("route", ["materialized", "host"])
+def test_vg_full_trains_on_the_jpeg_fixture(tmp_path, capsys, route):
+    """``--config vg_full`` at smoke widths (32 px, float32) on the committed
+    JPEG fixture, 2 steps with the pixels-in probe at each: once decoded into
+    the device-resident store, and once with a budget under the decoded
+    corpus, on the host-prefetch route, decoding each step's images. The
+    materialize and probe lines are the reference's
+    (``sgg/cli/train.py:169-173``, ``sgg/data/images.py:89``,
+    ``sgg/train/eval_probe.py:143-147``)."""
+    sets = {"data.data_dir": VG_FIXTURE, "data.image_size": 32, "data.regions": 4,
+            "data.feat_dim": 512, "model.compute_dtype": "float32", "model.hidden": 32,
+            "model.embed_dim": 16, "model.attn_dim": 16, "model.noise_dim": 8,
+            "model.critic_hidden": 32, "train.batch_size": 4, "train.n_critic": 2,
+            "train.log_every": 1, "train.eval_every": 1, "train.eval_images": 3,
+            "train.eval_samples": 2}
+    if route == "host":
+        sets["data.device_resident_max_bytes"] = 1000
+    argv = ["--config", "vg_full", "--device", "cpu", "--workdir", str(tmp_path), "--steps",
+            "2"]
+    for k, v in sets.items():
+        argv += ["--set", f"{k}={v}"]
+    assert train.main(argv) == 0
+    out = capsys.readouterr().out
+    n_train = 28  # the fixture's 31 kept images less round(0.1 x 31) held out
+    materialize = (f"[sgg.train] materializing {n_train} images (0.0 GB uint8) for device "
+                   "residency")
+    assert (materialize in out) == (route == "materialized")
+    assert (f"[sgg.data] materialize: {n_train}/{n_train} images decoded" in out) == (
+        route == "materialized")
+    if route == "materialized":
+        assert "[sgg.train] device-resident dataset (0 MB on cpu)" in out
+    else:
+        assert "[sgg.train] host iterator with prefetch, decoding 12 JPEGs a step" in out
+        assert "[sgg.train] host decode: " in out
+    for step in (1, 2):
+        assert f"[sgg.train] eval step {step}: recall@50 = " in out
+    assert "(3 held-out images, " in out
+    lines = _metrics(str(tmp_path))
+    assert [r["step"] for r in lines if "d_loss" in r] == [1, 2]
+    assert [r["step"] for r in lines if "eval_recall@50" in r] == [1, 2]
+    with open(tmp_path / "best_eval.json") as f:
+        assert json.load(f)["images"] == 3
