@@ -88,6 +88,18 @@ pipeline_v4's widths on a seeded int8 corpus of 1,024 images: 4 eager steps
 against 2 dispatches of 2 on the card, every tensor of the state and the
 last step's metrics bit for bit.
 
+Three faults are seeded into the grounded recipe's stage 1: the MoE layer's
+gates not renormalized over the kept experts, and its capacity one slot short
+(``sgg_torch/models/moe.py``), each held to ``chip_smoke.py``'s phase-22 (c)
+MoE hold (``moe_hold``: the card's ``moe_forward`` at ViT-B/16's width
+against the plain float64 version written out per expert, at capacity
+factors 1.25 and 0.5); and a pretrain step whose loss drops the spatial CE
+(``sgg_torch/train/pretrain.py``), held to its pretrain hold
+(``pretrain_hold``: a float32 VGG-19 step's loss against the loss written
+out in float64 from the model's outputs) on the committed fixture's first
+JPEGs at 224 px. A card-against-CPU hold alone cannot refuse them: both run
+the same code.
+
 The unmodified tree is held to
 the same gates as a baseline (it must pass them), and a variant that is not a
 fault is reported beside it: the hi, mid and lo products summed in one
@@ -97,7 +109,8 @@ sum per 16-deep step and no round-to-nearest add), at the two shapes and at
 Exits 0 when the baseline passes and every fault is refused at each of its
 shapes (both flash shapes; the four conv shapes; the matmul shapes it can
 reach; the decode batches or the tie case, whichever can see it; the gather
-and graph holds; the loader's gates), 1 otherwise. The tree itself is not touched.
+and graph holds; the loader's gates; the MoE and pretrain holds), 1
+otherwise. The tree itself is not touched.
 """
 
 import json
@@ -210,6 +223,22 @@ LOADER_FAULTS = {
          "        d[x * 3 + 2 - c] = static_cast<unsigned char>((top * (256 - wy) + bot * wy) "
          ">> 16);\n"),
 }
+MOE_SRC = "sgg_torch/models/moe.py"
+PRETRAIN_SRC = "sgg_torch/train/pretrain.py"
+# phase-22 faults: (source, sound text, faulty text, the hold that must refuse it).
+RECIPE_FAULTS = {
+    "MoE gates not renormalized over the kept experts":
+        (MOE_SRC,
+         "        combine = combine + (gate / denom)[..., None, None] * (keep[..., None] * slot)\n",
+         "        combine = combine + gate[..., None, None] * (keep[..., None] * slot)\n", "moe"),
+    "the MoE capacity one slot short":
+        (MOE_SRC,
+         "    return max(1, math.ceil(top_k * seq_len * capacity_factor / num_experts))\n",
+         "    return max(1, math.ceil(top_k * seq_len * capacity_factor / num_experts) - 1)\n",
+         "moe"),
+    "the pretrain step without the spatial CE":
+        (PRETRAIN_SRC, "            loss = loss + spatial_weight * ce\n", "", "pretrain"),
+}
 GRAPH_IMAGES = 1024
 # fused-stepper fault: (sound text, faulty text), the counter never advanced.
 GRAPH_FAULTS = {
@@ -291,7 +320,7 @@ def child(root, kernels, shapes):
     if not fb.__file__.startswith(root):
         raise SystemExit(f"chip_fault_check: imported {fb.__file__}, not the copy")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if set(kernels) - {"loader"}:  # the loader builds with g++ alone
+    if set(kernels) - {"loader", "moe", "pretrain"}:  # those need no CUDA kernel
         build.load_library()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -332,6 +361,9 @@ def child(root, kernels, shapes):
 
     if "graph" in kernels:
         graph_rows(dev)
+
+    if "moe" in kernels or "pretrain" in kernels:
+        recipe_rows(root, dev, kernels)
 
     if "loader" in kernels:
         from sgg_torch.native import loader
@@ -451,6 +483,32 @@ def graph_rows(dev):
           flush=True)
 
 
+def recipe_rows(root, dev, kernels):
+    """chip_smoke.py's phase-22 (c) holds on the copy: ``moe_hold`` (the MoE
+    layer on the card against the CPU and against the plain float64 version
+    at ViT-B/16's width) and ``pretrain_hold`` (a float32 VGG-19 pretrain step
+    with the spatial task, card against CPU, and its loss against the plain
+    float64 loss) on the committed fixture's first JPEGs at 224 px. One JSON
+    line per hold."""
+    import chip_smoke
+    from sgg_torch.models import moe
+
+    if not moe.__file__.startswith(root):
+        raise SystemExit(f"chip_fault_check: imported {moe.__file__}, not the copy")
+    if "moe" in kernels:
+        ok = chip_smoke.moe_hold(dev)["ok"]
+        print(json.dumps({"shape": [8, 196, 768], "output": "moe", "bf16_gate": ok,
+                          "share": 0.0, "f32_err": None, "tol": None, "f32_gate": True}),
+              flush=True)
+    if "pretrain" in kernels:
+        store = chip_smoke.recipe_store(chip_smoke.FIXTURE, chip_smoke.GR_HOLD_BATCH, 224)
+        h = chip_smoke.pretrain_hold(dev, store)
+        print(json.dumps({"shape": [chip_smoke.GR_HOLD_BATCH, 224, 224, 3], "output": "pretrain",
+                          "bf16_gate": h["ok"], "share": 0.0, "f32_err": None, "tol": None,
+                          "f32_gate": True, "holds": {"loss": h["card"]["loss"],
+                                                      "plain": h["plain_loss"]}}), flush=True)
+
+
 def loader_rows():
     """chip_smoke.py's phase-21 (a) gates on the copy's JPEG loader: the
     fixture's JPEGs against the reference decoder's committed bytes, and the
@@ -550,7 +608,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
-    runs = [("sound", [], "fwd,dq,dkv,conv,mm,decode,gather,graph,loader", VARIANT_SHAPES),
+    runs = [("sound", [], "fwd,dq,dkv,conv,mm,decode,gather,graph,loader,moe,pretrain",
+             VARIANT_SHAPES),
             ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
              "fwd,dq,dkv", VARIANT_SHAPES)]
     for src, tag, kernel in SITES:
@@ -569,6 +628,8 @@ def main() -> int:
         runs.append((label, [(GATHER_SRC, replace_once(sound, faulty))], "graph", []))
     for label, (sound, faulty) in LOADER_FAULTS.items():
         runs.append((label, [(LOADER_SRC, replace_once(sound, faulty))], "loader", []))
+    for label, (src, sound, faulty, hold) in RECIPE_FAULTS.items():
+        runs.append((label, [(src, replace_once(sound, faulty))], hold, []))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for i, (label, edits, kernels, shapes) in enumerate(runs):

@@ -12,7 +12,9 @@ server is shut down and closed (which joins its handler threads), the batcher
 closed (which joins its worker), the client threads joined with a timeout, the
 subprocess's process group killed if it has not exited; the phase fails if a
 thread of it is alive at its end. Phase 19 opens no socket and starts no
-process; its training runs stop their data threads as phase 17's does:
+process; its training runs stop their data threads as phase 17's does. Phase
+22 opens no socket and starts no process; its pretraining and extraction
+runs stop their watchdog threads when each returns:
   1. device: CUDA present, compute capability 9.0; prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: nvcc compiles ``sgg_torch/kernels/csrc/*.cu`` for sm_90a, one
@@ -280,13 +282,38 @@ process; its training runs stop their data threads as phase 17's does:
      launched), and the workdir served in process, where a ``paths`` request
      and an ``images`` request of the same decoded JPEGs on the same noise
      give equal graphs.
+ 22. the grounded recipe from nothing (``grounded_recipe_phase``,
+     ``scripts/grounded_pipeline.sh``'s stages): (a) ``sgg_torch.cli.synth_corpus
+     --grounded`` writes 2,048 500 x 375 q75 JPEGs (nvJPEG's encoder on the
+     card's machine), each decoded back by the loader within a mean |d| of
+     8 of the array rendered (images/s, MB, the encoder's route); (b)
+     ``sgg_torch.cli.pretrain --encoder vgg19`` with the spatial task, 224 px,
+     batch 64, bf16, 400 steps (s/step, images/s, peak memory, the idle share
+     of steps 200-204; the mean loss of the last 50 steps must be below the
+     first 50's) and with ``--steps 0`` (the seeded encoder): held-out
+     presence_recall, precision_at_k and cell_acc of both, 16 conv_direct
+     launches a held-out batch and none in the steps (the library conv);
+     (c) ``pretrain_hold`` (a float32 step card vs CPU: metrics, gradients,
+     parameters, and its loss against the loss written out in float64),
+     ``conv_tf32_hold`` (the bf16 step's library conv with cuDNN's TF32 at
+     VGG-19's shapes and batch 64, its result and gradients against float64)
+     and ``moe_hold`` (the MoE layer at ViT-B/16's width card vs CPU and
+     against a float64 per-expert plain version, at capacity factors 1.25 and
+     0.5);
+     (d) ``pretrain --encoder vit_b16 --moe-experts 8 --moe-top-k 2`` at 768 x
+     12 x 12, batch 64, 16 steps: s/step, peak memory, the aux term, the
+     share of the training steps' choices dropped, exactly 12 flash, dq and
+     dk/dv launches a step; (e) ``preprocess --encoder-ckpt`` through (b)'s
+     encoder (16 conv_direct launches a batch, images/s), 16 steps of
+     ``train --config vg1k`` on its shards and ``evaluate --decode fused``.
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
 The kernels' JSON record gives, for each kernel, its launches on the newest
 main path that runs it (phase 17 for fused_decode, timed at its vg1k widths,
 B = 64, which pipeline_v4 shares; phase 7 for fused_matmul and conv_direct;
-phase 15 for the three flash kernels) and
+phase 15 for the three flash kernels), plus phase 22's launches of each
+(each of its paths counted from 0), and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
 bound ms. Phase 18's serving launch counts and phase 19's are printed on lines of
 their own before it. The last two lines are that
@@ -349,6 +376,15 @@ LOADER_RATE_IMAGES = 1536  # one vg_full step's images: 256 x (5 + 1)
 # VG's 108,077 images cut to 2,048 ids; train steps (the profile window is steps
 # 10-14), the fused run's steps and N, and the extraction hold's features.
 VG_IMAGES_21, VG_STEPS_21, VG_FUSED_STEPS_21, VG_N_21, VG_HOLD_21 = 2048, 16, 16, 8, 64
+# Phase 22, the grounded recipe from nothing: VG's 108,077 images cut to 2,048;
+# VGG-19 pretrain steps at the recipe's batch, the window of steps that the
+# loss gate compares (first and last) and the profiled steps; the ViT-B/16 MoE
+# steps, experts and top-k; the vg1k steps on the extracted shards; the
+# JPEG round trip's bound (mean |d| per image; libjpeg measured 5.99-6.56 on
+# the grounded corpus, tests/test_torch_synth_corpus.py); the holds' batch.
+GR_IMAGES, GR_STEPS, GR_BATCH, GR_WINDOW, GR_PROFILE = 2048, 400, 64, 50, (200, 5)
+GR_MOE_STEPS, GR_EXPERTS, GR_TOP_K, GR_TRAIN_STEPS = 16, 8, 2, 16
+GR_JPEG_MEAN_D, GR_HOLD_BATCH = 8.0, 4
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -2071,6 +2107,596 @@ def vg_full_phase(dev, run_cli, read_counts, sizes=None, extra_sets=None):
     return out
 
 
+def recipe_store(vg_dir, n, size, encoder="vgg19", vocab=None):
+    """(uint8 images [n, S, S, 3], multi-hot labels [n, V], cell labels
+    [n, R], vocab) of the first n encodable images of a VG-shaped corpus with
+    boxes, as ``sgg_torch.cli.pretrain`` builds its store."""
+    from sgg_torch.data import vg
+    from sgg_torch.data.extract import load_batch, resolve_image_paths
+    from sgg_torch.native import image_size
+    from sgg_torch.train import pretrain as ptr
+
+    with open(os.path.join(vg_dir, "relationships.json")) as f:
+        rel = json.load(f)
+    images = vg.parse_relationships(rel)
+    vocab = vocab or vg.build_vocab_from_relationships(images)
+    ids, enc = vg.filter_and_encode(images, vocab)
+    ids, enc = ids[:n], enc[:n]
+    paths = resolve_image_paths(ids, os.path.join(vg_dir, "images"))
+    boxes = vg.parse_entity_boxes(rel)
+    cells = ptr.cell_labels([boxes[i] for i in ids], vocab, ptr.feature_grid(encoder, size),
+                            image_size(paths[0]))
+    return load_batch(paths, size), ptr.multi_hot_labels(enc, len(vocab)), cells, vocab
+
+
+def moe_plain(x, router, wi, wo, top_k, capacity):
+    """The MoE layer's function written out per expert in float64 numpy,
+    apart from ``sgg_torch.models.moe``: each token's top-k experts by a
+    stable sort of its router probabilities (a tie keeps the lower index),
+    gates renormalized over those k, slots claimed in token order with every
+    token's first choice before any second, a claim past ``capacity``
+    dropped; each expert's tanh-GELU MLP over its kept tokens. → (y [G, S, M],
+    aux, share of the G·S·k choices dropped)."""
+    import numpy as np
+
+    x, router, wi, wo = (np.asarray(a, np.float64) for a in (x, router, wi, wo))
+    G, S, M = x.shape
+    E = router.shape[1]
+    logits = x @ router
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    order = np.argsort(-probs, axis=-1, kind="stable")[..., :top_k]  # [G, S, k]
+    gates = np.take_along_axis(probs, order, -1)
+    gates = gates / np.maximum(gates.sum(-1, keepdims=True), 1e-9)
+    y = np.zeros_like(x)
+    dropped = 0
+    for g in range(G):
+        claims = {e: [] for e in range(E)}
+        for j in range(top_k):
+            for t in range(S):
+                e = int(order[g, t, j])
+                if len(claims[e]) < capacity:
+                    claims[e].append((t, j))
+                else:
+                    dropped += 1
+        for e, kept in claims.items():
+            if not kept:
+                continue
+            tok = np.array([t for t, _ in kept])
+            h = x[g, tok] @ wi[e]
+            h = 0.5 * h * (1.0 + np.tanh(math.sqrt(2.0 / math.pi) * (h + 0.044715 * h ** 3)))
+            w = np.array([gates[g, t, j] for t, j in kept])[:, None]
+            np.add.at(y[g], tok, w * (h @ wo[e]))
+    f = np.zeros(E)
+    np.add.at(f, order[..., 0].ravel(), 1.0)
+    aux = E * float(np.sum(f / (G * S) * probs.mean(axis=(0, 1))))
+    return y, aux, dropped / (G * S * top_k)
+
+
+def moe_hold(dev, seed=SEED, G=8, S=196, M=768, E=GR_EXPERTS, k=GR_TOP_K):
+    """The MoE layer at ViT-B/16's width (S = 196 tokens a group, M = 768,
+    H = 3,072, 8 experts, top-2), float32, seeded: the card's ``moe_forward``
+    against the same function on the CPU (y within 1e-4 x max, aux within
+    1e-5 relative), and against ``moe_plain`` in float64 at capacity factors
+    1.25 (the layer's) and 0.5 (most experts full), capacities from
+    ``moe_capacity`` for the port and ceil(k·S·cf / E) for the plain version:
+    every token's output within 1e-4 x max but at most 0.2 % of the tokens
+    (a near-tie in the router may pick another expert in float64), aux within
+    1e-5. Returns the numbers and ``ok``."""
+    import numpy as np
+    import torch
+
+    from sgg_torch.models import moe
+    from sgg_torch.models.resnet import he_normal
+
+    torch.manual_seed(seed)
+    H = 4 * M
+    params = {"router": 0.02 * torch.randn(M, E), "wi": he_normal((E, M, H)),
+              "wo": he_normal((E, H, M))}
+    x = torch.randn(G, S, M)
+    out = {"ok": True}
+    for cf in (1.25, 0.5):
+        cap = moe.moe_capacity(E, k, S, cf)
+        y_d, aux_d = moe.moe_forward({n_: v_.to(dev) for n_, v_ in params.items()}, x.to(dev),
+                                     k, cap)
+        y_d, aux_d = y_d.cpu(), float(aux_d)
+        y_h, aux_h = moe.moe_forward(params, x, k, cap)
+        scale = float(y_h.abs().max())
+        err_h = float((y_d - y_h).abs().max())
+        y_p, aux_p, dropped = moe_plain(x.numpy(), params["router"].numpy(),
+                                        params["wi"].numpy(), params["wo"].numpy(), k,
+                                        max(1, math.ceil(k * S * cf / E)))
+        tok_err = np.abs(y_d.numpy() - y_p).max(-1)
+        far = float((tok_err > 1e-4 * np.abs(y_p).max()).mean())
+        ok = (err_h <= 1e-4 * scale and abs(aux_d - aux_h) <= 1e-5 * abs(aux_h)
+              and far <= 2e-3 and abs(aux_d - aux_p) <= 1e-5 * abs(aux_p)
+              and bool(torch.isfinite(y_d).all()))
+        log(f"phase 22 (c) moe_forward [{G}, {S}, {M}] x {E} experts, top-{k}, capacity factor "
+            f"{cf} (C = {cap}), float32: card vs CPU max_abs_err {err_h:.3e} (<= 1e-4 x "
+            f"{scale:.3e}), aux {aux_d:.6f} vs {aux_h:.6f}; vs the plain float64 version: "
+            f"tokens off {far:.4f} (<= 0.002), aux {aux_p:.6f}, choices dropped "
+            f"{dropped:.4f}: {'ok' if ok else 'FAILED'}")
+        out[cf] = {"err": err_h, "tokens_off": far, "aux": aux_d, "dropped": dropped}
+        out["ok"] &= ok
+    return out
+
+
+def pretrain_hold(dev, store, seed=SEED, batch=GR_HOLD_BATCH):
+    """One float32 VGG-19 pretrain step with the spatial task on the card
+    against the same step on the CPU, from the same seeded weights at the
+    same indices (the first ``batch`` rows of ``store``, as ``recipe_store``
+    returns it): every metric, gradient and parameter finite; metrics within
+    1e-4 relative; the gradients handed to Adam, per tensor, within a
+    relative L2 distance of 2e-3 and a largest difference of 5e-3 x the
+    tensor's max on the CPU plus 1e-6 x the largest of all (cuDNN's float32
+    algorithms on the card, FFT and im2col GEMMs without TF32, put every conv
+    gradient of the seeded VGG-19 at 1.7e-4 to 8.8e-4 rel L2 and at most
+    1.8e-3 x max from the CPU's on an H100 80GB HBM3 at 700 W; the CPU
+    against itself at another thread count 1e-6; a term dropped or scaled
+    moves it by O(1)). The parameters after the step, element by element
+    where the CPU's gradient is at least twice that allowance (there the
+    gradient gate fixes the sign, and Adam's first update from zero moments
+    moves an element by lr·g/(|g| + 1e-8), lr x its sign): within 1e-3 x lr
+    plus 2^-21 x |p| of the CPU's; an element whose gradient is rounding
+    noise may move either way by lr, and is left out (the count is printed).
+    And the step's loss against the loss written out in float64 from the
+    CPU model's outputs before its step (BCE + the spatial CE), and its cell
+    accuracy: within 1e-4 relative. Returns the numbers and ``ok``."""
+    import numpy as np
+    import torch
+
+    from sgg_torch.train import pretrain as ptr
+
+    images, labels, cells, vocab = store
+    size, V, lr = images.shape[1], len(vocab), 1e-4
+    idx = torch.arange(batch)
+    runs = {}
+    weights = None
+    for where in ("cpu", dev):
+        model, opt = ptr.make_pretrain_state("vgg19", V, image_size=size, lr=lr, seed=seed,
+                                             device=where)
+        if weights is not None:  # the CPU model's initial weights
+            model.load_state_dict(weights)
+        else:
+            weights = {k_: v_.clone() for k_, v_ in model.state_dict().items()}
+            with torch.no_grad():
+                out = model(torch.from_numpy(images[:batch]))
+            p_ = out["presence"].double().numpy()
+            r_ = out["regions"].double().numpy()
+            lab, cel = labels[:batch].astype(np.float64), cells[:batch]
+            rmax = r_.max(-1, keepdims=True)
+            lse = np.log(np.exp(r_ - rmax).sum(-1)) + rmax[..., 0]
+            plain_loss = float(np.mean(np.logaddexp(0.0, p_) - lab * p_)
+                               + np.mean(lse - np.take_along_axis(r_, cel[..., None], -1)[..., 0]))
+            fg = cel > 0
+            plain_cell = float(((r_.argmax(-1) == cel) & fg).sum() / max(fg.sum(), 1))
+        grads = []
+        update = opt.update
+        opt.update = lambda g_, _u=update: (grads.extend(x_.detach().cpu() for x_ in g_), _u(g_))
+        step = ptr.make_pretrain_step(model, opt, batch, seed=seed, spatial=True)
+        t = (torch.from_numpy(a).to(where) for a in (images, labels, cells))
+        m_ = {k_: float(v_) for k_, v_ in step(*t, idx=idx.to(where)).items()}
+        runs[where] = (m_, grads, {k_: v_.detach().cpu() for k_, v_ in model.state_dict().items()})
+    (m_d, g_d, p_d), (m_h, g_h, p_h) = runs[dev], runs["cpu"]
+    finite = (all(math.isfinite(v_) for v_ in (*m_d.values(), *m_h.values()))
+              and all(bool(torch.isfinite(t_).all())
+                      for t_ in (*g_d, *g_h, *p_d.values(), *p_h.values())))
+    ok_m = all(abs(m_d[k_] - m_h[k_]) <= 1e-4 * abs(m_h[k_]) + 1e-6 for k_ in m_h)
+    largest = max(float(x_.abs().max()) for x_ in g_h)
+    worst = max(float((a_ - b_).abs().max()) / (5e-3 * float(b_.abs().max()) + 1e-6 * largest)
+                for a_, b_ in zip(g_d, g_h))
+    rel = max(float((a_ - b_).norm() / b_.norm().clamp_min(1e-30)) for a_, b_ in zip(g_d, g_h))
+    held = total = 0
+    p_worst = 0.0
+    for (name, _), g_ in zip(model.named_parameters(), g_h):
+        sig = g_.abs() >= 2 * (5e-3 * float(g_.abs().max()) + 1e-6 * largest)
+        d_ = (p_d[name] - p_h[name]).abs()[sig]
+        held, total = held + int(sig.sum()), total + g_.numel()
+        if d_.numel():
+            p_worst = max(p_worst, float((d_ / (1e-3 * lr + 2.0 ** -21
+                                                * p_h[name].abs()[sig])).max()))
+    ok_g = worst <= 1.0 and rel <= 2e-3
+    ok_p = held > 0 and p_worst <= 1.0
+    ok_l = (abs(m_h["loss"] - plain_loss) <= 1e-4 * abs(plain_loss)
+            and abs(m_d["loss"] - plain_loss) <= 1e-4 * abs(plain_loss)
+            and abs(m_d["cell_acc"] - plain_cell) <= 1e-6)
+    ok = finite and ok_m and ok_g and ok_p and ok_l
+    log(f"phase 22 (c) pretrain step vgg19 float32 (B {batch}, {size} px, spatial on, V {V}) "
+        f"card vs CPU: all finite {finite}; metrics {m_d} vs {m_h} (1e-4 relative: {ok_m}); "
+        f"gradients, worst per-tensor rel L2 {rel:.3e} (<= 2e-3) and |card - CPU| over "
+        f"(5e-3 x max + 1e-6 x {largest:.3e}) {worst:.4f} (<= 1); parameters after the step "
+        f"at the {held} of {total} elements whose gradient is at least twice that "
+        f"allowance: |card - CPU| over (1e-3 lr + 2^-21 |p|) at most {p_worst:.4f} (<= 1); "
+        f"the step's loss vs the plain float64 loss {plain_loss:.6f} (BCE + CE from the CPU "
+        f"model's outputs) and cell_acc vs {plain_cell:.4f}: {ok_l}: {'ok' if ok else 'FAILED'}")
+    return {"card": m_d, "cpu": m_h, "plain_loss": plain_loss, "grad_worst": worst,
+            "grad_rel": rel, "params_held": held, "params_worst": p_worst, "ok": ok}
+
+
+def conv_tf32_hold(dev, seed=SEED, batch=GR_BATCH, size=224):
+    """The library conv of the bf16 pretrain step where it lets cuDNN use
+    TF32 (``sgg_torch.kernels.conv_direct.tf32_allowed``), at each distinct
+    conv shape of VGG-19 at ``size`` px and the recipe's batch: bfloat16
+    values for x, w and the incoming gradient (what the step hands the conv
+    for VGG-19), the conv's float32 forward and both float32 gradients before
+    their cast to bfloat16, with TF32 as the step runs it and with it
+    refused, each against the same conv in float64 on the card. Gate: with
+    TF32 every result within a relative L2 distance of 2^-9 (half a bfloat16
+    rounding, which each gradient gets next) of float64, and all finite.
+    Returns the numbers and ``ok``."""
+    import torch
+
+    from sgg_torch.kernels import conv_direct
+    from sgg_torch.models.vgg import _CFG
+
+    shapes, cin, hw = [], 3, size
+    for block, n_convs, ch in _CFG:
+        for _ in range(n_convs):
+            if (cin, ch, hw) not in shapes:
+                shapes.append((cin, ch, hw))
+            cin = ch
+        hw = hw // 2 if block < 5 else hw
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def bf16_valued(*shape, scale=1.0):
+        t_ = torch.randn(*shape, generator=gen, device=dev) * scale
+        return t_.to(torch.bfloat16).float()
+
+    def run(x, w, gy, tf32):
+        x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = conv_direct._Conv2dF32.apply(x, w, 1, tf32)
+        gx, gw = torch.autograd.grad(y, (x, w), gy)
+        return y.detach(), gx, gw
+
+    def rel(a_, b_):
+        return float((a_.double() - b_).norm() / b_.norm().clamp_min(1e-300))
+
+    rows, worst, finite = [], 0.0, True
+    for cin, cout, hw in shapes:
+        x = conv_direct.pad_nhwc(bf16_valued(batch, hw, hw, cin), 3, 3, 1, "SAME")
+        x = x.permute(0, 3, 1, 2)
+        w = bf16_valued(cout, cin, 3, 3, scale=(2.0 / (9 * cin)) ** 0.5)
+        gy = bf16_valued(batch, cout, hw, hw)
+        want = run(x.double(), w.double(), gy.double(), False)
+        got = run(x, w, gy, conv_direct.tf32_allowed(torch.bfloat16))
+        off = run(x, w, gy, False)
+        errs = [rel(a_, b_) for a_, b_ in zip(got, want)]
+        errs_off = [rel(a_, b_) for a_, b_ in zip(off, want)]
+        finite &= all(bool(torch.isfinite(t_).all()) for t_ in got)
+        worst = max(worst, *errs)
+        rows.append({"shape": [batch, hw, hw, cin, cout], "tf32": errs, "f32": errs_off})
+        del x, w, gy, want, got, off
+    ok = finite and worst <= 2.0 ** -9
+    log(f"phase 22 (c) library conv of the bf16 pretrain step with cuDNN's TF32 "
+        f"({conv_direct.tf32_allowed(torch.bfloat16)}), {len(shapes)} VGG-19 shapes at "
+        f"{size} px, batch {batch}, bf16-valued x, w and dy: rel L2 vs float64 of (y, dx, "
+        f"dw), TF32 / float32 without it: "
+        + "; ".join(f"{r_['shape'][1]}x{r_['shape'][3]}->{r_['shape'][4]} "
+                    + ", ".join(f"{a_:.2e}/{b_:.2e}" for a_, b_ in zip(r_["tf32"], r_["f32"]))
+                    for r_ in rows)
+        + f"; worst with TF32 {worst:.3e} (<= 2^-9), all finite {finite}: "
+        f"{'ok' if ok else 'FAILED'}")
+    return {"rows": rows, "worst": worst, "ok": ok}
+
+
+def grounded_recipe_phase(dev, run_cli, read_counts, sizes=None, extra_sets=None):
+    """Phase 22, the grounded recipe from nothing (``scripts/grounded_pipeline.sh``
+    on the card): (a) ``sgg_torch.cli.synth_corpus --grounded`` writes 2,048
+    500 x 375 q75 JPEGs, every one decoded back by the loader within mean
+    |d| <= GR_JPEG_MEAN_D of the array rendered; (b) ``sgg_torch.cli.pretrain
+    --encoder vgg19`` (spatial auto, 224 px, batch 64, bf16) for GR_STEPS
+    steps, and with ``--steps 0`` (the seeded encoder's held-out report):
+    s/step, images/s, peak memory, the idle share over a profiled window, the
+    mean loss of the first and the last GR_WINDOW steps (the gate: last <
+    first), the held-out reports and 16 conv_direct launches per held-out
+    batch; (c) ``pretrain_hold``, ``conv_tf32_hold`` and ``moe_hold``; (d)
+    ``pretrain --encoder vit_b16 --moe-experts 8 --moe-top-k 2`` at 768 x 12
+    x 12, batch 64: s/step, peak memory, the aux term, the share of the
+    training steps' choices dropped, exactly 12 flash, dq and dk/dv
+    launches a step; (e) ``preprocess --encoder vgg19 --encoder-ckpt`` on
+    (b)'s out-dir (16 conv_direct launches a batch), 16 steps of ``train
+    --config vg1k`` on its shards, then ``evaluate --decode fused``. ``run_cli`` and ``read_counts`` as in ``main``; ``sizes`` and
+    ``extra_sets`` (the vg1k run's overrides) shrink it for a dry run on the
+    CPU. Returns the numbers, with ``launches``: the phase's launches per
+    kernel."""
+    import numpy as np
+    import torch
+
+    from sgg_torch import native
+    from sgg_torch.cli import evaluate as evaluate_cli
+    from sgg_torch.cli import preprocess as preprocess_cli
+    from sgg_torch.cli import pretrain as pretrain_cli
+    from sgg_torch.cli import synth_corpus as synth_cli
+    from sgg_torch.cli import train as train_cli
+    from sgg_torch.data import Vocab
+    from sgg_torch.models import moe
+    from sgg_torch.train import pretrain as ptr
+    from sgg_torch.utils.profiling import StepProfiler
+
+    z_ = {"images": GR_IMAGES, "image_size": 224, "batch": GR_BATCH, "steps": GR_STEPS,
+          "window": GR_WINDOW, "profile": GR_PROFILE, "moe_steps": GR_MOE_STEPS,
+          "vit_dims": "768,12,12", "experts": GR_EXPERTS, "top_k": GR_TOP_K,
+          "train_steps": GR_TRAIN_STEPS, "dtype": "bfloat16", "moe_hold": {},
+          **(sizes or {})}
+    on_card = torch.device(dev).type == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    S, B = z_["image_size"], z_["batch"]
+    launches = dict.fromkeys(read_counts(), 0)
+    out = {}
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            launches[k_] += v_
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+
+    with tempfile.TemporaryDirectory() as root:
+        corpus, enc_dir, seeded_dir, moe_dir, shards, wd = (
+            os.path.join(root, d_) for d_ in ("corpus", "enc", "seeded", "moe", "shards", "wd"))
+
+        # (a) The corpus, each JPEG decoded back as it is written.
+        diffs, hook = [], [0.0]
+        encode = native.encode_file
+
+        def encode_and_check(path, rgb, **k):
+            encode(path, rgb, **k)
+            t_ = time.perf_counter()
+            back = native.decode_raw(path, native.loader.FULL_SIZE)
+            diffs.append(float(np.abs(back.astype(np.int16) - rgb).mean()))
+            hook[0] += time.perf_counter() - t_
+
+        native.encode_file = encode_and_check
+        try:
+            a_s, a_counts = run_cli(synth_cli.main, [
+                "--out-dir", corpus, "--num-images", str(z_["images"]), "--grounded"],
+                "sgg_torch.cli.synth_corpus --grounded")
+        finally:
+            native.encode_file = encode
+        img_dir = os.path.join(corpus, "images")
+        mb = sum(os.path.getsize(os.path.join(img_dir, f_)) for f_ in os.listdir(img_dir)) / 1e6
+        rate = z_["images"] / max(a_s - hook[0], 1e-9)
+        ok_a = len(diffs) == z_["images"] and max(diffs) <= GR_JPEG_MEAN_D
+        log(f"phase 22 (a) synth_corpus --grounded: {z_['images']} JPEGs (500 x 375, q75) with "
+            f"the {native.route()} encoder in {a_s:.3f} s in process ({hook[0]:.3f} s of it "
+            f"decoding them back for the gate), {rate:.1f} images/s written, {mb:.2f} MB; "
+            f"decoded back vs the rendered arrays: mean |d| per image {min(diffs):.4f}-"
+            f"{max(diffs):.4f} (<= {GR_JPEG_MEAN_D}): {'ok' if ok_a else 'FAILED'}")
+        if not ok_a:
+            raise AssertionError("phase 22 (a): the corpus's JPEGs do not round-trip")
+        out["corpus"] = {"s": a_s, "images_per_s": rate, "mb": mb, "route": native.route(),
+                         "mean_d": [min(diffs), max(diffs)]}
+
+        # (b) VGG-19 pretrain: the seeded encoder's report, then GR_STEPS steps.
+        base = ["--vg-dir", corpus, "--image-dir", img_dir, "--image-size", str(S),
+                "--batch-size", str(B), "--dtype", z_["dtype"], "--seed", str(SEED)] + dev_args
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize()
+
+        stepping = [False]  # inside a training step of the instrumented CLI
+
+        def instrumented(rec, steps, timed_from, window=None):
+            """The CLI's step, counted per step, its loss kept on the device,
+            the device synchronized at the timed span's two ends and around
+            the profiled window; the span leaves out the profiler's own
+            start and export."""
+            make = ptr.make_pretrain_step
+
+            def wrapped(model, opt, *a, **k):
+                step = make(model, opt, *a, **k)
+                rec["model"] = model
+                prof = (StepProfiler(os.path.join(root, "profile"), *window)
+                        if window else None)
+
+                def run(*sa, step_idx=0, **sk):
+                    t_p = time.perf_counter()
+                    if prof is not None:
+                        prof.maybe_start(step_idx)
+                    rec["aside"] += time.perf_counter() - t_p
+                    if step_idx == timed_from:
+                        sync()
+                        rec["t0"], rec["aside"] = time.perf_counter(), 0.0
+                    before = read_counts()
+                    stepping[0] = True
+                    try:
+                        m_ = step(*sa, step_idx=step_idx, **sk)
+                    finally:
+                        stepping[0] = False
+                    rec["loss"].append(m_["loss"])
+                    after = read_counts()
+                    rec["launches"].append({k_: after[k_] - before[k_] for k_ in after})
+                    t_p = time.perf_counter()
+                    if prof is not None and prof.maybe_stop(step_idx + 1):
+                        rec["profile"] = prof.summary
+                    rec["aside"] += time.perf_counter() - t_p
+                    if step_idx == steps - 1:
+                        sync()
+                        rec["s_per_step"] = ((time.perf_counter() - rec["t0"] - rec["aside"])
+                                             / (steps - timed_from))
+                    return m_
+
+                return run
+
+            return wrapped
+
+        def pretrain_run(label, out_dir, argv, steps, timed_from=0, window=None):
+            rec = {"loss": [], "launches": [], "aside": 0.0}
+            ptr_make = ptr.make_pretrain_step
+            ptr.make_pretrain_step = instrumented(rec, steps, timed_from, window)
+            peak_reset()
+            printed = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+                    run_s, counts = run_cli(pretrain_cli.main, [
+                        "--out-dir", out_dir, "--steps", str(steps)] + argv,
+                        f"sgg_torch.cli.pretrain {label}")
+            finally:
+                ptr.make_pretrain_step = ptr_make
+            with open(os.path.join(out_dir, "pretrain_meta.json")) as f:
+                meta = json.load(f)
+            n_tr, n_te = (int(v_) for v_ in re.search(
+                r"(\d+) train / (\d+) held-out", printed.getvalue()).groups())
+            rec.update(s=run_s, counts=counts, peak_gb=peak_gb(), meta=meta, held_images=n_te,
+                       train_images=n_tr, loss=[float(v_) for v_ in rec["loss"]])
+            add(counts)
+            return rec
+
+        seeded = pretrain_run("vgg19 seeded", seeded_dir, base, 0)
+        n_w, steps = z_["window"], z_["steps"]
+        vgg = pretrain_run("vgg19", enc_dir, base + ["--log-every", "50", "--encoder", "vgg19"],
+                           steps, n_w, z_["profile"])
+        s_step = vgg["s_per_step"]
+        first, last = (float(np.mean(vgg["loss"][:n_w])), float(np.mean(vgg["loss"][-n_w:])))
+        prof = vgg.get("profile") or {}
+        held = vgg["meta"]["held_out"]
+        n_held = vgg["train_images"]
+        per_eval = vgg["counts"]["conv_direct"] / -(-vgg["held_images"] // B)
+        ok_b = (last < first and all(math.isfinite(v_) for v_ in vgg["loss"])
+                and len(vgg["loss"]) == steps and not any(
+                    sum(c_.values()) for c_ in vgg["launches"])
+                and (not on_card or per_eval == 16))
+        log(f"phase 22 (b) pretrain vgg19 ({n_held} train images, {S} px, batch {B}, "
+            f"{z_['dtype']}, spatial {vgg['meta']['spatial']}): {steps} steps in "
+            f"{vgg['s']:.3f} s in process (decode and held-out report included), "
+            f"{s_step:.4f} s/step after step {n_w} ({B / s_step:.1f} images/s), peak "
+            f"{vgg['peak_gb']:.3f} GB, profiled steps {prof.get('steps')}: idle share "
+            f"{prof.get('idle_share')}, device busy {prof.get('device_busy_s')} s of "
+            f"{prof.get('wall_s')} s, {prof.get('syncs')} host syncs; mean loss of the first "
+            f"{n_w} steps {first:.4f}, of the last {n_w} {last:.4f} (last < first); launches "
+            f"{vgg['counts']} ({per_eval:g} conv_direct a held-out batch, 16 expected; none in "
+            f"the steps: the library conv); held-out, seeded {seeded['meta']['held_out']}, "
+            f"trained {held}: {'ok' if ok_b else 'FAILED'}")
+        for line in (prof.get("table") or "").splitlines()[:12]:
+            log(f"profile pretrain vgg19: {line}")
+        if not ok_b:
+            raise AssertionError("phase 22 (b): pretraining did not lower the loss, or "
+                                 "launched unexpectedly")
+        out["pretrain"] = {"s_per_step": s_step, "images_per_s": B / s_step,
+                           "peak_gb": vgg["peak_gb"], "idle": prof.get("idle_share"),
+                           "first": first, "last": last, "held_out": held,
+                           "seeded": seeded["meta"]["held_out"], "counts": vgg["counts"]}
+
+        # (c) Holds: a float32 step card vs CPU and the plain loss; the MoE layer.
+        store = recipe_store(corpus, GR_HOLD_BATCH, S,
+                             vocab=Vocab.load(os.path.join(enc_dir, "vocab.json")))
+        h_p = pretrain_hold(dev, store)
+        h_t = conv_tf32_hold(dev, batch=B, size=S)
+        h_m = moe_hold(dev, **z_["moe_hold"])
+        if not (h_p["ok"] and h_t["ok"] and h_m["ok"]):
+            raise AssertionError("phase 22 (c): a pretrain or MoE hold failed")
+        out["holds"] = {"pretrain": h_p, "tf32": h_t,
+                        "moe": {k_: v_ for k_, v_ in h_m.items() if k_ != "ok"}}
+
+        # (d) ViT-B/16 with MoE blocks; the choices kept by every block of
+        # every training step, counted on the device.
+        kept, choices = [], [0]
+        routing = moe.moe_routing
+
+        def counting_routing(logits, top_k, capacity):
+            combine, aux_ = routing(logits, top_k, capacity)
+            if stepping[0]:
+                kept.append((combine > 0).sum())
+                choices[0] += logits.shape[0] * logits.shape[1] * top_k
+            return combine, aux_
+
+        moe.moe_routing = counting_routing
+        try:
+            vit = pretrain_run("vit_b16 moe", moe_dir, base + [
+                "--log-every", "4", "--encoder", "vit_b16", "--moe-experts",
+                str(z_["experts"]), "--moe-top-k", str(z_["top_k"]), "--vit-dims",
+                z_["vit_dims"]], z_["moe_steps"], 1)
+        finally:
+            moe.moe_routing = routing
+        dropped = 1.0 - float(torch.stack(kept).sum()) / max(choices[0], 1)
+        layers = int(z_["vit_dims"].split(",")[1])
+        with torch.no_grad():
+            imgs = torch.from_numpy(store[0][:GR_HOLD_BATCH]).to(dev)
+            _, aux = vit["model"].forward_aux(imgs)
+        s_moe = vit["s_per_step"]
+        want_step = {"flash_attention": layers, "flash_attention_bwd_dq": layers,
+                     "flash_attention_bwd_dkv": layers}
+        per_step_ok = all(all(c_[k_] == v_ for k_, v_ in want_step.items())
+                          for c_ in vit["launches"]) or not on_card
+        ok_d = (per_step_ok and len(vit["loss"]) == z_["moe_steps"]
+                and all(math.isfinite(v_) for v_ in vit["loss"]) and math.isfinite(float(aux)))
+        log(f"phase 22 (d) pretrain vit_b16 {z_['vit_dims']} with {z_['experts']} experts, "
+            f"top-{z_['top_k']} (batch {B}, {z_['dtype']}): {z_['moe_steps']} steps in "
+            f"{vit['s']:.3f} s in process, {s_moe:.4f} s/step after the first, peak "
+            f"{vit['peak_gb']:.3f} GB; losses {[round(v_, 4) for v_ in vit['loss']]}; aux "
+            f"{float(aux):.6f} (the trained model on {GR_HOLD_BATCH} corpus images); "
+            f"{dropped:.4f} of the {choices[0]} choices of the {z_['moe_steps']} training "
+            f"steps' batches dropped by capacity (every block); launches per step "
+            f"{vit['launches'][0] if vit['launches'] else None} (expected {want_step} each), "
+            f"in all {vit['counts']}; held-out {vit['meta']['held_out']}: "
+            f"{'ok' if ok_d else 'FAILED'}")
+        if not ok_d:
+            raise AssertionError("phase 22 (d): the MoE ViT pretrain failed or missed a kernel")
+        out["moe"] = {"s_per_step": s_moe, "peak_gb": vit["peak_gb"], "aux": float(aux),
+                      "dropped": dropped, "counts": vit["counts"]}
+        del vit
+
+        # (e) The rest of the recipe: extraction through the trained encoder,
+        # vg1k on its shards, evaluate on fused_decode.
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            pp_s, pp_counts = run_cli(preprocess_cli.main, [
+                "--out-dir", shards, "--vg-dir", corpus, "--image-dir", img_dir,
+                "--encoder", "vgg19", "--encoder-ckpt", enc_dir, "--batch-size", str(B),
+                "--feat-dtype", "float16", "--compute-dtype", z_["dtype"]] + dev_args,
+                "sgg_torch.cli.preprocess --encoder-ckpt")
+        add(pp_counts)
+        stats = [ast.literal_eval(ln.split(": ", 1)[1])
+                 for ln in printed.getvalue().splitlines()
+                 if ln.startswith(("[sgg.preprocess] train: ", "[sgg.preprocess] test: "))]
+        batches = sum(-(-s_["num_images"] // B) for s_ in stats)
+        per_batch = pp_counts["conv_direct"] / max(batches, 1)
+        log_every = max(1, z_["train_steps"] // 4)
+        sets = {"data.source": "shards", "data.data_dir": shards,
+                "model.compute_dtype": "bfloat16", "train.batch_size": 256,
+                "train.log_every": log_every, **(extra_sets or {})}
+        argv = ["--config", "vg1k", "--workdir", wd, "--steps", str(z_["train_steps"])]
+        for k_, v_ in sets.items():
+            argv += ["--set", f"{k_}={v_}"]
+        tr_s, tr_counts = run_cli(train_cli.main, argv + dev_args, "sgg_torch.cli.train vg1k")
+        add(tr_counts)
+        lines = [r_ for r_ in read_metric_lines(wd) if "d_loss" in r_]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            ev_s, ev_counts = run_cli(evaluate_cli.main, [
+                "--workdir", wd, "--decode", "fused", "--k", "20,50,100", "--json-out",
+                os.path.join(root, "eval.json")] + dev_args, "sgg_torch.cli.evaluate vg1k")
+        add(ev_counts)
+        with open(os.path.join(root, "eval.json")) as f:
+            ev = json.load(f)
+        ok_e = (len(stats) == 2 and (per_batch == 16 or not on_card)
+                and len(lines) == z_["train_steps"] // log_every and not any(tr_counts.values())
+                and all(math.isfinite(r_["d_loss"]) for r_ in lines)
+                and (ev_counts["fused_decode"] > 0 or not on_card))
+        log(f"phase 22 (e) preprocess --encoder-ckpt (the pretrained VGG-19, {z_['dtype']}): "
+            + "; ".join(f"{'train' if j_ == 0 else 'test'} {s_['num_images']} images at "
+                        f"{s_['images_per_sec']} images/s" for j_, s_ in enumerate(stats))
+            + f", {pp_s:.3f} s in process, conv_direct {pp_counts['conv_direct']} over "
+            f"{batches} batches ({per_batch:g} a batch, 16 expected); train vg1k on its shards "
+            f"{z_['train_steps']} steps in {tr_s:.3f} s in process, last "
+            f"{1 / lines[-1]['steps_per_sec']:.4f} s/step, losses d "
+            f"{lines[-1]['d_loss']:.4f} g {lines[-1]['g_loss']:.4f}, launches {tr_counts} "
+            f"(none expected); evaluate --decode fused {ev_s:.3f} s, launches {ev_counts}, "
+            f"recall {ev['combos'][0]['recall']}: {'ok' if ok_e else 'FAILED'}")
+        if not ok_e:
+            raise AssertionError("phase 22 (e): extraction, training or evaluation failed")
+        out["rest"] = {"stats": stats, "per_batch": per_batch, "train_s": tr_s,
+                       "s_per_step": 1 / lines[-1]["steps_per_sec"], "eval_s": ev_s,
+                       "recall": ev["combos"][0]["recall"]}
+    out["launches"] = launches
+    return out
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_SECONDS, exit=True)
     import torch
@@ -3552,6 +4178,13 @@ def main():
     t0 = time.perf_counter()
     v21 = vg_full_phase(dev, run_cli, read_counts)
     phase("vg_full from JPEGs (phase 21)", t0)
+
+    # 22. The grounded recipe from nothing: the corpus, pretraining (VGG-19, and
+    # ViT-B/16 with MoE blocks), the holds, then extraction through the
+    # pretrained encoder, training on its shards and evaluation.
+    t0 = time.perf_counter()
+    v22 = grounded_recipe_phase(dev, run_cli, read_counts)
+    phase("grounded recipe (phase 22)", t0)
     log(f"phase 19 launches: flash_attention {vrl_counts['flash_attention']}, dq "
         f"{vrl_counts['flash_attention_bwd_dq']}, dk/dv {vrl_counts['flash_attention_bwd_dkv']} "
         f"({VIT_RL_STEPS} REINFORCE steps on vit_b16); none on PredCls, REINFORCE on "
@@ -3573,6 +4206,18 @@ def main():
             f"{r_['idle']}, peak {r_['peak_gb']:.3f} GB" for k_, r_ in tr.items())
         + f"; generate {v21['infer']['generate_tps']:.1f} and evaluate "
         f"{v21['infer']['evaluate_tps']:.1f} triples/s")
+    c22, p22, m22 = v22["corpus"], v22["pretrain"], v22["moe"]
+    log(f"phase 22: corpus {c22['images_per_s']:.1f} images/s ({c22['route']}, {c22['mb']:.2f} "
+        f"MB, mean |d| {c22['mean_d'][0]:.4f}-{c22['mean_d'][1]:.4f}); pretrain vgg19 "
+        f"{p22['s_per_step']:.4f} s/step, {p22['images_per_s']:.1f} images/s, idle "
+        f"{p22['idle']}, peak {p22['peak_gb']:.3f} GB, loss {p22['first']:.4f} -> "
+        f"{p22['last']:.4f}, held-out presence_recall {p22['seeded']['presence_recall']:.4f} "
+        f"-> {p22['held_out']['presence_recall']:.4f}, precision_at_k "
+        f"{p22['seeded']['precision_at_k']:.4f} -> {p22['held_out']['precision_at_k']:.4f}, "
+        f"cell_acc {p22['seeded'].get('cell_acc')} -> {p22['held_out'].get('cell_acc')}; "
+        f"vit_b16 MoE {m22['s_per_step']:.4f} s/step, peak {m22['peak_gb']:.3f} GB, aux "
+        f"{m22['aux']:.6f}, dropped in training {m22['dropped']:.4f}; extraction "
+        f"{v22['rest']['stats'][0]['images_per_sec']} images/s; launches {v22['launches']}")
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",
@@ -3598,6 +4243,8 @@ def main():
     path_counts = dict(pix_counts, **{k_: train_counts[k_] for k_ in (
         "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
     path_counts["fused_decode"] = v4_fused_counts["fused_decode"]
+    for k_, v_ in v22["launches"].items():  # phase 22's paths, each counted from 0
+        path_counts[k_] += v_
     kernels = []
     for name, (src, replaces) in sources.items():
         r_ = records[name]

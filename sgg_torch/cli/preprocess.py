@@ -23,8 +23,9 @@ images, on the host; ``vgg19`` runs an encoder over the JPEGs of
 decode the next batch while the device encodes this one). Its weights come
 from ``--vgg-weights`` (a ``.npy`` dict), from ``--encoder-ckpt`` (an
 ``encoder_params.npz``, or a directory holding one and a
-``pretrain_meta.json``, whose ``encoder``, ``image_size`` and ``vit_dims`` it
-takes), or are seeded. The encoder runs on the CUDA kernels unless
+``pretrain_meta.json``, whose ``encoder``, ``image_size``, ``vit_dims``,
+``moe_experts`` and ``moe_top_k`` it takes, as ``sgg_torch.cli.pretrain``
+writes them), or are seeded. The encoder runs on the CUDA kernels unless
 ``--device cpu`` is given, in ``--compute-dtype`` (float32, the reference's;
 bfloat16 is the port's option). ``vocab.json`` is written last, so that it
 marks a finished output directory.
@@ -170,11 +171,7 @@ def main(argv=None) -> int:
         print("[sgg.preprocess] --encoder vgg19 requires --image-dir "
               "(use --encoder random for a pipeline smoke)", file=sys.stderr)
         return 1
-    try:
-        enc_name, image_size, vit_dims, params = _encoder_weights(args, say)
-    except NotImplementedError as e:
-        print(f"[sgg.preprocess] {e}", file=sys.stderr)
-        return 2
+    enc_name, image_size, vit_dims, moe, params = _encoder_weights(args, say)
     import torch
 
     from sgg_torch.data.extract import extract_to_shards, resolve_image_paths
@@ -189,22 +186,25 @@ def main(argv=None) -> int:
             [enc[i] for i in split_idx], out, shard_size=args.shard_size,
             encoder_params=params, batch_size=args.batch_size, image_size=image_size,
             dtype=getattr(torch, args.compute_dtype), feat_dtype=np.dtype(args.feat_dtype),
-            seed=args.seed, vit_dims=vit_dims, device=args.device)
+            seed=args.seed, vit_dims=vit_dims, moe_experts=moe[0], moe_top_k=moe[1],
+            device=args.device)
         say(f"{split_name}: {stats}")
     vocab.save(os.path.join(args.out_dir, "vocab.json"))
     return 0
 
 
 def _encoder_weights(args, say):
-    """(encoder, image size, vit_dims, port state_dict or None) from
-    ``--vgg-weights`` or ``--encoder-ckpt``; None draws seeded weights."""
-    enc_name, image_size, vit_dims = "vgg19", 224, (768, 12, 12)
+    """(encoder, image size, vit_dims, (moe_experts, moe_top_k), port
+    state_dict or None) from ``--vgg-weights`` or ``--encoder-ckpt`` (a
+    pretrain directory's ``pretrain_meta.json`` names the encoder, its size,
+    its ViT widths and MoE layers); None draws seeded weights."""
+    enc_name, image_size, vit_dims, moe = "vgg19", 224, (768, 12, 12), (0, 2)
     if args.vgg_weights:
         from sgg_torch.models.vgg import load_npy_weights
 
-        return enc_name, image_size, vit_dims, load_npy_weights(args.vgg_weights)
+        return enc_name, image_size, vit_dims, moe, load_npy_weights(args.vgg_weights)
     if not args.encoder_ckpt:
-        return enc_name, image_size, vit_dims, None
+        return enc_name, image_size, vit_dims, moe, None
     from sgg_torch.convert_flax import encoder_flax_to_state_dict, load_params_npz
 
     ckpt = args.encoder_ckpt
@@ -213,17 +213,14 @@ def _encoder_weights(args, say):
         if os.path.exists(meta_path):
             with open(meta_path) as f:
                 meta = json.load(f)
-            if int(meta.get("moe_experts", 0)) > 0:
-                raise NotImplementedError(
-                    "an MoE encoder (pretrain_meta.json moe_experts > 0) is not ported yet; a "
-                    "later slice of the port brings it (ROADMAP A8)")
             enc_name = meta.get("encoder", enc_name)
             image_size = int(meta.get("image_size", image_size))
             vit_dims = tuple(meta.get("vit_dims", vit_dims))
+            moe = (int(meta.get("moe_experts", moe[0])), int(meta.get("moe_top_k", moe[1])))
         ckpt = os.path.join(ckpt, "encoder_params.npz")
     params = encoder_flax_to_state_dict(load_params_npz(ckpt))
     say(f"encoder weights <- {ckpt} ({enc_name} @ {image_size}px)")
-    return enc_name, image_size, vit_dims, params
+    return enc_name, image_size, vit_dims, moe, params
 
 
 if __name__ == "__main__":

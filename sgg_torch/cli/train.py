@@ -218,10 +218,11 @@ class StallWatchdog:
     has called :meth:`stamp` for ``limit_s`` seconds. The loop's own thread
     may be stuck inside a hung device call, so only another thread can see
     the stall; a supervisor relaunches into the resume. :meth:`stop` ends
-    the thread."""
+    the thread. ``tag`` prefixes the stall line (``sgg.pretrain`` uses it
+    too)."""
 
-    def __init__(self, limit_s: float):
-        self.limit_s = limit_s
+    def __init__(self, limit_s: float, tag: str = "sgg.train"):
+        self.limit_s, self.tag = limit_s, tag
         self.last = time.time()
         self._stop = threading.Event()
         self.thread = None
@@ -237,7 +238,7 @@ class StallWatchdog:
         while not self._stop.wait(STALL_POLL_SEC):
             dt = time.time() - self.last
             if dt > self.limit_s:
-                print(f"[sgg.train] STALL: no log readback for {dt:.0f}s (hung device "
+                print(f"[{self.tag}] STALL: no log readback for {dt:.0f}s (hung device "
                       "call?) — exit 86 for supervised relaunch", flush=True)
                 os._exit(86)
 

@@ -9,8 +9,9 @@ order, and the embedding is ``[V, E]`` in both.
 Encoders (VGG-19, ResNet-50, ViT-B/16), the transformer generator and the
 critic: the port's modules keep the flax names and layouts (HWIO kernels, Dense kernels
 [in, out], float32 BN and LayerNorm vectors), so a leaf's path joined with
-``.`` is its state_dict key; VGG's flat flax names ``conv1_1/kernel`` become
-``conv1_1.kernel``. Given the port module's own state_dict (``like``), the
+``.`` is its state_dict key (a MoE ViT block's ``moe/router`` [M, E],
+``moe/wi`` [E, M, H] and ``moe/wo`` [E, H, M] too); VGG's flat flax names
+``conv1_1/kernel`` become ``conv1_1.kernel``. Given the port module's own state_dict (``like``), the
 conversion raises on a missing or unknown leaf, or on a shape that differs.
 ``encoder_params.npz`` files (``::``-joined keys, as
 ``sgg.train.pretrain.save_params_npz`` writes them) read with numpy alone.

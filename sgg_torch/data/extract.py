@@ -91,7 +91,7 @@ def make_extractor(encoder_name: str, encoder_params: dict | None = None,
                    image_size: int = 224, use_pallas: bool = True,
                    dtype: torch.dtype = torch.float32, seed: int = 0,
                    vit_dims: tuple = (768, 12, 12), moe_experts: int = 0,
-                   out_dtype: torch.dtype = torch.float32, device="cuda"):
+                   out_dtype: torch.dtype = torch.float32, device="cuda", moe_top_k: int = 2):
     """uint8 images [n, S, S, 3] (numpy) → features [n, R, F] in ``out_dtype``
     on the device: the encoder with ``encoder_params`` (a port state_dict;
     None draws seeded random weights, a pipeline smoke) on the device once."""
@@ -105,7 +105,7 @@ def make_extractor(encoder_name: str, encoder_params: dict | None = None,
         torch.manual_seed(seed)
         enc = make_encoder(encoder_name, use_pallas=use_pallas, dtype=dtype,
                            image_size=image_size, vit_dims=vit_dims,
-                           moe_experts=moe_experts)
+                           moe_experts=moe_experts, moe_top_k=moe_top_k)
     if encoder_params is not None:
         enc.load_state_dict(encoder_params)
     enc.to(device)
@@ -126,10 +126,10 @@ def extract_features(encoder_name: str, image_paths: Sequence[str], encoder_para
                      batch_size: int = 32, image_size: int = 224, use_pallas: bool = True,
                      dtype: torch.dtype = torch.float32, seed: int = 0,
                      vit_dims: tuple = (768, 12, 12), moe_experts: int = 0,
-                     device="cuda") -> np.ndarray:
+                     device="cuda", moe_top_k: int = 2) -> np.ndarray:
     """Batched extraction → float32 [N, R, F]."""
     apply = make_extractor(encoder_name, encoder_params, image_size, use_pallas, dtype, seed,
-                           vit_dims, moe_experts, device=device)
+                           vit_dims, moe_experts, device=device, moe_top_k=moe_top_k)
     out = []
     for lo in range(0, len(image_paths), batch_size):
         imgs = load_batch(list(image_paths[lo:lo + batch_size]), image_size)
@@ -144,7 +144,7 @@ def extract_to_shards(encoder_name: str, image_ids: Sequence[int],
                       dtype: torch.dtype = torch.float32, feat_dtype=np.float32,
                       seed: int = 0, log_every: int = 50, vit_dims: tuple = (768, 12, 12),
                       moe_experts: int = 0, stall_exit_sec: float = 900.0,
-                      device="cuda") -> dict:
+                      device="cuda", moe_top_k: int = 2) -> dict:
     """Streaming extraction: images → encoder → shards, in O(shard) host
     memory. A thread decodes batch i+1 (a queue of 4) while the device
     computes batch i; each batch is launched before the previous one is read
@@ -159,7 +159,8 @@ def extract_to_shards(encoder_name: str, image_ids: Sequence[int],
 
     out_dtype = torch.float16 if np.dtype(feat_dtype) == np.float16 else torch.float32
     apply = make_extractor(encoder_name, encoder_params, image_size, use_pallas, dtype, seed,
-                           vit_dims, moe_experts, out_dtype=out_dtype, device=device)
+                           vit_dims, moe_experts, out_dtype=out_dtype, device=device,
+                           moe_top_k=moe_top_k)
     n = len(image_paths)
     os.makedirs(out_dir, exist_ok=True)
     n_shards = max(1, -(-n // shard_size))

@@ -96,25 +96,58 @@ def pad_nhwc(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str,
 
 
 @contextlib.contextmanager
-def _cudnn_without_tf32():
+def _cudnn_tf32(enabled: bool):
     prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = enabled
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
 
 
+def tf32_allowed(dtype: torch.dtype) -> bool:
+    """Whether cuDNN may use TF32 for a conv of operands of ``dtype``: only
+    for bfloat16 and float16, whose values TF32 holds exactly."""
+    return dtype in (torch.bfloat16, torch.float16)
+
+
+class _Conv2dF32(torch.autograd.Function):
+    """``F.conv2d`` of float32 NCHW operands with cuDNN's TF32 set for both
+    passes (the library reads the setting when each pass runs)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, tf32: bool):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.tf32 = stride, tf32
+        with _cudnn_tf32(tf32):
+            return F.conv2d(x, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        with _cudnn_tf32(ctx.tf32):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, [ctx.stride] * 2, [0, 0], [1, 1], False, [0, 0], 1,
+                [need_x, need_w, False])
+        return gx, gw, None, None
+
+
 def conv2d_nhwc_f32(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                     padding: str = "SAME") -> torch.Tensor:
     """float32 convolution of NHWC x with HWIO w → float32 NHWC, as
-    ``lax.conv_general_dilated`` on float32 operands. cuDNN's TF32 is off
-    for the call, so a float32 input gets float32 products on the card too.
-    The NCHW tensors are views of the NHWC ones (channels-last), not copies."""
+    ``lax.conv_general_dilated`` on float32 operands. On the card cuDNN's
+    TF32 follows :func:`tf32_allowed` of x's and w's dtypes, in the forward
+    and the backward: float32 operands get float32 products; bfloat16 x and
+    w are exact in TF32, and each gradient the backward returns is cast to
+    bfloat16, which rounds coarser than TF32 (at VGG-19's shapes the results
+    lie at most 5.3e-4 rel L2 from float64, ``chip_smoke.conv_tf32_hold``,
+    under half a bfloat16 rounding). The NCHW tensors are views of the NHWC
+    ones (channels-last), not copies."""
     kh, kw = w.shape[0], w.shape[1]
     xp = pad_nhwc(x.float(), kh, kw, stride, padding)
-    with _cudnn_without_tf32():
-        y = F.conv2d(xp.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1), stride=stride)
+    y = _Conv2dF32.apply(xp.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1), stride,
+                         tf32_allowed(x.dtype) and tf32_allowed(w.dtype))
     return y.permute(0, 2, 3, 1)
 
 

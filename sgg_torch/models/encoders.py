@@ -1,6 +1,6 @@
 """Encoder factory: config name → backbone module, from
 ``sgg/models/encoders.py``. ``precomputed`` means the data already carries
-features. The int8 tier and MoE blocks come with later slices of the port.
+features. The int8 tier comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def make_encoder(
     name: str, use_pallas: bool = False, dtype: torch.dtype = torch.float32,
     quant: str = "", image_size: int | None = None,
     vit_dims: tuple[int, int, int] = (768, 12, 12), moe_experts: int = 0,
-    trainable: bool = False,
+    trainable: bool = False, moe_top_k: int = 2,
 ) -> nn.Module | None:
     """The feature extractor, or None for ``precomputed``: frozen (its
     parameters need no gradient) unless ``trainable``, as training with
@@ -43,7 +43,9 @@ def make_encoder(
     ``sgg_torch.kernels.conv`` through their own ``conv_impl``, the ViT any
     attention through its ``attn_fn``. ViT only: ``image_size`` (default
     224) sizes ``pos_embed``; ``vit_dims`` is (embed_dim, num_layers,
-    num_heads), the config's ``model.vit_dims``."""
+    num_heads), the config's ``model.vit_dims``; ``moe_experts`` > 0 puts a
+    top-``moe_top_k`` MoE layer in every block (``forward_aux`` returns its
+    load-balance term beside the features)."""
     if quant not in ("", "int8"):
         raise ValueError(f"unknown quant mode {quant!r} (want '' or 'int8')")
     if quant == "int8":
@@ -64,12 +66,25 @@ def make_encoder(
         dim, layers, heads = vit_dims
         enc = ViTB16Features(
             embed_dim=dim, num_heads=heads, num_layers=layers, use_pallas=use_pallas,
-            moe_experts=moe_experts, dtype=dtype,
+            moe_experts=moe_experts, moe_top_k=moe_top_k, dtype=dtype,
             num_patches=((image_size or 224) // 16) ** 2,
         )
     else:
         raise ValueError(f"unknown encoder {name!r}")
     return enc.requires_grad_(trainable).eval()
+
+
+def features_and_aux(encoder: nn.Module, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(features, the MoE blocks' mean load-balance term, float32) of a
+    normalized batch; the term is 0 for an encoder without MoE blocks, as
+    the reference's empty ``"moe"`` collection."""
+    if hasattr(encoder, "forward_aux"):
+        feats, aux = encoder.forward_aux(x)
+    else:
+        feats, aux = encoder(x), None
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return feats, aux
 
 
 def make_image_encoder(cfg, enc_params: dict, device: torch.device):
@@ -81,7 +96,7 @@ def make_image_encoder(cfg, enc_params: dict, device: torch.device):
     m = cfg.model
     enc = make_encoder(m.encoder, use_pallas=m.use_pallas, dtype=m.dtype, quant=m.quant,
                        image_size=cfg.data.image_size, vit_dims=m.vit_dims,
-                       moe_experts=m.moe_experts)
+                       moe_experts=m.moe_experts, moe_top_k=m.moe_top_k)
     enc.load_state_dict(enc_params)
     enc.to(device)
 

@@ -2,7 +2,8 @@
 
 224 px images cut into 16 × 16 patches give 196 tokens of width 768; a
 learned position embedding (no class token), 12 pre-LN blocks of 12-head
-self-attention and a tanh-GELU MLP, then a final LayerNorm. With
+self-attention and a tanh-GELU MLP (with ``moe_experts`` > 0 a top-k MoE
+layer in every block, ``sgg_torch.models.moe``), then a final LayerNorm. With
 ``use_pallas=True`` the self-attention goes through
 ``sgg_torch.kernels.flash_attention.attention('auto')`` (the CUDA flash
 kernel on a CUDA tensor); otherwise through ``attention_reference``. An
@@ -10,7 +11,8 @@ kernel on a CUDA tensor); otherwise through ``attention_reference``. An
 
 Parameter names and layouts are the flax module's: ``patch_embed.kernel``
 (HWIO [16, 16, 3, E]) and ``.bias``, ``pos_embed`` [1, N, E],
-``block{i}.{ln1,attn.qkv,attn.out,ln2,mlp1,mlp2}`` and ``ln_final``, Dense
+``block{i}.{ln1,attn.qkv,attn.out,ln2,mlp1,mlp2}`` (MoE blocks:
+``block{i}.moe.{router,wi,wo}`` in place of mlp1 and mlp2) and ``ln_final``, Dense
 kernels [in, out], so the flax tree converts leaf by leaf. Parameters are
 float32 and are cast to the compute dtype at the call.
 """
@@ -24,6 +26,7 @@ from torch import nn
 
 from sgg_torch.kernels.flash_attention import attention, attention_reference
 from sgg_torch.models.layers import Dense, LayerNorm, gelu, lecun_normal
+from sgg_torch.models.moe import MoEMLP
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -51,19 +54,35 @@ class MultiHeadSelfAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
+    """Pre-LN block: self-attention, then the dense MLP, or with
+    ``moe_experts`` > 0 a top-``moe_top_k`` MoE layer (``moe``)."""
+
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int = 4,
                  use_pallas: bool = False, attn_fn: Callable | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, moe_experts: int = 0,
+                 moe_top_k: int = 2):
         super().__init__()
         self.ln1 = LayerNorm(embed_dim, dtype)
         self.attn = MultiHeadSelfAttention(embed_dim, num_heads, use_pallas, attn_fn, dtype)
         self.ln2 = LayerNorm(embed_dim, dtype)
-        self.mlp1 = Dense(embed_dim, embed_dim * mlp_ratio, dtype)
-        self.mlp2 = Dense(embed_dim * mlp_ratio, embed_dim, dtype)
+        if moe_experts > 0:
+            self.moe = MoEMLP(embed_dim, moe_experts, top_k=moe_top_k, mlp_ratio=mlp_ratio,
+                              dtype=dtype)
+        else:
+            self.moe = None
+            self.mlp1 = Dense(embed_dim, embed_dim * mlp_ratio, dtype)
+            self.mlp2 = Dense(embed_dim * mlp_ratio, embed_dim, dtype)
+
+    def forward_aux(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(block output, the MoE layer's load-balance term, or None)."""
+        x = x + self.attn(self.ln1(x))
+        if self.moe is not None:
+            y, aux = self.moe(self.ln2(x))
+            return x + y, aux
+        return x + self.mlp2(gelu(self.mlp1(self.ln2(x)))), None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp2(gelu(self.mlp1(self.ln2(x))))
+        return self.forward_aux(x)[0]
 
 
 class PatchEmbed(nn.Module):
@@ -95,19 +114,17 @@ class ViTB16Features(nn.Module):
     def __init__(self, embed_dim: int = 768, num_heads: int = 12, num_layers: int = 12,
                  patch: int = 16, mlp_ratio: int = 4, use_pallas: bool = False,
                  attn_fn: Callable | None = None, moe_experts: int = 0,
-                 dtype: torch.dtype = torch.float32, num_patches: int = 196):
+                 dtype: torch.dtype = torch.float32, num_patches: int = 196,
+                 moe_top_k: int = 2):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError(
-                "MoE ViT blocks are not ported yet; a later slice of the port brings "
-                "them (ROADMAP A8)")
-        self.dtype, self.num_patches = dtype, num_patches
+        self.dtype, self.num_patches, self.moe_experts = dtype, num_patches, moe_experts
         self.patch_embed = PatchEmbed(embed_dim, patch, dtype)
         self.pos_embed = nn.Parameter(0.02 * torch.randn(1, num_patches, embed_dim))
         self.blocks = []
         for i in range(num_layers):
             self.add_module(f"block{i}", TransformerBlock(
-                embed_dim, num_heads, mlp_ratio, use_pallas, attn_fn, dtype))
+                embed_dim, num_heads, mlp_ratio, use_pallas, attn_fn, dtype, moe_experts,
+                moe_top_k))
             self.blocks.append(f"block{i}")
         self.ln_final = LayerNorm(embed_dim, dtype)
 
@@ -123,8 +140,19 @@ class ViTB16Features(nn.Module):
     def final(self, x: torch.Tensor) -> torch.Tensor:
         return self.ln_final(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_aux(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(features, the mean of the MoE blocks' load-balance terms, float32;
+        None without MoE). The reference sows each block's term into flax's
+        ``"moe"`` collection, and its callers average the collected leaves."""
         x = self.embed(x)
+        aux = {}
         for name in self.blocks:
-            x = getattr(self, name)(x)
-        return self.final(x)
+            x, a = getattr(self, name).forward_aux(x)
+            if a is not None:
+                aux[name] = a
+        # Summed in the collection's leaf order (block names sorted as strings).
+        mean = sum(aux[k] for k in sorted(aux)) / len(aux) if aux else None
+        return self.final(x), mean
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_aux(x)[0]

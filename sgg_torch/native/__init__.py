@@ -1,5 +1,5 @@
-"""sgg_torch.native — the JPEG decode + resize batch loader (``jpeg_loader.cc``,
-ctypes-bound), from ``sgg/native``. It builds with g++ at first use, never at
+"""sgg_torch.native — the JPEG decode + resize batch loader and the JPEG
+encoder (``jpeg_loader.cc``, ctypes-bound), from ``sgg/native``. It builds with g++ at first use, never at
 import; where it cannot, every call raises :class:`NativeUnavailable`, and
 callers do not fall back to another decoder."""
 
@@ -8,6 +8,8 @@ from sgg_torch.native.loader import (
     decode_batch,
     decode_file,
     decode_raw,
+    encode_file,
+    image_size,
     native_available,
     resize_plain,
     route,
@@ -18,6 +20,8 @@ __all__ = [
     "decode_batch",
     "decode_file",
     "decode_raw",
+    "encode_file",
+    "image_size",
     "native_available",
     "resize_plain",
     "route",

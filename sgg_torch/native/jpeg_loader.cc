@@ -13,6 +13,11 @@
 //                        <= libjpeg's denominator. Its bytes may differ from
 //                        libjpeg's (another IDCT and chroma upsampling).
 // The resize and the thread pool are the reference's, for either decoder.
+//
+// The same library encodes JPEGs (the synthetic corpus writer; the reference
+// writes them with PIL): with libjpeg's compressor at PIL's settings
+// (baseline, 4:2:0, the standard tables at the quality given), or with
+// nvJPEG's encoder at the same quality and 4:2:0, whichever decoder is built.
 
 #include <cstddef>
 #include <cstdio>  // before jpeglib.h, which uses FILE and size_t unqualified
@@ -133,6 +138,39 @@ int decode_raw(const char* path, int out_size, std::vector<unsigned char>& rgb, 
 
 int decoder_ready() { return kOk; }
 
+// rgb [h, w, 3] -> a baseline JPEG at path: jpeg_set_defaults (YCbCr, 4:2:0,
+// Huffman tables not optimized), jpeg_set_quality(quality, force_baseline),
+// as PIL's JPEG encoder with its default options.
+int encode_file(const char* path, int h, int w, const unsigned char* rgb, int quality) {
+  FILE* f = std::fopen(path, "wb");
+  if (!f) return kNoFile;
+  jpeg_compress_struct cinfo;
+  ErrMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = error_exit;
+  if (setjmp(jerr.jump)) {
+    jpeg_destroy_compress(&cinfo);
+    std::fclose(f);
+    return kRejected;
+  }
+  jpeg_create_compress(&cinfo);
+  jpeg_stdio_dest(&cinfo, f);
+  cinfo.image_width = static_cast<JDIMENSION>(w);
+  cinfo.image_height = static_cast<JDIMENSION>(h);
+  cinfo.input_components = 3;
+  cinfo.in_color_space = JCS_RGB;
+  jpeg_set_defaults(&cinfo);
+  jpeg_set_quality(&cinfo, quality, TRUE);
+  jpeg_start_compress(&cinfo, TRUE);
+  while (cinfo.next_scanline < cinfo.image_height) {
+    JSAMPROW row = const_cast<JSAMPROW>(rgb + static_cast<size_t>(cinfo.next_scanline) * w * 3);
+    jpeg_write_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_compress(&cinfo);
+  jpeg_destroy_compress(&cinfo);
+  return std::fclose(f) == 0 ? kOk : kNoFile;
+}
+
 #else  // SGG_DECODER_NVJPEG
 
 const char* kRoute = "nvjpeg";
@@ -144,6 +182,9 @@ struct Worker {
   cudaStream_t stream = nullptr;
   unsigned char* dbuf = nullptr;
   size_t cap = 0;
+  nvjpegEncoderState_t enc_state = nullptr;  // made at the worker's first encode
+  nvjpegEncoderParams_t enc_params = nullptr;
+  int enc_quality = -1;
 };
 
 std::once_flag g_once;
@@ -206,6 +247,17 @@ void box_downsample(const std::vector<unsigned char>& src, int h, int w, int f,
   }
 }
 
+// The worker's device buffer grown to at least need bytes.
+bool reserve(Worker* wk, size_t need) {
+  if (wk->cap >= need) return true;
+  if (wk->dbuf) cudaFree(wk->dbuf);
+  wk->dbuf = nullptr;
+  wk->cap = 0;
+  if (cudaMalloc(&wk->dbuf, need) != cudaSuccess) return false;
+  wk->cap = need;
+  return true;
+}
+
 int decode_raw(const char* path, int out_size, std::vector<unsigned char>& rgb, int& h,
                int& w) {
   FILE* f = std::fopen(path, "rb");
@@ -229,15 +281,9 @@ int decode_raw(const char* path, int out_size, std::vector<unsigned char>& rgb, 
   const size_t need = static_cast<size_t>(fw) * fh * 3;
   Worker* wk = acquire();
   if (!wk) return kNoDecoder;
-  if (wk->cap < need) {
-    if (wk->dbuf) cudaFree(wk->dbuf);
-    wk->dbuf = nullptr;
-    wk->cap = 0;
-    if (cudaMalloc(&wk->dbuf, need) != cudaSuccess) {
-      release(wk);
-      return kNoDecoder;
-    }
-    wk->cap = need;
+  if (!reserve(wk, need)) {
+    release(wk);
+    return kNoDecoder;
   }
   nvjpegImage_t img;
   std::memset(&img, 0, sizeof(img));
@@ -262,6 +308,60 @@ int decode_raw(const char* path, int out_size, std::vector<unsigned char>& rgb, 
     box_downsample(full, fh, fw, f2, rgb, h, w);
   }
   return kOk;
+}
+
+// rgb [h, w, 3] -> a baseline JPEG at path through nvJPEG's encoder: the
+// image copied to the worker's device buffer, 4:2:0, the quality given,
+// Huffman tables not optimized; the bitstream copied back and written.
+int encode_file(const char* path, int h, int w, const unsigned char* rgb, int quality) {
+  if (decoder_ready() != kOk) return kNoDecoder;
+  const size_t n = static_cast<size_t>(w) * h * 3;
+  Worker* wk = acquire();
+  if (!wk) return kNoDecoder;
+  bool ok = reserve(wk, n);
+  if (ok && !wk->enc_state) {
+    ok = nvjpegEncoderStateCreate(g_handle, &wk->enc_state, wk->stream) ==
+             NVJPEG_STATUS_SUCCESS &&
+         nvjpegEncoderParamsCreate(g_handle, &wk->enc_params, wk->stream) ==
+             NVJPEG_STATUS_SUCCESS &&
+         nvjpegEncoderParamsSetSamplingFactors(wk->enc_params, NVJPEG_CSS_420, wk->stream) ==
+             NVJPEG_STATUS_SUCCESS &&
+         nvjpegEncoderParamsSetOptimizedHuffman(wk->enc_params, 0, wk->stream) ==
+             NVJPEG_STATUS_SUCCESS;
+    if (!ok) wk->enc_state = nullptr;
+  }
+  if (ok && wk->enc_quality != quality) {
+    ok = nvjpegEncoderParamsSetQuality(wk->enc_params, quality, wk->stream) ==
+         NVJPEG_STATUS_SUCCESS;
+    if (ok) wk->enc_quality = quality;
+  }
+  std::vector<unsigned char> jpeg;
+  size_t length = 0;
+  if (ok) {
+    nvjpegImage_t img;
+    std::memset(&img, 0, sizeof(img));
+    img.channel[0] = wk->dbuf;
+    img.pitch[0] = static_cast<unsigned int>(w) * 3;
+    ok = cudaMemcpyAsync(wk->dbuf, rgb, n, cudaMemcpyHostToDevice, wk->stream) ==
+             cudaSuccess &&
+         nvjpegEncodeImage(g_handle, wk->enc_state, wk->enc_params, &img, NVJPEG_INPUT_RGBI,
+                           w, h, wk->stream) == NVJPEG_STATUS_SUCCESS &&
+         nvjpegEncodeRetrieveBitstream(g_handle, wk->enc_state, nullptr, &length,
+                                       wk->stream) == NVJPEG_STATUS_SUCCESS &&
+         cudaStreamSynchronize(wk->stream) == cudaSuccess;
+    if (ok) {
+      jpeg.resize(length);
+      ok = nvjpegEncodeRetrieveBitstream(g_handle, wk->enc_state, jpeg.data(), &length,
+                                         wk->stream) == NVJPEG_STATUS_SUCCESS &&
+           cudaStreamSynchronize(wk->stream) == cudaSuccess;
+    }
+  }
+  release(wk);
+  if (!ok) return kRejected;
+  FILE* f = std::fopen(path, "wb");
+  if (!f) return kNoFile;
+  const bool wrote = std::fwrite(jpeg.data(), 1, length, f) == length;
+  return (std::fclose(f) == 0 && wrote) ? kOk : kNoFile;
 }
 
 #endif
@@ -301,6 +401,14 @@ int sgg_decode_raw(const char* path, int out_size, unsigned char* out, long cap,
   if (static_cast<long>(rgb.size()) > cap) return kTooSmall;
   std::memcpy(out, rgb.data(), rgb.size());
   return kOk;
+}
+
+// Encode rgb [h, w, 3] (RGB8) as a baseline 4:2:0 JPEG of the given quality
+// at path, with the library's route (sgg_decoder_route). 0 ok, 1 the file
+// cannot be written, 2 the encoder rejects the image, 4 it cannot start.
+int sgg_encode_file(const char* path, int h, int w, const unsigned char* rgb, int quality) {
+  if (h <= 0 || w <= 0 || quality < 1 || quality > 100) return kRejected;
+  return encode_file(path, h, w, rgb, quality);
 }
 
 // Batch decode n files with a thread pool. out is [n, out_size, out_size, 3].

@@ -1,5 +1,6 @@
 """Build and bind the port's JPEG loader (``jpeg_loader.cc``), from
-``sgg/native/loader.py``.
+``sgg/native/loader.py``, and its JPEG encoder (:func:`encode_file`, which
+the synthetic corpus writes with; the reference writes with PIL).
 
 The library is compiled with g++ at its first use in a process, never at
 import, into ``build/sgg_torch_native/`` under the repository root (beside
@@ -116,7 +117,9 @@ def _load():
                                         ip, ip], ctypes.c_int),
                     ("sgg_decode_batch", [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
                                           ctypes.c_int, u8p, ip, ctypes.c_int],
-                     ctypes.c_int)):
+                     ctypes.c_int),
+                    ("sgg_encode_file", [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, u8p,
+                                         ctypes.c_int], ctypes.c_int)):
                 fn = getattr(lib, name)
                 fn.argtypes, fn.restype = argtypes, restype
             if lib.sgg_decoder_ready() != 0:
@@ -138,7 +141,8 @@ def native_available() -> bool:
 
 
 def route() -> str:
-    """The decoder the loader was built with: ``libjpeg`` or ``nvjpeg``."""
+    """The decoder (and encoder) the loader was built with: ``libjpeg`` or
+    ``nvjpeg``."""
     return _load().sgg_decoder_route().decode()
 
 
@@ -203,6 +207,33 @@ def decode_raw(path: str, size: int) -> np.ndarray:
             _raise(rc, path)
         return buf[:h.value * w.value * 3].reshape(h.value, w.value, 3)
     raise IOError(f"native decode failed (buffer) for {path}")
+
+
+# Larger than any JPEG side (65,535): decode_raw at this size takes no prescale.
+FULL_SIZE = 1 << 16
+
+
+def image_size(path: str) -> tuple[int, int]:
+    """(width, height) of a JPEG file: its decode at full size (no prescale)."""
+    h, w = decode_raw(path, FULL_SIZE).shape[:2]
+    return w, h
+
+
+def encode_file(path: str, rgb: np.ndarray, quality: int = 75) -> None:
+    """Write uint8 RGB [h, w, 3] as a baseline 4:2:0 JPEG of ``quality`` at
+    ``path``, with the library's route (:func:`route`): libjpeg at PIL's
+    default settings, or nvJPEG's encoder. Raises on any failure; nothing
+    falls back to another encoder."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_file takes uint8 [h, w, 3], not {rgb.dtype} {rgb.shape}")
+    lib = _load()
+    rc = lib.sgg_encode_file(os.fsencode(path), rgb.shape[0], rgb.shape[1], _u8(rgb),
+                             int(quality))
+    if rc == 1:
+        raise OSError(f"native encode failed ({rc}): cannot write {path}")
+    if rc:
+        raise IOError(f"native {route()} encode failed ({rc}) for {path}")
 
 
 def resize_plain(src: np.ndarray, out: int) -> np.ndarray:

@@ -97,24 +97,30 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torc
 
 class Adam:
     """``optax.chain(clip_by_global_norm(clip), adam(lr, b1, b2, eps=1e-8))``
-    over a module's parameters. :meth:`update` takes the gradients in
-    ``parameters()`` order and applies optax's update in float32 tensor ops
-    (``torch._foreach_*``): mu and nu, their bias corrections at the count
-    after this update, then p -= lr·mû / (√nû + eps). The count lives on the
-    device, and a scheduled lr is read at it from a device table of the
+    over a module's parameters, with the config's betas, clip and schedule;
+    without a config (``cfg=None``) ``optax.adam(lr)``, as pretraining uses.
+    :meth:`update` takes the gradients in ``parameters()`` order and applies
+    optax's update in float32 tensor ops (``torch._foreach_*``): mu and nu,
+    their bias corrections at the count after this update, then
+    p -= lr·mû / (√nû + eps). The count lives on the device, and a scheduled
+    lr is read at it from a device table of the
     schedule's float32 values, so the update reads nothing from the host and
     runs alike eagerly and inside a captured CUDA graph."""
 
-    def __init__(self, module: nn.Module, peak: float, cfg: Config, updates_per_step: int):
-        t = cfg.train
+    def __init__(self, module: nn.Module, peak: float, cfg: Config | None,
+                 updates_per_step: int = 1):
         self.params = [p for p in module.parameters()]
         dev = self.params[0].device
-        self.b1, self.b2, self.eps = float(t.beta1), float(t.beta2), 1e-8
-        self.clip = t.grad_clip
+        if cfg is None:  # optax.adam(peak): its default betas, no clip, no schedule
+            self.b1, self.b2, self.clip, sched = 0.9, 0.999, 0, None
+        else:
+            t = cfg.train
+            self.b1, self.b2, self.clip = float(t.beta1), float(t.beta2), t.grad_clip
+            sched = lr_schedule_fn(cfg, peak, updates_per_step)
+        self.eps = 1e-8
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self._count = torch.zeros((), dtype=torch.int64, device=dev)
-        sched = lr_schedule_fn(cfg, peak, updates_per_step)
         self.lr = peak
         self._lr_table = None
         if sched is not None:
@@ -240,7 +246,7 @@ def create_train_state(cfg: Config, seed: int = 0, enc_params: dict | None = Non
         encoder = make_encoder(
             m.encoder, use_pallas=m.use_pallas, dtype=m.dtype, quant=m.quant,
             image_size=cfg.data.image_size, vit_dims=m.vit_dims, moe_experts=m.moe_experts,
-            trainable=train_enc)
+            moe_top_k=m.moe_top_k, trainable=train_enc)
     if encoder is not None and enc_params is not None:
         encoder.load_state_dict(enc_params)
     for mod in (generator, critic, encoder):

@@ -10,7 +10,9 @@ as in the reference:
     one batched forward over n_critic·B rows;
   - ``train.train_encoder``: each critic iteration differentiates the critic
     loss jointly with respect to the critic and the encoder (the ViT's
-    attention through ``flash_attention``'s backward); the fake conditions on
+    attention through ``flash_attention``'s backward; with MoE blocks,
+    ``model.moe_experts``, plus ``train.moe_aux_coef`` times their mean
+    load-balance term, reported as ``moe_aux``); the fake conditions on
     the features without gradient, and the generator update conditions on
     the updated encoder, without gradient;
   - a frozen encoder: features and fakes without gradient.
@@ -42,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from sgg_torch.config import Config
-from sgg_torch.models.encoders import normalize_for
+from sgg_torch.models.encoders import features_and_aux, normalize_for
 from sgg_torch.models.generator import TRIPLE_LEN
 from sgg_torch.train.losses import critic_loss, generator_loss, reinforce_generator_loss
 from sgg_torch.train.state import GANTrainState, global_norm
@@ -57,10 +59,14 @@ def refuse_unported(cfg: Config) -> None:
     if t.estimator not in ("gumbel", "reinforce"):
         raise ValueError(f"unknown train.estimator {t.estimator!r} (expected 'gumbel' or "
                          "'reinforce')")
-    if m.sp_mode or m.pp_microbatches or m.moe_experts:
+    if m.sp_mode or m.pp_microbatches:
         raise NotImplementedError(
-            f"sequence, pipeline and expert parallelism and MoE (model.sp_mode, "
-            f"model.pp_microbatches, model.moe_experts) {_LATER} (ROADMAP A8)")
+            f"sequence and pipeline parallelism (model.sp_mode, model.pp_microbatches) "
+            f"{_LATER} (ROADMAP A8)")
+    if m.moe_experts and mesh.expert > 1:
+        raise NotImplementedError(
+            f"expert-parallel MoE (model.moe_experts over mesh.expert > 1) {_LATER} "
+            "(ROADMAP A8); single-device MoE trains")
     if mesh.model > 1 or mesh.seq > 1 or mesh.expert > 1 or mesh.fsdp or mesh.data > 1:
         raise NotImplementedError(f"meshes (mesh.data/model/seq/expert > 1, fsdp) {_LATER} "
                                   "(ROADMAP A8); the port trains on one device")
@@ -153,6 +159,7 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
     accum = max(1, int(t.grad_accum))
     mask = None if step_mask is None else torch.as_tensor(np.asarray(step_mask), dtype=torch.bool)
     train_enc = bool(t.train_encoder)
+    moe_on = m.moe_experts > 0
     reinforce = t.estimator == "reinforce"
     masks: dict = {}  # the step mask on each device, copied there once
 
@@ -186,6 +193,10 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
         def enc_feats(images):
             return encoder(normalize_for(m.encoder, images)).to(dtype)
 
+        def enc_feats_aux(images):
+            feats, aux = features_and_aux(encoder, normalize_for(m.encoder, images))
+            return feats.to(dtype), aux
+
         d_params = list(critic.parameters())
 
         def d_loss(feats, real_ids, fake, eps):
@@ -209,11 +220,17 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
 
                 def vg(mb, k):
                     raw_mb, real_mb = mb
-                    feats = enc_feats(raw_mb)
+                    if moe_on:
+                        feats, moe_aux = enc_feats_aux(raw_mb)
+                    else:
+                        feats = enc_feats(raw_mb)
                     with torch.no_grad():
                         fake = sample_fake(feats.detach(), noise["fake_z"][i, k],
                                            noise["fake_gumbel"][i, k])
                     loss, aux = d_loss(feats, real_mb, fake, eps[k])
+                    if moe_on:  # the router's load balance, in the encoder's objective
+                        loss = loss + t.moe_aux_coef * moe_aux
+                        aux = {**aux, "moe_aux": moe_aux}
                     return loss, aux, torch.autograd.grad(loss, d_params + enc_params)
 
                 _, d_aux, grads = _accum_vg(vg, (data[i], triples[i]), accum)

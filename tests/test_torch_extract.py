@@ -146,16 +146,38 @@ def test_preprocess_vgg19_matches_reference(cli_weights, tmp_path, how):
             _close(sa["features"], sb["features"])
 
 
-def test_preprocess_vgg19_refuses_an_moe_checkpoint(tmp_path, capsys):
+def test_preprocess_vgg19_refuses_an_moe_checkpoint(tmp_path):
+    """An MoE checkpoint, refused before MoE was ported, now extracts: both
+    preprocess CLIs read ``moe_experts`` and ``moe_top_k`` (1 here) from
+    ``pretrain_meta.json`` and write the same shards from a small MoE ViT."""
+    from sgg_torch.convert_flax import encoder_state_dict_to_flax
+    from sgg_torch.models.encoders import make_encoder
+    from sgg_torch.train.pretrain import save_params_npz
+
     ckpt = tmp_path / "moe"
     ckpt.mkdir()
-    (ckpt / "pretrain_meta.json").write_text(json.dumps({"encoder": "vit_b16",
-                                                         "moe_experts": 4}))
-    assert preprocess.main(["--out-dir", str(tmp_path / "out"), "--vg-dir", FIXTURE,
-                            "--image-dir", IMAGES, "--encoder-ckpt", str(ckpt),
-                            "--device", "cpu"]) == 2
-    assert "A8" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "out" / "vocab.json")
+    torch.manual_seed(5)
+    enc = make_encoder("vit_b16", image_size=SIZE, vit_dims=(32, 1, 2), moe_experts=4,
+                       moe_top_k=1)
+    save_params_npz(str(ckpt / "encoder_params.npz"),
+                    encoder_state_dict_to_flax(enc.state_dict(), "vit_b16")["params"])
+    (ckpt / "pretrain_meta.json").write_text(json.dumps(
+        {"encoder": "vit_b16", "image_size": SIZE, "vit_dims": [32, 1, 2],
+         "moe_experts": 4, "moe_top_k": 1}))
+    args = ["--vg-dir", FIXTURE, "--image-dir", IMAGES, "--encoder-ckpt", str(ckpt),
+            "--max-images", "6", "--batch-size", "4", "--test-fraction", "0.34"]
+    assert jax_preprocess.main(["--out-dir", str(tmp_path / "ref"), *args]) == 0
+    assert preprocess.main(["--out-dir", str(tmp_path / "port"), *args,
+                            "--device", "cpu"]) == 0
+    for sub in ("", "test"):
+        mine = list_shards(str(tmp_path / "port" / sub))
+        theirs = list_shards(str(tmp_path / "ref" / sub))
+        assert mine and len(mine) == len(theirs)
+        for a, b in zip(mine, theirs):
+            sa, sb = read_feature_shard(a), read_feature_shard(b)
+            np.testing.assert_array_equal(sa["image_ids"], sb["image_ids"])
+            assert sa["features"].shape[1:] == (16, 32)
+            _close(sa["features"], sb["features"])
 
 
 STALL_SCRIPT = """

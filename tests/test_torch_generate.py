@@ -301,7 +301,10 @@ def test_port_imports_no_jax_and_no_sgg():
         "import sgg_torch.cli.preprocess, sgg_torch.data.vg, sgg_torch.utils.debug\n"
         "import sgg_torch.native, sgg_torch.native.loader, sgg_torch.data.extract\n"
         "import sgg_torch.data.images\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sgg'))\n"
+        "import sgg_torch.models.moe, sgg_torch.train.pretrain, sgg_torch.cli.pretrain\n"
+        "import sgg_torch.cli.synth_corpus, sgg_torch.data.synthetic\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'sgg', 'PIL'))\n"
         "assert not bad, bad\n"
         "from sgg_torch.kernels import build\n"
         "assert not build.load_library.cache_info().currsize  # nothing built at import\n"

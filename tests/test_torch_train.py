@@ -511,12 +511,15 @@ def test_noise_layout_and_refusals():
     # REINFORCE, refused before it was ported, builds a step
     # (tests/test_torch_reinforce.py holds it against the reference).
     assert callable(make_step_fn(_configs("smoke", {"train.estimator": "reinforce"})[1]))
+    # So does MoE on one device (tests/test_torch_moe.py); its expert-parallel
+    # form over a mesh stays refused.
+    assert callable(make_step_fn(_configs("smoke", {"model.moe_experts": 4})[1]))
     for sets, err, match in (
             ({"model.pp_microbatches": 2}, NotImplementedError, "A8"),
             ({"train.estimator": "ppo"}, ValueError, "estimator"),
             ({"mesh.data": 4}, NotImplementedError, "mesh"),
             ({"model.sp_mode": "ring"}, NotImplementedError, "A8"),
-            ({"model.moe_experts": 4}, NotImplementedError, "A8"),
+            ({"model.moe_experts": 4, "mesh.expert": 2}, NotImplementedError, "A8"),
             ({"train.train_encoder": True}, ValueError, "end-to-end")):
         with pytest.raises(err, match=match):
             make_step_fn(_configs("smoke", sets)[1])

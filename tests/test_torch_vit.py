@@ -178,8 +178,10 @@ def test_make_encoder_vit_matches_reference_shapes(vit):
         jax.tree.map(lambda s: np.zeros(s.shape, np.float32), ref_shapes)).items()}
     assert got == want
     assert make_encoder("vit_b16").num_patches == 196
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_encoder("vit_b16", moe_experts=4, vit_dims=(64, 2, 4))
+    # MoE blocks, refused before they were ported (tests/test_torch_moe.py
+    # holds them against the reference): the block's MLP becomes its MoE layer.
+    moe_sd = make_encoder("vit_b16", moe_experts=4, vit_dims=(64, 2, 4)).state_dict()
+    assert "block0.moe.wi" in moe_sd and "block0.mlp1.kernel" not in moe_sd
     with pytest.raises(ValueError, match="patches"):
         enc(torch.zeros(1, 32, 32, 3))
 
