@@ -100,6 +100,17 @@ out in float64 from the model's outputs) on the committed fixture's first
 JPEGs at 224 px. A card-against-CPU hold alone cannot refuse them: both run
 the same code.
 
+Two faults are seeded into the deployment tier: the int8 route's zero padding
+(``sgg_torch/kernels/quant.py``, ``_pad2``) filled with ones, which adds the
+padded K columns' products to every sum where K is not a multiple of 8 (the
+ResNet-50 stem, K = 147, and VGG-19's conv1_1, K = 27), held to
+``chip_smoke.py``'s phase-23 (a) holds (``int8_holds``: ``torch._int_mm``
+against the plain float64 sums bit for bit at every distinct int8 conv of
+ResNet-50 and VGG-19 and the ViT-B/16 projections, 224 px, B = 32); and an
+artifact whose weights are perturbed after the trace, before the file is
+written (``sgg_torch/export.py``, ``save_artifact``), held to ``cli.export
+--check`` on a vg1k workdir (K = 50, B = 32), which must exit 1.
+
 The unmodified tree is held to
 the same gates as a baseline (it must pass them), and a variant that is not a
 fault is reported beside it: the hi, mid and lo products summed in one
@@ -109,8 +120,8 @@ sum per 16-deep step and no round-to-nearest add), at the two shapes and at
 Exits 0 when the baseline passes and every fault is refused at each of its
 shapes (both flash shapes; the four conv shapes; the matmul shapes it can
 reach; the decode batches or the tie case, whichever can see it; the gather
-and graph holds; the loader's gates; the MoE and pretrain holds), 1
-otherwise. The tree itself is not touched.
+and graph holds; the loader's gates; the MoE and pretrain holds; the int8
+holds and the export check), 1 otherwise. The tree itself is not touched.
 """
 
 import json
@@ -239,6 +250,23 @@ RECIPE_FAULTS = {
     "the pretrain step without the spatial CE":
         (PRETRAIN_SRC, "            loss = loss + spatial_weight * ce\n", "", "pretrain"),
 }
+QUANT_SRC = "sgg_torch/kernels/quant.py"
+EXPORT_SRC = "sgg_torch/export.py"
+# phase-23 faults: (source, sound text, faulty text, the hold that must refuse it).
+DEPLOY_FAULTS = {
+    "the int8 route padding K with a nonzero value":
+        (QUANT_SRC, "    return F.pad(t, (0, cols, 0, rows))\n",
+         "    return F.pad(t, (0, cols, 0, rows), value=1)\n", "int8"),
+    "the artifact's weights perturbed after export":
+        (EXPORT_SRC,
+         "    torch.export.save(exported, path, extra_files={META_FILE: json.dumps(meta)})\n",
+         "    with torch.no_grad():\n"
+         "        for t_ in exported.state_dict.values():\n"
+         "            if t_.is_floating_point():\n"
+         "                t_.add_(0.01 * torch.randn_like(t_))\n"
+         "    torch.export.save(exported, path, extra_files={META_FILE: json.dumps(meta)})\n",
+         "export"),
+}
 GRAPH_IMAGES = 1024
 # fused-stepper fault: (sound text, faulty text), the counter never advanced.
 GRAPH_FAULTS = {
@@ -320,7 +348,7 @@ def child(root, kernels, shapes):
     if not fb.__file__.startswith(root):
         raise SystemExit(f"chip_fault_check: imported {fb.__file__}, not the copy")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if set(kernels) - {"loader", "moe", "pretrain"}:  # those need no CUDA kernel
+    if set(kernels) - {"loader", "moe", "pretrain", "int8", "export"}:  # no CUDA kernel
         build.load_library()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -364,6 +392,9 @@ def child(root, kernels, shapes):
 
     if "moe" in kernels or "pretrain" in kernels:
         recipe_rows(root, dev, kernels)
+
+    if "int8" in kernels or "export" in kernels:
+        deploy_rows(root, dev, kernels)
 
     if "loader" in kernels:
         from sgg_torch.native import loader
@@ -509,6 +540,56 @@ def recipe_rows(root, dev, kernels):
                                                       "plain": h["plain_loss"]}}), flush=True)
 
 
+def deploy_rows(root, dev, kernels):
+    """chip_smoke.py's phase-23 holds on the copy: ``int8_holds`` (the card's
+    int8 route against its plain float64 version, bit for bit, at every
+    distinct int8 conv of ResNet-50 and VGG-19 and the ViT-B/16 projections,
+    224 px, B = 32) and ``cli.export --check`` on a vg1k workdir (the trained
+    run's config and vocab, a seeded generator; K = 50, B = 32), which must
+    exit 0. One JSON line per hold."""
+    import torch
+
+    import chip_smoke
+    from sgg_torch import export
+
+    if not export.__file__.startswith(root):
+        raise SystemExit(f"chip_fault_check: imported {export.__file__}, not the copy")
+    if "int8" in kernels:
+        shapes = {n: chip_smoke.int8_shapes(n, 224, 32) for n in ("resnet50", "vgg19", "vit_b16")}
+        try:
+            rows = chip_smoke.int8_holds(dev, "fault check", shapes, lambda fn: float("nan"))
+            ok, holds = True, {"shapes": len(rows)}
+        except AssertionError as e:
+            ok, holds = False, {"error": str(e)}
+        print(json.dumps({"shape": [32, 224, 224, 3], "output": "int8", "bf16_gate": ok,
+                          "share": 0.0, "f32_err": None, "tol": None, "f32_gate": True,
+                          "holds": holds}), flush=True)
+    if "export" in kernels:
+        from sgg_torch.cli import export as export_cli
+        from sgg_torch.config import Config
+        from sgg_torch.data import Vocab
+        from sgg_torch.train.checkpoint import save_generator
+        from sgg_torch.train.state import make_generator
+
+        run = os.path.join(ROOT, "results", "run_v3_bal0.7_ckpt")
+        with open(os.path.join(run, "config.json")) as f:
+            cfg = Config.from_dict(json.load(f))
+        vocab = Vocab.load(os.path.join(run, "vocab.json"))
+        cfg.model.vocab_size = len(vocab)
+        with tempfile.TemporaryDirectory() as wd:
+            cfg.workdir = wd
+            with open(os.path.join(wd, "config.json"), "w") as f:
+                f.write(cfg.to_json())
+            vocab.save(os.path.join(wd, "vocab.json"))
+            torch.manual_seed(0)
+            save_generator(wd, make_generator(cfg).state_dict(), step=1)
+            rc = export_cli.main(["--workdir", wd, "--check", "--num-samples", "50",
+                                  "--batch-size", "32"])
+        print(json.dumps({"shape": [32, 50, 3], "output": "export --check", "bf16_gate": rc == 0,
+                          "share": 0.0, "f32_err": None, "tol": None, "f32_gate": True,
+                          "holds": {"rc": rc}}), flush=True)
+
+
 def loader_rows():
     """chip_smoke.py's phase-21 (a) gates on the copy's JPEG loader: the
     fixture's JPEGs against the reference decoder's committed bytes, and the
@@ -608,7 +689,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
-    runs = [("sound", [], "fwd,dq,dkv,conv,mm,decode,gather,graph,loader,moe,pretrain",
+    runs = [("sound", [],
+             "fwd,dq,dkv,conv,mm,decode,gather,graph,loader,moe,pretrain,int8,export",
              VARIANT_SHAPES),
             ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
              "fwd,dq,dkv", VARIANT_SHAPES)]
@@ -628,7 +710,7 @@ def main() -> int:
         runs.append((label, [(GATHER_SRC, replace_once(sound, faulty))], "graph", []))
     for label, (sound, faulty) in LOADER_FAULTS.items():
         runs.append((label, [(LOADER_SRC, replace_once(sound, faulty))], "loader", []))
-    for label, (src, sound, faulty, hold) in RECIPE_FAULTS.items():
+    for label, (src, sound, faulty, hold) in dict(RECIPE_FAULTS, **DEPLOY_FAULTS).items():
         runs.append((label, [(src, replace_once(sound, faulty))], hold, []))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []

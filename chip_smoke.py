@@ -14,7 +14,9 @@ subprocess's process group killed if it has not exited; the phase fails if a
 thread of it is alive at its end. Phase 19 opens no socket and starts no
 process; its training runs stop their data threads as phase 17's does. Phase
 22 opens no socket and starts no process; its pretraining and extraction
-runs stop their watchdog threads when each returns:
+runs stop their watchdog threads when each returns. Phase 23 opens two HTTP
+servers on 127.0.0.1 (each closed with its batcher by ``served``) and starts
+one subprocess under a timeout, which it waits for:
   1. device: CUDA present, compute capability 9.0; prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: nvcc compiles ``sgg_torch/kernels/csrc/*.cu`` for sm_90a, one
@@ -306,6 +308,26 @@ runs stop their watchdog threads when each returns:
      dk/dv launches a step; (e) ``preprocess --encoder-ckpt`` through (b)'s
      encoder (16 conv_direct launches a batch, images/s), 16 steps of
      ``train --config vg1k`` on its shards and ``evaluate --decode fused``.
+ 23. the deployment tier (``deployment_phase``): (a) ``int8_holds``: at every
+     distinct int8 conv of ResNet-50 and VGG-19 (224 px, B = 32, recorded by
+     ``int8_shapes`` on the meta device) and the ViT-B/16 projections
+     ([6272, 768] against [768, 2304], [768, 768], [768, 3072]; [6272, 3072]
+     against [3072, 768]), bf16 operands, ``torch._int_mm`` against the plain
+     float64 sums bit for bit, each shape's int8 time on the device's clock
+     (CUDA graphs) beside the bf16 route's (conv_direct, fused_matmul, the
+     library conv, or torch.matmul); (b) each encoder int8 against float32 on
+     seeded weights, 8 images at 224 px: per-region cosine median > 0.99
+     (VGG-19 > 0.98); (c) ``generate --quant int8`` and ``--quant none`` on a
+     resnet50 workdir (``--decode fused``; int8: fused_decode only, no conv
+     kernel) and a vit_b16 one (``--decode xla``; 12 flash launches a batch
+     either way), images/s, and one ``serve --quant int8`` request over HTTP
+     whose features equal ``make_image_encoder(quant='int8')``'s on the same
+     padded batch; (d) ``cli.export --check`` on a vg1k workdir (features in,
+     K 50, B 32) and on (c)'s resnet50 one (``--with-encoder --quant int8``),
+     ``serve --artifact`` (an ``ArtifactEngine`` over HTTP) answering one
+     images request with no hand-written kernel launched, and the vg1k
+     artifact called in a subprocess that imports neither sgg_torch nor jax,
+     its tokens equal to the live sampler's on the same noise.
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -313,7 +335,9 @@ The kernels' JSON record gives, for each kernel, its launches on the newest
 main path that runs it (phase 17 for fused_decode, timed at its vg1k widths,
 B = 64, which pipeline_v4 shares; phase 7 for fused_matmul and conv_direct;
 phase 15 for the three flash kernels), plus phase 22's launches of each
-(each of its paths counted from 0), and
+(each of its paths counted from 0) and phase 23's (its two ``generate
+--quant int8`` runs, counted from 0: fused_decode and flash_attention; the
+exported artifact launches none), and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
 bound ms. Phase 18's serving launch counts and phase 19's are printed on lines of
 their own before it. The last two lines are that
@@ -385,6 +409,9 @@ VG_IMAGES_21, VG_STEPS_21, VG_FUSED_STEPS_21, VG_N_21, VG_HOLD_21 = 2048, 16, 16
 GR_IMAGES, GR_STEPS, GR_BATCH, GR_WINDOW, GR_PROFILE = 2048, 400, 64, 50, (200, 5)
 GR_MOE_STEPS, GR_EXPERTS, GR_TOP_K, GR_TRAIN_STEPS = 16, 8, 2, 16
 GR_JPEG_MEAN_D, GR_HOLD_BATCH = 8.0, 4
+# Phase 23, the deployment tier: calls captured in a CUDA graph and its
+# replays for each int8 and bf16 time.
+P23_GRAPH_CALLS, P23_GRAPH_REPS = 10, 3
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -2697,6 +2724,347 @@ def grounded_recipe_phase(dev, run_cli, read_counts, sizes=None, extra_sets=None
     return out
 
 
+def int8_shapes(name, S, B, vit_dims=(768, 12, 12)):
+    """The distinct int8 products of encoder ``name`` at S px, batch B: for
+    a CNN each conv's (x shape, w shape, stride, padding), recorded by
+    running the int8 encoder on the meta device; for the ViT each projection's
+    ([rows, K], [K, N])."""
+    import torch
+
+    from sgg_torch.kernels import conv as conv_route
+    from sgg_torch.models.encoders import make_encoder
+
+    if name == "vit_b16":
+        rows, (E, _, _) = B * (S // 16) ** 2, vit_dims
+        return [((rows, E), (E, 3 * E)), ((rows, E), (E, E)), ((rows, E), (E, 4 * E)),
+                ((rows, 4 * E), (4 * E, E))]
+    seen, inner = [], conv_route.conv2d_int8
+
+    def record(x, w, bias=None, scale=None, stride=1, padding="SAME", relu=True):
+        key = (tuple(x.shape), tuple(w.shape), stride, padding)
+        if key not in seen:
+            seen.append(key)
+        return inner(x, w, bias=bias, scale=scale, stride=stride, padding=padding, relu=relu)
+
+    conv_route.conv2d_int8 = record
+    try:
+        with torch.device("meta"), torch.no_grad():
+            make_encoder(name, quant="int8", dtype=torch.bfloat16)(
+                torch.zeros(B, S, S, 3, dtype=torch.bfloat16))
+    finally:
+        conv_route.conv2d_int8 = inner
+    return seen
+
+
+def int8_holds(dev, smi, shapes_by_name, time_fn, seed=SEED):
+    """Phase 23 (a): at every distinct int8 product of the encoders
+    (``int8_shapes``), bfloat16 operands from ``seed``, the card's route
+    (``torch._int_mm``, padded, int8 im2col) against the plain route (float64
+    sums) bit for bit, and its time (``time_fn``, ms on the device's clock)
+    beside the bfloat16 route of the same shape: ``conv2d_fused``'s
+    ``'auto'`` (conv_direct for 3x3 stride 1, fused_matmul for 1x1, else the
+    library conv) or ``torch.matmul``. Returns the rows; raises if a hold
+    fails."""
+    import torch
+
+    from sgg_torch.kernels import quant
+    from sgg_torch.kernels.conv import conv2d_fused
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows, ok = [], True
+    for name, shapes in shapes_by_name.items():
+        for shape in shapes:
+            if name == "vit_b16":
+                (M, K_), (_, N) = shape
+                x = torch.randn(M, K_, generator=g, device=dev).to(torch.bfloat16)
+                w = (torch.randn(K_, N, generator=g, device=dev) / K_ ** 0.5).to(torch.bfloat16)
+                fast = quant.int8_linear(x, w, impl="int_mm")
+                equal = torch.equal(fast, quant.int8_linear(x, w, impl="plain"))
+                int8_ms = time_fn(lambda: quant.int8_linear(x, w, impl="int_mm"))
+                bf16_ms, route = time_fn(lambda: torch.matmul(x, w)), "torch.matmul"
+                label = f"[{M}, {K_}] @ [{K_}, {N}]"
+            else:
+                xs, ws, stride, padding = shape
+                x = torch.randn(xs, generator=g, device=dev).to(torch.bfloat16)
+                fan = ws[0] * ws[1] * ws[2]
+                w = (torch.randn(ws, generator=g, device=dev) * (2 / fan) ** 0.5).to(
+                    torch.bfloat16)
+                bias = 0.1 * torch.randn(ws[3], generator=g, device=dev)
+                scale = 0.5 + torch.rand(ws[3], generator=g, device=dev)
+                kw = dict(bias=bias, scale=scale, stride=stride, padding=padding)
+                fast = quant.conv2d_int8(x, w, impl="int_mm", **kw)
+                equal = torch.equal(fast, quant.conv2d_int8(x, w, impl="plain", **kw))
+                int8_ms = time_fn(lambda: quant.conv2d_int8(x, w, **kw))
+                bf16_ms = time_fn(lambda: conv2d_fused(x, w, impl="auto", **kw))
+                route = ("fused_matmul" if ws[0] == ws[1] == 1 else
+                         "conv_direct" if stride == 1 and padding == "SAME" else "library conv")
+                label = f"x {list(xs)} w {list(ws)} stride {stride} {padding}"
+            ok &= bool(equal) and bool(torch.isfinite(fast.float()).all())
+            rows.append({"encoder": name, "shape": label, "equal": bool(equal),
+                         "int8_ms": int8_ms, "bf16_ms": bf16_ms, "bf16_route": route})
+            log(f"phase 23 (a) int8 {name} {label}: _int_mm vs plain (float64) bit for bit "
+                f"{bool(equal)}; int8 {int8_ms:.4f} ms, bf16 {route} {bf16_ms:.4f} ms "
+                f"({bf16_ms / int8_ms:.2f}x), device clock [{smi}]")
+    if not ok:
+        raise AssertionError("phase 23 (a): the int8 route disagrees with its plain version")
+    return rows
+
+
+def deployment_phase(dev, smi, pix, vit, vgg_state, v1k, run_cli, read_counts, time_fn,
+                     sizes=None):
+    """Phase 23, the deployment tier: (a) ``int8_holds`` at every distinct
+    int8 conv of ResNet-50 and VGG-19 and the ViT-B/16 projections, at S px,
+    batch B; (b) each encoder int8 against float (library route, float32) on
+    seeded weights and S px images: per-region cosine median > 0.99 (VGG-19 >
+    0.98), the reference's contract (tests/unit/test_quant.py); (c)
+    ``generate --quant int8`` and ``--quant none`` on a resnet50 workdir
+    (``pix`` = (cfg, vocab, generator state_dict, encoder state_dict);
+    ``--decode fused``) and a vit_b16 one (``vit``; ``--decode xla``):
+    images/s and exact launch counts (int8: fused_decode, flash_attention, no
+    conv kernel), then one images request to ``InferenceEngine(quant='int8')``
+    over HTTP, its features equal to ``make_image_encoder``'s; (d)
+    ``cli.export --check`` on a vg1k workdir (``v1k`` = (cfg, vocab),
+    features in) and on (c)'s resnet50 workdir (``--with-encoder --quant int8``),
+    an ``ArtifactEngine`` on the latter answering one images request over
+    HTTP with no hand-written kernel launched, and the vg1k artifact loaded and
+    called in a subprocess that imports neither sgg_torch nor jax, its tokens
+    equal to the live sampler's on the same noise. ``time_fn`` gives ms on the device's clock;
+    ``sizes`` shrinks the phase for a dry run on the CPU, where no kernel
+    launches and the counts are not held. Returns the numbers, with
+    ``launches``: the int8 generate runs' launches per kernel."""
+    import math
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from sgg_torch.cli import export as export_cli
+    from sgg_torch.cli import generate
+    from sgg_torch.eval.sampler import draw_noise, make_sampler
+    from sgg_torch.models.encoders import make_encoder, make_image_encoder, normalize_for
+    from sgg_torch.serve import ArtifactEngine, InferenceEngine, encode_binary_request
+    from sgg_torch.train.checkpoint import save_generator
+    from sgg_torch.train.state import make_generator
+
+    pix_cfg, pix_vocab, pix_g, pix_enc = pix
+    vit_cfg, vit_vocab, vit_g, vit_enc = vit
+    z_ = {"batch": PIX_BATCH, "cos_images": 8, "draws": K, "images": PIX_IMAGES,
+          "vit_images": VIT_IMAGES, "vit_batch": VIT_BATCH, "request": 8, **(sizes or {})}
+    B, Kd = z_["batch"], z_["draws"]
+    S = pix_cfg.data.image_size
+    on_card = torch.device(dev).type == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    launches = dict.fromkeys(read_counts(), 0)
+    out = {}
+
+    # (a) The int8 products at full width, the card's route against plain.
+    t_a = time.perf_counter()
+    shapes = {"resnet50": int8_shapes("resnet50", S, B), "vgg19": int8_shapes("vgg19", S, B),
+              "vit_b16": int8_shapes("vit_b16", vit_cfg.data.image_size, B,
+                                     vit_cfg.model.vit_dims)}
+    out["holds"] = int8_holds(dev, smi, shapes, time_fn)
+    log(f"phase 23 (a): {len(out['holds'])} int8 shapes held bit for bit in "
+        f"{time.perf_counter() - t_a:.3f} s [{smi}]")
+
+    # (b) Each encoder int8 against float.
+    t_b = time.perf_counter()
+    imgs = torch.from_numpy(np.random.RandomState(SEED + 40).randint(
+        0, 256, (z_["cos_images"], S, S, 3), dtype=np.uint8)).to(dev)
+    out["cosine"] = {}
+    for name, state, cfg_ in (("resnet50", pix_enc, pix_cfg), ("vgg19", vgg_state, pix_cfg),
+                              ("vit_b16", vit_enc, vit_cfg)):
+        kw = dict(image_size=cfg_.data.image_size, vit_dims=cfg_.model.vit_dims)
+        feats = {}
+        for q in ("", "int8"):
+            enc = make_encoder(name, quant=q, **kw)
+            enc.load_state_dict(state)
+            with torch.no_grad():
+                feats[q] = enc.to(dev)(normalize_for(name, imgs)).float()
+            del enc
+        a_, b_ = feats["int8"], feats[""]
+        cos = (a_ * b_).sum(-1) / (a_.norm(dim=-1) * b_.norm(dim=-1) + 1e-12)
+        med, floor = cos.median().item(), 0.98 if name == "vgg19" else 0.99
+        out["cosine"][name] = med
+        log(f"phase 23 (b) {name} int8 vs float32 (library route, {z_['cos_images']} images at "
+            f"{S} px): per-region cosine median {med:.5f} (> {floor}), min {cos.min().item():.5f} "
+            f"[{smi}]")
+        if not med > floor:
+            raise AssertionError(f"phase 23 (b): {name} int8 misses the cosine contract")
+    log(f"phase 23 (b): {time.perf_counter() - t_b:.3f} s [{smi}]")
+
+    with tempfile.TemporaryDirectory() as root:
+        # (c) generate --quant int8 and none on the resnet50 and vit_b16 workdirs.
+        t_c = time.perf_counter()
+        out["generate"] = {}
+        runs = (("resnet50", pix_cfg, pix_vocab, pix_g, pix_enc, "fused", z_["images"], B),
+                ("vit_b16", vit_cfg, vit_vocab, vit_g, vit_enc, "xla", z_["vit_images"],
+                 z_["vit_batch"]))
+        wds = {}
+        for name, cfg_, vocab_, g_, enc_, decode, n_img, bs in runs:
+            wd = wds[name] = os.path.join(root, name)
+            os.makedirs(wd)
+            cfg_.workdir = wd
+            cfg_.data.num_synthetic_images = n_img
+            with open(os.path.join(wd, "config.json"), "w") as f:
+                f.write(cfg_.to_json())
+            vocab_.save(os.path.join(wd, "vocab.json"))
+            save_generator(wd, g_, step=1, enc_params=enc_)
+            n_b = math.ceil(n_img / bs)
+            for q in ("int8", "none"):
+                gpath = os.path.join(wd, f"graphs_{q}.json")
+                run_s, counts = run_cli(generate.main, [
+                    "--workdir", wd, "--out", gpath, "--num-samples", str(Kd), "--decode",
+                    decode, "--batch-size", str(bs), "--quant", q, "--seed", str(SEED),
+                    *dev_args], f"sgg_torch.cli.generate {name} --quant {q}")
+                with open(gpath) as f:
+                    graphs = json.load(f)["scene_graphs"]
+                if len(graphs) != n_img:
+                    raise AssertionError(f"phase 23 (c): {name} --quant {q}: {len(graphs)} "
+                                         "graphs")
+                legal_graphs(graphs, vocab_, Kd, f"generate {name} --quant {q}")
+                want = dict.fromkeys(counts, 0)
+                if name == "resnet50":
+                    want["fused_decode"] = n_b * Kd
+                    if q == "none":
+                        want["fused_matmul"], want["conv_direct"] = n_b * 36, n_b * 13
+                else:
+                    want["flash_attention"] = n_b * cfg_.model.vit_layers
+                out["generate"][(name, q)] = {"s": run_s, "images_per_s": n_img / run_s,
+                                              "launches": counts}
+                log(f"phase 23 (c) generate {name} --quant {q} --decode {decode}: {n_img} images "
+                    f"in {run_s:.3f} s in process, {n_img / run_s:.1f} images/s including "
+                    f"set-up, launches {counts} (expected {want}) [{smi}]")
+                if on_card and counts != want:
+                    raise AssertionError(f"phase 23 (c): generate {name} --quant {q} launches")
+                if q == "int8":
+                    for k_, v_ in counts.items():
+                        launches[k_] += v_
+        for name in ("resnet50", "vit_b16"):
+            i8, fl = (out["generate"][(name, q)]["images_per_s"] for q in ("int8", "none"))
+            log(f"phase 23 (c) {name}: int8 {i8:.1f} images/s against float {fl:.1f} "
+                f"({i8 / fl:.2f}x) [{smi}]")
+
+        # One images request to serve --quant int8 (the engine behind the CLI).
+        n_req = z_["request"]
+        req = np.random.RandomState(SEED + 41).randint(0, 256, (n_req, S, S, 3), dtype=np.uint8)
+        eng = InferenceEngine.from_workdir(wds["resnet50"], device=dev, batch_size=B,
+                                           num_samples=Kd, quant="int8", rank="freq")
+        eng.warmup()
+        with served(eng) as (url, _):
+            status, body = http(url + "/v1/generate", encode_binary_request(req),
+                                "application/octet-stream")
+        if status != 200 or len(body["scene_graphs"]) != n_req:
+            raise AssertionError(f"phase 23 (c): serve --quant int8 answered {status}")
+        legal_graphs(body["scene_graphs"], pix_vocab, Kd, "serve --quant int8")
+        # Activations take one scale per tensor, so an image's int8 features
+        # depend on its batch: the engine's padded batch is encoded alike.
+        padded = np.concatenate([req, np.zeros((B - n_req, S, S, 3), np.uint8)])
+        want_f = make_image_encoder(eng.cfg, pix_enc, torch.device(dev), quant="int8")(
+            torch.from_numpy(padded).to(dev))[:n_req]
+        same = torch.equal(eng.encode_images(req), want_f)
+        log(f"phase 23 (c) serve --quant int8: one request of {n_req} images, 200, "
+            f"{body['latency_ms']} ms; features equal make_image_encoder(quant='int8')'s on "
+            f"the same padded batch bit for bit {same} [{smi}]")
+        if not same:
+            raise AssertionError("phase 23 (c): the int8 engine's features differ")
+        del eng
+        out["c_s"] = time.perf_counter() - t_c
+
+        # (d) Export: features in (vg1k), pixels in (resnet50 int8), both checked.
+        t_d = time.perf_counter()
+        v1k_cfg, v1k_vocab = v1k
+        vwd = os.path.join(root, "vg1k")
+        os.makedirs(vwd)
+        v1k_cfg.workdir = vwd
+        with open(os.path.join(vwd, "config.json"), "w") as f:
+            f.write(v1k_cfg.to_json())
+        v1k_vocab.save(os.path.join(vwd, "vocab.json"))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED + 42)
+            v1k_g = make_generator(v1k_cfg).state_dict()
+        save_generator(vwd, v1k_g, step=3)
+        out["export"] = {}
+        arts = {}
+        for what, wd, extra in (
+                ("vg1k features in", vwd, []),
+                ("resnet50 int8 pixels in", wds["resnet50"],
+                 ["--with-encoder", "--quant", "int8"])):
+            art = arts[what] = os.path.join(root, what.split()[0] + ".pt2")
+            run_s, counts = run_cli(export_cli.main, [
+                "--workdir", wd, "--out", art, "--num-samples", str(Kd), "--batch-size",
+                str(B), "--check", *extra, *dev_args], f"sgg_torch.cli.export {what}")
+            out["export"][what] = {"s": run_s, "mb": os.path.getsize(art) / 1e6}
+            log(f"phase 23 (d) cli.export --check {what} (K {Kd}, B {B}): exit 0 in {run_s:.3f} "
+                f"s (trace, save, load, check), {os.path.getsize(art) / 1e6:.1f} MB, launches "
+                f"{counts} [{smi}]")
+        eng = ArtifactEngine(art, device=dev, seed=SEED, batch_size=B)
+        warm = eng.warmup()
+        counts_before = read_counts()
+        with served(eng) as (url, _):
+            t_r = time.perf_counter()
+            status, body = http(url + "/v1/generate", encode_binary_request(req),
+                                "application/octet-stream")
+            req_s = time.perf_counter() - t_r
+        if on_card:
+            torch.cuda.synchronize()
+        counts_art = {k_: read_counts()[k_] - v_ for k_, v_ in counts_before.items()}
+        if status != 200 or len(body["scene_graphs"]) != n_req:
+            raise AssertionError(f"phase 23 (d): serve --artifact answered {status}")
+        legal_graphs(body["scene_graphs"], pix_vocab, Kd, "serve --artifact")
+        log(f"phase 23 (d) serve --artifact (resnet50 int8): warmup {warm:.3f} s, one request "
+            f"of {n_req} images, 200 in {req_s * 1e3:.1f} ms; hand-written kernel launches "
+            f"{counts_art} (the artifact launches none) [{smi}]")
+        if any(counts_art.values()):
+            raise AssertionError("phase 23 (d): the artifact launched a hand-written kernel")
+
+        # The features-in artifact alone, in a process without sgg_torch or
+        # jax, against the live sampler on the same noise.
+        del eng
+        art = arts["vg1k features in"]
+        x = torch.randn(B, v1k_cfg.data.regions, v1k_cfg.data.feat_dim,
+                        generator=torch.Generator().manual_seed(SEED + 43)).to(v1k_cfg.model.dtype)
+        noise = draw_noise(torch.Generator(device=dev).manual_seed(SEED + 43), Kd, B,
+                           v1k_cfg.model.noise_dim, v1k_cfg.model.vocab_size, v1k_cfg.model.dtype,
+                           dev)
+        want = make_sampler(v1k_cfg, step_mask=v1k_vocab.step_mask(), num_samples=Kd)(
+            {k_: v_.to(dev) for k_, v_ in v1k_g.items()}, x.to(dev), noise=noise).cpu()
+        io = os.path.join(root, "io.pt")
+        torch.save({"x": x.cpu(), "z": noise[0].cpu(), "gumbel": noise[1].cpu()}, io)
+        code = (
+            "import json, sys, torch\n"
+            f"path, io, dev = {art!r}, {io!r}, {str(dev)!r}\n"
+            "extra = {'meta.json': ''}\n"
+            "ep = torch.export.load(path, extra_files=extra)\n"
+            "meta = json.loads(extra['meta.json'])\n"
+            "if dev != 'cpu':\n"
+            "    from torch.export.passes import move_to_device_pass\n"
+            "    ep = move_to_device_pass(ep, dev)\n"
+            "a = torch.load(io)\n"
+            "with torch.no_grad():\n"
+            "    t = ep.module()(a['x'].to(dev), a['z'].to(dev), a['gumbel'].to(dev))\n"
+            "torch.save(t.cpu(), io + '.out')\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('sgg_torch', 'sgg', 'jax'))\n"
+            "print(json.dumps({'bad': bad, 'K': meta['num_samples']}))\n")
+        env = {k_: v_ for k_, v_ in os.environ.items() if k_ != "PYTHONPATH"}
+        t_s = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t_s
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 23 (d): the bare artifact failed: {proc.stderr[-2000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        same = torch.equal(torch.load(io + ".out"), want)
+        log(f"phase 23 (d) the vg1k artifact in a bare process (torch only; modules of "
+            f"sgg_torch, sgg or jax imported: {report['bad']}): {sub_s:.3f} s, tokens equal "
+            f"the live sampler's on the same noise bit for bit {same} [{smi}]")
+        if report["bad"] or not same:
+            raise AssertionError("phase 23 (d): the bare artifact disagrees or imported the port")
+        out["d_s"] = time.perf_counter() - t_d
+    out["launches"] = launches
+    return out
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_SECONDS, exit=True)
     import torch
@@ -4185,6 +4553,20 @@ def main():
     t0 = time.perf_counter()
     v22 = grounded_recipe_phase(dev, run_cli, read_counts)
     phase("grounded recipe (phase 22)", t0)
+
+    # 23. The deployment tier: the encoders' int8 PTQ (the holds at full width,
+    # the cosine contract, generate and serve --quant int8) and the exported
+    # sampler (cli.export --check, serve --artifact, the bare artifact).
+    t0 = time.perf_counter()
+    with open(os.path.join(TRAINED_RUN, "config.json")) as f:
+        v1k_cfg = Config.from_dict(json.load(f))
+    v1k_cfg.model.vocab_size = len(vocab)
+    v23 = deployment_phase(
+        dev, smi, (pix_cfg, pix_vocab, pix_g, seeded_encoder_state("resnet50")),
+        (vit_cfg, vit_vocab, vit_g, vit_state), seeded_encoder_state("vgg19"),
+        (v1k_cfg, vocab), run_cli, read_counts,
+        lambda fn: graph_ms(fn, n=P23_GRAPH_CALLS, reps=P23_GRAPH_REPS))
+    phase("deployment tier (phase 23)", t0)
     log(f"phase 19 launches: flash_attention {vrl_counts['flash_attention']}, dq "
         f"{vrl_counts['flash_attention_bwd_dq']}, dk/dv {vrl_counts['flash_attention_bwd_dkv']} "
         f"({VIT_RL_STEPS} REINFORCE steps on vit_b16); none on PredCls, REINFORCE on "
@@ -4218,6 +4600,15 @@ def main():
         f"vit_b16 MoE {m22['s_per_step']:.4f} s/step, peak {m22['peak_gb']:.3f} GB, aux "
         f"{m22['aux']:.6f}, dropped in training {m22['dropped']:.4f}; extraction "
         f"{v22['rest']['stats'][0]['images_per_sec']} images/s; launches {v22['launches']}")
+    g23 = v23["generate"]
+    log(f"phase 23: {len(v23['holds'])} int8 shapes bit for bit; cosine medians "
+        + ", ".join(f"{k_} {v_:.5f}" for k_, v_ in v23["cosine"].items())
+        + "; generate images/s int8 vs float: " + ", ".join(
+            f"{n_} {g23[(n_, 'int8')]['images_per_s']:.1f} vs "
+            f"{g23[(n_, 'none')]['images_per_s']:.1f}" for n_ in ("resnet50", "vit_b16"))
+        + "; export --check " + ", ".join(f"{k_} {v_['s']:.3f} s ({v_['mb']:.1f} MB)"
+                                          for k_, v_ in v23["export"].items())
+        + f"; launches {v23['launches']} [{smi}]")
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",
@@ -4244,6 +4635,8 @@ def main():
         "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
     path_counts["fused_decode"] = v4_fused_counts["fused_decode"]
     for k_, v_ in v22["launches"].items():  # phase 22's paths, each counted from 0
+        path_counts[k_] += v_
+    for k_, v_ in v23["launches"].items():  # phase 23's int8 generate runs, from 0
         path_counts[k_] += v_
     kernels = []
     for name, (src, replaces) in sources.items():

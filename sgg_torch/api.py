@@ -8,7 +8,9 @@ workdir to scene graphs.
     graphs = g.generate_from_paths(["a.jpg", "b.jpg"])  # JPEGs (encoder configs)
 
 It runs on CUDA unless it is given ``device='cpu'``. Pixels-in configs
-encode on ``model.use_pallas``'s route, as ``sgg_torch.cli.generate`` does;
+encode on ``model.use_pallas``'s route, as ``sgg_torch.cli.generate`` does,
+quantized as ``model.quant`` says ('int8': the encoder's dynamic int8 PTQ,
+``sgg_torch.kernels.quant``, as the reference's ``quant=cfg.model.quant``);
 ``generate_from_paths`` decodes with the native loader at
 ``data.image_size`` first.
 """

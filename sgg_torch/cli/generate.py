@@ -30,9 +30,15 @@ sampler; ``--decode fused`` refuses them, as the reference does. ``--avg-last
 N`` samples from the mean of the generator's weights over the last N
 retained checkpoints (with ``--ema``, of their EMA).
 
+``--quant int8`` (or ``model.quant=int8`` in the workdir's config) runs the
+encoder's dynamic int8 PTQ (``sgg_torch.kernels.quant``): the CNN convs and
+the ViT's projections sum s8×s8 products into int32 (``torch._int_mm`` on the
+card), the ViT's attention stays on its route; ``--quant none`` forces the
+float encoder. A precomputed-feature workdir has no encoder to quantize and
+refuses ``--quant int8``.
+
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
-there. The encoder's int8 PTQ (``--quant int8``) comes with a later slice of
-the port.
+there.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ import time
 import numpy as np
 import torch
 
-from sgg_torch.cli.common import LATER, add_device_arg, load_dataset, resolve_device
+from sgg_torch.cli.common import add_device_arg, load_dataset, resolve_device
 from sgg_torch.config import Config
 from sgg_torch.data.extract import load_batch
 from sgg_torch.eval.recall import corpus_recall
@@ -62,18 +68,20 @@ from sgg_torch.models.encoders import make_image_encoder
 from sgg_torch.train.checkpoint import load_workdir, restore_weights
 
 
-def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.device):
+def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.device,
+                        quant: str | None = None):
     """indices → features [n, R, F] on ``device``, as ``sgg.cli.common``'s
     (``sgg/cli/common.py:224-262``).
 
     Precomputed configs index the dataset's feature array; pixels-in configs
-    run the encoder (weights ``enc_params``, a port state_dict) on the
-    batch's uint8 images (in memory, or decoded from a path-backed dataset's
-    JPEGs by ``load_batch``) and return its output in the compute dtype,
-    without a round trip through the host."""
+    run the encoder (weights ``enc_params``, a port state_dict; ``quant``
+    overrides ``model.quant``: '' float, 'int8' PTQ) on the batch's uint8
+    images (in memory, or decoded from a path-backed dataset's JPEGs by
+    ``load_batch``) and return its output in the compute dtype, without a
+    round trip through the host."""
     if cfg.model.encoder == "precomputed":
         return lambda idx: torch.from_numpy(ds.features[idx]).to(device)
-    encode = make_image_encoder(cfg, enc_params, device)
+    encode = make_image_encoder(cfg, enc_params, device, quant=quant)
 
     def images(idx) -> np.ndarray:
         if hasattr(ds, "images"):  # in-memory uint8 images
@@ -84,8 +92,6 @@ def make_batch_features(cfg: Config, ds, enc_params: dict | None, device: torch.
 
 
 def _refusal(args) -> str | None:
-    if args.quant == "int8":
-        return f"--quant int8 (the encoder's int8 PTQ) {LATER} (ROADMAP A7)"
     if args.decode != "fused":
         return None
     if args.top_k or args.top_p is not None:
@@ -128,7 +134,8 @@ def main(argv=None) -> int:
                    help="average the generator's weights over the last N retained "
                         "checkpoints (see sgg_torch.cli.evaluate --avg-last)")
     p.add_argument("--quant", default=None, choices=["none", "int8"],
-                   help="the encoder's PTQ mode; int8 is not ported yet")
+                   help="the encoder's PTQ mode (overrides model.quant): int8 sums "
+                        "s8 x s8 products into int32 (torch._int_mm on the card)")
     add_device_arg(p)
     args = p.parse_args(argv)
     refusal = _refusal(args)
@@ -139,6 +146,10 @@ def main(argv=None) -> int:
 
     cfg, vocab = load_workdir(args.workdir)
     cfg.model.vocab_size = len(vocab)
+    if args.quant == "int8" and cfg.model.encoder == "precomputed":
+        print("[sgg.generate] --quant int8 quantizes the encoder; this workdir's "
+              "model.encoder is 'precomputed' (no encoder to quantize)", file=sys.stderr)
+        return 2
     if args.decode == "fused" and cfg.model.decoder != "lstm":
         print(f"[sgg.generate] --decode fused runs the attention-LSTM decoder only; this "
               f"workdir's model.decoder is {cfg.model.decoder!r}: use --decode xla",
@@ -169,7 +180,8 @@ def main(argv=None) -> int:
         print(f"[sgg.generate] encoder {cfg.model.encoder!r}: no encoder weights "
               f"(enc_params) in {args.workdir}", file=sys.stderr)
         return 1
-    batch_features = make_batch_features(cfg, ds, enc_params, device)
+    quant = None if args.quant is None else ("" if args.quant == "none" else args.quant)
+    batch_features = make_batch_features(cfg, ds, enc_params, device, quant=quant)
 
     # Device-resident path: upload the whole feature set once and gather each
     # batch by index on the device.

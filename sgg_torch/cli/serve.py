@@ -1,7 +1,9 @@
 """``serve`` entry point, from ``sgg/cli/serve.py``: a dynamic-batching
-scene-graph inference server over a trained port workdir.
+scene-graph inference server over a trained port workdir, or over an exported
+sampler (``--artifact``, ``sgg_torch.cli.export``; no workdir or model code).
 
   python -m sgg_torch.cli.serve --workdir /runs/v4 --ema --avg-last 5 --port 8500
+  python -m sgg_torch.cli.serve --artifact model.pt2 --port 8500
 
   curl -s localhost:8500/healthz
   curl -s -X POST localhost:8500/v1/generate \\
@@ -12,8 +14,11 @@ the encoder, with its kernels, on pixels-in configs) before it binds the
 port, then serves until SIGTERM or SIGINT, which drain the server and shut it
 down (exit code 0). ``--port 0`` binds a free port; the ready line names the
 address bound. It runs on CUDA unless ``--device cpu`` is given, and raises if
-CUDA is not there. Not ported yet, and refused (exit code 2): ``--artifact``,
-``--dp`` and ``--quant int8``.
+CUDA is not there. ``--quant int8`` serves the encoder's int8 PTQ (pixels-in
+workdirs; a precomputed-feature workdir refuses it). An artifact bakes its
+weights, sampling and quantization, so ``--artifact`` refuses ``--rank
+freq_logp/logp``, ``--top-k``/``--top-p``, ``--ema``/``--avg-last`` and
+``--quant`` (exit code 2). Not ported yet, and refused: ``--dp`` (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -29,12 +34,20 @@ from sgg_torch.cli.common import LATER, add_device_arg, resolve_device
 def _refusal(args) -> str | None:
     if bool(args.workdir) == bool(args.artifact):
         return "pass exactly one of --workdir / --artifact"
-    if args.artifact:
-        return f"--artifact (serving an exported .sgx program) {LATER} (ROADMAP A9)"
     if args.dp:
         return f"--dp (data-parallel serving over a mesh) {LATER} (ROADMAP A8)"
-    if args.quant == "int8":
-        return f"--quant int8 (the encoder's int8 PTQ) {LATER} (ROADMAP A7)"
+    if args.artifact:
+        if args.rank not in (None, "freq"):
+            return ("--rank freq_logp/logp needs --workdir (exported programs emit tokens, "
+                    "not log-probs)")
+        if args.top_k or args.top_p is not None:
+            return "--top-k/--top-p need --workdir (exported programs bake their sampling)"
+        if args.ema or args.avg_last:
+            return ("--ema/--avg-last need --workdir (artifacts bake their weights at export; "
+                    "re-export with sgg_torch.cli.export --ema/--avg-last instead)")
+        if args.quant is not None:
+            return ("--quant needs --workdir (an artifact bakes its encoder's quantization; "
+                    "re-export with sgg_torch.cli.export --quant)")
     return None
 
 
@@ -42,11 +55,14 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--workdir", default=None, help="trained run directory")
     p.add_argument("--artifact", default=None,
-                   help="serve an exported .sgx artifact (not ported yet)")
+                   help="serve an exported sampler (sgg_torch.cli.export) instead of a "
+                        "workdir: no checkpoint or model code needed; batch, samples, "
+                        "temperature and the encoder are baked into it")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8500, help="0 binds a free port")
     p.add_argument("--batch-size", type=int, default=32,
-                   help="device batch; requests pad/coalesce to it")
+                   help="device batch; requests pad/coalesce to it (an artifact's own "
+                        "batch wins unless it was exported with a symbolic batch)")
     p.add_argument("--max-wait-ms", type=float, default=5.0,
                    help="max batching delay after the first queued item")
     p.add_argument("--num-samples", type=int, default=50,
@@ -64,8 +80,8 @@ def main(argv=None) -> int:
     p.add_argument("--dp", type=int, default=0,
                    help="shard each batch over this many devices (not ported yet)")
     p.add_argument("--quant", default=None, choices=["none", "int8"],
-                   help="the encoder's PTQ mode (overrides cfg.model.quant); "
-                        "int8 is not ported yet")
+                   help="the encoder's PTQ mode (overrides cfg.model.quant): int8 sums "
+                        "s8 x s8 products into int32 (torch._int_mm on the card)")
     p.add_argument("--avg-last", type=int, default=0, metavar="N",
                    help="serve the mean of the last N retained checkpoints' "
                         "generator weights; composes with --ema")
@@ -76,7 +92,8 @@ def main(argv=None) -> int:
                    choices=["freq", "freq_logp", "logp"],
                    help="triple order in responses: sample frequency, "
                         "log-prob tiebreak, or probability mass "
-                        "(sgg_torch.eval.sampler.rank_triples); default logp")
+                        "(sgg_torch.eval.sampler.rank_triples); default logp with "
+                        "--workdir, freq with --artifact")
     add_device_arg(p)
     args = p.parse_args(argv)
     refusal = _refusal(args)
@@ -84,17 +101,25 @@ def main(argv=None) -> int:
         print(f"[sgg.serve] {refusal}", file=sys.stderr)
         return 2
     if args.rank is None:
-        args.rank = "logp"
+        args.rank = "freq" if args.artifact else "logp"
     device = resolve_device(args.device)
 
-    from sgg_torch.serve import DynamicBatcher, InferenceEngine, make_http_server
+    from sgg_torch.serve import ArtifactEngine, DynamicBatcher, InferenceEngine, make_http_server
 
-    engine = InferenceEngine.from_workdir(
-        args.workdir, device=device, batch_size=args.batch_size,
-        num_samples=args.num_samples, temperature=args.temperature,
-        seed=args.seed, quant=args.quant, ema=args.ema, rank=args.rank,
-        top_k=args.top_k or 0, top_p=args.top_p, avg_last=args.avg_last,
-    )
+    if args.artifact:
+        engine = ArtifactEngine(args.artifact, device=device, seed=args.seed,
+                                batch_size=args.batch_size)
+    else:
+        try:
+            engine = InferenceEngine.from_workdir(
+                args.workdir, device=device, batch_size=args.batch_size,
+                num_samples=args.num_samples, temperature=args.temperature,
+                seed=args.seed, quant=args.quant, ema=args.ema, rank=args.rank,
+                top_k=args.top_k or 0, top_p=args.top_p, avg_last=args.avg_last,
+            )
+        except ValueError as e:  # a workdir that refuses these options
+            print(f"[sgg.serve] {e}", file=sys.stderr)
+            return 2
     print(f"[sgg.serve] restored step {engine.step}; warming up batch "
           f"{engine.batch_size} x {engine.feature_shape} on {device}…", flush=True)
     dt = engine.warmup()

@@ -49,6 +49,45 @@ def _draw(noise, i, B, Z, V, dtype, dev, generator):
     return z, noise[1][i].to(device=dev, dtype=torch.float32).contiguous()
 
 
+def draw_noise(generator: torch.Generator, num_samples: int, B: int, Z: int, V: int,
+               dtype: torch.dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(z [K,B,Z] in dtype, gumbel [K,B,3,V] float32)``: the draws that
+    :func:`make_sampler` takes from ``generator`` for one batch, in its
+    order, so that sampling with this ``noise`` gives its tokens."""
+    draws = [_draw(None, i, B, Z, V, dtype, device, generator) for i in range(num_samples)]
+    return torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws])
+
+
+def draw_tokens(gen, feats, z, g, mask, temp, with_logp: bool = False, top_k: int = 0,
+                top_p=None):
+    """One hard draw of ``gen`` on feats [B, R, F] with z [B, Z] and Gumbel
+    noise g [B, 3, V]: tokens int32 [B, 3] (with ``with_logp`` also the
+    untempered joint logp float32 [B]), at temperature ``temp`` (float32 on
+    the feats' device) under step mask ``mask`` (bool [3, V] or None).
+    ``sgg_torch.export`` maps it over an artifact's K draws."""
+    out = gen(feats, z, g, tau=1.0, hard=True, step_mask=mask, detach_sample=with_logp,
+              sample_temp=temp, sample_top_k=top_k, sample_top_p=top_p)
+    tokens = out["tokens"].to(torch.int32)
+    return (tokens, out["log_prob"].float()) if with_logp else tokens
+
+
+def sample_draws(cfg: Config, gen, feats, num_samples: int, mask, temp, generator=None,
+                 noise=None, with_logp: bool = False, top_k: int = 0, top_p=None):
+    """The K-draw loop of :func:`make_sampler` on ``gen``, the built
+    generator of ``cfg``: :func:`draw_tokens` K times, stacked to tokens
+    int32 [B, K, 3] (with ``with_logp`` also logp float32 [B, K])."""
+    m = cfg.model
+    draws = []
+    for i in range(num_samples):
+        z, g = _draw(noise, i, feats.shape[0], m.noise_dim, m.vocab_size, m.dtype,
+                     feats.device, generator)
+        draws.append(draw_tokens(gen, feats, z, g, mask, temp, with_logp, top_k, top_p))
+    if with_logp:
+        return (torch.stack([d[0] for d in draws], dim=1),
+                torch.stack([d[1] for d in draws], dim=1))
+    return torch.stack(draws, dim=1)  # [B, K, 3]
+
+
 def _sample_body(cfg: Config, step_mask, num_samples: int, tau, with_logp: bool,
                  top_k: int, top_p):
     """(g_params, feats [B,R,F], generator=None, noise=None, temp=None) →
@@ -57,7 +96,6 @@ def _sample_body(cfg: Config, step_mask, num_samples: int, tau, with_logp: bool,
     [B]) overrides the default temperature ``tau`` (None ≡ 1.0)."""
     gen = make_generator(cfg).requires_grad_(False).eval()
     mask = None if step_mask is None else torch.as_tensor(step_mask, dtype=torch.bool)
-    dtype, Z, V = cfg.model.dtype, cfg.model.noise_dim, cfg.model.vocab_size
     default = 1.0 if tau is None else float(tau)
     loaded = {"params": None}
 
@@ -70,19 +108,9 @@ def _sample_body(cfg: Config, step_mask, num_samples: int, tau, with_logp: bool,
         m = None if mask is None else mask.to(dev)
         st = torch.as_tensor(default if temp is None else temp, dtype=torch.float32,
                              device=dev)
-        B = feats.shape[0]
-        toks, lps = [], []
         with torch.no_grad():
-            for i in range(num_samples):
-                z, g = _draw(noise, i, B, Z, V, dtype, dev, generator)
-                out = gen(feats, z, g, tau=1.0, hard=True, step_mask=m,
-                          detach_sample=with_logp, sample_temp=st,
-                          sample_top_k=top_k, sample_top_p=top_p)
-                toks.append(out["tokens"].to(torch.int32))
-                if with_logp:
-                    lps.append(out["log_prob"].float())
-        tokens = torch.stack(toks, dim=1)  # [B, K, 3]
-        return (tokens, torch.stack(lps, dim=1)) if with_logp else tokens
+            return sample_draws(cfg, gen, feats, num_samples, m, st, generator, noise,
+                                with_logp, top_k, top_p)
 
     return body
 

@@ -16,8 +16,10 @@ which all compute that same function:
 
 Under ``'direct'`` and ``'pallas'`` a 1x1 conv is a matmul: a stride first
 subsamples the input (``x[:, ::s, ::s]``), then ``fused_matmul`` runs on
-[B*H*W, Cin] @ [Cin, Cout]. ``'int8'`` (dynamic post-training quantization)
-comes with a later slice of the port.
+[B*H*W, Cin] @ [Cin, Cout]. ``'int8'`` is dynamic post-training
+quantization (``sgg_torch.kernels.quant.conv2d_int8``, the reference's route
+at ``sgg/kernels/conv.py:69-75``): every conv of VGG-19 and ResNet-50, the
+7x7 stem, the strided convs and the 1x1 projections included.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ import torch.nn.functional as F
 
 from sgg_torch.kernels.conv_direct import conv2d_direct, conv2d_nhwc_f32, pad_nhwc
 from sgg_torch.kernels.matmul import epilogue, fused_matmul
+from sgg_torch.kernels.quant import conv2d_int8
 
-IMPLS = ("auto", "direct", "pallas", "xla")
+IMPLS = ("auto", "direct", "pallas", "xla", "int8")
 
 
 def _im2col(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str):
@@ -61,15 +64,13 @@ def conv2d_fused(
     (None: ``'auto'`` if ``use_pallas`` else ``'xla'``, as the reference)."""
     if impl is None:
         impl = "auto" if use_pallas else "xla"
-    if impl == "int8":
-        raise NotImplementedError(
-            "conv impl 'int8' is not ported yet; a later slice of the port brings it "
-            "(ROADMAP A7)"
-        )
     if impl not in IMPLS:
         raise ValueError(f"unknown conv impl {impl!r}; one of {IMPLS}")
     if impl == "auto":
         impl = "direct"
+    if impl == "int8":
+        return conv2d_int8(x, w, bias=bias, scale=scale, stride=stride, padding=padding,
+                           relu=relu)
     kh, kw, cin, cout = w.shape
     if impl in ("pallas", "direct") and kh == 1 and kw == 1:
         # k = 1 needs no padding under SAME, and its taps sit at 0, s, 2s, …

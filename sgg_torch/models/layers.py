@@ -44,18 +44,21 @@ class Dense(nn.Module):
     """flax ``nn.Dense`` with its parameter names and layout: ``kernel``
     [in, out] and ``bias`` [out] (none when ``use_bias`` is false), float32,
     cast to the compute dtype at the call. The product is rounded to that
-    dtype, then the bias add, as flax's separate ``dot_general`` and ``+``."""
+    dtype, then the bias add, as flax's separate ``dot_general`` and ``+``.
+    ``dot_fn`` (x, kernel) → product in their dtype replaces ``torch.matmul``,
+    as flax's ``dot_general`` argument (the int8 tier passes
+    ``sgg_torch.kernels.quant.int8_linear``)."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32,
-                 use_bias: bool = True):
+                 use_bias: bool = True, dot_fn=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.dot_fn = dtype, dot_fn or torch.matmul
         self.kernel = nn.Parameter(lecun_normal((in_features, out_features)))
         self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = torch.matmul(x.to(dt), self.kernel.to(dt))
+        y = self.dot_fn(x.to(dt), self.kernel.to(dt))
         return y if self.bias is None else y + self.bias.to(dt)
 
 

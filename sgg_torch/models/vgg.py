@@ -33,17 +33,6 @@ def conv_names() -> list[str]:
     return [f"conv{block}_{i}" for block, n, _ in _CFG for i in range(1, n + 1)]
 
 
-_MEAN: dict = {}  # device → VGG_BGR_MEAN there
-
-
-def vgg_preprocess(images_rgb: torch.Tensor) -> torch.Tensor:
-    """[B,H,W,3] RGB uint8/float in [0, 255] → BGR, mean-subtracted float32."""
-    x = images_rgb.float().flip(-1)  # RGB → BGR
-    if x.device not in _MEAN:  # copied to each device once, not at every call
-        _MEAN[x.device] = torch.from_numpy(VGG_BGR_MEAN).to(x.device)
-    return x - _MEAN[x.device]
-
-
 class _Conv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()

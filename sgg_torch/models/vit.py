@@ -7,7 +7,10 @@ layer in every block, ``sgg_torch.models.moe``), then a final LayerNorm. With
 ``use_pallas=True`` the self-attention goes through
 ``sgg_torch.kernels.flash_attention.attention('auto')`` (the CUDA flash
 kernel on a CUDA tensor); otherwise through ``attention_reference``. An
-``attn_fn`` (q, k, v) → o overrides both.
+``attn_fn`` (q, k, v) → o overrides both. ``dot_fn`` replaces the product of
+the qkv, out, mlp1 and mlp2 projections (the int8 tier's
+``sgg_torch.kernels.quant.int8_linear``, as the reference's ``dot_general``);
+the patch embed, the MoE experts and the attention itself stay float.
 
 Parameter names and layouts are the flax module's: ``patch_embed.kernel``
 (HWIO [16, 16, 3, E]) and ``.bias``, ``pos_embed`` [1, N, E],
@@ -31,11 +34,12 @@ from sgg_torch.models.moe import MoEMLP
 
 class MultiHeadSelfAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, use_pallas: bool = False,
-                 attn_fn: Callable | None = None, dtype: torch.dtype = torch.float32):
+                 attn_fn: Callable | None = None, dtype: torch.dtype = torch.float32,
+                 dot_fn: Callable | None = None):
         super().__init__()
         self.num_heads, self.use_pallas, self.attn_fn = num_heads, use_pallas, attn_fn
-        self.qkv = Dense(embed_dim, 3 * embed_dim, dtype)
-        self.out = Dense(embed_dim, embed_dim, dtype)
+        self.qkv = Dense(embed_dim, 3 * embed_dim, dtype, dot_fn=dot_fn)
+        self.out = Dense(embed_dim, embed_dim, dtype, dot_fn=dot_fn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, E]
         B, S, E = x.shape
@@ -60,18 +64,19 @@ class TransformerBlock(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int = 4,
                  use_pallas: bool = False, attn_fn: Callable | None = None,
                  dtype: torch.dtype = torch.float32, moe_experts: int = 0,
-                 moe_top_k: int = 2):
+                 moe_top_k: int = 2, dot_fn: Callable | None = None):
         super().__init__()
         self.ln1 = LayerNorm(embed_dim, dtype)
-        self.attn = MultiHeadSelfAttention(embed_dim, num_heads, use_pallas, attn_fn, dtype)
+        self.attn = MultiHeadSelfAttention(embed_dim, num_heads, use_pallas, attn_fn, dtype,
+                                           dot_fn)
         self.ln2 = LayerNorm(embed_dim, dtype)
         if moe_experts > 0:
             self.moe = MoEMLP(embed_dim, moe_experts, top_k=moe_top_k, mlp_ratio=mlp_ratio,
                               dtype=dtype)
         else:
             self.moe = None
-            self.mlp1 = Dense(embed_dim, embed_dim * mlp_ratio, dtype)
-            self.mlp2 = Dense(embed_dim * mlp_ratio, embed_dim, dtype)
+            self.mlp1 = Dense(embed_dim, embed_dim * mlp_ratio, dtype, dot_fn=dot_fn)
+            self.mlp2 = Dense(embed_dim * mlp_ratio, embed_dim, dtype, dot_fn=dot_fn)
 
     def forward_aux(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
         """(block output, the MoE layer's load-balance term, or None)."""
@@ -115,7 +120,7 @@ class ViTB16Features(nn.Module):
                  patch: int = 16, mlp_ratio: int = 4, use_pallas: bool = False,
                  attn_fn: Callable | None = None, moe_experts: int = 0,
                  dtype: torch.dtype = torch.float32, num_patches: int = 196,
-                 moe_top_k: int = 2):
+                 moe_top_k: int = 2, dot_fn: Callable | None = None):
         super().__init__()
         self.dtype, self.num_patches, self.moe_experts = dtype, num_patches, moe_experts
         self.patch_embed = PatchEmbed(embed_dim, patch, dtype)
@@ -124,7 +129,7 @@ class ViTB16Features(nn.Module):
         for i in range(num_layers):
             self.add_module(f"block{i}", TransformerBlock(
                 embed_dim, num_heads, mlp_ratio, use_pallas, attn_fn, dtype, moe_experts,
-                moe_top_k))
+                moe_top_k, dot_fn))
             self.blocks.append(f"block{i}")
         self.ln_final = LayerNorm(embed_dim, dtype)
 

@@ -33,10 +33,14 @@ plans and counters and the sampler's lazy weight load are never entered by
 two threads at once. The engine runs on CUDA unless it is given
 ``device='cpu'``.
 
-Not ported yet: the AOT artifact engine (``sgg.export``, ROADMAP A9),
-data-parallel serving over a mesh (A8) and the encoder's int8 PTQ (A7).
+Two engines: :class:`InferenceEngine` over a trained workdir (``quant='int8'``
+serves the encoder's int8 PTQ), and :class:`ArtifactEngine` over an exported
+sampler (``sgg_torch.export``), which needs no workdir and no model code and
+launches none of the hand-written kernels. Not ported yet: data-parallel
+serving over a mesh (ROADMAP A8).
 
-Usage: ``python -m sgg_torch.cli.serve --workdir W --port 8500``.
+Usage: ``python -m sgg_torch.cli.serve --workdir W --port 8500`` (or
+``--artifact model.pt2``).
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sgg_torch.cli.common import LATER, resolve_device
+from sgg_torch.cli.common import resolve_device
 from sgg_torch.config import Config
 from sgg_torch.data.extract import load_batch
 from sgg_torch.data.vocab import Vocab
@@ -202,9 +206,9 @@ class InferenceEngine:
                  temperature: float | None = None, seed: int = 0,
                  quant: str | None = None, ema: bool = False, rank: str = "freq",
                  top_k: int = 0, top_p: float | None = None):
-        if quant == "int8":
-            raise NotImplementedError(
-                f"quant 'int8' (the encoder's int8 PTQ) {LATER} (ROADMAP A7)")
+        if quant == "int8" and cfg.model.encoder == "precomputed":
+            raise ValueError("quant 'int8' quantizes the encoder; model.encoder is "
+                             "'precomputed' (no encoder to quantize)")
         if quant is not None:  # override of cfg.model.quant
             cfg.model.quant = "" if quant == "none" else quant
         self.device = resolve_device(device)
@@ -360,6 +364,124 @@ class InferenceEngine:
         loader); a precomputed-feature engine refuses them."""
         if self._encode is None:
             raise ValueError("this run used precomputed features; POST 'features' instead")
+        if isinstance(paths, str) or not len(paths):
+            raise ValueError("'paths' must be a non-empty list of image paths")
+        return load_batch([str(p) for p in paths], self.cfg.data.image_size)
+
+
+class ArtifactEngine:
+    """An engine over an exported sampler (``sgg_torch.export``), from
+    ``sgg/serve.py:385-510``: the file alone, with no workdir, checkpoint or
+    model code. Batch size, draws, temperature and, for a pixels-in
+    artifact, the whole encoder are in the program. A features-in artifact
+    serves ``features`` requests, a pixels-in one ``images`` and ``paths``;
+    each refuses the other (a 400 over HTTP), and per-request temperatures
+    too. Requests are padded or cut to one batch (the artifact's, or for a
+    symbolic-batch artifact ``batch_size``); one lock covers each dispatch,
+    whose noise comes from a ``torch.Generator`` seeded by ``seed`` in the
+    order ``make_sampler`` draws."""
+
+    def __init__(self, path: str, *, device="cuda", seed: int = 0,
+                 batch_size: int | None = None):
+        from sgg_torch.config import get_config
+        from sgg_torch.export import artifact_noise, load_artifact
+
+        self.device = resolve_device(device)
+        self._call, meta = load_artifact(path, self.device)
+        self._noise = artifact_noise
+        self.meta = meta
+        self.vocab = Vocab(tokens=list(meta["vocab_tokens"]),
+                           is_object=list(meta["vocab_is_object"]),
+                           is_predicate=list(meta["vocab_is_predicate"]))
+        cfg = get_config("smoke")
+        cfg.model.vocab_size = len(self.vocab)
+        cfg.model.encoder = meta.get("encoder") or "precomputed"
+        cfg.model.compute_dtype = meta["feats_dtype"]
+        cfg.data.regions = meta["regions"]
+        cfg.data.feat_dim = meta["feat_dim"]
+        cfg.data.image_size = meta.get("image_size") or 224
+        self.cfg = cfg
+        self.batch_size = int(meta["batch_size"]) or int(batch_size or 32)
+        self.num_samples = int(meta["num_samples"])
+        self.step = int(meta.get("step", -1))
+        self._images_in = meta["input"] == "images"
+        self._generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        self._lock = threading.Lock()
+        # The temperature is in the program; per-request overrides cannot be.
+        self.supports_request_temperature = False
+        self._default_temp = float(meta["temperature"])
+
+    @property
+    def feature_shape(self) -> tuple[int, int]:
+        return (self.cfg.data.regions, self.cfg.data.feat_dim)
+
+    def warmup(self) -> float:
+        """One padded batch through the program; returns wall seconds."""
+        t0 = time.perf_counter()
+        if self._images_in:
+            s = self.cfg.data.image_size
+            x = np.zeros((self.batch_size, s, s, 3), np.uint8)
+        else:
+            x = np.zeros((self.batch_size, *self.feature_shape), np.float32)
+        self._dispatch(x)
+        return time.perf_counter() - t0
+
+    def _dispatch(self, x: np.ndarray) -> np.ndarray:
+        """tokens int32 [n, K, 3], in chunks of the batch, the last padded
+        with zero rows."""
+        B = self.batch_size
+        dtype = torch.uint8 if self._images_in else self.cfg.model.dtype
+        out = []
+        for lo in range(0, x.shape[0], B):
+            chunk = torch.from_numpy(np.array(x[lo:lo + B]))  # writable copy
+            pad = B - chunk.shape[0]
+            if pad:
+                chunk = torch.cat([chunk, chunk.new_zeros((pad,) + chunk.shape[1:])])
+            with self._lock:
+                z, gumbel = self._noise(self.meta, B, self._generator, self.device)
+                tokens = self._call(chunk.to(self.device, dtype), z, gumbel)
+            out.append(tokens.cpu().numpy()[: B - pad])
+        return np.concatenate(out) if len(out) > 1 else out[0]
+
+    def _graphs(self, tokens: np.ndarray) -> list[dict]:
+        graphs, _ = assemble_scene_graphs(tokens, self.vocab, np.arange(len(tokens)))
+        for g in graphs:
+            g.pop("image_id", None)
+        return graphs
+
+    @staticmethod
+    def _no_temps(temps) -> None:
+        if temps is not None:
+            raise ValueError("this artifact bakes its sampling temperature at export time; "
+                             "per-request 'temperature' is not supported")
+
+    def generate(self, feats, temps: np.ndarray | None = None) -> list[dict]:
+        self._no_temps(temps)
+        if self._images_in:
+            raise ValueError("this artifact takes images (pixels-in export); POST 'images' "
+                             "or 'paths' instead of 'features'")
+        feats = np.asarray(feats, np.float32)
+        if feats.ndim != 3 or feats.shape[1:] != self.feature_shape or not len(feats):
+            raise ValueError(f"expected features [n, {self.feature_shape[0]}, "
+                             f"{self.feature_shape[1]}], got {feats.shape}")
+        return self._graphs(self._dispatch(feats))
+
+    def generate_from_images(self, images_u8: np.ndarray,
+                             temps: np.ndarray | None = None) -> list[dict]:
+        self._no_temps(temps)
+        if not self._images_in:
+            raise ValueError("this artifact takes precomputed features; POST 'features'")
+        imgs = np.asarray(images_u8, np.uint8)
+        s = self.cfg.data.image_size
+        if imgs.ndim != 4 or imgs.shape[1:] != (s, s, 3) or not len(imgs):
+            raise ValueError(f"expected images [n, {s}, {s}, 3], got {imgs.shape}")
+        return self._graphs(self._dispatch(imgs))
+
+    def decode_paths(self, paths) -> np.ndarray:
+        """JPEG paths → uint8 [n, S, S, 3] (the native loader); a features-in
+        artifact refuses them."""
+        if not self._images_in:
+            raise ValueError("this artifact takes precomputed features; POST 'features'")
         if isinstance(paths, str) or not len(paths):
             raise ValueError("'paths' must be a non-empty list of image paths")
         return load_batch([str(p) for p in paths], self.cfg.data.image_size)

@@ -10,9 +10,12 @@ value and its step are kept in ``W/best_eval.json``. Each probe's noise comes
 from a ``torch.Generator`` seeded by (``train.seed + 1``, step): probes at
 different steps draw different noise, and a rerun reproduces the curve.
 Pixels-in configs encode the held-out images at each probe with the run's
-current encoder (``sgg/train/eval_probe.py:59-89``): its in-memory images, or
-the path-backed split's JPEGs decoded per batch; the last batch's features are
-padded with its last row, as the reference pads them.
+current encoder weights (``sgg/train/eval_probe.py:59-89``): its in-memory
+images, or the path-backed split's JPEGs decoded per batch; the last batch's
+features are padded with its last row, as the reference pads them. The probe
+encodes through its own ``make_image_encoder``, quantized as ``model.quant``
+says (the reference's ``quant=cfg.model.quant``), while the train state's
+encoder stays float; the two modules share one copy of the weights.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ class EvalProbe:
         self._ds = ds
         self._sampler = make_sampler(cfg, step_mask=vocab.step_mask(),
                                      num_samples=int(cfg.train.eval_samples))
+        self._encode = None  # the probe's ImageEncoder, built at each probe
         self.best = None  # (recall, step)
         self._best_path = os.path.join(cfg.workdir, "best_eval.json")
         if os.path.exists(self._best_path):
@@ -63,22 +67,20 @@ class EvalProbe:
 
     def _batch_features(self, state, idx: np.ndarray) -> torch.Tensor:
         """Features [n, R, F] of held-out images ``idx`` on the device: the
-        stored features, or the run's current encoder (``state.encoder``, the
-        fine-tuned weights with ``train_encoder``) on their uint8 images, in
-        memory or decoded from their JPEGs."""
+        stored features, or the probe's encoder with the run's current weights
+        (``state.encoder``'s, fine-tuned with ``train_encoder``) on their uint8
+        images, in memory or decoded from their JPEGs."""
         ds = self._ds
         if state.encoder is None:
             return torch.from_numpy(ds.features[idx]).to(self.device)
         from sgg_torch.data.extract import load_batch
-        from sgg_torch.models.encoders import normalize_for
 
         if hasattr(ds, "images"):
             imgs = ds.images[idx]
         else:
             imgs = load_batch([ds.paths[int(i)] for i in idx], ds.image_size)
         x = torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
-        with torch.no_grad():
-            return state.encoder(normalize_for(self.cfg.model.encoder, x))
+        return self._encode(x)
 
     def run(self, state, step: int, noise: list | None = None) -> dict:
         """Probe the current weights → {"eval_recall@k": v, "eval_seconds": s}.
@@ -94,6 +96,10 @@ class EvalProbe:
         generator = torch.Generator(device=self.device).manual_seed(
             probe_seed(self.cfg, step))
         B = self.batch
+        if state.encoder is not None:  # the state's current weights, shared, not copied
+            from sgg_torch.models.encoders import make_image_encoder
+
+            self._encode = make_image_encoder(self.cfg, state.encoder.state_dict(), self.device)
         gen_triples = []
         for b, lo in enumerate(range(0, self.n_images, B)):
             idx = np.arange(lo, min(lo + B, self.n_images))

@@ -235,7 +235,10 @@ def create_train_state(cfg: Config, seed: int = 0, enc_params: dict | None = Non
                        device: torch.device | str = "cpu") -> GANTrainState:
     """A fresh state on ``device``, parameters initialized from ``seed``. For
     pixels-in configs ``enc_params`` (a port state_dict) sets the encoder's
-    weights, else they are initialized too."""
+    weights, else they are initialized too. The encoder is float whatever
+    ``model.quant`` says, as the reference's (``sgg/train/state.py:161-166``):
+    the step never trains through int8 rounding, which has no gradient; the
+    probe, generate and serve quantize their own copy."""
     from sgg_torch.models.encoders import make_encoder
 
     m = cfg.model
@@ -244,7 +247,7 @@ def create_train_state(cfg: Config, seed: int = 0, enc_params: dict | None = Non
         torch.manual_seed(seed)
         generator, critic = make_models(cfg)
         encoder = make_encoder(
-            m.encoder, use_pallas=m.use_pallas, dtype=m.dtype, quant=m.quant,
+            m.encoder, use_pallas=m.use_pallas, dtype=m.dtype,
             image_size=cfg.data.image_size, vit_dims=m.vit_dims, moe_experts=m.moe_experts,
             moe_top_k=m.moe_top_k, trainable=train_enc)
     if encoder is not None and enc_params is not None:

@@ -103,8 +103,9 @@ def test_conv2d_fused_use_pallas_default_and_refusals():
     for use_pallas in (False, True):
         got = conv2d_fused(xt, wt, use_pallas=use_pallas)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        conv2d_fused(xt, wt, impl="int8")
+    # 'int8' is the reference's PTQ route (tests/test_torch_quant.py holds it).
+    want8 = np.asarray(jax_conv2d_fused(jnp.asarray(x), jnp.asarray(w), impl="int8"))
+    np.testing.assert_array_equal(conv2d_fused(xt, wt, impl="int8").numpy(), want8)
     with pytest.raises(ValueError):
         conv2d_fused(xt, wt, impl="winograd")
 

@@ -305,7 +305,7 @@ def test_make_encoder_routes_and_refusals():
     assert isinstance(vit, ViTB16Features) and vit.num_patches == 16
     assert not any(p.requires_grad for p in vit.parameters())
     assert vit.block0.attn.use_pallas
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_encoder("resnet50", quant="int8")
+    int8 = make_encoder("resnet50", quant="int8")  # the PTQ tier, inference only
+    assert int8.stem.conv_impl == "int8" and not int8.stem.kernel.requires_grad
     with pytest.raises(ValueError):
         make_encoder("alexnet")

@@ -256,13 +256,14 @@ def test_generate_cli_needs_cuda_or_cpu_flag(smoke_workdir, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--quant", "int8"], "not ported yet"),
+    pytest.param(["--quant", "int8"], "no encoder to quantize", id="flags0-not ported yet"),
     (["--decode", "fused", "--top-p", "0.9"], "--top-k/--top-p"),
     (["--decode", "fused", "--rank", "logp"], "log-probs"),
     (["--decode", "fused", "--temperature", "0.5"], "temperature 1.0")])
 def test_generate_cli_refuses_unported_options(smoke_workdir, capsys, flags, message):
-    """What the port has not ported, and what the fused kernel cannot do (as
-    in the reference)."""
+    """What the fused kernel cannot do (as in the reference), and ``--quant
+    int8`` on a precomputed-feature workdir, which has no encoder to
+    quantize."""
     wd, _ = smoke_workdir
     assert generate.main(["--workdir", wd, "--device", "cpu", *flags]) == 2
     assert message in capsys.readouterr().err
@@ -303,6 +304,7 @@ def test_port_imports_no_jax_and_no_sgg():
         "import sgg_torch.data.images\n"
         "import sgg_torch.models.moe, sgg_torch.train.pretrain, sgg_torch.cli.pretrain\n"
         "import sgg_torch.cli.synth_corpus, sgg_torch.data.synthetic\n"
+        "import sgg_torch.export, sgg_torch.cli.export, sgg_torch.kernels.quant\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'sgg', 'PIL'))\n"
         "assert not bad, bad\n"

@@ -267,7 +267,7 @@ def test_engine_refusals_and_shapes(decoder_setup):
     with pytest.raises(ValueError, match="EMA"):
         serve.InferenceEngine(pcfg, pvocab, weights._replace(g_ema=None), device="cpu",
                               ema=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="no encoder to quantize"):
         serve.InferenceEngine(pcfg, pvocab, weights, device="cpu", quant="int8")
 
 
@@ -605,17 +605,25 @@ def serve_workdir(tmp_path_factory):
 @pytest.mark.parametrize("argv,message", [
     ([], "exactly one of --workdir / --artifact"),
     (["--workdir", "WD", "--artifact", "m.sgx"], "exactly one of --workdir / --artifact"),
-    (["--artifact", "m.sgx"], "--artifact"),
+    (["--artifact", "m.sgx", "--rank", "logp"], "--rank freq_logp/logp needs --workdir"),
     (["--workdir", "WD", "--dp", "2"], "--dp"),
-    (["--workdir", "WD", "--quant", "int8"], "--quant int8"),
+    (["--workdir", "WD", "--quant", "int8"], "no encoder to quantize"),
 ], ids=["neither", "both", "artifact", "dp", "quant"])
 def test_serve_cli_refusals(serve_workdir, capsys, argv, message):
+    """Exit code 2: one of --workdir/--artifact; an artifact bakes its
+    sampling, weights and quantization (also --top-k, --ema and --quant with
+    --artifact); --dp is not ported (A8); a precomputed workdir has no
+    encoder to quantize."""
     argv = [serve_workdir if a == "WD" else a for a in argv]
     assert serve_cli.main(argv + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert message in err
-    if "exactly one" not in message:
+    if message == "--dp":
         assert "not ported yet" in err
+    if argv[:1] == ["--artifact"]:
+        for extra in (["--top-k", "5"], ["--ema"], ["--avg-last", "3"], ["--quant", "int8"]):
+            assert serve_cli.main(["--artifact", "m.sgx", *extra, "--device", "cpu"]) == 2
+        assert "--quant needs --workdir" in capsys.readouterr().err
 
 
 def test_serve_cli_needs_cuda_or_cpu_flag(serve_workdir, monkeypatch):
