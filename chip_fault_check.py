@@ -111,6 +111,15 @@ artifact whose weights are perturbed after the trace, before the file is
 written (``sgg_torch/export.py``, ``save_artifact``), held to ``cli.export
 --check`` on a vg1k workdir (K = 50, B = 32), which must exit 1.
 
+Two faults are seeded into the data-parallel step
+(``sgg_torch/train/step.py``): the generator's gradients left unreduced (its
+``pmean`` dropped, so the ranks drift apart), and the rank dropped from the
+noise's seed (every rank draws rank 0's noise). Each is held to
+``chip_smoke.py``'s phase-24 holds (``dp_holds``) on the copy's train CLI at
+``smoke`` widths over two ranks that share the card (gloo) and in a plain
+process, 4 steps: the ranks' states equal bit for bit, their noise distinct,
+rank 0's the plain run's.
+
 The unmodified tree is held to
 the same gates as a baseline (it must pass them), and a variant that is not a
 fault is reported beside it: the hi, mid and lo products summed in one
@@ -121,7 +130,7 @@ Exits 0 when the baseline passes and every fault is refused at each of its
 shapes (both flash shapes; the four conv shapes; the matmul shapes it can
 reach; the decode batches or the tie case, whichever can see it; the gather
 and graph holds; the loader's gates; the MoE and pretrain holds; the int8
-holds and the export check), 1 otherwise. The tree itself is not touched.
+holds and the export check; the data-parallel holds), 1 otherwise. The tree itself is not touched.
 """
 
 import json
@@ -267,6 +276,17 @@ DEPLOY_FAULTS = {
          "    torch.export.save(exported, path, extra_files={META_FILE: json.dumps(meta)})\n",
          "export"),
 }
+STEP_SRC = "sgg_torch/train/step.py"
+# phase-24 faults: (source, sound text, faulty text, the hold that must refuse it).
+DP_FAULTS = {
+    "the generator's gradients left unreduced":
+        (STEP_SRC, "        state.g_tx.update(maybe_pmean(g_grads))\n",
+         "        state.g_tx.update(g_grads)\n", "dp"),
+    "the rank dropped from the noise's seed":
+        (STEP_SRC, "        seed = int(t.seed) * 1_000_003 + step + rank * RANK_SEED_STRIDE\n",
+         "        seed = int(t.seed) * 1_000_003 + step\n", "dp"),
+}
+DP_STEPS = 4
 GRAPH_IMAGES = 1024
 # fused-stepper fault: (sound text, faulty text), the counter never advanced.
 GRAPH_FAULTS = {
@@ -348,7 +368,7 @@ def child(root, kernels, shapes):
     if not fb.__file__.startswith(root):
         raise SystemExit(f"chip_fault_check: imported {fb.__file__}, not the copy")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if set(kernels) - {"loader", "moe", "pretrain", "int8", "export"}:  # no CUDA kernel
+    if set(kernels) - {"loader", "moe", "pretrain", "int8", "export", "dp"}:  # no CUDA kernel
         build.load_library()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -395,6 +415,8 @@ def child(root, kernels, shapes):
 
     if "int8" in kernels or "export" in kernels:
         deploy_rows(root, dev, kernels)
+    if "dp" in kernels:
+        dp_rows(root)
 
     if "loader" in kernels:
         from sgg_torch.native import loader
@@ -590,6 +612,26 @@ def deploy_rows(root, dev, kernels):
                           "holds": {"rc": rc}}), flush=True)
 
 
+def dp_rows(root):
+    """chip_smoke.py's phase-24 holds (``dp_holds``) on the copy: its train
+    CLI over two ranks that share the card (gloo, ``dp_launch``) and in a
+    plain process, ``--config smoke`` for DP_STEPS steps: the ranks' states
+    equal bit for bit, their noise distinct, rank 0's the plain run's. One
+    JSON line."""
+    import chip_smoke
+
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = {}
+        for label, n in (("ranks", 2), ("plain", None)):
+            argv = ["--config", "smoke", "--workdir", os.path.join(tmp, f"wd_{label}"),
+                    "--steps", str(DP_STEPS), "--set", "train.log_every=1"]
+            recs[label], _ = chip_smoke.dp_launch(os.path.join(tmp, label), argv, n, root=root)
+        ok, bad = chip_smoke.dp_holds(recs["ranks"], recs["plain"][0])
+    print(json.dumps({"shape": [2, 8, 9, 16], "output": "dp", "bf16_gate": ok, "share": 0.0,
+                      "f32_err": None, "tol": None, "f32_gate": True,
+                      "holds": {"failed": bad}}), flush=True)
+
+
 def loader_rows():
     """chip_smoke.py's phase-21 (a) gates on the copy's JPEG loader: the
     fixture's JPEGs against the reference decoder's committed bytes, and the
@@ -690,7 +732,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
     runs = [("sound", [],
-             "fwd,dq,dkv,conv,mm,decode,gather,graph,loader,moe,pretrain,int8,export",
+             "fwd,dq,dkv,conv,mm,decode,gather,graph,loader,moe,pretrain,int8,export,dp",
              VARIANT_SHAPES),
             ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
              "fwd,dq,dkv", VARIANT_SHAPES)]
@@ -710,7 +752,8 @@ def main() -> int:
         runs.append((label, [(GATHER_SRC, replace_once(sound, faulty))], "graph", []))
     for label, (sound, faulty) in LOADER_FAULTS.items():
         runs.append((label, [(LOADER_SRC, replace_once(sound, faulty))], "loader", []))
-    for label, (src, sound, faulty, hold) in dict(RECIPE_FAULTS, **DEPLOY_FAULTS).items():
+    for label, (src, sound, faulty, hold) in dict(RECIPE_FAULTS, **DEPLOY_FAULTS,
+                                                  **DP_FAULTS).items():
         runs.append((label, [(src, replace_once(sound, faulty))], hold, []))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []

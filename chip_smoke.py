@@ -328,6 +328,28 @@ one subprocess under a timeout, which it waits for:
      images request with no hand-written kernel launched, and the vg1k
      artifact called in a subprocess that imports neither sgg_torch nor jax,
      its tokens equal to the live sampler's on the same noise.
+ 24. the data-parallel tier (``dp_phase``): each rank a process of
+     ``chip_smoke.py --rank-run`` (``rank_run``), which runs
+     ``sgg_torch.cli.train.main`` with the launches counted per step and the
+     state, the first step's noise and the all-reduce's buckets taken; (a)
+     ``torchrun --nproc_per_node 2`` of ``--config v4_32`` at full width
+     (VGG-19 at 224 px, bf16, batch 128 per rank, n_critic 5) on phase 21's
+     VG-shaped corpus (2,048 ids cycling the fixture), 6 steps, step 3
+     profiled on each rank: the two ranks share the card over gloo; (b) the
+     same at world 1 (NCCL, ``torchrun --nproc_per_node 1``) and in a plain
+     process; (c) vit_b16 with ``train_encoder`` over two ranks, batch 32
+     each, 3 steps, each rank started here with torchrun's environment (no
+     launcher's start-up). Holds
+     (``dp_holds``): the ranks' states (every parameter, optimizer moment
+     and count) equal bit for bit, their noise distinct and rank 0's the
+     plain run's, 96 conv_direct launches a step on each rank in (a); the
+     world-1 state equal to the plain run's bit for bit; 72/60/60 flash, dq
+     and dk/dv launches a step on each rank in (c). Prints s/step, global
+     images/s, the all-reduce's ms a step (``pmean`` timed alone at each of
+     a step's bucket sizes), each rank's idle share and the card's (the
+     union of both ranks' device spans, ``card_idle``). Phase 24 starts a
+     torchrun launcher (and its ranks) or a plain process per run, each
+     waited for under a timeout in a session of its own.
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -335,9 +357,10 @@ The kernels' JSON record gives, for each kernel, its launches on the newest
 main path that runs it (phase 17 for fused_decode, timed at its vg1k widths,
 B = 64, which pipeline_v4 shares; phase 7 for fused_matmul and conv_direct;
 phase 15 for the three flash kernels), plus phase 22's launches of each
-(each of its paths counted from 0) and phase 23's (its two ``generate
+(each of its paths counted from 0), phase 23's (its two ``generate
 --quant int8`` runs, counted from 0: fused_decode and flash_attention; the
-exported artifact launches none), and
+exported artifact launches none) and phase 24's (every rank of its four
+runs, each counted from 0 in its process), and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
 bound ms. Phase 18's serving launch counts and phase 19's are printed on lines of
 their own before it. The last two lines are that
@@ -355,6 +378,7 @@ import math
 import os
 import re
 import resource
+import signal
 import statistics
 import subprocess
 import sys
@@ -412,6 +436,9 @@ GR_JPEG_MEAN_D, GR_HOLD_BATCH = 8.0, 4
 # Phase 23, the deployment tier: calls captured in a CUDA graph and its
 # replays for each int8 and bf16 time.
 P23_GRAPH_CALLS, P23_GRAPH_REPS = 10, 3
+# Phase 24, the data-parallel tier: v4_32's steps (the profile window is
+# step 3) and vit_b16's with train_encoder.
+DP_STEPS, DP_VIT_STEPS = 6, 3
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -3065,6 +3092,347 @@ def deployment_phase(dev, smi, pix, vit, vgg_state, v1k, run_cli, read_counts, t
     return out
 
 
+def kernel_counts():
+    """The launch count of every kernel wrapper in this process."""
+    from sgg_torch.kernels import conv_direct as cd
+    from sgg_torch.kernels import flash_attention as fa
+    from sgg_torch.kernels import flash_attention_bwd as fb
+    from sgg_torch.kernels import fused_decode as fd
+    from sgg_torch.kernels import matmul as mm
+
+    return {"fused_decode": fd.launches, "fused_matmul": mm.launches,
+            "conv_direct": cd.launches, "flash_attention": fa.launches,
+            "flash_attention_bwd_dq": fb.dq_launches, "flash_attention_bwd_dkv": fb.dkv_launches}
+
+
+def digest(tensors):
+    """sha256 of each tensor's bytes (any dtype, on any device)."""
+    import hashlib
+
+    import torch
+
+    return [hashlib.sha256(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8)
+                           .numpy().tobytes()).hexdigest() for t in tensors]
+
+
+def rank_run(args):
+    """Phase 24's rank: ``chip_smoke.py --rank-run OUT ROOT WINDOW -- <train
+    argv>``, under torchrun (one process per rank) or alone. Runs
+    ``sgg_torch.cli.train.main(argv)`` from the port under ROOT with the
+    kernel launches counted per step, the first step's noise (the step's own
+    ``inputs``) and the state taken as they are, and the profile window
+    (``--profile``) moved to WINDOW = ``first,steps``; then, across ranks,
+    times ``pmean`` at each of a step's distinct bucket sizes (one warm call,
+    then 3, synchronized) and sums them over the step's buckets; records the
+    seconds from its start to its milestones. Writes ``OUT/rank<r>.json``: exit code, world, backend,
+    device, launches per step, noise and state digests (sha256 of every
+    tensor of ``state.tensors()``), the step's buckets and the all-reduce's
+    ms a step. Returns the CLI's exit code."""
+    t_start = time.time()
+    out, root, window = args[0], args[1], args[2]
+    argv = args[args.index("--") + 1:]
+    sys.path.insert(0, root)
+    import torch
+    import torch.distributed as dist
+
+    import sgg_torch.train.step as step_mod
+    from sgg_torch.cli import train as train_cli
+    from sgg_torch.utils.profiling import StepProfiler
+
+    if not step_mod.__file__.startswith(os.path.abspath(root)):
+        raise SystemExit(f"chip_smoke: imported {step_mod.__file__}, not the port under {root}")
+    rec = {"per_step": [], "noise": None, "buckets": [], "t": {"imports": time.time() - t_start}}
+    held = {}
+    make, create, pmean = train_cli.make_step_fn, train_cli.create_train_state, step_mod.pmean
+
+    def counting(cfg_, step_mask=None, **kw):
+        fn = make(cfg_, step_mask, **kw)
+
+        @functools.wraps(fn)
+        def counted(state, batch, *a, **k):
+            if rec["noise"] is None:
+                x_ = batch["features" if "features" in batch else "images"]
+                nz = fn.inputs(state.step, x_.shape[1], x_.device)
+                rec["noise"] = digest([nz[n_] for n_ in sorted(nz)])
+            before, n_buckets = kernel_counts(), len(rec["buckets"])
+            rec["t"].setdefault("first_step_start", time.time() - t_start)
+            r_ = fn(state, batch, *a, **k)
+            after = kernel_counts()
+            rec["t"].setdefault("first_step_end", time.time() - t_start)
+            rec["per_step"].append({k_: after[k_] - before[k_] for k_ in after})
+            rec["step_buckets"] = rec["buckets"][n_buckets:]
+            return r_
+
+        return counted
+
+    def creating(*a, **k):
+        held["state"] = create(*a, **k)
+        return held["state"]
+
+    def bucketed(tensors, group=None):
+        tensors = list(tensors)
+        rec["buckets"].append(sum(t_.numel() for t_ in tensors))
+        return pmean(tensors, group)
+
+    first, n_win = (int(v_) for v_ in window.split(","))
+    train_cli.make_step_fn, train_cli.create_train_state = counting, creating
+    step_mod.pmean = bucketed
+    train_cli.StepProfiler = lambda logdir, start_step: StepProfiler(
+        logdir, start_step - 10 + first, num_steps=n_win)
+    rc = train_cli.main(argv)
+    rec["t"]["main"] = time.time() - t_start
+    on = dist.is_available() and dist.is_initialized()
+    state = held["state"]
+    dev = state.tensors()[0].device
+    ms = 0.0
+    if on:  # each distinct bucket size: one warm call, then 3 timed
+        sizes = rec.get("step_buckets", [])
+        for n_ in sorted(set(sizes)):
+            x_ = torch.randn(n_, device=dev)
+            pmean([x_])
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                pmean([x_])
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ms += (time.perf_counter() - t0) * 1e3 / 3 * sizes.count(n_)
+        rec["t"]["allreduce_timing"] = time.time() - t_start
+    rank = dist.get_rank() if on else 0
+    rec.update({"rc": rc, "rank": rank, "world": dist.get_world_size() if on else 1,
+                "backend": dist.get_backend() if on else None, "device": str(dev),
+                "allreduce_ms_step": ms, "step": state.step,
+                "digests": digest(state.tensors())})
+    rec["t"]["digests"] = time.time() - t_start
+    rec.pop("buckets")
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    if on:
+        dist.barrier()
+        dist.destroy_process_group()
+    return rc
+
+
+def dp_launch(out, train_argv, nproc=None, root=ROOT, window=(3, 1), timeout=600,
+              torchrun=True):
+    """Run ``rank_run`` over ``nproc`` ranks and return each rank's record:
+    under torchrun, or with ``torchrun=False`` one process per rank started
+    here with the environment torchrun gives its ranks (RANK, LOCAL_RANK,
+    WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT; no launcher's
+    start-up); ``nproc`` None: one plain process. Raises if a rank or the
+    launcher fails."""
+    import socket
+
+    os.makedirs(out, exist_ok=True)
+    me = [os.path.abspath(__file__), "--rank-run", out, root, f"{window[0]},{window[1]}",
+          "--", *train_argv]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root)
+    if nproc and torchrun:
+        cmds = [([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                  "--nproc_per_node", str(nproc)] + me, env)]
+    elif nproc:
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            port = s_.getsockname()[1]
+        cmds = [([sys.executable] + me, dict(
+            env, RANK=str(r_), LOCAL_RANK=str(r_), WORLD_SIZE=str(nproc),
+            LOCAL_WORLD_SIZE=str(nproc), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+            for r_ in range(nproc)]
+    else:
+        cmds = [([sys.executable] + me, env)]
+    rcs, deadline = [], time.time() + timeout
+    with open(os.path.join(out, "log.txt"), "w") as log_f:
+        procs = [subprocess.Popen(c_, stdout=log_f, stderr=subprocess.STDOUT, env=e_,
+                                  start_new_session=True) for c_, e_ in cmds]
+        try:
+            for p_ in procs:
+                rcs.append(p_.wait(timeout=max(1.0, deadline - time.time())))
+        except subprocess.TimeoutExpired:
+            rcs.append("timeout")
+        finally:
+            for p_ in procs:  # each launcher or rank, with what it started
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p_.pid, signal.SIGKILL)
+                p_.wait()
+    with open(os.path.join(out, "log.txt")) as f:
+        text = f.read()
+    if any(rc_ != 0 for rc_ in rcs):
+        raise AssertionError(f"{' '.join(cmds[0][0][:6])}... exit {rcs}:\n{text[-4000:]}")
+    recs = []
+    for r_ in range(nproc or 1):
+        with open(os.path.join(out, f"rank{r_}.json")) as f:
+            recs.append(json.load(f))
+    return recs, text
+
+
+def dp_holds(ranks, plain, want_step=None):
+    """Phase 24's holds on a data-parallel run's rank records against a
+    plain run's: every rank's state equal bit for bit, the ranks' noise
+    distinct (each rank folds its index in), rank 0's noise the plain
+    run's, each rank's launches per step equal to ``want_step`` (when
+    given). Returns (ok, what failed)."""
+    bad = []
+    if any(r_["digests"] != ranks[0]["digests"] for r_ in ranks):
+        n_ = sum(a_ != b_ for a_, b_ in zip(ranks[0]["digests"], ranks[-1]["digests"]))
+        bad.append(f"the ranks' states differ ({n_} of {len(ranks[0]['digests'])} tensors)")
+    if len({tuple(r_["noise"]) for r_ in ranks}) != len(ranks):
+        bad.append("two ranks drew the same noise")
+    if plain is not None and ranks[0]["noise"] != plain["noise"]:
+        bad.append("rank 0's noise is not the single-process step's")
+    if want_step is not None and any(
+            [{k_: v_ for k_, v_ in c_.items() if v_} for c_ in r_["per_step"]]
+            != [want_step] * len(r_["per_step"]) for r_ in ranks):
+        bad.append(f"launches {[r_['per_step'][:2] for r_ in ranks]} (expected {want_step} a "
+                   "step)")
+    return not bad, bad
+
+
+def card_idle(wd, ranks):
+    """(each rank's idle share from its --profile table, the card's idle share
+    over the overlap of the ranks' windows: 1 - the union of every rank's
+    device spans in it / its length), or Nones when not traced."""
+    from sgg_torch.utils.profiling import DEVICE_WORK, busy_time, trace_events
+
+    per, spans, lo, hi = [], [], [], []
+    for r_ in range(ranks):
+        d_ = os.path.join(wd, "profile" if r_ == 0 else f"profile_rank{r_}")
+        idle = None
+        try:
+            with open(os.path.join(d_, "top_ops.txt")) as f:
+                for line in f:
+                    if "idle share" in line and "not measured" not in line:
+                        idle = float(line.rsplit(" ", 1)[1])
+            ev = trace_events(os.path.join(d_, "trace.json"))
+        except OSError:
+            return [None] * ranks, None
+        per.append(idle)
+        dev = [(t0, d) for _, cat, t0, d in ev if cat in DEVICE_WORK]
+        cpu = [(t0, d) for _, cat, t0, d in ev if cat == "cpu_op"]
+        if not dev or not cpu:
+            return per + [None] * (ranks - len(per)), None
+        lo.append(min(t0 for t0, _ in cpu))
+        hi.append(max(t0 + d for t0, d in cpu))
+        spans += dev
+    a_, b_ = max(lo), min(hi)
+    if b_ <= a_:
+        return per, None
+    clipped = [(max(t0, a_), min(t0 + d, b_) - max(t0, a_)) for t0, d in spans
+               if t0 < b_ and t0 + d > a_]
+    return per, 1.0 - busy_time(clipped) / (b_ - a_)
+
+
+def dp_phase(dev, smi, sizes=None, extra_sets=None, vit_sets=None):
+    """Phase 24, the data-parallel tier, through ``sgg_torch.cli.train`` in
+    ranks of ``rank_run``: (a) ``--config v4_32`` at full width (VGG-19 at
+    224 px, bf16, batch 128 per rank, n_critic 5), two ranks over gloo on one
+    card, 6 steps on a VG-shaped corpus of 2,048 ids cycling the committed
+    fixture (``vg_corpus``), step 3 profiled on each rank; (b) the same at
+    world 1 over NCCL, and a plain process without torchrun; (c) vit_b16 with
+    ``train_encoder``, two ranks (started with torchrun's environment, no
+    launcher), batch 32 per rank, 3 steps. Holds
+    (``dp_holds``): (a) both ranks' states (parameters, optimizer moments
+    and counts) equal bit for bit, their noise distinct, rank 0's the plain
+    run's, 96 conv_direct launches a step on each rank; (b) the world-1 state
+    equal to the plain run's bit for bit, over NCCL; (c) 72/60/60 flash, dq
+    and dk/dv launches a step on each rank, the ranks' states equal. Prints
+    s/step, global images/s, the all-reduce's ms a step, the idle shares and
+    the launches. ``sizes``, ``extra_sets`` and ``vit_sets`` shrink it for a
+    dry run on the CPU (launch counts printed, not held). Returns the
+    numbers."""
+    import torch
+
+    z_ = {"images": VG_IMAGES_21, "steps": DP_STEPS, "vit_steps": DP_VIT_STEPS,
+          "vit_images": VIT_IMAGES, **(sizes or {})}
+    on_card = torch.device(dev).type == "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vg_dir = os.path.join(tmp, "vg")
+        vg_corpus(vg_dir, z_["images"])
+
+        def argv(wd, config, steps, sets, profile=False):
+            a_ = ["--config", config, "--workdir", wd, "--steps", str(steps)]
+            a_ += ["--profile"] if profile else []
+            for k_, v_ in sets.items():
+                a_ += ["--set", f"{k_}={v_}"]
+            return a_ + ([] if on_card else ["--device", "cpu"])
+
+        v_sets = {**(extra_sets or {}), "data.data_dir": vg_dir, "train.log_every": 1}
+        runs = {}
+        for label, n_ in (("a", 2), ("b", 1), ("plain", None)):
+            wd = os.path.join(tmp, f"wd_{label}")
+            t_r = time.perf_counter()
+            recs, text = dp_launch(os.path.join(tmp, f"out_{label}"),
+                                   argv(wd, "v4_32", z_["steps"], v_sets, label == "a"), n_,
+                                   torchrun=n_ is not None)
+            lines = read_metric_lines(wd)
+            logged = [r_ for r_ in lines if "d_loss" in r_]
+            per, card = card_idle(wd, n_ or 1)
+            runs[label] = {"recs": recs, "s": time.perf_counter() - t_r, "text": text,
+                           "s_per_step": 1 / logged[-1]["steps_per_sec"],
+                           "images_per_s": logged[-1]["images_per_sec"],
+                           "idle": per, "card_idle": card,
+                           "losses": [(r_["d_loss"], r_["g_loss"]) for r_ in logged]}
+        a, b, pl = runs["a"], runs["b"], runs["plain"]
+        per_enc = 16 * (6 if not extra_sets else 1 + int(extra_sets.get("train.n_critic", 5)))
+        ok_a, bad_a = dp_holds(a["recs"], pl["recs"][0],
+                               {"conv_direct": per_enc} if on_card else None)
+        ok_b = (b["recs"][0]["digests"] == pl["recs"][0]["digests"]
+                and b["recs"][0]["backend"] == ("nccl" if on_card else "gloo"))
+        for label, r_ in runs.items():
+            rank_s = ", ".join(f"rank {x_['rank']} on {x_['device']} ({x_['backend']}): "
+                               f"launches a step {x_['per_step'][-1]}, all-reduce "
+                               f"{x_['allreduce_ms_step']:.3f} ms a step over "
+                               f"{len(x_.get('step_buckets', []))} buckets "
+                               f"({sum(x_.get('step_buckets', []))} floats), seconds from "
+                               f"its start {({k_: round(v_, 2) for k_, v_ in x_['t'].items()})}"
+                               for x_ in r_["recs"])
+            log(f"phase 24 ({label}) v4_32, {len(r_['recs'])} rank"
+                f"{'s' if len(r_['recs']) > 1 else ''}: {z_['steps']} steps in "
+                f"{r_['s']:.3f} s (launch, set-up and checkpoint included); last step "
+                f"{r_['s_per_step']:.4f} s/step, {r_['images_per_s']:.1f} images/s over every "
+                f"rank; idle share per rank {r_['idle']}, card {r_['card_idle']}; {rank_s}; "
+                f"losses {r_['losses'][-1]} [{smi}]")
+        log(f"phase 24 (a) holds: {'ok' if ok_a else 'FAILED: ' + '; '.join(bad_a)}; (b) world "
+            f"1 over {b['recs'][0]['backend']} equal to the plain run bit for bit: {ok_b}; "
+            f"(b) {b['s_per_step']:.4f} s/step, plain {pl['s_per_step']:.4f}, (a) "
+            f"{a['s_per_step']:.4f}")
+        if not (ok_a and ok_b and a["recs"][0]["backend"] == "gloo"):
+            raise AssertionError("phase 24 (a)/(b): the data-parallel holds failed")
+        out.update({k_: {x_: v_ for x_, v_ in r_.items() if x_ not in ("text", "recs")}
+                    for k_, r_ in runs.items()})
+        out["allreduce_ms_step"] = [x_["allreduce_ms_step"] for x_ in a["recs"]]
+        out["launches"] = {k_: sum(c_[k_] for r_ in (a, b, pl) for x_ in r_["recs"]
+                                   for c_ in x_["per_step"])
+                           for k_ in a["recs"][0]["per_step"][0]}
+
+        # (c) vit_b16 with train_encoder, two ranks.
+        wd = os.path.join(tmp, "wd_c")
+        t_c = time.perf_counter()
+        sets_c = {"train.train_encoder": "true", "data.num_synthetic_images": z_["vit_images"],
+                  "train.log_every": 1, **(vit_sets or {})}
+        recs, text = dp_launch(os.path.join(tmp, "out_c"),
+                               argv(wd, "vit_b16", z_["vit_steps"], sets_c), 2,
+                               torchrun=False)
+        want = ({"flash_attention": 72, "flash_attention_bwd_dq": 60,
+                 "flash_attention_bwd_dkv": 60} if on_card else None)
+        ok_c, bad_c = dp_holds(recs, None, want)
+        lines = [r_ for r_ in read_metric_lines(wd) if "d_loss" in r_]
+        log(f"phase 24 (c) vit_b16 train_encoder, 2 ranks: {z_['vit_steps']} steps in "
+            f"{time.perf_counter() - t_c:.3f} s; last step {1 / lines[-1]['steps_per_sec']:.4f} "
+            f"s/step; launches a step " + ", ".join(
+                f"rank {x_['rank']} {x_['per_step']}, seconds from its start "
+                f"{({k_: round(v_, 2) for k_, v_ in x_['t'].items()})}" for x_ in recs)
+            + f"; holds: {'ok' if ok_c else 'FAILED: ' + '; '.join(bad_c)} [{smi}]")
+        if not ok_c:
+            raise AssertionError("phase 24 (c): the data-parallel vit_b16 holds failed")
+        out["vit"] = {"s_per_step": 1 / lines[-1]["steps_per_sec"],
+                      "per_step": [x_["per_step"] for x_ in recs]}
+        for k_ in out["launches"]:
+            out["launches"][k_] += sum(c_[k_] for x_ in recs for c_ in x_["per_step"])
+    return out
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_SECONDS, exit=True)
     import torch
@@ -3552,11 +3920,7 @@ def main():
         fd.launches = mm.launches = cd.launches = fa.launches = 0
         fb.dq_launches = fb.dkv_launches = 0
 
-    def read_counts():
-        return {"fused_decode": fd.launches, "fused_matmul": mm.launches,
-                "conv_direct": cd.launches, "flash_attention": fa.launches,
-                "flash_attention_bwd_dq": fb.dq_launches,
-                "flash_attention_bwd_dkv": fb.dkv_launches}
+    read_counts = kernel_counts
 
     def run_cli(main_fn, argv, what):
         """(seconds, launch counts) of one in-process CLI run; the counts are
@@ -4567,6 +4931,14 @@ def main():
         (v1k_cfg, vocab), run_cli, read_counts,
         lambda fn: graph_ms(fn, n=P23_GRAPH_CALLS, reps=P23_GRAPH_REPS))
     phase("deployment tier (phase 23)", t0)
+
+    # 24. The data-parallel tier: v4_32 over two ranks that share the card
+    # (gloo), at world 1 (NCCL) and alone, and vit_b16 with train_encoder
+    # over two ranks; each rank a process of its own.
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    v24 = dp_phase(dev, smi)
+    phase("data-parallel tier (phase 24)", t0)
     log(f"phase 19 launches: flash_attention {vrl_counts['flash_attention']}, dq "
         f"{vrl_counts['flash_attention_bwd_dq']}, dk/dv {vrl_counts['flash_attention_bwd_dkv']} "
         f"({VIT_RL_STEPS} REINFORCE steps on vit_b16); none on PredCls, REINFORCE on "
@@ -4609,6 +4981,12 @@ def main():
         + "; export --check " + ", ".join(f"{k_} {v_['s']:.3f} s ({v_['mb']:.1f} MB)"
                                           for k_, v_ in v23["export"].items())
         + f"; launches {v23['launches']} [{smi}]")
+    log(f"phase 24: v4_32 over 2 ranks (gloo) {v24['a']['s_per_step']:.4f} s/step, "
+        f"{v24['a']['images_per_s']:.1f} images/s over both, all-reduce "
+        f"{max(v24['allreduce_ms_step']):.3f} ms a step, idle per rank {v24['a']['idle']}, card "
+        f"{v24['a']['card_idle']}; world 1 (NCCL) {v24['b']['s_per_step']:.4f}, plain "
+        f"{v24['plain']['s_per_step']:.4f} s/step; vit_b16 over 2 ranks "
+        f"{v24['vit']['s_per_step']:.4f} s/step; launches {v24['launches']} [{smi}]")
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",
@@ -4638,6 +5016,8 @@ def main():
         path_counts[k_] += v_
     for k_, v_ in v23["launches"].items():  # phase 23's int8 generate runs, from 0
         path_counts[k_] += v_
+    for k_, v_ in v24["launches"].items():  # phase 24's runs, every rank's, from 0
+        path_counts[k_] += v_
     kernels = []
     for name, (src, replaces) in sources.items():
         r_ = records[name]
@@ -4657,4 +5037,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-run"]:
+        sys.exit(rank_run(sys.argv[2:]))
     main()

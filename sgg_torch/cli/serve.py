@@ -18,7 +18,10 @@ CUDA is not there. ``--quant int8`` serves the encoder's int8 PTQ (pixels-in
 workdirs; a precomputed-feature workdir refuses it). An artifact bakes its
 weights, sampling and quantization, so ``--artifact`` refuses ``--rank
 freq_logp/logp``, ``--top-k``/``--top-p``, ``--ema``/``--avg-last`` and
-``--quant`` (exit code 2). Not ported yet, and refused: ``--dp`` (ROADMAP A8).
+``--quant`` (exit code 2). ``--dp N`` splits each batch's rows over N devices
+(``make_dp_sampler``; the batch must divide): ``cuda:0`` to ``cuda:N-1``, which
+must be visible (else exit code 2), or with ``--device cpu`` N CPU devices;
+``--artifact`` refuses it (an artifact is one device's program).
 """
 
 from __future__ import annotations
@@ -28,15 +31,17 @@ import signal
 import sys
 import threading
 
-from sgg_torch.cli.common import LATER, add_device_arg, resolve_device
+import torch
+
+from sgg_torch.cli.common import add_device_arg, resolve_device
 
 
 def _refusal(args) -> str | None:
     if bool(args.workdir) == bool(args.artifact):
         return "pass exactly one of --workdir / --artifact"
-    if args.dp:
-        return f"--dp (data-parallel serving over a mesh) {LATER} (ROADMAP A8)"
     if args.artifact:
+        if args.dp:
+            return "--dp needs --workdir (an artifact is a single-device program)"
         if args.rank not in (None, "freq"):
             return ("--rank freq_logp/logp needs --workdir (exported programs emit tokens, "
                     "not log-probs)")
@@ -78,7 +83,9 @@ def main(argv=None) -> int:
                         "per decode step (0 = off)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dp", type=int, default=0,
-                   help="shard each batch over this many devices (not ported yet)")
+                   help="split each batch over this many devices (0 = one device; "
+                        "batch-size must divide): cuda:0..N-1, or N CPU devices with "
+                        "--device cpu")
     p.add_argument("--quant", default=None, choices=["none", "int8"],
                    help="the encoder's PTQ mode (overrides cfg.model.quant): int8 sums "
                         "s8 x s8 products into int32 (torch._int_mm on the card)")
@@ -106,22 +113,36 @@ def main(argv=None) -> int:
 
     from sgg_torch.serve import ArtifactEngine, DynamicBatcher, InferenceEngine, make_http_server
 
+    where = device
     if args.artifact:
         engine = ArtifactEngine(args.artifact, device=device, seed=args.seed,
                                 batch_size=args.batch_size)
     else:
+        mesh = None
+        if args.dp:
+            from sgg_torch.dist import MeshSpec, make_mesh
+
+            cards = torch.cuda.device_count() if device.type == "cuda" else args.dp
+            if cards < args.dp:
+                print(f"[sgg.serve] --dp {args.dp} needs {args.dp} CUDA devices; {cards} "
+                      "visible", file=sys.stderr)
+                return 2
+            mesh = make_mesh(MeshSpec(data=args.dp), devices=[
+                torch.device("cuda", i) if device.type == "cuda" else device
+                for i in range(args.dp)])
+            where = f"{args.dp} x {device.type}"
         try:
             engine = InferenceEngine.from_workdir(
                 args.workdir, device=device, batch_size=args.batch_size,
                 num_samples=args.num_samples, temperature=args.temperature,
                 seed=args.seed, quant=args.quant, ema=args.ema, rank=args.rank,
-                top_k=args.top_k or 0, top_p=args.top_p, avg_last=args.avg_last,
+                top_k=args.top_k or 0, top_p=args.top_p, avg_last=args.avg_last, mesh=mesh,
             )
         except ValueError as e:  # a workdir that refuses these options
             print(f"[sgg.serve] {e}", file=sys.stderr)
             return 2
     print(f"[sgg.serve] restored step {engine.step}; warming up batch "
-          f"{engine.batch_size} x {engine.feature_shape} on {device}…", flush=True)
+          f"{engine.batch_size} x {engine.feature_shape} on {where}…", flush=True)
     dt = engine.warmup()
     batcher = DynamicBatcher(engine, max_wait_ms=args.max_wait_ms)
     try:

@@ -1,4 +1,5 @@
-"""Adversarial training with the WGAN-GP step, on one device.
+"""Adversarial training with the WGAN-GP step, on one device or data parallel
+over ranks.
 
 Port of ``sgg/cli/train.py``:
 
@@ -68,9 +69,32 @@ prefetch thread, and the run ends with the host's decode time a step:
   python -m sgg_torch.cli.train --config vg_full --workdir W --set data.data_dir=VG \\
       --encoder-ckpt ENC
 
+Data parallel over ranks, one process each (``mesh.data`` = -1, every
+rank; ``v4_32`` is the reference's multi-process config):
+
+  torchrun --nproc_per_node 2 -m sgg_torch.cli.train --config v4_32 \\
+      --workdir W --set data.data_dir=VG
+  torchrun --nproc_per_node 2 -m sgg_torch.cli.train --config smoke --device cpu \\
+      --workdir W
+
+Each rank joins torchrun's group (``sgg_torch.dist.initialize_multihost``:
+NCCL when each rank has a card of its own, gloo on the CPU or when ranks share
+a card), takes rank 0's initial or restored state, draws B images a sub-batch
+from its own slice of the images with its own seed, and averages the
+gradients with the others (``sgg_torch.train.step``); ``images_per_step``
+counts every rank's. Rank 0 alone writes checkpoints, ``config.json``,
+``vocab.json`` and ``metrics.jsonl``; a barrier follows each save, every rank
+restores. As the reference's, a multi-process run takes the host iterator
+(no device-resident, rotating or materialized store), skips the in-loop
+probe and runs one step per dispatch, each with the reference's line. SIGTERM
+and the host-RSS handover act on every rank at the same step (the ranks agree
+on them over the group). A rank whose group fails or whose collective raises
+or times out ends the run non-zero; no rank trains alone.
+
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
-there. Not ported yet: meshes and the distributed tiers (ROADMAP A8), and
-grain (A9).
+there. A resumed run's host iterator continues the draws at the restored
+step. Not ported yet: TP, FSDP, sequence, pipeline and expert parallelism
+(ROADMAP A8b–A8e), and grain (A9).
 """
 
 from __future__ import annotations
@@ -84,6 +108,7 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 
 from sgg_torch.cli.common import (
     LATER,
@@ -95,6 +120,13 @@ from sgg_torch.cli.common import (
 from sgg_torch.config import Config
 from sgg_torch.convert_flax import encoder_flax_to_state_dict, load_params_npz
 from sgg_torch.data import ArrayImageTripleDataset, ImageTripleDataset, TripleDataset
+from sgg_torch.dist import (
+    host_local_to_global,
+    initialize_multihost,
+    mesh_from_config,
+    process_shard_info,
+    replicated_sharding,
+)
 from sgg_torch.data.pipeline import (
     RotatingDeviceIterator,
     data_store,
@@ -123,10 +155,11 @@ def _refusal(cfg: Config) -> str | None:
     return None
 
 
-def data_route(cfg: Config, ds) -> tuple[str, int, bool]:
+def data_route(cfg: Config, ds, processes: int = 1) -> tuple[str, int, bool]:
     """Which iterator feeds the run: ``device`` (the whole store on the
     device), ``rotating`` or ``host``; with the store's bytes on the device
-    and whether it is int8."""
+    and whether it is int8. Both device stores are the reference's
+    single-process routes: ``processes`` > 1 takes the host iterator."""
     d = cfg.data
     if isinstance(ds, ImageTripleDataset):  # JPEGs decoded per step on the host
         return "host", ds.est_bytes, False
@@ -135,6 +168,8 @@ def data_route(cfg: Config, ds) -> tuple[str, int, bool]:
     # Bytes on the device: int8 keeps one byte per value and a float32 scale
     # per region.
     nbytes = store.size + store[..., 0].size * 4 if int8 else store.nbytes
+    if processes > 1:
+        return "host", nbytes, False
     if d.device_resident and nbytes <= d.device_resident_max_bytes:
         return "device", nbytes, int8
     if d.device_resident and d.rotate_subsets and isinstance(
@@ -174,8 +209,11 @@ def dispatch_stride(cfg: Config, route: str, resume_step: int,
     return stride, lines
 
 
-def _batches(cfg: Config, ds, device: torch.device, route: str, nbytes: int, int8: bool):
-    """(iterator of super-batches on ``device``, description)."""
+def _batches(cfg: Config, ds, device: torch.device, route: str, nbytes: int, int8: bool,
+             shard=None, resume_step: int = 0):
+    """(iterator of super-batches on ``device``, description). The host
+    iterator draws from ``shard``'s slice of the images (a
+    ``ProcessShard``) and continues its draws at ``resume_step``."""
     t, d = cfg.train, cfg.data
     tag = ", int8+scale" if int8 else ""
     if route == "device":
@@ -191,7 +229,9 @@ def _batches(cfg: Config, ds, device: torch.device, route: str, nbytes: int, int
         return it, (f"rotating device-resident subsets ({nbytes / 1e9:.2f} GB over "
                     f"{it.n_subsets} subsets of {len(it.subsets[0])} images, <= "
                     f"{subset_bytes / 1e9:.2f} GB each{tag})")
-    host = make_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed)
+    host = make_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed,
+                               process_index=shard.index if shard else 0,
+                               process_count=shard.count if shard else 1, skip=resume_step)
 
     def to_device():
         try:
@@ -205,7 +245,11 @@ def _batches(cfg: Config, ds, device: torch.device, route: str, nbytes: int, int
                              f"{t.batch_size * (t.n_critic + 1)} JPEGs a step ({nbytes / 1e9:.2f} "
                              f"GB decoded over the {d.device_resident_max_bytes / 1e9:.2f} GB "
                              "budget)")
-    return to_device(), "host iterator with prefetch"
+    how = "host iterator with prefetch"
+    if shard is not None and shard.count > 1:
+        n = len(ds.process_slice(shard.index, shard.count))
+        how += f" (process {shard.index} of {shard.count}: {n} of {len(ds)} images)"
+    return to_device(), how
 
 
 def _resident(nbytes: int, device: torch.device, tag: str) -> str:
@@ -269,24 +313,34 @@ def main(argv=None) -> int:
     if refusal:
         print(f"[sgg.train] {refusal}", file=sys.stderr)
         return 2
+    device = initialize_multihost(device, log=lambda m: print(m, flush=True))
+    shard = process_shard_info()
+    try:
+        mesh = mesh_from_config(cfg.mesh, device)
+    except ValueError as e:  # a data axis that the ranks do not fill
+        print(f"[sgg.train] {e}", file=sys.stderr)
+        return 2
+    group, lead = mesh.group, shard.index == 0
 
     ds, vocab = load_dataset(cfg)
     cfg.model.vocab_size = len(vocab)
     print(f"[sgg.train] config={cfg.name} images={len(ds)} vocab={len(vocab)} "
-          f"device={device}", flush=True)
+          f"devices={mesh.data} processes={shard.count} device={device}", flush=True)
     if cfg.data.predicate_balance > 0 and hasattr(ds, "set_predicate_balance"):
         ds.set_predicate_balance(cfg.data.predicate_balance)
         print(f"[sgg.train] predicate-balanced triple sampling "
               f"(alpha={cfg.data.predicate_balance})", flush=True)
     # A path-backed image dataset whose decoded corpus fits the budget is
     # decoded once and trains on the device-resident store.
-    if (cfg.data.device_resident and isinstance(ds, ImageTripleDataset)
+    if (cfg.data.device_resident and isinstance(ds, ImageTripleDataset) and shard.count == 1
             and ds.est_bytes <= cfg.data.device_resident_max_bytes):
         print(f"[sgg.train] materializing {len(ds)} images "
               f"({ds.est_bytes / 1e9:.1f} GB uint8) for device residency", flush=True)
         ds = ds.materialize(log=lambda m: print(m, flush=True))
-    ckpt = CheckpointManager(cfg.workdir, cfg, max_to_keep=cfg.train.max_checkpoints)
-    ckpt.save_vocab(vocab)
+    ckpt = CheckpointManager(cfg.workdir, cfg if lead else None,
+                             max_to_keep=cfg.train.max_checkpoints)
+    if lead:
+        ckpt.save_vocab(vocab)
 
     enc_params = None
     if args.encoder_ckpt:
@@ -303,15 +357,18 @@ def main(argv=None) -> int:
     state = create_train_state(cfg, cfg.train.seed, enc_params=enc_params, device=device)
     if ckpt.restore(state) is not None:
         print(f"[sgg.train] resumed from step {state.step}", flush=True)
+    # Every rank takes rank 0's state (a broadcast; no-op in one process).
+    host_local_to_global(state, replicated_sharding(mesh))
     enc_n = f" E={param_count(state.encoder):,}" if state.encoder is not None else ""
     print(f"[sgg.train] params: G={param_count(state.generator):,} "
           f"D={param_count(state.critic):,}{enc_n}", flush=True)
 
-    step_fn = make_step_fn(cfg, step_mask=vocab.step_mask())
+    step_fn = (make_step_fn(cfg, step_mask=vocab.step_mask()) if group is None
+               else make_step_fn(cfg, step_mask=vocab.step_mask(), group=group))
     if args.debug_nans:
         step_fn = enable_nan_checks(step_fn)
     t = cfg.train
-    route, nbytes, int8 = data_route(cfg, ds)
+    route, nbytes, int8 = data_route(cfg, ds, shard.count)
     stride, notes = dispatch_stride(cfg, route, state.step, debug_nans=args.debug_nans)
     it = stepper = None
     if stride > 1:
@@ -319,20 +376,26 @@ def main(argv=None) -> int:
                                             seed=t.seed, device=device, int8_store=int8)
         how = _resident(nbytes, device, ", int8+scale" if int8 else "")
     else:
-        it, how = _batches(cfg, ds, device, route, nbytes, int8)
+        it, how = _batches(cfg, ds, device, route, nbytes, int8, shard, state.step)
     print(f"[sgg.train] {how}", flush=True)
     for line in notes:
         print(line, flush=True)
-    logger = MetricLogger(cfg.workdir)
-    images_per_step = t.batch_size * (t.n_critic + 1)
+    logger = MetricLogger(cfg.workdir, write=lead, chips=shard.count)
+    # Images a step over every process, as the reference counts them.
+    images_per_step = t.batch_size * (t.n_critic + 1) * shard.count
     probe = None
-    if t.eval_every > 0:
+    if t.eval_every > 0 and shard.count > 1:
+        print("[sgg.train] train.eval_every: in-loop probe is single-process only — "
+              "skipping (evaluate offline)", flush=True)
+    elif t.eval_every > 0:
         probe = EvalProbe(cfg, vocab, device, log=lambda m: print(m, flush=True))
         print(f"[sgg.train] eval probe every {t.eval_every} steps "
               f"({probe.n_images} held-out images, recall@{probe.k})", flush=True)
     profiler = None
     if args.profile:
-        profiler = StepProfiler(os.path.join(cfg.workdir, "profile"),
+        # Each rank traces its own process (rank r > 0 into profile_rank<r>).
+        profiler = StepProfiler(os.path.join(cfg.workdir, "profile" if lead else
+                                             f"profile_rank{shard.index}"),
                                 start_step=state.step + 10)
 
     # SIGTERM/SIGINT save the current state before exiting; the handlers are
@@ -349,15 +412,31 @@ def main(argv=None) -> int:
         except ValueError:
             pass  # not the main thread
 
+    def save() -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if lead:
+            ckpt.save(state)
+        if group is not None:
+            dist.barrier(group)
+
+    def any_rank(flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank (this rank's own in one
+        process), so that every rank acts at the same step."""
+        if group is None:
+            return flag
+        x = torch.tensor([float(flag)], device=device)
+        dist.all_reduce(x, group=group)
+        return bool(x.item() > 0)
+
     # Progress is stamped at every log boundary, probe and checkpoint.
     watchdog = StallWatchdog(t.stall_exit_sec)
     first = state.step
     try:
         for i in range(first, t.total_steps, stride):
-            if preempted["flag"]:
+            if any_rank(preempted["flag"]):
                 print(f"[sgg.train] preemption signal: checkpointing at step {i} and exiting",
                       flush=True)
-                ckpt.save(state)
+                save()
                 return 0
             if profiler:
                 profiler.maybe_start(i)
@@ -380,16 +459,16 @@ def main(argv=None) -> int:
                 watchdog.stamp()
             at_ckpt = step % t.checkpoint_every == 0 or step == t.total_steps
             if at_ckpt:
-                ckpt.save(state)
+                save()
                 watchdog.stamp()
             # The host-RSS handover, at every log or checkpoint boundary
             # before the last step.
             limit = t.host_rss_exit_gb
             if limit > 0 and step < t.total_steps and (at_ckpt or step % t.log_every == 0):
                 rss = host_rss_gb()
-                if rss > limit:
+                if any_rank(rss > limit):
                     if not at_ckpt:
-                        ckpt.save(state)
+                        save()
                     print(f"[sgg.train] host RSS {rss:.1f} GB > {limit:.0f} GB limit — "
                           f"checkpointed at step {step}, exiting 75 for supervised relaunch",
                           flush=True)

@@ -195,7 +195,7 @@ def _cfg_vg_full() -> Config:
     within ``data.device_resident_max_bytes`` trains on the device-resident
     store; full VG's (16.3 GB) trains on the host-prefetch route, decoding
     each step's images (``sgg_torch.cli.train``). ``mesh.data = -1`` is the
-    reference's "every device"; the port trains on one."""
+    reference's "every device": every rank of a torchrun launch."""
     c = Config(name="vg_full")
     c.model.encoder = "vgg19"
     c.model.compute_dtype = "bfloat16"
@@ -228,6 +228,22 @@ def _cfg_vit_b16() -> Config:
     c.model.use_pallas = True
     c.data.feat_dim = 768
     c.data.regions = 196  # 14x14 patches at 224px
+    return c
+
+
+def _cfg_v4_32() -> Config:
+    """The reference's multi-process data-parallel WGAN-GP config (a v4-32
+    TPU's): ``vg_full``'s VGG-19 on VG's JPEGs, bf16, at batch 128 per
+    process, ``mesh.data = -1`` over every rank. Launch one process per card
+    with ``torchrun --nproc_per_node N -m sgg_torch.cli.train --config v4_32``
+    and point ``data.data_dir`` at VG (``sgg_torch.cli.train``)."""
+    c = Config(name="v4_32")
+    c.model.encoder = "vgg19"
+    c.model.compute_dtype = "bfloat16"
+    c.model.use_pallas = True
+    c.data.source = "vg"
+    c.train.batch_size = 128  # per process; global = 128 * processes
+    c.mesh.data = -1
     return c
 
 
@@ -283,7 +299,8 @@ def _cfg_pipeline_v4() -> Config:
 
 
 CONFIGS = {"vg1k": _cfg_vg1k, "vg_full": _cfg_vg_full, "resnet50": _cfg_resnet50,
-           "vit_b16": _cfg_vit_b16, "smoke": _cfg_smoke, "pipeline_v4": _cfg_pipeline_v4}
+           "vit_b16": _cfg_vit_b16, "v4_32": _cfg_v4_32, "smoke": _cfg_smoke,
+           "pipeline_v4": _cfg_pipeline_v4}
 
 
 def get_config(name: str) -> Config:

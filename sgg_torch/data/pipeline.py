@@ -267,16 +267,23 @@ def _draw_fn(device, seed: int, shape: tuple, N: int):
 
 def make_train_iterator(dataset, batch_size: int, n_critic: int, seed: int = 0,
                         process_index: int = 0, process_count: int = 1,
-                        prefetch: int = 2) -> Iterator[dict]:
+                        prefetch: int = 2, skip: int = 0) -> Iterator[dict]:
     """Infinite iterator of numpy super-batches, drawn as the reference's
     ``make_train_iterator`` draws them (weighted when the dataset has
-    triple weights). Close it (``.close()``) to stop the prefetch thread."""
+    triple weights) from this process's slice of the images
+    (``process_slice``: disjoint, covering, within one image of each
+    other). ``skip`` super-batches are drawn first and dropped (their
+    indices only, no rows gathered or decoded), so that a resumed run
+    continues the draws. Close it (``.close()``) to stop the prefetch
+    thread."""
     indices = dataset.process_slice(process_index, process_count)
     if len(indices) == 0:
         raise ValueError(f"process {process_index}/{process_count} got an empty shard "
                          f"({len(dataset)} images)")
     rng = np.random.RandomState(seed + 7919 * process_index)
     n_sub = n_critic + 1
+    for _ in range(skip * n_sub):
+        sample_indices(dataset.triples, rng, indices, batch_size, dataset.triple_weights)
 
     def host_batch() -> dict:
         subs = [dataset.sample_batch(rng, indices, batch_size) for _ in range(n_sub)]

@@ -10,7 +10,9 @@ triples of each image are deduped and ranked. Two samplers draw the tokens:
     the same noise) and also returns each draw's untempered joint
     log-probability;
   - :func:`make_fused_sampler` runs one launch of ``fused_decode`` per draw
-    (attention-LSTM only, temperature 1, no log-probabilities).
+    (attention-LSTM only, temperature 1, no log-probabilities);
+  - :func:`make_dp_sampler` splits the batch's rows over a single-process
+    mesh's devices and runs :func:`make_sampler`'s body on each.
 :func:`make_predcls_scorer` scores predicates given the ground-truth
 subject and object (PredCls) through the same forward, clamped.
 :func:`rank_triples` orders an image's draws by frequency (``freq``),
@@ -21,6 +23,7 @@ mass (``logp``, optionally adjusted per predicate);
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -131,6 +134,57 @@ def make_sampler(
     None ≡ 1.0; a number or float32 [B] per row) after top-k/top-p
     filtering (``top_k`` 0 and ``top_p`` None: off)."""
     return _sample_body(cfg, step_mask, num_samples, tau, with_logp, top_k, top_p)
+
+
+def make_dp_sampler(
+    cfg: Config, mesh, step_mask=None, num_samples: int = 50, tau: float | None = None,
+    with_logp: bool = False, top_k: int = 0, top_p: float | None = None,
+):
+    """Data-parallel batch inference over a single-process mesh
+    (``sgg_torch.dist.make_mesh``): ``sample(g_params, feats [B,R,F],
+    generator=None, noise=None, temp=None)`` as :func:`make_sampler`'s, with
+    the batch split into ``mesh.data`` contiguous row chunks, one per device
+    of the mesh (B must divide), each chunk's noise rows and temperatures
+    beside it. Each chunk runs on its device (on its own stream on CUDA) and
+    the results come back concatenated on the mesh's first device. Rows are
+    independent, so there is no collective: given the same noise, or the
+    same ``generator`` (whose K draws for the whole batch are taken first, on
+    its device, in :func:`make_sampler`'s order), the tokens and log-probs
+    are :func:`make_sampler`'s."""
+    devices = list(mesh.devices)
+    bodies = [_sample_body(cfg, step_mask, num_samples, tau, with_logp, top_k, top_p)
+              for _ in devices]
+    streams = [torch.cuda.Stream(d) if d.type == "cuda" else None for d in devices]
+    m = cfg.model
+
+    def sample(g_params, feats, generator=None, noise=None, temp=None):
+        B, n = feats.shape[0], len(devices)
+        if B % n:
+            raise ValueError(f"batch {B} not divisible by the mesh's data axis ({n})")
+        if noise is None:
+            noise = draw_noise(generator, num_samples, B, m.noise_dim, m.vocab_size, m.dtype,
+                               generator.device)
+        per_row = (torch.is_tensor(temp) and temp.ndim == 1) or isinstance(temp, np.ndarray)
+        per, outs = B // n, []
+        for body, dev, stream, j in zip(bodies, devices, streams, range(n)):
+            rows = slice(j * per, (j + 1) * per)
+            ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+            with ctx:
+                if stream is not None and feats.device.type == "cuda":
+                    stream.wait_stream(torch.cuda.current_stream(feats.device))
+                outs.append(body(g_params, feats[rows].to(dev),
+                                 noise=(noise[0][:, rows].to(dev), noise[1][:, rows].to(dev)),
+                                 temp=temp[rows] if per_row else temp))
+        home = devices[0]
+        for stream in streams:
+            if stream is not None:
+                torch.cuda.current_stream(home).wait_stream(stream)
+        if with_logp:
+            return (torch.cat([o[0].to(home) for o in outs]),
+                    torch.cat([o[1].to(home) for o in outs]))
+        return torch.cat([o.to(home) for o in outs])
+
+    return sample
 
 
 def make_indexed_sampler(

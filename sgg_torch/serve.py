@@ -36,8 +36,9 @@ two threads at once. The engine runs on CUDA unless it is given
 Two engines: :class:`InferenceEngine` over a trained workdir (``quant='int8'``
 serves the encoder's int8 PTQ), and :class:`ArtifactEngine` over an exported
 sampler (``sgg_torch.export``), which needs no workdir and no model code and
-launches none of the hand-written kernels. Not ported yet: data-parallel
-serving over a mesh (ROADMAP A8).
+launches none of the hand-written kernels. ``InferenceEngine(mesh=...)``
+serves data parallel: each batch's rows over a single-process mesh's devices
+(``serve --dp N``).
 
 Usage: ``python -m sgg_torch.cli.serve --workdir W --port 8500`` (or
 ``--artifact model.pt2``).
@@ -62,7 +63,7 @@ from sgg_torch.cli.common import resolve_device
 from sgg_torch.config import Config
 from sgg_torch.data.extract import load_batch
 from sgg_torch.data.vocab import Vocab
-from sgg_torch.eval.sampler import assemble_scene_graphs, make_sampler
+from sgg_torch.eval.sampler import assemble_scene_graphs, make_dp_sampler, make_sampler
 from sgg_torch.models.encoders import make_image_encoder
 from sgg_torch.train.checkpoint import load_workdir, restore_weights
 
@@ -194,7 +195,11 @@ def read_workdir_weights(workdir: str, avg_last: int = 0):
 
 class InferenceEngine:
     """The generator-forward sampler at a fixed batch over a trained
-    workdir's weights, on one device.
+    workdir's weights, on one device, or with ``mesh`` (a single-process
+    ``sgg_torch.dist.make_mesh``) each batch's rows split over the mesh's
+    devices (``make_dp_sampler``: the same tokens as one device's, given the
+    same noise; the batch must divide; the encoder and the noise stay on the
+    mesh's first device).
 
     Thread-safe: one lock covers every dispatch to the device — each chunk's
     upload, encoder and sampler (whose noise comes from the engine's
@@ -205,13 +210,13 @@ class InferenceEngine:
                  device="cuda", batch_size: int = 32, num_samples: int = 50,
                  temperature: float | None = None, seed: int = 0,
                  quant: str | None = None, ema: bool = False, rank: str = "freq",
-                 top_k: int = 0, top_p: float | None = None):
+                 top_k: int = 0, top_p: float | None = None, mesh=None):
         if quant == "int8" and cfg.model.encoder == "precomputed":
             raise ValueError("quant 'int8' quantizes the encoder; model.encoder is "
                              "'precomputed' (no encoder to quantize)")
         if quant is not None:  # override of cfg.model.quant
             cfg.model.quant = "" if quant == "none" else quant
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.cfg = cfg
         self.vocab = vocab
         self.batch_size = int(batch_size)
@@ -233,10 +238,15 @@ class InferenceEngine:
             g_params = weights.g_ema
         # On the device once; the sampler loads this same dict once.
         self._g_params = {k: v.to(self.device) for k, v in g_params.items()}
-        self._sampler = make_sampler(
-            cfg, step_mask=vocab.step_mask(), num_samples=self.num_samples,
-            tau=temperature, with_logp=self._with_logp, top_k=top_k, top_p=top_p,
-        )
+        opts = dict(step_mask=vocab.step_mask(), num_samples=self.num_samples, tau=temperature,
+                    with_logp=self._with_logp, top_k=top_k, top_p=top_p)
+        if mesh is not None:
+            if self.batch_size % mesh.data:
+                raise ValueError(f"batch_size {self.batch_size} not divisible by the mesh's "
+                                 f"data axis ({mesh.data})")
+            self._sampler = make_dp_sampler(cfg, mesh, **opts)
+        else:
+            self._sampler = make_sampler(cfg, **opts)
         self._generator = torch.Generator(device=self.device).manual_seed(int(seed))
         self._lock = threading.Lock()
         self._encode = None

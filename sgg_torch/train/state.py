@@ -216,6 +216,22 @@ class GANTrainState:
             "g_opt": opt(self.g_tx), "d_opt": opt(self.d_tx), "enc_opt": opt(self.enc_tx),
         }
 
+    def tensors(self) -> list[torch.Tensor]:
+        """Every live tensor of the state, in a fixed order: the modules'
+        parameters and buffers, the optimizers' moments and counts, the EMA.
+        Writing into them (as ``sgg_torch.dist.host_local_to_global``'s
+        broadcast does) sets the state."""
+        out = []
+        for mod in (self.generator, self.critic, self.encoder):
+            if mod is not None:
+                out += list(mod.state_dict().values())
+        for tx in (self.g_tx, self.d_tx, self.enc_tx):
+            if tx is not None:
+                out += tx.mu + tx.nu + [tx._count]
+        if self.g_ema is not None:
+            out += list(self.g_ema.values())
+        return out
+
     def load_state_dict(self, sd: dict) -> None:
         self.step = int(sd["step"])
         self.generator.load_state_dict(sd["g_params"])

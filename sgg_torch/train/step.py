@@ -1,4 +1,5 @@
-"""The WGAN-GP train step, from ``sgg/train/step.py``, on one device.
+"""The WGAN-GP train step, from ``sgg/train/step.py``, on one device or data
+parallel over ranks.
 
 One step is ``n_critic`` critic updates (each a forward, the gradient penalty's
 double backward and an Adam update), one generator update through the
@@ -33,6 +34,16 @@ else from the host that changes between steps (the optimizers keep their
 counts on the device) and does not wait for the device, so one step can be
 captured in a CUDA graph and replayed
 (:func:`sgg_torch.data.pipeline.make_fused_device_stepper`).
+
+Data parallel (``group``, a ``torch.distributed`` process group): each rank
+steps on its own rows of the batch and the state stays equal on every rank,
+since the gradients are averaged over the ranks where the reference calls
+``maybe_pmean``: the critic's in each critic iteration (with
+``train_encoder`` the encoder's with them, before ``enc_gnorm``), the
+generator's, and the metrics (``sgg_torch.dist.pmean``: one bucket each).
+The noise is per rank, as the reference folds the shard's index into its key:
+rank r's generator seed adds ``r · RANK_SEED_STRIDE``, so rank 0, and a world
+of one, draws what the single-device step draws.
 """
 
 from __future__ import annotations
@@ -44,6 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from sgg_torch.config import Config
+from sgg_torch.dist.mesh import refuse_unported_mesh
+from sgg_torch.dist.multihost import pmean
 from sgg_torch.models.encoders import features_and_aux, normalize_for
 from sgg_torch.models.generator import TRIPLE_LEN
 from sgg_torch.train.losses import critic_loss, generator_loss, reinforce_generator_loss
@@ -51,6 +64,9 @@ from sgg_torch.train.state import GANTrainState, global_norm
 from sgg_torch.utils.gumbel import sample_gumbel
 
 _LATER = "is not ported yet; a later slice of the port brings it"
+# Rank r's noise seed is rank 0's plus r times this: below 2^32, as the CPU's
+# generator keeps only a seed's low 32 bits.
+RANK_SEED_STRIDE = 1_000_000_007
 
 
 def refuse_unported(cfg: Config) -> None:
@@ -59,17 +75,17 @@ def refuse_unported(cfg: Config) -> None:
     if t.estimator not in ("gumbel", "reinforce"):
         raise ValueError(f"unknown train.estimator {t.estimator!r} (expected 'gumbel' or "
                          "'reinforce')")
-    if m.sp_mode or m.pp_microbatches:
-        raise NotImplementedError(
-            f"sequence and pipeline parallelism (model.sp_mode, model.pp_microbatches) "
-            f"{_LATER} (ROADMAP A8)")
+    if m.sp_mode:
+        raise NotImplementedError(f"sequence parallelism (model.sp_mode) {_LATER} "
+                                  "(ROADMAP A8c)")
+    if m.pp_microbatches:
+        raise NotImplementedError(f"pipeline parallelism (model.pp_microbatches) {_LATER} "
+                                  "(ROADMAP A8d)")
     if m.moe_experts and mesh.expert > 1:
         raise NotImplementedError(
             f"expert-parallel MoE (model.moe_experts over mesh.expert > 1) {_LATER} "
-            "(ROADMAP A8); single-device MoE trains")
-    if mesh.model > 1 or mesh.seq > 1 or mesh.expert > 1 or mesh.fsdp or mesh.data > 1:
-        raise NotImplementedError(f"meshes (mesh.data/model/seq/expert > 1, fsdp) {_LATER} "
-                                  "(ROADMAP A8); the port trains on one device")
+            "(ROADMAP A8e); MoE trains data parallel")
+    refuse_unported_mesh(mesh)
     if t.train_encoder:
         if m.encoder == "precomputed":
             raise ValueError("train.train_encoder requires an end-to-end encoder config "
@@ -142,10 +158,12 @@ def draw_noise(cfg: Config, B: int, generator: torch.Generator, device) -> dict:
     return out
 
 
-def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
+def make_step_fn(cfg: Config, step_mask=None, group=None) -> Callable[..., dict]:
     """Build ``step(state, batch, noise=None) → metrics``, with
     ``step.inputs(step, B, device)``: the noise and ``tau`` that the step
-    draws at ``step`` when it is given none.
+    draws at ``step`` when it is given none. With ``group`` (a process
+    group; every rank of it calls the step alike) the step is data parallel
+    over its ranks, ``batch`` this rank's rows.
 
     ``batch``: ``features`` [n_critic+1, B, R, F] (or ``images`` uint8
     [n_critic+1, B, H, W, 3] for pixels-in configs) and ``triples`` int
@@ -162,14 +180,19 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
     moe_on = m.moe_experts > 0
     reinforce = t.estimator == "reinforce"
     masks: dict = {}  # the step mask on each device, copied there once
+    rank = 0 if group is None else torch.distributed.get_rank(group)
+
+    def maybe_pmean(tensors: list) -> list:
+        return tensors if group is None else pmean(list(tensors), group)
 
     def tau_at(step: int, device) -> torch.Tensor:
         return torch.full((), tau_schedule(cfg, step), dtype=torch.float32, device=device)
 
     def inputs(step: int, B: int, device) -> dict:
         """The noise and tau of ``step``: its noise from a ``torch.Generator``
-        seeded ``train.seed``·1,000,003 + step."""
-        generator = torch.Generator(device=device).manual_seed(int(t.seed) * 1_000_003 + step)
+        seeded ``train.seed``·1,000,003 + step (+ rank · RANK_SEED_STRIDE)."""
+        seed = int(t.seed) * 1_000_003 + step + rank * RANK_SEED_STRIDE
+        generator = torch.Generator(device=device).manual_seed(seed)
         return {**draw_noise(cfg, B, generator, device), "tau": tau_at(step, device)}
 
     def step_fn(state: GANTrainState, batch: dict, noise: dict | None = None) -> dict:
@@ -234,6 +257,7 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
                     return loss, aux, torch.autograd.grad(loss, d_params + enc_params)
 
                 _, d_aux, grads = _accum_vg(vg, (data[i], triples[i]), accum)
+                grads = maybe_pmean(grads)
                 d_grads, enc_grads = grads[:len(d_params)], grads[len(d_params):]
                 d_aux["enc_gnorm"] = global_norm(enc_grads)
                 state.d_tx.update(d_grads)
@@ -251,7 +275,7 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
                 return loss, aux, torch.autograd.grad(loss, d_params)
 
             _, d_aux, d_grads = _accum_vg(vg, (feats, triples[i], fake), accum)
-            state.d_tx.update(d_grads)
+            state.d_tx.update(maybe_pmean(d_grads))
 
         # ---- one generator update on the last sub-batch ----
         if encoder is None:
@@ -276,7 +300,7 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
                                for p, g in zip(g_params, grads)]
 
         _, g_aux, g_grads = _accum_vg(g_vg, (feats_g,), accum)
-        state.g_tx.update(g_grads)
+        state.g_tx.update(maybe_pmean(g_grads))
 
         if t.ema_decay > 0:
             d = np.float32(t.ema_decay)
@@ -289,7 +313,7 @@ def make_step_fn(cfg: Config, step_mask=None) -> Callable[..., dict]:
         state.step += 1
         metrics = {k: v.detach() for k, v in {**d_aux, **g_aux}.items()}
         metrics["tau"] = tau
-        return metrics
+        return dict(zip(metrics, maybe_pmean(metrics.values())))
 
     step_fn.inputs = inputs
     return step_fn

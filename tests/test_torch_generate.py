@@ -305,6 +305,7 @@ def test_port_imports_no_jax_and_no_sgg():
         "import sgg_torch.models.moe, sgg_torch.train.pretrain, sgg_torch.cli.pretrain\n"
         "import sgg_torch.cli.synth_corpus, sgg_torch.data.synthetic\n"
         "import sgg_torch.export, sgg_torch.cli.export, sgg_torch.kernels.quant\n"
+        "import sgg_torch.dist, sgg_torch.dist.mesh, sgg_torch.dist.multihost\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'sgg', 'PIL'))\n"
         "assert not bad, bad\n"

@@ -606,20 +606,19 @@ def serve_workdir(tmp_path_factory):
     ([], "exactly one of --workdir / --artifact"),
     (["--workdir", "WD", "--artifact", "m.sgx"], "exactly one of --workdir / --artifact"),
     (["--artifact", "m.sgx", "--rank", "logp"], "--rank freq_logp/logp needs --workdir"),
-    (["--workdir", "WD", "--dp", "2"], "--dp"),
+    (["--artifact", "m.sgx", "--dp", "2"], "--dp needs --workdir"),
     (["--workdir", "WD", "--quant", "int8"], "no encoder to quantize"),
 ], ids=["neither", "both", "artifact", "dp", "quant"])
 def test_serve_cli_refusals(serve_workdir, capsys, argv, message):
     """Exit code 2: one of --workdir/--artifact; an artifact bakes its
     sampling, weights and quantization (also --top-k, --ema and --quant with
-    --artifact); --dp is not ported (A8); a precomputed workdir has no
+    --artifact); --dp needs a workdir (an artifact is one device's program;
+    tests/test_torch_dist.py holds --dp itself); a precomputed workdir has no
     encoder to quantize."""
     argv = [serve_workdir if a == "WD" else a for a in argv]
     assert serve_cli.main(argv + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert message in err
-    if message == "--dp":
-        assert "not ported yet" in err
     if argv[:1] == ["--artifact"]:
         for extra in (["--top-k", "5"], ["--ema"], ["--avg-last", "3"], ["--quant", "int8"]):
             assert serve_cli.main(["--artifact", "m.sgx", *extra, "--device", "cpu"]) == 2

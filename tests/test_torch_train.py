@@ -97,8 +97,10 @@ def _configs(name, sets):
 
 
 def reference_noise(cfg, B):
-    """(state_rng, step) → one reference step's noise in the port's layout
-    (``noise_shapes``), along the reference's key sequence: fold_in(rng, step), fold_in(·, 0),
+    """(state_rng, step, shard=0) → one reference step's noise in the port's
+    layout (``noise_shapes``), along the reference's key sequence:
+    fold_in(rng, step), fold_in(·, shard) (the data shard's index: 0 off a
+    mesh),
     split into rng_d and rng_g; split(rng_d) into the critic keys and the
     batched fakes' key, split(·, n_critic); per branch split(key) into key_f
     and key_gp; split(·, accum) per microbatch when accum > 1; and per fake
@@ -121,8 +123,8 @@ def reference_noise(cfg, B):
         return jax.random.uniform(key, (n, 1, 1), dtype=dt).astype(jnp.float32)
 
     @jax.jit
-    def draw(state_rng, step):
-        rng = jax.random.fold_in(jax.random.fold_in(state_rng, step), 0)
+    def draw(state_rng, step, shard):
+        rng = jax.random.fold_in(jax.random.fold_in(state_rng, step), shard)
         rng_d, rng_g = jax.random.split(rng)
         rng_dkeys, rng_fakes = jax.random.split(rng_d)
         d_keys = jax.random.split(rng_dkeys, nc)
@@ -148,8 +150,9 @@ def reference_noise(cfg, B):
         return {"fake_z": jnp.asarray(fz), "fake_gumbel": jnp.asarray(fg),
                 "gp_eps": jnp.asarray(ge), "gen_z": jnp.stack(gz), "gen_gumbel": jnp.stack(gg)}
 
-    def noise(state_rng, step):
-        return {k: torch.from_numpy(np.array(v)) for k, v in draw(state_rng, step).items()}
+    def noise(state_rng, step, shard=0):
+        return {k: torch.from_numpy(np.array(v)) for k, v in draw(state_rng, step,
+                                                                   shard).items()}
 
     return noise
 
@@ -517,7 +520,7 @@ def test_noise_layout_and_refusals():
     for sets, err, match in (
             ({"model.pp_microbatches": 2}, NotImplementedError, "A8"),
             ({"train.estimator": "ppo"}, ValueError, "estimator"),
-            ({"mesh.data": 4}, NotImplementedError, "mesh"),
+            ({"mesh.fsdp": True}, NotImplementedError, "mesh"),
             ({"model.sp_mode": "ring"}, NotImplementedError, "A8"),
             ({"model.moe_experts": 4, "mesh.expert": 2}, NotImplementedError, "A8"),
             ({"train.train_encoder": True}, ValueError, "end-to-end")):

@@ -145,7 +145,7 @@ def test_cuda_is_the_default_device(tmp_path, monkeypatch):
     ["--set", "train.train_encoder=true", "--set", "model.encoder=vgg19", "--set",
      "model.use_pallas=true"],
     ["--set", "model.moe_experts=4", "--set", "mesh.expert=2"], ["--set", "model.sp_mode=ring"],
-    ["--set", "mesh.data=2"],
+    ["--set", "mesh.fsdp=true"],
     ["--set", "data.loader=grain"], ["--set", "mesh.seq=2"],
     ["--set", "mesh.model=2"]])
 def test_unported_options_are_refused(tmp_path, capsys, extra):
