@@ -2,8 +2,11 @@
 """Chip smoke for the PyTorch/CUDA port (``sgg_torch``) on one NVIDIA H100.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --phases 25        (or 21,22,24,25: those phases alone)
 
-In one process. Phases 1-17 open no socket, and their only threads are
+With no argument every phase runs, in one process; ``--phases`` runs the
+device check, the build and then each phase named (one of those that build
+their own inputs), and ends with the device line naming them. In one process. Phases 1-17 open no socket, and their only threads are
 the train CLI's stall watchdog and phase 17's upload thread, each stopped and
 joined when its run ends; phase 18 opens an
 HTTP server on 127.0.0.1 with its handler threads, a batcher's worker thread,
@@ -286,12 +289,12 @@ one subprocess under a timeout, which it waits for:
      give equal graphs.
  22. the grounded recipe from nothing (``grounded_recipe_phase``,
      ``scripts/grounded_pipeline.sh``'s stages): (a) ``sgg_torch.cli.synth_corpus
-     --grounded`` writes 2,048 500 x 375 q75 JPEGs (nvJPEG's encoder on the
+     --grounded`` writes 1,024 500 x 375 q75 JPEGs (nvJPEG's encoder on the
      card's machine), each decoded back by the loader within a mean |d| of
      8 of the array rendered (images/s, MB, the encoder's route); (b)
      ``sgg_torch.cli.pretrain --encoder vgg19`` with the spatial task, 224 px,
-     batch 64, bf16, 400 steps (s/step, images/s, peak memory, the idle share
-     of steps 200-204; the mean loss of the last 50 steps must be below the
+     batch 64, bf16, 200 steps (s/step, images/s, peak memory, the idle share
+     of steps 100-104; the mean loss of the last 50 steps must be below the
      first 50's) and with ``--steps 0`` (the seeded encoder): held-out
      presence_recall, precision_at_k and cell_acc of both, 16 conv_direct
      launches a held-out batch and none in the steps (the library conv);
@@ -350,6 +353,20 @@ one subprocess under a timeout, which it waits for:
      union of both ranks' device spans, ``card_idle``). Phase 24 starts a
      torchrun launcher (and its ranks) or a plain process per run, each
      waited for under a timeout in a session of its own.
+ 25. A9's rest (``convert_grain_phase``): (a) the TensorFlow-written fixture
+     (``tests/fixtures_torch/tf1_ckpt``) read by ``sgg_torch.convert`` on a
+     machine without TensorFlow, bit for bit against its ``.npz``; (b) at
+     vg1k's widths with a vocab of 1,024, seeded reference-named arrays as an
+     ``.npz`` and as a V2 bundle (read back bit for bit, the CRC32C timed),
+     ``sgg_torch.cli.convert --config vg1k`` from each (equal workdirs), then
+     ``generate --decode fused`` on it with exact launches and the fused
+     sampler held against the CPU's plain decode; (c) pipeline_v4 on the
+     grain loader with 2 spawned workers, 15 steps profiled, resumed without
+     workers from its step-10 checkpoint in a workdir of its own: bit for
+     bit; (d) ``vg_full``
+     on the grain loader, the workers decoding the JPEGs, 96 ``conv_direct``
+     a step. Its training runs stop their worker processes when each
+     returns.
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -359,8 +376,9 @@ B = 64, which pipeline_v4 shares; phase 7 for fused_matmul and conv_direct;
 phase 15 for the three flash kernels), plus phase 22's launches of each
 (each of its paths counted from 0), phase 23's (its two ``generate
 --quant int8`` runs, counted from 0: fused_decode and flash_attention; the
-exported artifact launches none) and phase 24's (every rank of its four
-runs, each counted from 0 in its process), and
+exported artifact launches none), phase 24's (every rank of its four
+runs, each counted from 0 in its process) and phase 25's (its CLI runs, each
+counted from 0), and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
 bound ms. Phase 18's serving launch counts and phase 19's are printed on lines of
 their own before it. The last two lines are that
@@ -378,6 +396,7 @@ import math
 import os
 import re
 import resource
+import shutil
 import signal
 import statistics
 import subprocess
@@ -424,13 +443,14 @@ LOADER_RATE_IMAGES = 1536  # one vg_full step's images: 256 x (5 + 1)
 # VG's 108,077 images cut to 2,048 ids; train steps (the profile window is steps
 # 10-14), the fused run's steps and N, and the extraction hold's features.
 VG_IMAGES_21, VG_STEPS_21, VG_FUSED_STEPS_21, VG_N_21, VG_HOLD_21 = 2048, 16, 16, 8, 64
-# Phase 22, the grounded recipe from nothing: VG's 108,077 images cut to 2,048;
-# VGG-19 pretrain steps at the recipe's batch, the window of steps that the
+# Phase 22, the grounded recipe from nothing: VG's 108,077 images cut to 1,024;
+# VGG-19 pretrain steps at the recipe's batch (2,048 images and 400 steps until
+# phase 25 came: the smoke's time), the window of steps that the
 # loss gate compares (first and last) and the profiled steps; the ViT-B/16 MoE
 # steps, experts and top-k; the vg1k steps on the extracted shards; the
 # JPEG round trip's bound (mean |d| per image; libjpeg measured 5.99-6.56 on
 # the grounded corpus, tests/test_torch_synth_corpus.py); the holds' batch.
-GR_IMAGES, GR_STEPS, GR_BATCH, GR_WINDOW, GR_PROFILE = 2048, 400, 64, 50, (200, 5)
+GR_IMAGES, GR_STEPS, GR_BATCH, GR_WINDOW, GR_PROFILE = 1024, 200, 64, 50, (100, 5)
 GR_MOE_STEPS, GR_EXPERTS, GR_TOP_K, GR_TRAIN_STEPS = 16, 8, 2, 16
 GR_JPEG_MEAN_D, GR_HOLD_BATCH = 8.0, 4
 # Phase 23, the deployment tier: calls captured in a CUDA graph and its
@@ -439,6 +459,17 @@ P23_GRAPH_CALLS, P23_GRAPH_REPS = 10, 3
 # Phase 24, the data-parallel tier: v4_32's steps (the profile window is
 # step 3) and vit_b16's with train_encoder.
 DP_STEPS, DP_VIT_STEPS = 6, 3
+# Phase 25, convert and the grain loader: the committed TensorFlow-written
+# checkpoint; the converted vocab's size and the images generated from it;
+# pipeline_v4's corpus, its unbroken steps (the profile window is steps
+# 10-14) and the cut; vg_full's corpus and steps; the grain workers.
+TF1_FIXTURE = os.path.join(ROOT, "tests", "fixtures_torch", "tf1_ckpt")
+P25_VOCAB, P25_GEN_IMAGES = 1024, 256
+P25_V4_IMAGES, P25_V4_STEPS, P25_V4_CUT = 2048, 15, 10
+P25_VG_IMAGES, P25_VG_STEPS, P25_WORKERS = 2048, 2, 2
+# Phases that build their own inputs after the device and the build, so that
+# ``--phases`` can run them alone.
+SELECTABLE_PHASES = (21, 22, 24, 25)
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -2435,7 +2466,7 @@ def conv_tf32_hold(dev, seed=SEED, batch=GR_BATCH, size=224):
 
 def grounded_recipe_phase(dev, run_cli, read_counts, sizes=None, extra_sets=None):
     """Phase 22, the grounded recipe from nothing (``scripts/grounded_pipeline.sh``
-    on the card): (a) ``sgg_torch.cli.synth_corpus --grounded`` writes 2,048
+    on the card): (a) ``sgg_torch.cli.synth_corpus --grounded`` writes GR_IMAGES
     500 x 375 q75 JPEGs, every one decoded back by the loader within mean
     |d| <= GR_JPEG_MEAN_D of the array rendered; (b) ``sgg_torch.cli.pretrain
     --encoder vgg19`` (spatial auto, 224 px, batch 64, bf16) for GR_STEPS
@@ -3433,7 +3464,423 @@ def dp_phase(dev, smi, sizes=None, extra_sets=None, vit_sets=None):
     return out
 
 
-def main():
+def zero_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    from sgg_torch.kernels import conv_direct as cd
+    from sgg_torch.kernels import flash_attention as fa
+    from sgg_torch.kernels import flash_attention_bwd as fb
+    from sgg_torch.kernels import fused_decode as fd
+    from sgg_torch.kernels import matmul as mm
+
+    fd.launches = mm.launches = cd.launches = fa.launches = 0
+    fb.dq_launches = fb.dkv_launches = 0
+
+
+def run_cli(main_fn, argv, what):
+    """(seconds, launch counts) of one in-process CLI run; the counts are
+    set to 0 just before it and read just after."""
+    import torch
+
+    on_card = torch.cuda.is_available()
+    if on_card:
+        torch.cuda.synchronize()
+    zero_counts()
+    t_run = time.perf_counter()
+    rc = main_fn(argv)
+    if on_card:
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    counts = kernel_counts()
+    if rc != 0:
+        raise AssertionError(f"{what} returned {rc}")
+    return run_s, counts
+
+
+def vg1k_reference_vocab(n_tokens):
+    """A vocab of ``n_tokens`` (two specials, 7/8 objects, the rest
+    predicates) on long-tailed counts."""
+    from sgg_torch.data import Vocab
+
+    n_obj = (n_tokens - 2) * 7 // 8
+    n_pred = n_tokens - 2 - n_obj
+    return Vocab.build({f"object{i}": 10**6 - i for i in range(n_obj)},
+                       {f"predicate{i}": 10**6 - i for i in range(n_pred)})
+
+
+def convert_grain_phase(dev, smi, sizes=None, extra_sets=None, v4_sets=None, vg_sets=None,
+                        before=None):
+    """Phase 25, A9's rest: (a) ``sgg_torch.convert.read_tf_checkpoint`` on the
+    committed TensorFlow-written fixture (``tests/fixtures_torch/tf1_ckpt``)
+    against its ``.npz``, bit for bit, with TensorFlow absent; (b) at vg1k's
+    widths with a vocab of 1,024, reference-named arrays seeded by numpy
+    written as an ``.npz`` and as a V2 bundle (``write_tf_checkpoint``), the
+    bundle read back bit for bit, the CRC32C timed over every tensor,
+    ``sgg_torch.cli.convert --config vg1k`` from each (the two workdirs
+    equal, the arrays in place), then ``sgg_torch.cli.generate --decode
+    fused`` on the converted workdir with its exact ``fused_decode`` launch
+    count, and the fused sampler on the converted weights held against the
+    CPU's plain decode on the same noise (phase 6's gate); (c) ``train
+    --config pipeline_v4 --set data.loader=grain data.grain_workers=2`` on a
+    seeded corpus, 15 steps with ``--profile`` unbroken, then
+    resumed without workers from the unbroken run's checkpoint at step 10
+    (state and sidecar, copied to a workdir of its own): its state at 15
+    equals the unbroken run's bit for bit;
+    (d) ``train --config vg_full`` on the host route with the grain loader's
+    two spawned workers decoding the fixture's JPEGs (nvJPEG on the card's
+    machine), 2 steps, 96 ``conv_direct`` launches a step. ``before`` holds phase 20's
+    and 21's figures to print beside (c) and (d) when they ran. Returns the
+    numbers and ``launches`` (the runs' kernel launches, each counted from
+    0)."""
+    import numpy as np
+    import torch
+
+    from sgg_torch import convert as conv
+    from sgg_torch.cli import convert as convert_cli
+    from sgg_torch.cli import generate as generate_cli
+    from sgg_torch.cli import train as train_cli
+    from sgg_torch.config import get_config
+    from sgg_torch.convert_flax import (
+        critic_state_dict_to_flax,
+        encoder_state_dict_to_flax,
+        generator_state_dict_to_flax,
+    )
+    from sgg_torch.data import Vocab, write_feature_shard
+    from sgg_torch.data.shards import shard_name
+    from sgg_torch.eval.sampler import make_fused_sampler
+    from sgg_torch.models.discriminator import TripleCritic
+    from sgg_torch.models.encoders import make_encoder
+    from sgg_torch.train.checkpoint import load_generator
+    from sgg_torch.train.state import make_generator
+    from sgg_torch.utils.gumbel import sample_gumbel
+
+    z_ = {"vocab": P25_VOCAB, "images": P25_GEN_IMAGES, "v4_images": P25_V4_IMAGES,
+          "v4_steps": P25_V4_STEPS, "v4_cut": P25_V4_CUT, "vg_images": P25_VG_IMAGES,
+          "vg_steps": P25_VG_STEPS, "workers": P25_WORKERS, "image_size": 224,
+          "hold_rows": 16, **(sizes or {})}
+    on_card = torch.device(dev).type == "cuda"
+    before = before or {}
+    out, launches = {}, {}
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            launches[k_] = launches.get(k_, 0) + v_
+
+    def argv_of(args, sets):
+        argv = list(args)
+        for k_, v_ in sets.items():
+            argv += ["--set", f"{k_}={v_}"]
+        return argv + ([] if on_card else ["--device", "cpu"])
+
+    # (a) The TensorFlow-written fixture, read here without TensorFlow.
+    t_a = time.perf_counter()
+    got = conv.read_tf_checkpoint(TF1_FIXTURE)
+    with np.load(os.path.join(TF1_FIXTURE, "arrays.npz")) as zf:
+        want = {k_: zf[k_] for k_ in zf.files}
+    ok_a = sorted(got) == sorted(want) and all(
+        got[k_].dtype == want[k_].dtype and got[k_].tobytes() == want[k_].tobytes()
+        for k_ in want)
+    tf_loaded = "tensorflow" in sys.modules
+    log(f"phase 25 (a) the TensorFlow-written fixture ({len(got)} variables, "
+        f"{sum(a_.nbytes for a_ in got.values())} bytes) read without TensorFlow (imported: "
+        f"{tf_loaded}) against its .npz, bit for bit: {'ok' if ok_a else 'FAILED'} in "
+        f"{time.perf_counter() - t_a:.3f} s")
+    if not ok_a or tf_loaded:
+        raise AssertionError("phase 25 (a): the reader disagrees with the fixture's arrays")
+
+    with tempfile.TemporaryDirectory() as root:
+        # (b) vg1k's widths, a vocab of 1,024: .npz and a V2 bundle -> convert.
+        vocab = vg1k_reference_vocab(z_["vocab"])
+        vocab_path = os.path.join(root, "vocab.json")
+        vocab.save(vocab_path)
+        cfg = get_config("vg1k").override(
+            [f"{k_}={v_}" for k_, v_ in (extra_sets or {}).items()])
+        cfg.model.vocab_size = len(vocab)
+        g_tree = generator_state_dict_to_flax(make_generator(cfg).state_dict())
+        d_tree = critic_state_dict_to_flax(TripleCritic.from_config(cfg).state_dict())
+        sys.path.insert(0, TF1_FIXTURE)
+        from make_fixture import reference_names
+
+        arrays = reference_names(g_tree, d_tree, np.random.RandomState(SEED + 50))
+        arrays["global_step"] = np.int64(100_000)
+        nbytes = sum(a_.nbytes for a_ in arrays.values())
+        npz, prefix = os.path.join(root, "ref.npz"), os.path.join(root, "tf", "model.ckpt")
+        np.savez(npz, **arrays)
+        t_w = time.perf_counter()
+        conv.write_tf_checkpoint(prefix, arrays)
+        write_s = time.perf_counter() - t_w
+        t_crc = time.perf_counter()
+        for a_ in arrays.values():
+            conv.crc32c(np.ascontiguousarray(a_))
+        crc_s = time.perf_counter() - t_crc
+        t_r = time.perf_counter()
+        back = conv.read_tf_checkpoint(prefix)
+        read_s = time.perf_counter() - t_r
+        ok_rt = sorted(back) == sorted(arrays) and all(
+            back[k_].tobytes() == np.asarray(a_).tobytes() for k_, a_ in arrays.items())
+        log(f"phase 25 (b) vg1k widths (V {len(vocab)}, H {cfg.model.hidden}, E "
+            f"{cfg.model.embed_dim}, A {cfg.model.attn_dim}, F {cfg.data.feat_dim}): "
+            f"{len(arrays)} reference variables, {nbytes / 1e6:.3f} MB; bundle written in "
+            f"{write_s:.3f} s, read back (CRC checked) in {read_s:.3f} s, bit for bit "
+            f"{'ok' if ok_rt else 'FAILED'}; CRC32C (numpy) over every tensor {crc_s:.3f} s "
+            f"({nbytes / 1e6 / crc_s:.1f} MB/s on this host)")
+        if not ok_rt:
+            raise AssertionError("phase 25 (b): the bundle does not round-trip")
+        wds = {}
+        for how, src in (("tf", ["--tf-ckpt", prefix]), ("npz", ["--npz", npz])):
+            wds[how] = os.path.join(root, f"wd_{how}")
+            s_, c_ = run_cli(convert_cli.main, argv_of(
+                ["--config", "vg1k", "--workdir", wds[how], "--vocab", vocab_path, *src],
+                extra_sets or {}), f"sgg_torch.cli.convert {how}")
+            out[f"convert_{how}_s"] = s_
+            add(c_)
+        sd_tf = torch.load(os.path.join(wds["tf"], "checkpoints", "0", "state.pt"),
+                           weights_only=True)
+        sd_np = torch.load(os.path.join(wds["npz"], "checkpoints", "0", "state.pt"),
+                           weights_only=True)
+        same = all(torch.equal(sd_tf[p_][k_], sd_np[p_][k_])
+                   for p_ in ("g_params", "d_params") for k_ in sd_tf[p_])
+        placed = np.array_equal(
+            generator_state_dict_to_flax(sd_tf["g_params"])["TF1LSTMCell_0"]["kernel"],
+            arrays["generator/rnn/basic_lstm_cell/kernel"]) and np.array_equal(
+            critic_state_dict_to_flax(sd_tf["d_params"])["ln_0"]["scale"],
+            arrays["discriminator/ln_0/gamma"])
+        log(f"phase 25 (b) sgg_torch.cli.convert --config vg1k: from the bundle "
+            f"{out['convert_tf_s']:.3f} s, from the .npz {out['convert_npz_s']:.3f} s wall in "
+            f"process; the two workdirs equal {same}, the arrays in place {placed}")
+        if not (same and placed):
+            raise AssertionError("phase 25 (b): the converted workdirs disagree")
+        n_img, K_ = z_["images"], K
+        gen_out = os.path.join(root, "graphs.json")
+        gen_s, gen_c = run_cli(generate_cli.main, argv_of(
+            ["--workdir", wds["tf"], "--out", gen_out, "--num-samples", str(K_), "--decode",
+             "fused", "--batch-size", str(BATCH), "--num-images", str(n_img), "--seed",
+             str(SEED)], {}), "sgg_torch.cli.generate on the converted workdir")
+        add(gen_c)
+        want_launches = math.ceil(n_img / BATCH) * K_ if on_card else 0
+        with open(gen_out) as f:
+            graphs = json.load(f)["scene_graphs"]
+        n_unique = legal_graphs(graphs, vocab, K_, gen_out)
+        log(f"phase 25 (b) generate --decode fused on the converted workdir: {n_img} images in "
+            f"{gen_s:.3f} s in process, fused_decode launches {gen_c['fused_decode']} "
+            f"(expected {want_launches}), {n_unique} unique triples, all type-legal")
+        if gen_c["fused_decode"] != want_launches:
+            raise AssertionError("phase 25 (b): generate did not launch fused_decode as expected")
+        g_sd = load_generator(wds["tf"])["g_params"]
+        Ks, Bs = 8, z_["hold_rows"]
+        sampler = make_fused_sampler(cfg, step_mask=vocab.step_mask(), num_samples=Ks)
+        hold_gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+        feats = torch.randn(Bs, cfg.data.regions, cfg.data.feat_dim, generator=hold_gen,
+                            device=dev)
+        zn = torch.randn(Ks, Bs, cfg.model.noise_dim, generator=hold_gen, device=dev)
+        gn = sample_gumbel((Ks, Bs, 3, len(vocab)), hold_gen, device=dev)
+        dev_tok = sampler({k_: v_.to(dev) for k_, v_ in g_sd.items()}, feats,
+                          noise=(zn, gn)).cpu()
+        cpu_tok = sampler(g_sd, feats.cpu(), noise=(zn.cpu(), gn.cpu()))
+        agree = (dev_tok == cpu_tok).float().mean().item()
+        log(f"phase 25 (b) the converted weights: fused sampler on {dev} vs the CPU's plain "
+            f"decode, same noise ({Ks} draws x {Bs} rows): {agree:.4f} identical (>= 0.99)")
+        if dev_tok.shape != (Bs, Ks, 3) or agree < 0.99:
+            raise AssertionError("phase 25 (b): the kernel disagrees with the plain decode")
+        out.update(generate_s=gen_s, fused_decode=gen_c["fused_decode"], agree=agree,
+                   crc_s=crc_s, read_s=read_s, mb=nbytes / 1e6)
+
+        # (c) pipeline_v4 on the grain loader: unbroken, and cut and resumed.
+        t_c = time.perf_counter()
+        v4_vocab = Vocab.load(os.path.join(TRAINED_RUN, "vocab.json"))
+        v4_cfg = get_config("pipeline_v4").override(
+            [f"{k_}={v_}" for k_, v_ in (v4_sets or {}).items()])
+        data_dir = os.path.join(root, "v4")
+        os.makedirs(data_dir)
+        v4_vocab.save(os.path.join(data_dir, "vocab.json"))
+        feats4, tri4 = v4_corpus(v4_vocab, z_["v4_images"], SEED + 52, dev,
+                                 v4_cfg.data.regions, v4_cfg.data.feat_dim)
+        half = z_["v4_images"] // 2
+        for s_ in range(2):
+            sl = slice(s_ * half, (s_ + 1) * half)
+            write_feature_shard(os.path.join(data_dir, shard_name(s_, 2)),
+                                np.arange(sl.start, sl.stop), feats4[sl], tri4[sl])
+        del feats4
+        corpus_s = time.perf_counter() - t_c
+        sets4 = {**(v4_sets or {}), "data.data_dir": data_dir, "data.loader": "grain",
+                 "data.grain_workers": z_["workers"], "train.log_every": 1,
+                 "train.checkpoint_every": z_["v4_cut"], "train.eval_every": 0}
+
+        def v4_run(label, steps, profile=False, workers=z_["workers"]):
+            wd = os.path.join(root, f"v4_{label}")
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+                s_, c_ = run_cli(train_cli.main, argv_of(
+                    ["--config", "pipeline_v4", "--workdir", wd, "--steps", str(steps)]
+                    + (["--profile"] if profile else []),
+                    {**sets4, "data.grain_workers": workers}),
+                    f"sgg_torch.cli.train pipeline_v4 grain {label}")
+            add(c_)
+            return wd, s_, printed.getvalue()
+
+        whole_wd, whole_s, whole_txt = v4_run("whole", z_["v4_steps"], profile=True)
+        # The cut: the unbroken run's checkpoint at v4_cut (state and
+        # sidecar), in a workdir of its own, resumed to the end in this
+        # process without workers (the batches do not depend on their
+        # number; no second start-up of the workers).
+        cut_wd, cut_at = os.path.join(root, "v4_cut"), str(z_["v4_cut"])
+        os.makedirs(os.path.join(cut_wd, "checkpoints"))
+        for f_ in ("config.json", "vocab.json"):
+            shutil.copy(os.path.join(whole_wd, f_), cut_wd)
+        shutil.copytree(os.path.join(whole_wd, "checkpoints", cut_at),
+                        os.path.join(cut_wd, "checkpoints", cut_at))
+        shutil.copy(os.path.join(whole_wd, "checkpoints", f"data_iter_{cut_at}.bin"),
+                    os.path.join(cut_wd, "checkpoints"))
+        _, res_s, res_txt = v4_run("cut", z_["v4_steps"], workers=0)
+        ref = torch.load(os.path.join(whole_wd, "checkpoints", str(z_["v4_steps"]), "state.pt"),
+                         weights_only=True)
+        got4 = torch.load(os.path.join(cut_wd, "checkpoints", str(z_["v4_steps"]), "state.pt"),
+                          weights_only=True)
+
+        def flat(x, pre=""):
+            if torch.is_tensor(x):
+                return {pre: x}
+            if isinstance(x, dict):
+                return {k2: v2 for k_, v_ in x.items() for k2, v2 in flat(v_, f"{pre}/{k_}").items()}
+            if isinstance(x, (list, tuple)):
+                return {k2: v2 for i_, v_ in enumerate(x) for k2, v2 in flat(v_, f"{pre}/{i_}").items()}
+            return {pre: torch.tensor(float(x))} if x is not None else {}
+
+        fa_, fb_ = flat(ref), flat(got4)
+        differ = sorted(k_ for k_ in fa_ if k_ not in fb_ or not torch.equal(fa_[k_], fb_[k_]))
+        lines = [r_ for r_ in read_metric_lines(whole_wd) if "d_loss" in r_]
+        s_steps = [1 / r_["steps_per_sec"] for r_ in lines[1:] if "steps_per_sec" in r_]
+        s_per_step = statistics.median(s_steps)
+        idle, _ = read_profile(whole_wd, "pipeline_v4 grain")
+        wait = re.search(r"grain loader: (\d+) super-batches, ([\d.]+) s waiting", whole_txt)
+        restored = "grain iterator state restored (exact mid-epoch resume)" in res_txt
+        fell_back = "falling back to per-step dispatch" in whole_txt
+        e20 = before.get("v20")
+        beside = (f"phase 20's eager run {e20['s_per_step']:.4f} s/step, idle {e20['idle']}"
+                  if e20 else "phase 20 did not run in this call (PERF.md: eager 0.3497-0.3546 "
+                  "s/step, idle 0.91-0.93)")
+        log(f"phase 25 (c) train pipeline_v4 --set data.loader=grain data.grain_workers="
+            f"{z_['workers']}: corpus {z_['v4_images']} images in {corpus_s:.3f} s; unbroken "
+            f"{z_['v4_steps']} steps in {whole_s:.3f} s in process, median {s_per_step:.4f} "
+            f"s/step, idle share {idle}, {wait.group(2) if wait else None} s waiting for "
+            f"{wait.group(1) if wait else None} super-batches; its checkpoint at "
+            f"{z_['v4_cut']} resumed to {z_['v4_steps']} without workers ({res_s:.3f} s): "
+            f"restored line "
+            f"{restored}, "
+            f"{len(differ)} of {len(fa_)} state tensors differ from the unbroken run's; "
+            f"steps_per_dispatch fallback line {fell_back}; beside {beside} [{smi}]")
+        if differ or not restored or not fell_back:
+            raise AssertionError(f"phase 25 (c): the resumed grain run differs at {differ[:8]}")
+        out["v4"] = {"s_per_step": s_per_step, "idle": idle, "whole_s": whole_s,
+                     "wait_s": float(wait.group(2)) if wait else None}
+
+        # (d) vg_full on the grain loader: spawned workers decode the JPEGs.
+        vg_dir, ckpt = os.path.join(root, "vg"), os.path.join(root, "ckpt")
+        vg_corpus(vg_dir, z_["vg_images"])
+        torch.manual_seed(SEED + 53)
+        os.makedirs(ckpt)
+        np.savez(os.path.join(ckpt, "encoder_params.npz"),
+                 **encoder_state_dict_to_flax(make_encoder("vgg19").state_dict(),
+                                              "vgg19")["params"])
+        with open(os.path.join(ckpt, "pretrain_meta.json"), "w") as f:
+            json.dump({"encoder": "vgg19", "image_size": z_["image_size"],
+                       "vit_dims": [768, 12, 12], "moe_experts": 0, "moe_top_k": 2}, f)
+        vg_wd = os.path.join(root, "vg_wd")
+        setsd = {**(vg_sets or {}), "data.data_dir": vg_dir, "data.loader": "grain",
+                 "data.grain_workers": z_["workers"], "train.log_every": 1,
+                 "train.checkpoint_every": z_["vg_steps"], "train.eval_every": 0}
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            vg_s, vg_c = run_cli(train_cli.main, argv_of(
+                ["--config", "vg_full", "--workdir", vg_wd, "--steps", str(z_["vg_steps"]),
+                 "--encoder-ckpt", ckpt], setsd), "sgg_torch.cli.train vg_full grain")
+        add(vg_c)
+        txt = printed.getvalue()
+        dec = re.search(r"host decode: (\d+) images in ([\d.]+) s \(([\d.]+) s per step of "
+                        r"(\d+) images", txt)
+        wait = re.search(r"grain loader: (\d+) super-batches, ([\d.]+) s waiting", txt)
+        vg_lines = [r_ for r_ in read_metric_lines(vg_wd) if "d_loss" in r_]
+        vg_cfg = get_config("vg_full").override([f"{k_}={v_}" for k_, v_ in setsd.items()])
+        per_step = vg_cfg.train.batch_size * (vg_cfg.train.n_critic + 1)
+        want_conv = 16 * (vg_cfg.train.n_critic + 1) * z_["vg_steps"] if on_card else 0
+        ok_d = (dec is not None and int(dec.group(1)) == per_step * z_["vg_steps"]
+                and f"grain loader (workers={z_['workers']})" in txt
+                and vg_c["conv_direct"] == want_conv
+                and [r_["step"] for r_ in vg_lines] == list(range(1, z_["vg_steps"] + 1)))
+        h21 = (before.get("v21") or {}).get("train", {}).get("host")
+        beside = (f"phase 21's host-prefetch {h21['decode_s_per_step']} s a step" if h21 else
+                  "phase 21 did not run in this call (PERF.md: host-prefetch 0.50-0.54 s a "
+                  "step)")
+        log(f"phase 25 (d) train vg_full --set data.loader=grain data.grain_workers="
+            f"{z_['workers']}: {z_['vg_steps']} steps in {vg_s:.3f} s in process, last step "
+            f"{1 / vg_lines[-1]['steps_per_sec']:.4f} s/step; the workers decoded "
+            f"{dec.group(1) if dec else None} images in {dec.group(2) if dec else None} s "
+            f"({dec.group(3) if dec else None} s of decode a step of {per_step} images, summed "
+            f"over the workers); the step waited {wait.group(2) if wait else None} s for "
+            f"{wait.group(1) if wait else None} super-batches; conv_direct launches "
+            f"{vg_c['conv_direct']} (expected {want_conv}); beside {beside}: "
+            f"{'ok' if ok_d else 'FAILED'} [{smi}]")
+        if not ok_d:
+            raise AssertionError("phase 25 (d): the grain run's decode, steps or launches are off")
+        out["vg"] = {"s": vg_s, "s_per_step": 1 / vg_lines[-1]["steps_per_sec"],
+                     "decode_s_per_step": float(dec.group(3)),
+                     "wait_s": float(wait.group(2)) if wait else None}
+    out["launches"] = launches
+    return out
+
+
+def phase25_line(v25, smi):
+    return (f"phase 25: convert --config vg1k {v25['convert_tf_s']:.3f} s from the bundle "
+            f"({v25['mb']:.3f} MB, CRC32C {v25['crc_s']:.3f} s, read {v25['read_s']:.3f} s), "
+            f"{v25['convert_npz_s']:.3f} s from the .npz; generate on it {v25['generate_s']:.3f} "
+            f"s, {v25['fused_decode']} fused_decode launches, {v25['agree']:.4f} identical to "
+            f"plain; pipeline_v4 on grain {v25['v4']['s_per_step']:.4f} s/step, idle "
+            f"{v25['v4']['idle']}; vg_full on grain {v25['vg']['s_per_step']:.4f} s/step, "
+            f"decode {v25['vg']['decode_s_per_step']:.4f} s a step; launches {v25['launches']} "
+            f"[{smi}]")
+
+
+def run_phases(chosen, dev, smi):
+    """``--phases``: each chosen phase alone, in the order given, after the
+    device and the build; prints its launches, the card's line and a last
+    line that names the phases run."""
+    import torch
+
+    results = {}
+    for n_ in chosen:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        if n_ == 21:
+            results[n_] = vg_full_phase(dev, run_cli, kernel_counts)
+        elif n_ == 22:
+            results[n_] = grounded_recipe_phase(dev, run_cli, kernel_counts)
+        elif n_ == 24:
+            results[n_] = dp_phase(dev, smi)
+        else:
+            results[n_] = convert_grain_phase(dev, smi, before={"v21": results.get(21)})
+            log(phase25_line(results[n_], smi))
+        phase(str(n_), t0)
+        log(f"phase {n_} launches: {results[n_].get('launches')}")
+    faulthandler.cancel_dump_traceback_later()
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "phases": chosen, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="chip smoke for sgg_torch on one H100")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run alone after the device and the build, "
+                         f"of {', '.join(map(str, SELECTABLE_PHASES))} (default: every phase)")
+    args = ap.parse_args(argv)
+    chosen = None
+    if args.phases:
+        chosen = [int(x_) for x_ in args.phases.split(",")]
+        if not set(chosen) <= set(SELECTABLE_PHASES):
+            ap.error(f"--phases takes {SELECTABLE_PHASES}; the others share the full run's "
+                     "state")
     faulthandler.dump_traceback_later(WATCHDOG_SECONDS, exit=True)
     import torch
 
@@ -3582,6 +4029,9 @@ def main():
         log(f"ptxas: {name}: {regs}; {spills}")
     lib = build.load_library()
     phase("build", t0)
+    if chosen is not None:
+        run_phases(chosen, dev, smi)
+        return
 
     # 3. fused_decode vs plain, at the trained run's widths and at resnet50's.
     t0 = time.perf_counter()
@@ -3916,25 +4366,7 @@ def main():
                 raise AssertionError(f"encoder {name} {impl} bf16 disagrees")
     phase("encoders_vs_plain", t0)
 
-    def zero_counts():
-        fd.launches = mm.launches = cd.launches = fa.launches = 0
-        fb.dq_launches = fb.dkv_launches = 0
-
     read_counts = kernel_counts
-
-    def run_cli(main_fn, argv, what):
-        """(seconds, launch counts) of one in-process CLI run; the counts are
-        set to 0 just before it and read just after."""
-        torch.cuda.synchronize()
-        zero_counts()
-        t_run = time.perf_counter()
-        rc = main_fn(argv)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t_run
-        counts = read_counts()
-        if rc != 0:
-            raise AssertionError(f"{what} returned {rc}")
-        return run_s, counts
 
     def run_generate(argv):
         return run_cli(generate.main, argv, "sgg_torch.cli.generate")
@@ -4939,6 +5371,13 @@ def main():
     torch.cuda.empty_cache()
     v24 = dp_phase(dev, smi)
     phase("data-parallel tier (phase 24)", t0)
+
+    # 25. A9's rest: the TF1 checkpoint reader and convert at vg1k widths
+    # (then generate on fused_decode), and the grain loader on pipeline_v4
+    # (cut and resumed) and on vg_full (spawned workers decoding JPEGs).
+    t0 = time.perf_counter()
+    v25 = convert_grain_phase(dev, smi, before={"v20": v20.get("eager"), "v21": v21})
+    phase("convert and the grain loader (phase 25)", t0)
     log(f"phase 19 launches: flash_attention {vrl_counts['flash_attention']}, dq "
         f"{vrl_counts['flash_attention_bwd_dq']}, dk/dv {vrl_counts['flash_attention_bwd_dkv']} "
         f"({VIT_RL_STEPS} REINFORCE steps on vit_b16); none on PredCls, REINFORCE on "
@@ -4987,6 +5426,7 @@ def main():
         f"{v24['a']['card_idle']}; world 1 (NCCL) {v24['b']['s_per_step']:.4f}, plain "
         f"{v24['plain']['s_per_step']:.4f} s/step; vit_b16 over 2 ranks "
         f"{v24['vit']['s_per_step']:.4f} s/step; launches {v24['launches']} [{smi}]")
+    log(phase25_line(v25, smi))
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",
@@ -5017,6 +5457,8 @@ def main():
     for k_, v_ in v23["launches"].items():  # phase 23's int8 generate runs, from 0
         path_counts[k_] += v_
     for k_, v_ in v24["launches"].items():  # phase 24's runs, every rank's, from 0
+        path_counts[k_] += v_
+    for k_, v_ in v25["launches"].items():  # phase 25's CLI runs, each from 0
         path_counts[k_] += v_
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -91,10 +91,22 @@ and the host-RSS handover act on every rank at the same step (the ranks agree
 on them over the group). A rank whose group fails or whose collective raises
 or times out ends the run non-zero; no rank trains alone.
 
+``--set data.loader=grain`` feeds the run from the grain loader
+(``sgg_torch.data.grain_pipeline``, ``sgg/cli/train.py:200-219``): records
+on the host, never a device-resident store, from this rank's shard, in
+``data.grain_workers`` spawned worker processes; its iterator state is saved
+beside every checkpoint (the SIGTERM and RSS saves too) and a resumed run
+restores it, printing the reference's line, so the run continues the exact
+mid-epoch sequence. With ``train.steps_per_dispatch`` > 1 it falls back to
+one step per dispatch with the reference's line:
+
+  python -m sgg_torch.cli.train --config pipeline_v4 --workdir W \
+      --set data.data_dir=SHARDS --set data.loader=grain --set data.grain_workers=2
+
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
 there. A resumed run's host iterator continues the draws at the restored
 step. Not ported yet: TP, FSDP, sequence, pipeline and expert parallelism
-(ROADMAP A8b–A8e), and grain (A9).
+(ROADMAP A8b–A8e).
 """
 
 from __future__ import annotations
@@ -111,7 +123,6 @@ import torch
 import torch.distributed as dist
 
 from sgg_torch.cli.common import (
-    LATER,
     add_config_args,
     load_dataset,
     resolve_config,
@@ -120,6 +131,7 @@ from sgg_torch.cli.common import (
 from sgg_torch.config import Config
 from sgg_torch.convert_flax import encoder_flax_to_state_dict, load_params_npz
 from sgg_torch.data import ArrayImageTripleDataset, ImageTripleDataset, TripleDataset
+from sgg_torch.data.grain_pipeline import GrainTrainIterator, make_grain_iterator
 from sgg_torch.dist import (
     host_local_to_global,
     initialize_multihost,
@@ -146,8 +158,6 @@ STALL_POLL_SEC = 30.0  # how often the stall watchdog looks
 
 
 def _refusal(cfg: Config) -> str | None:
-    if cfg.data.loader == "grain":
-        return f"data.loader=grain {LATER} (ROADMAP A9)"
     try:
         refuse_unported(cfg)
     except (NotImplementedError, ValueError) as e:
@@ -157,10 +167,13 @@ def _refusal(cfg: Config) -> str | None:
 
 def data_route(cfg: Config, ds, processes: int = 1) -> tuple[str, int, bool]:
     """Which iterator feeds the run: ``device`` (the whole store on the
-    device), ``rotating`` or ``host``; with the store's bytes on the device
-    and whether it is int8. Both device stores are the reference's
-    single-process routes: ``processes`` > 1 takes the host iterator."""
+    device), ``rotating``, ``host`` or ``grain`` (``data.loader=grain``); with
+    the store's bytes on the device and whether it is int8. Both device
+    stores are the reference's single-process routes: ``processes`` > 1
+    takes the host iterator."""
     d = cfg.data
+    if d.loader == "grain":  # records on the host, never the device-resident store
+        return "grain", 0, False
     if isinstance(ds, ImageTripleDataset):  # JPEGs decoded per step on the host
         return "host", ds.est_bytes, False
     store, _ = data_store(ds)
@@ -213,9 +226,17 @@ def _batches(cfg: Config, ds, device: torch.device, route: str, nbytes: int, int
              shard=None, resume_step: int = 0):
     """(iterator of super-batches on ``device``, description). The host
     iterator draws from ``shard``'s slice of the images (a
-    ``ProcessShard``) and continues its draws at ``resume_step``."""
+    ``ProcessShard``) and continues its draws at ``resume_step``; the grain
+    loader reads ``shard``'s records and is set to its saved state by the
+    caller."""
     t, d = cfg.train, cfg.data
     tag = ", int8+scale" if int8 else ""
+    if route == "grain":
+        it = make_grain_iterator(ds, t.batch_size, t.n_critic, seed=t.seed,
+                                 process_index=shard.index if shard else 0,
+                                 process_count=shard.count if shard else 1,
+                                 num_workers=d.grain_workers, device=device)
+        return it, f"grain loader (workers={d.grain_workers})"
     if route == "device":
         it = make_device_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed,
                                         device=device, int8_store=int8)
@@ -332,7 +353,8 @@ def main(argv=None) -> int:
               f"(alpha={cfg.data.predicate_balance})", flush=True)
     # A path-backed image dataset whose decoded corpus fits the budget is
     # decoded once and trains on the device-resident store.
-    if (cfg.data.device_resident and isinstance(ds, ImageTripleDataset) and shard.count == 1
+    if (cfg.data.device_resident and cfg.data.loader != "grain"
+            and isinstance(ds, ImageTripleDataset) and shard.count == 1
             and ds.est_bytes <= cfg.data.device_resident_max_bytes):
         print(f"[sgg.train] materializing {len(ds)} images "
               f"({ds.est_bytes / 1e9:.1f} GB uint8) for device residency", flush=True)
@@ -355,7 +377,8 @@ def main(argv=None) -> int:
         print(f"[sgg.train] encoder weights <- {path}", flush=True)
 
     state = create_train_state(cfg, cfg.train.seed, enc_params=enc_params, device=device)
-    if ckpt.restore(state) is not None:
+    resumed = ckpt.restore(state) is not None
+    if resumed:
         print(f"[sgg.train] resumed from step {state.step}", flush=True)
     # Every rank takes rank 0's state (a broadcast; no-op in one process).
     host_local_to_global(state, replicated_sharding(mesh))
@@ -377,6 +400,12 @@ def main(argv=None) -> int:
         how = _resident(nbytes, device, ", int8+scale" if int8 else "")
     else:
         it, how = _batches(cfg, ds, device, route, nbytes, int8, shard, state.step)
+    grain_it = it if isinstance(it, GrainTrainIterator) else None
+    # Every rank reads rank 0's sidecar: the state is the same on each.
+    data_state = ckpt.restore_data_state() if grain_it is not None and resumed else None
+    if data_state is not None:
+        grain_it.set_state(data_state)
+        how = "grain iterator state restored (exact mid-epoch resume)"
     print(f"[sgg.train] {how}", flush=True)
     for line in notes:
         print(line, flush=True)
@@ -415,7 +444,7 @@ def main(argv=None) -> int:
     def save() -> None:
         """Rank 0 writes the checkpoint; every rank waits for it."""
         if lead:
-            ckpt.save(state)
+            ckpt.save(state, data_state=None if grain_it is None else grain_it.get_state())
         if group is not None:
             dist.barrier(group)
 
@@ -485,11 +514,16 @@ def main(argv=None) -> int:
                   f"most {it.max_alive} alive, {len(it.uploads)} uploads (host gather "
                   f"{sum(u[1] for u in it.uploads):.3f} s, device copy "
                   f"{sum(u[2] for u in it.uploads):.3f} s)", flush=True)
-        if isinstance(ds, ImageTripleDataset) and ds.decoded_images:
-            per_step = ds.decode_seconds * images_per_step / ds.decoded_images
-            print(f"[sgg.train] host decode: {ds.decoded_images} images in "
-                  f"{ds.decode_seconds:.3f} s ({per_step:.4f} s per step of {images_per_step} "
+        # The grain loader counts what its workers decoded.
+        dec = grain_it or ds
+        if isinstance(ds, ImageTripleDataset) and dec.decoded_images:
+            per_step = dec.decode_seconds * images_per_step / dec.decoded_images
+            print(f"[sgg.train] host decode: {dec.decoded_images} images in "
+                  f"{dec.decode_seconds:.3f} s ({per_step:.4f} s per step of {images_per_step} "
                   "images)", flush=True)
+        if grain_it is not None and grain_it.batches:
+            print(f"[sgg.train] grain loader: {grain_it.batches} super-batches, "
+                  f"{grain_it.wait_seconds:.3f} s waiting for them", flush=True)
         if stepper is not None and stepper.capture_s is not None:
             print(f"[sgg.train] CUDA graph of one step: captured in {stepper.capture_s:.3f} s, "
                   f"{stepper.capture_bytes / 1e9:.3f} GB reserved", flush=True)

@@ -26,7 +26,8 @@ has set them.
   - :func:`make_fused_device_stepper`: the device-resident store, N
     sample-and-step iterations per call, on the card N replays of one
     captured CUDA graph (``train.steps_per_dispatch``).
-The grain loader comes with a later slice (ROADMAP A9).
+The grain loader, with its checkpointed state, is
+``sgg_torch.data.grain_pipeline``.
 """
 
 from __future__ import annotations

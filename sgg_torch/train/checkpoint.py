@@ -6,7 +6,11 @@ the encoder's (``enc_params``), are port state_dicts in one torch file,
 ``generator.pt``, which ``sgg_torch.cli.generate`` reads. Training keeps its
 whole state (the modules, their Adam states, the step) as
 ``checkpoints/<step>/state.pt``, at most ``max_to_keep`` of them, and
-rewrites ``generator.pt`` at every save; ``restore_averaged`` and
+rewrites ``generator.pt`` at every save; with ``data_state`` (the grain
+loader's iterator snapshot, ``sgg_torch.data.grain_pipeline``) a sidecar
+``checkpoints/data_iter_<step>.bin`` rides along, pruned with the
+checkpoints, and :meth:`CheckpointManager.restore_data_state` reads the
+latest's back (``sgg/train/checkpoint.py:113-140``); ``restore_averaged`` and
 :func:`restore_weights` read the mean of the last N. The reference's orbax
 checkpoints are not read here: ``sgg_torch.convert_flax`` turns restored flax
 trees into state_dicts.
@@ -108,16 +112,39 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, state) -> None:
-        """Write ``state`` at its step, prune to ``max_to_keep``, and rewrite
-        ``generator.pt`` for generate."""
+    def save(self, state, data_state: bytes | None = None) -> None:
+        """Write ``state`` at its step (and ``data_state`` as its sidecar),
+        prune both to ``max_to_keep``, and rewrite ``generator.pt`` for
+        generate."""
         step_dir = os.path.join(self.ckpt_dir, str(state.step))
         os.makedirs(step_dir, exist_ok=True)
         _save_atomic(state.state_dict(), os.path.join(step_dir, STATE_FILE))
+        if data_state is not None:
+            path = self._data_state_path(state.step)
+            with open(path + ".tmp", "wb") as f:
+                f.write(data_state)
+            os.replace(path + ".tmp", path)
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.ckpt_dir, str(old)))
+        keep = set(self.all_steps())
+        for name in os.listdir(self.ckpt_dir):
+            if (name.startswith("data_iter_") and name.endswith(".bin")
+                    and int(name[len("data_iter_"):-len(".bin")]) not in keep):
+                os.remove(os.path.join(self.ckpt_dir, name))
         save_generator(self.workdir, state.generator.state_dict(), state.g_ema, state.step,
                        None if state.encoder is None else state.encoder.state_dict())
+
+    def _data_state_path(self, step: int) -> str:
+        return os.path.join(self.ckpt_dir, f"data_iter_{step}.bin")
+
+    def restore_data_state(self) -> bytes | None:
+        """The input iterator's snapshot saved with the latest checkpoint, if
+        any."""
+        step = self.latest_step()
+        if step is None or not os.path.exists(self._data_state_path(step)):
+            return None
+        with open(self._data_state_path(step), "rb") as f:
+            return f.read()
 
     def restore(self, state, step: int | None = None):
         """Load checkpoint ``step`` (default: the latest) into ``state`` in

@@ -103,8 +103,8 @@ def _start_ranks(argv, world=2):
         for r in range(world)]
 
 
-def _wait_ranks(procs, timeout=180):
-    """[(stdout, stderr)] of each rank; asserts every rank exited 0."""
+def _wait_ranks(procs, timeout=180, code=0):
+    """[(stdout, stderr)] of each rank; asserts every rank exited ``code``."""
     try:
         outs = [p.communicate(timeout=timeout) for p in procs]
     finally:
@@ -113,7 +113,7 @@ def _wait_ranks(procs, timeout=180):
                 p.kill()
                 p.wait()
     for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-3000:]
+        assert p.returncode == code, err[-3000:]
     return outs
 
 
@@ -319,6 +319,30 @@ def test_one_process_runtime_and_refused_meshes(monkeypatch):
 
 # ------------------------------------------------------------ the CLI
 
+# The train CLI in a rank that, on rank 1 alone, sends itself SIGTERM once
+# its state reaches step AT ("sigterm"), or reads a host RSS over any limit
+# ("rss"): the other rank must act at the same step.
+ONE_RANK_HOOK = """
+import os, signal, sys
+from sgg_torch.cli import train
+hook, at = sys.argv[1], int(sys.argv[2])
+if os.environ["RANK"] == "1" and hook == "sigterm":
+    make = train.make_step_fn
+    def make_step_fn(*a, **k):
+        step = make(*a, **k)
+        def run(state, *b, **kw):
+            out = step(state, *b, **kw)
+            if state.step == at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        return run
+    train.make_step_fn = make_step_fn
+if os.environ["RANK"] == "1" and hook == "rss":
+    train.host_rss_gb = lambda: 1e6
+sys.exit(train.main(sys.argv[3:]))
+"""
+
+
 def _cli_argvs(wd, steps):
     argv = ["-m", "sgg_torch.cli.train", "--config", "smoke", "--device", "cpu", "--workdir",
             str(wd), "--steps", str(steps)]
@@ -349,10 +373,22 @@ def _same(a, b):
 
 
 def test_two_rank_cli_shards_logs_once_and_resumes_bit_for_bit(tmp_path):
-    whole, cut = tmp_path / "whole", tmp_path / "cut"
-    first = [_start_ranks(_cli_argvs(whole, 4)), _start_ranks(_cli_argvs(cut, 2))]
-    runs = [_wait_ranks(procs) for procs in first]
-    runs.append(_wait_ranks(_start_ranks(_cli_argvs(cut, 4))))
+    """The cut comes from SIGTERM on rank 1 alone after step 2, and a third
+    run's rank 1 alone reads its host RSS over the limit at step 1 (C2): both
+    ranks checkpoint the same step and exit 0, then 75."""
+    whole, cut, rss = tmp_path / "whole", tmp_path / "cut", tmp_path / "rss"
+    first = [_start_ranks(_cli_argvs(whole, 4)),
+             _start_ranks(["-c", ONE_RANK_HOOK, "sigterm", "2", *_cli_argvs(cut, 4)[2:]]),
+             _start_ranks(["-c", ONE_RANK_HOOK, "rss", "1", *_cli_argvs(rss, 4)[2:],
+                           "--set", "train.host_rss_exit_gb=1000"])]
+    runs = [_wait_ranks(procs, code=code) for procs, code in zip(first, (0, 0, 75))]
+    for out, _ in runs[1]:
+        assert "[sgg.train] preemption signal: checkpointing at step 2 and exiting" in out
+    for out, _ in runs[2]:
+        assert "limit — checkpointed at step 1, exiting 75 for supervised relaunch" in out
+    assert sorted(os.listdir(rss / "checkpoints")) == ["1"]
+    assert sorted(os.listdir(cut / "checkpoints")) == ["2"]
+    runs[2] = _wait_ranks(_start_ranks(_cli_argvs(cut, 4)))
     (out0, _), (out1, _) = runs[0]
     for r, out, n in ((0, out0, 33), (1, out1, 32)):
         assert f"[sgg.dist] rank {r} of 2 on cpu: backend gloo (ranks on the CPU)" in out

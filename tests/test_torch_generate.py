@@ -306,8 +306,16 @@ def test_port_imports_no_jax_and_no_sgg():
         "import sgg_torch.cli.synth_corpus, sgg_torch.data.synthetic\n"
         "import sgg_torch.export, sgg_torch.cli.export, sgg_torch.kernels.quant\n"
         "import sgg_torch.dist, sgg_torch.dist.mesh, sgg_torch.dist.multihost\n"
+        "import sgg_torch.convert, sgg_torch.cli.convert, sgg_torch.data.grain_pipeline\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()) as help_text:\n"
+        "    try:\n"
+        "        sgg_torch.cli.convert.main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0\n"
+        "assert '--tf-ckpt' in help_text.getvalue()\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'flax', 'sgg', 'PIL'))\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'sgg', 'PIL', 'tensorflow', 'grain'))\n"
         "assert not bad, bad\n"
         "from sgg_torch.kernels import build\n"
         "assert not build.load_library.cache_info().currsize  # nothing built at import\n"

@@ -146,7 +146,7 @@ def test_cuda_is_the_default_device(tmp_path, monkeypatch):
      "model.use_pallas=true"],
     ["--set", "model.moe_experts=4", "--set", "mesh.expert=2"], ["--set", "model.sp_mode=ring"],
     ["--set", "mesh.fsdp=true"],
-    ["--set", "data.loader=grain"], ["--set", "mesh.seq=2"],
+    ["--set", "mesh.partition=gspmd"], ["--set", "mesh.seq=2"],
     ["--set", "mesh.model=2"]])
 def test_unported_options_are_refused(tmp_path, capsys, extra):
     argv = ["--config", "smoke", "--device", "cpu", "--workdir", str(tmp_path), *extra]
