@@ -367,6 +367,17 @@ one subprocess under a timeout, which it waits for:
      on the grain loader, the workers decoding the JPEGs, 96 ``conv_direct``
      a step. Its training runs stop their worker processes when each
      returns.
+ 26. A8b, TP and FSDP (``tp_fsdp_phase``), in ``rank_run``'s ranks, two
+     sharing the card over gloo: (a) ``--config resnet50 --set
+     mesh.model=2`` (V 8,192, bf16, B 32) 3 steps, 78 ``conv_direct`` and
+     216 ``fused_matmul`` launches a step on each rank, then ``generate
+     --decode fused`` on its global checkpoint; (b) ``--config vit_b16 --set
+     train.train_encoder=true --set mesh.fsdp=true`` 3 steps, 72/60/60 flash
+     launches a step on each rank; both: every rank's gathered state equal to
+     the checkpoint, each rank's state bytes below data parallelism's, the
+     backend line naming gloo's host staging; (c) each again for one float32
+     step at n_critic 1 against one process at the global batch
+     (``world_one_hold``).
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -377,8 +388,9 @@ phase 15 for the three flash kernels), plus phase 22's launches of each
 (each of its paths counted from 0), phase 23's (its two ``generate
 --quant int8`` runs, counted from 0: fused_decode and flash_attention; the
 exported artifact launches none), phase 24's (every rank of its four
-runs, each counted from 0 in its process) and phase 25's (its CLI runs, each
-counted from 0), and
+runs, each counted from 0 in its process), phase 25's (its CLI runs, each
+counted from 0) and phase 26's (every rank of its runs and its generate,
+each counted from 0), and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
 bound ms. Phase 18's serving launch counts and phase 19's are printed on lines of
 their own before it. The last two lines are that
@@ -459,6 +471,9 @@ P23_GRAPH_CALLS, P23_GRAPH_REPS = 10, 3
 # Phase 24, the data-parallel tier: v4_32's steps (the profile window is
 # step 3) and vit_b16's with train_encoder.
 DP_STEPS, DP_VIT_STEPS = 6, 3
+# Phase 26, TP and FSDP: the VG-shaped corpus's ids and the vocab (resnet50's
+# V), the steps of each run, and generate's images and draws on the TP run.
+P26_IMAGES, P26_VOCAB, P26_STEPS, P26_GEN_IMAGES, P26_K = 512, 8192, 3, 64, 8
 # Phase 25, convert and the grain loader: the committed TensorFlow-written
 # checkpoint; the converted vocab's size and the images generated from it;
 # pipeline_v4's corpus, its unbroken steps (the profile window is steps
@@ -469,7 +484,7 @@ P25_V4_IMAGES, P25_V4_STEPS, P25_V4_CUT = 2048, 15, 10
 P25_VG_IMAGES, P25_VG_STEPS, P25_WORKERS = 2048, 2, 2
 # Phases that build their own inputs after the device and the build, so that
 # ``--phases`` can run them alone.
-SELECTABLE_PHASES = (21, 22, 24, 25)
+SELECTABLE_PHASES = (21, 22, 24, 25, 26)
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -3146,6 +3161,20 @@ def digest(tensors):
                            .numpy().tobytes()).hexdigest() for t in tensors]
 
 
+def tree_tensors(tree):
+    """Every tensor of a nested dict or list (a state_dict), dicts in key
+    order."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t_ for k_ in sorted(tree) for t_ in tree_tensors(tree[k_])]
+    if isinstance(tree, (list, tuple)):
+        return [t_ for v_ in tree for t_ in tree_tensors(v_)]
+    return []
+
+
 def rank_run(args):
     """Phase 24's rank: ``chip_smoke.py --rank-run OUT ROOT WINDOW -- <train
     argv>``, under torchrun (one process per rank) or alone. Runs
@@ -3155,10 +3184,17 @@ def rank_run(args):
     (``--profile``) moved to WINDOW = ``first,steps``; then, across ranks,
     times ``pmean`` at each of a step's distinct bucket sizes (one warm call,
     then 3, synchronized) and sums them over the step's buckets; records the
-    seconds from its start to its milestones. Writes ``OUT/rank<r>.json``: exit code, world, backend,
-    device, launches per step, noise and state digests (sha256 of every
+    seconds from its start to its milestones. Writes ``OUT/rank<r>.json``:
+    exit code, world, backend, device, launches per step, noise and state
+    digests (sha256 of every
     tensor of ``state.tensors()``), the step's buckets and the all-reduce's
-    ms a step. Returns the CLI's exit code."""
+    ms a step, the peak device memory and the state's bytes on the rank; for
+    a state placed over a mesh (phase 26) the digests of the global state
+    that every rank gathers. With ``SGG_SMOKE_FIRST`` set (phase 26) it also
+    saves the first step's batch (this rank's rows) and noise to
+    ``OUT/first_rank<r>.pt`` and times every collective of the sharding
+    tier on the host clock, synchronized around each call, per step.
+    Returns the CLI's exit code."""
     t_start = time.time()
     out, root, window = args[0], args[1], args[2]
     argv = args[args.index("--") + 1:]
@@ -3172,9 +3208,37 @@ def rank_run(args):
 
     if not step_mod.__file__.startswith(os.path.abspath(root)):
         raise SystemExit(f"chip_smoke: imported {step_mod.__file__}, not the port under {root}")
-    rec = {"per_step": [], "noise": None, "buckets": [], "t": {"imports": time.time() - t_start}}
+    import sgg_torch.dist.multihost as mh
+    from sgg_torch.dist.sharding import gather_state, state_bytes
+
+    rec = {"per_step": [], "noise": None, "buckets": [], "t": {"imports": time.time() - t_start},
+           "coll_ms": []}
     held = {}
     make, create, pmean = train_cli.make_step_fn, train_cli.create_train_state, step_mod.pmean
+    first_out = os.environ.get("SGG_SMOKE_FIRST")
+    coll = {"ms": 0.0}
+
+    def rank_of():
+        return dist.get_rank() if dist.is_initialized() else 0
+
+    def timed(fn):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            on = torch.cuda.is_available()
+            if on:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r_ = fn(*a, **k)
+            if on:
+                torch.cuda.synchronize()
+            coll["ms"] += (time.perf_counter() - t0) * 1e3
+            return r_
+
+        return run
+
+    if first_out:
+        for name_ in ("gather_tensor", "scatter_mean_tensor", "sum_tensor", "pmean"):
+            setattr(mh, name_, timed(getattr(mh, name_)))
 
     def counting(cfg_, step_mask=None, **kw):
         fn = make(cfg_, step_mask, **kw)
@@ -3185,9 +3249,15 @@ def rank_run(args):
                 x_ = batch["features" if "features" in batch else "images"]
                 nz = fn.inputs(state.step, x_.shape[1], x_.device)
                 rec["noise"] = digest([nz[n_] for n_ in sorted(nz)])
+                if first_out:
+                    torch.save({"batch": {k_: v_.cpu() for k_, v_ in batch.items()},
+                                "noise": {k_: v_.cpu() for k_, v_ in nz.items()}},
+                               os.path.join(out, f"first_rank{rank_of()}.pt"))
             before, n_buckets = kernel_counts(), len(rec["buckets"])
             rec["t"].setdefault("first_step_start", time.time() - t_start)
+            coll["ms"] = 0.0
             r_ = fn(state, batch, *a, **k)
+            rec["coll_ms"].append(coll["ms"])
             after = kernel_counts()
             rec["t"].setdefault("first_step_end", time.time() - t_start)
             rec["per_step"].append({k_: after[k_] - before[k_] for k_ in after})
@@ -3207,7 +3277,7 @@ def rank_run(args):
 
     first, n_win = (int(v_) for v_ in window.split(","))
     train_cli.make_step_fn, train_cli.create_train_state = counting, creating
-    step_mod.pmean = bucketed
+    step_mod.pmean = timed(bucketed) if first_out else bucketed
     train_cli.StepProfiler = lambda logdir, start_step: StepProfiler(
         logdir, start_step - 10 + first, num_steps=n_win)
     rc = train_cli.main(argv)
@@ -3231,6 +3301,11 @@ def rank_run(args):
             ms += (time.perf_counter() - t0) * 1e3 / 3 * sizes.count(n_)
         rec["t"]["allreduce_timing"] = time.time() - t_start
     rank = dist.get_rank() if on else 0
+    if state.placement is not None:
+        rec["global_digests"] = digest(tree_tensors(gather_state(state)))
+    rec["state_bytes"] = state_bytes(state)
+    rec["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+                      else None)
     rec.update({"rc": rc, "rank": rank, "world": dist.get_world_size() if on else 1,
                 "backend": dist.get_backend() if on else None, "device": str(dev),
                 "allreduce_ms_step": ms, "step": state.step,
@@ -3246,7 +3321,7 @@ def rank_run(args):
 
 
 def dp_launch(out, train_argv, nproc=None, root=ROOT, window=(3, 1), timeout=600,
-              torchrun=True):
+              torchrun=True, env_extra=None):
     """Run ``rank_run`` over ``nproc`` ranks and return each rank's record:
     under torchrun, or with ``torchrun=False`` one process per rank started
     here with the environment torchrun gives its ranks (RANK, LOCAL_RANK,
@@ -3258,7 +3333,7 @@ def dp_launch(out, train_argv, nproc=None, root=ROOT, window=(3, 1), timeout=600
     os.makedirs(out, exist_ok=True)
     me = [os.path.abspath(__file__), "--rank-run", out, root, f"{window[0]},{window[1]}",
           "--", *train_argv]
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root, **(env_extra or {}))
     if nproc and torchrun:
         cmds = [([sys.executable, "-m", "torch.distributed.run", "--standalone",
                   "--nproc_per_node", str(nproc)] + me, env)]
@@ -3461,6 +3536,284 @@ def dp_phase(dev, smi, sizes=None, extra_sets=None, vit_sets=None):
                       "per_step": [x_["per_step"] for x_ in recs]}
         for k_ in out["launches"]:
             out["launches"][k_] += sum(c_[k_] for x_ in recs for c_ in x_["per_step"])
+    return out
+
+
+def vocab_of_size(vg_dir, n_tokens):
+    """``vg_dir/vocab<n>.json``: the corpus's own words (what ``data.source=vg``
+    builds at min_count 2) and filler words after them, 7/8 objects, to
+    ``n_tokens`` in all; returns its path."""
+    from sgg_torch.data import Vocab
+    from sgg_torch.data.vg import build_vocab_from_relationships, parse_relationships
+
+    images = parse_relationships(os.path.join(vg_dir, "relationships.json"))
+    base = build_vocab_from_relationships(images, min_count=2)
+    objs = {t: 10 ** 6 for t, o in zip(base.tokens, base.is_object) if o}
+    preds = {t: 10 ** 6 for t, p_ in zip(base.tokens, base.is_predicate) if p_}
+    fill = n_tokens - len(base)
+    objs.update({f"filler_object{i}": 1 for i in range(fill * 7 // 8)})
+    preds.update({f"filler_predicate{i}": 1 for i in range(fill - fill * 7 // 8)})
+    vocab = Vocab.build(objs, preds)
+    if len(vocab) != n_tokens:
+        raise AssertionError(f"phase 26: a vocab of {len(vocab)} tokens, not {n_tokens}")
+    path = os.path.join(vg_dir, f"vocab{n_tokens}.json")
+    vocab.save(path)
+    return path
+
+
+def adam_step_bound(b1, b2, updates):
+    """Σ_t C_t over ``updates`` Adam updates, C_t the most that one update
+    moves an element in units of lr: |m̂_t| / √v̂_t ≤ C_t by Cauchy-Schwarz
+    over the gradients so far (C_1 = 1)."""
+    total = 0.0
+    for t_ in range(1, updates + 1):
+        acc = sum(((1 - b1) * b1 ** j) ** 2 / ((1 - b2) * b2 ** j) for j in range(t_))
+        total += math.sqrt(acc) * math.sqrt(1 - b2 ** t_) / (1 - b1 ** t_)
+    return total
+
+
+def world_one_hold(dev, wd, out, data, model, trained):
+    """Phase 26 (c): the first step of a TP or FSDP run in float32 with
+    n_critic 1 (its ranks' records in ``out``, its workdir ``wd``, one
+    step) against one process at the global batch on the same state and
+    noise, in float32. The two compute one function; they differ in the
+    order and the split of float32 sums (the vocabulary's sums split over
+    the model axis, the batch's over the data axis, GEMMs of other shapes).
+    n_critic is 1 so that the metrics are the first critic update's, taken
+    before an Adam update: at full width each update moves the elements
+    whose gradient is rounding noise by ±lr, and the hard Gumbel sample
+    turns that into other tokens, so five updates carry one ulp of one
+    element of the critic's state to a g_loss 0.6× apart in one process
+    (``scripts/tp_probe.py``, PERF.md §6). The bound is the reference's own
+    for its gspmd step against the single-device step
+    (``tests/dist/test_tp_fsdp.py``) and the CPU tests':
+      - each metric within rtol 1e-4 + atol 1e-6;
+      - each module's parameters after the step: every element within
+        1e-6 + 1e-5 |p|, except at most 1 % of the module's elements, where
+        a gradient that is rounding noise in both runs can give Adam's step
+        the other sign; those within 2 lr Σ C_t (``adam_step_bound``: the
+        most that the module's u Adam updates of the step move an element,
+        both runs from one state).
+    A shard left out, a gradient not reduced or noise from the wrong rows
+    moves every metric and most elements by far more. Returns (ok,
+    numbers)."""
+    import torch
+
+    from sgg_torch.config import Config
+    from sgg_torch.train.checkpoint import load_workdir
+    from sgg_torch.train.state import create_train_state
+    from sgg_torch.train.step import make_step_fn
+
+    cfg, vocab = load_workdir(wd)
+    firsts = [torch.load(os.path.join(out, f"first_rank{d_ * model}.pt"), weights_only=True)
+              for d_ in range(data)]
+    batch = {k_: torch.cat([f_["batch"][k_] for f_ in firsts], dim=1).to(dev)
+             for k_ in firsts[0]["batch"]}
+    B = batch["triples"].shape[1]
+    with open(os.path.join(wd, "metrics.jsonl")) as f:
+        m_ranks = next(json.loads(l_) for l_ in f if '"d_loss"' in l_)
+    want = torch.load(os.path.join(wd, "checkpoints", "1", "state.pt"), map_location="cpu",
+                      weights_only=True)
+    c_ = Config.from_json(cfg.to_json()).override(
+        [f"train.batch_size={B}", "mesh.model=1", "mesh.fsdp=false"])
+    c_.model.vocab_size = cfg.model.vocab_size
+    st = create_train_state(c_, c_.train.seed, device=dev)
+    m1 = make_step_fn(c_, vocab.step_mask())(
+        st, batch, {k_: v_.to(dev) for k_, v_ in firsts[0]["noise"].items()})
+    m1 = {k_: float(v_) for k_, v_ in m1.items()}
+    got = {"g_params": st.generator.state_dict(), "d_params": st.critic.state_dict(),
+           "enc_params": None if st.encoder is None else st.encoder.state_dict()}
+    bad, nums = [], {"metrics": {}, "params": {}}
+    for k_, v_ in m1.items():
+        if k_ in m_ranks:
+            d_ = abs(m_ranks[k_] - v_)
+            nums["metrics"][k_] = (m_ranks[k_], v_, d_)
+            if not d_ <= 1e-6 + 1e-4 * abs(v_):
+                bad.append(f"{k_}: {m_ranks[k_]} against {v_}")
+    t_ = cfg.train
+    lrs = {"g_params": (t_.g_lr, 1), "d_params": (t_.d_lr, t_.n_critic),
+           "enc_params": (t_.enc_lr, t_.n_critic)}
+    for tree in trained:
+        lr, u = lrs[tree]
+        step_bound = 2 * lr * adam_step_bound(float(t_.beta1), float(t_.beta2), u) + 1e-6
+        n_far = n_all = 0
+        worst = 0.0
+        for k_, w_ in want[tree].items():
+            w_ = w_.float()
+            d_ = (got[tree][k_].detach().float().cpu() - w_).abs()
+            far = d_ > 1e-6 + 1e-5 * w_.abs()
+            n_far += int(far.sum())
+            n_all += w_.numel()
+            worst = max(worst, float(d_.max()))
+        nums["params"][tree] = (n_far / n_all, worst, step_bound)
+        if n_far > 0.01 * n_all or worst > step_bound:
+            bad.append(f"{tree}: {n_far} of {n_all} elements beyond 1e-6 + 1e-5 |p|, max |d| "
+                       f"{worst:.3g} (bound {step_bound:.3g})")
+    del st
+    torch.cuda.empty_cache()
+    return not bad, {**nums, "bad": bad}
+
+
+def tp_fsdp_phase(dev, smi, sizes=None, extra_sets=None, vit_sets=None):
+    """Phase 26, A8b: tensor parallelism over the vocabulary and FSDP/ZeRO
+    over 'data', each through ``sgg_torch.cli.train`` under torchrun with
+    the normal flags (ranks of ``rank_run``, two sharing the card over
+    gloo): (a) TP, ``--config resnet50 --set mesh.model=2`` on a VG-shaped
+    corpus of 512 ids cycling the committed fixture with a vocab of 8,192
+    (``vocab_of_size``): V 8,192, F 2,048, R 49, 224 px, bf16, the frozen
+    ResNet-50 on conv_direct and fused_matmul (13 + 36 launches an encoder
+    pass, 6 passes a step, on each rank), 3 steps, then
+    ``sgg_torch.cli.generate --decode fused`` on its workdir (fused_decode
+    reads the global checkpoint); (b) FSDP, ``--config vit_b16 --set
+    train.train_encoder=true --set mesh.fsdp=true``, batch 32 a rank, the
+    ViT's weights and moments split over 'data' (72/60/60 flash, dq and
+    dk/dv launches a step on each rank), 3 steps; (c) each of (a) and (b)
+    again for one step in float32 with n_critic 1 (on the library routes:
+    the kernels are (a)'s and (b)'s to hold), the two runs at once, each
+    held against one
+    process at the global batch on the same state and noise
+    (``world_one_hold``, its bound in its docstring). Holds also: every rank
+    gathers the same global state, equal to the checkpoint the run wrote,
+    the backend line names gloo's host staging, and each rank's state bytes
+    are below data parallelism's. Prints s/step, the collectives' ms a step
+    (host clock), peak memory and state bytes per rank, and the launches.
+    ``sizes``, ``extra_sets`` and ``vit_sets`` shrink it for a dry run on
+    the CPU (launch counts printed, not held). Returns the numbers."""
+    import torch
+
+    from sgg_torch.cli import generate
+
+    z_ = {"images": P26_IMAGES, "steps": P26_STEPS, "vocab": P26_VOCAB,
+          "gen_images": P26_GEN_IMAGES, "k": P26_K, "vit_images": VIT_IMAGES,
+          **(sizes or {})}
+    on_card = torch.device(dev).type == "cuda"
+    out = {"launches": {k_: 0 for k_ in kernel_counts()}}
+
+    def argv(wd, config, sets, steps=z_["steps"]):
+        a_ = ["--config", config, "--workdir", wd, "--steps", str(steps)]
+        for k_, v_ in sets.items():
+            a_ += ["--set", f"{k_}={v_}"]
+        return a_ + ([] if on_card else ["--device", "cpu"])
+
+    def report(label, recs, wd, text):
+        lines = [r_ for r_ in read_metric_lines(wd) if "d_loss" in r_]
+        backend = re.findall(r"\[sgg\.dist\] rank 0 of \d+ on \S+: backend .*", text)
+        whole = re.findall(r"state bytes on this rank: ([\d,]+) \(data parallel: ([\d,]+)\)",
+                           text)
+        r_ = {"s_per_step": 1 / lines[-1]["steps_per_sec"], "backend": backend[0],
+              "coll_ms": [x_["coll_ms"][1:] for x_ in recs],
+              "peak_gb": [x_["peak_gb"] for x_ in recs],
+              "state_bytes": [x_["state_bytes"] for x_ in recs],
+              "dp_bytes": int(whole[0][1].replace(",", "")),
+              "per_step": [x_["per_step"] for x_ in recs]}
+        log(f"phase 26 ({label}): {z_['steps']} steps, last {r_['s_per_step']:.4f} s/step; "
+            f"collectives ms a step per rank (host clock, after the first) {r_['coll_ms']}; "
+            f"peak GB per rank {r_['peak_gb']}; state bytes per rank {r_['state_bytes']} "
+            f"(data parallel {r_['dp_bytes']}); launches a step per rank "
+            f"{[x_['per_step'][-1] for x_ in recs]}; {r_['backend']} [{smi}]")
+        for x_ in recs:
+            for c_ in x_["per_step"]:
+                for k_, v_ in c_.items():
+                    out["launches"][k_] += v_
+        return r_
+
+    def common_holds(label, recs, wd, r_, want_step):
+        bad = []
+        if any(x_["global_digests"] != recs[0]["global_digests"] for x_ in recs):
+            bad.append("the ranks gathered different global states")
+        sd = torch.load(os.path.join(wd, "checkpoints", str(z_["steps"]), "state.pt"),
+                        map_location="cpu", weights_only=True)
+        if digest(tree_tensors(sd)) != recs[0]["global_digests"]:
+            bad.append("the checkpoint is not the gathered global state")
+        if on_card and "all-gathers stage through the host" not in r_["backend"]:
+            bad.append("the backend line does not name gloo's host staging")
+        if not all(b_ < r_["dp_bytes"] for b_ in r_["state_bytes"]):
+            bad.append("a rank holds no less than data parallelism")
+        if want_step is not None and any(
+                [{k_: v_ for k_, v_ in c_.items() if v_} for c_ in x_["per_step"]]
+                != [want_step] * len(x_["per_step"]) for x_ in recs):
+            bad.append(f"launches {[x_['per_step'] for x_ in recs]} (expected {want_step})")
+        log(f"phase 26 ({label}) holds: {'ok' if not bad else 'FAILED: ' + '; '.join(bad)}")
+        return not bad
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vg_dir = os.path.join(tmp, "vg")
+        vg_corpus(vg_dir, z_["images"])
+        vocab_path = vocab_of_size(vg_dir, z_["vocab"])
+        first = {"SGG_SMOKE_FIRST": "1"}
+
+        # (a) TP on resnet50 at V = 8,192.
+        wd_a, out_a = os.path.join(tmp, "wd_a"), os.path.join(tmp, "out_a")
+        sets_a = {"mesh.model": 2, "data.source": "vg", "data.data_dir": vg_dir,
+                  "data.vocab_path": vocab_path, "train.log_every": 1, **(extra_sets or {})}
+        t_a = time.perf_counter()
+        recs_a, text_a = dp_launch(out_a, argv(wd_a, "resnet50", sets_a), 2, env_extra=first)
+        r_a = report("a) TP, resnet50, V 8192, 2 ranks", recs_a, wd_a, text_a)
+        r_a["s"] = time.perf_counter() - t_a
+        passes = 1 + int(sets_a.get("train.n_critic", 5))
+        ok_a = common_holds("a", recs_a, wd_a, r_a, {"conv_direct": 13 * passes,
+                                                     "fused_matmul": 36 * passes}
+                            if on_card else None)
+        gen_out = os.path.join(tmp, "graphs_a.json")
+        gen_s, gen_counts = run_cli(generate.main, [
+            "--workdir", wd_a, "--out", gen_out, "--decode", "fused", "--split", "train",
+            "--num-images", str(z_["gen_images"]), "--batch-size", "32",
+            "--num-samples", str(z_["k"]), "--seed", str(SEED)]
+            + ([] if on_card else ["--device", "cpu"]), "sgg_torch.cli.generate")
+        n_b = math.ceil(z_["gen_images"] / 32)
+        want_gen = {"fused_decode": n_b * z_["k"], "fused_matmul": n_b * 36,
+                    "conv_direct": n_b * 13, "flash_attention": 0,
+                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+        with open(gen_out) as f:
+            graphs = json.load(f)["scene_graphs"]
+        log(f"phase 26 (a) generate --decode fused on the TP workdir: {gen_s:.3f} s, "
+            f"{len(graphs)} graphs, launches {gen_counts} (expected {want_gen})")
+        for k_, v_ in gen_counts.items():
+            out["launches"][k_] += v_
+        if len(graphs) != z_["gen_images"] or (on_card and gen_counts != want_gen):
+            ok_a = False
+        # (b) FSDP on vit_b16 with train_encoder.
+        wd_b, out_b = os.path.join(tmp, "wd_b"), os.path.join(tmp, "out_b")
+        sets_b = {"train.train_encoder": "true", "mesh.fsdp": "true",
+                  "data.num_synthetic_images": z_["vit_images"], "train.log_every": 1,
+                  **(vit_sets or {})}
+        t_b = time.perf_counter()
+        recs_b, text_b = dp_launch(out_b, argv(wd_b, "vit_b16", sets_b), 2, torchrun=False,
+                                   env_extra=first)
+        r_b = report("b) FSDP, vit_b16 train_encoder, 2 ranks", recs_b, wd_b, text_b)
+        r_b["s"] = time.perf_counter() - t_b
+        ok_b = common_holds("b", recs_b, wd_b, r_b, {
+            "flash_attention": 72, "flash_attention_bwd_dq": 60,
+            "flash_attention_bwd_dkv": 60} if on_card else None)
+
+        # (c) each again for one step in float32, both at once, each against
+        # one process.
+        f32 = {"model.compute_dtype": "float32", "model.use_pallas": "false",
+               "train.checkpoint_every": 1, "train.n_critic": 1}
+        runs_c = {"a": ("resnet50", {**sets_a, **f32}, True), "b": ("vit_b16",
+                                                                 {**sets_b, **f32}, False)}
+        t_c = time.perf_counter()
+        done, _ = in_threads(lambda k_: dp_launch(
+            os.path.join(tmp, f"out_c{k_}"), argv(os.path.join(tmp, f"wd_c{k_}"), runs_c[k_][0],
+                                                  runs_c[k_][1], steps=1),
+            2, torchrun=runs_c[k_][2], env_extra=first), [("a",), ("b",)])
+        ok_ca, c_a = world_one_hold(dev, os.path.join(tmp, "wd_ca"), os.path.join(tmp, "out_ca"),
+                                    1, 2, ("g_params", "d_params"))
+        ok_cb, c_b = world_one_hold(dev, os.path.join(tmp, "wd_cb"), os.path.join(tmp, "out_cb"),
+                                    2, 1, ("g_params", "d_params", "enc_params"))
+        c_s = time.perf_counter() - t_c
+        for recs_c, _ in done:
+            for x_ in recs_c:
+                for c_ in x_["per_step"]:
+                    for k_, v_ in c_.items():
+                        out["launches"][k_] += v_
+        log(f"phase 26 (c) float32, TP against one process: {'ok' if ok_ca else 'FAILED'} {c_a}")
+        log(f"phase 26 (c) float32, FSDP against one process: {'ok' if ok_cb else 'FAILED'} "
+            f"{c_b}; (c) {c_s:.3f} s")
+        out.update({"a": r_a, "b": r_b, "c": {"tp": c_a, "fsdp": c_b},
+                    "generate": {"s": gen_s, "launches": gen_counts}})
+    if not (ok_a and ok_b and ok_ca and ok_cb):
+        raise AssertionError("phase 26: a TP/FSDP hold failed")
     return out
 
 
@@ -3839,6 +4192,20 @@ def phase25_line(v25, smi):
             f"[{smi}]")
 
 
+def phase26_line(v26, smi):
+    a_, b_ = v26["a"], v26["b"]
+
+    def coll(r_):  # each rank's mean ms a step after the first
+        return [round(sum(x_) / max(len(x_), 1), 3) for x_ in r_["coll_ms"]]
+
+    return (f"phase 26: TP resnet50 (V 8192, 2 ranks) {a_['s_per_step']:.4f} s/step, "
+            f"collectives {coll(a_)} ms a step, state bytes {a_['state_bytes']} (DP "
+            f"{a_['dp_bytes']}), peak GB {a_['peak_gb']}; FSDP vit_b16 train_encoder (2 ranks) "
+            f"{b_['s_per_step']:.4f} s/step, collectives {coll(b_)} ms a step, state bytes "
+            f"{b_['state_bytes']} (DP {b_['dp_bytes']}), peak GB {b_['peak_gb']}; generate "
+            f"--decode fused {v26['generate']['s']:.3f} s; launches {v26['launches']} [{smi}]")
+
+
 def run_phases(chosen, dev, smi):
     """``--phases``: each chosen phase alone, in the order given, after the
     device and the build; prints its launches, the card's line and a last
@@ -3855,6 +4222,9 @@ def run_phases(chosen, dev, smi):
             results[n_] = grounded_recipe_phase(dev, run_cli, kernel_counts)
         elif n_ == 24:
             results[n_] = dp_phase(dev, smi)
+        elif n_ == 26:
+            results[n_] = tp_fsdp_phase(dev, smi)
+            log(phase26_line(results[n_], smi))
         else:
             results[n_] = convert_grain_phase(dev, smi, before={"v21": results.get(21)})
             log(phase25_line(results[n_], smi))
@@ -5378,6 +5748,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     v25 = convert_grain_phase(dev, smi, before={"v20": v20.get("eager"), "v21": v21})
     phase("convert and the grain loader (phase 25)", t0)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    v26 = tp_fsdp_phase(dev, smi)
+    phase("TP and FSDP (phase 26)", t0)
     log(f"phase 19 launches: flash_attention {vrl_counts['flash_attention']}, dq "
         f"{vrl_counts['flash_attention_bwd_dq']}, dk/dv {vrl_counts['flash_attention_bwd_dkv']} "
         f"({VIT_RL_STEPS} REINFORCE steps on vit_b16); none on PredCls, REINFORCE on "
@@ -5427,6 +5801,7 @@ def main(argv=None):
         f"{v24['plain']['s_per_step']:.4f} s/step; vit_b16 over 2 ranks "
         f"{v24['vit']['s_per_step']:.4f} s/step; launches {v24['launches']} [{smi}]")
     log(phase25_line(v25, smi))
+    log(phase26_line(v26, smi))
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",
@@ -5459,6 +5834,8 @@ def main(argv=None):
     for k_, v_ in v24["launches"].items():  # phase 24's runs, every rank's, from 0
         path_counts[k_] += v_
     for k_, v_ in v25["launches"].items():  # phase 25's CLI runs, each from 0
+        path_counts[k_] += v_
+    for k_, v_ in v26["launches"].items():  # phase 26's runs, every rank's, from 0
         path_counts[k_] += v_
     kernels = []
     for name, (src, replaces) in sources.items():

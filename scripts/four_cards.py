@@ -1,0 +1,214 @@
+#!/usr/bin/env python3
+"""The runs that exist only across cards, on four cards of one host, each
+through the port's own entry points, one process per card over NCCL:
+
+  python3 scripts/four_cards.py
+
+(a) TP + FSDP: ``torchrun --nproc_per_node 4 -m sgg_torch.cli.train
+    --config vit_b16 --set train.train_encoder=true --set mesh.model=2 --set
+    mesh.fsdp=true``, data 2 x model 2, B 32 a rank, 3 steps, in
+    ``chip_smoke.rank_run``'s ranks: 72/60/60 flash launches a step on each
+    rank, every rank gathering the same global state (the checkpoint), and
+    then the same for one step in float32 with n_critic 1 on the library
+    routes, held
+    against one process at the global batch on card 0
+    (``chip_smoke.world_one_hold``, its bound in its docstring);
+(b) data parallelism, ``--config v4_32`` at world 4 over NCCL (VGG-19 at
+    224 px, bf16, B 128 a rank, n_critic 5) on a VG-shaped corpus of 1,024
+    ids cycling the committed fixture, 3 steps: 96 ``conv_direct`` launches
+    a step on each rank, the ranks' states equal bit for bit;
+(c) ``python -m sgg_torch.cli.serve --workdir <(b)'s> --dp 4 --port 0``:
+    its ready line, four binary requests of 32 images (each answered with
+    32 type-legal graphs), exit 0 after SIGTERM.
+Prints each run's s/step, images/s, the collectives' ms a step, state bytes
+and peak memory per rank, the request latencies, and the cards' names and
+power limits; exits non-zero if a hold fails, and with 2 if fewer than four
+cards are visible. ``--dry-run`` runs the same on the CPU (four gloo ranks,
+``serve --dp 4`` over four CPU devices) at small widths, the launch counts
+not held.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+STEPS, V4_IMAGES, REQUESTS, REQUEST_IMAGES = 3, 1024, 4, 32
+# --dry-run: small widths on the CPU.
+DRY = {"model.hidden": 32, "model.embed_dim": 16, "model.attn_dim": 16, "model.noise_dim": 8,
+       "model.critic_hidden": 32, "model.compute_dtype": "float32", "train.batch_size": 4,
+       "train.n_critic": 2, "data.image_size": 64}
+DRY_VIT = {**DRY, "data.regions": 16, "data.feat_dim": 64, "model.vit_dim": 64,
+           "model.vit_layers": 2, "model.vit_heads": 4, "model.num_heads": 4,
+           "model.num_layers": 2}
+DRY_V4 = {**DRY, "data.regions": 16, "data.feat_dim": 512}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--dry-run", action="store_true",
+                    help="on the CPU at small widths (four gloo ranks)")
+    dry = ap.parse_args(argv).dry_run
+    if not dry and (not torch.cuda.is_available() or torch.cuda.device_count() < 4):
+        print("four_cards: needs four CUDA devices", file=sys.stderr)
+        return 2
+
+    def sets(extra):
+        a_ = []
+        for k_, v_ in (extra if dry else {}).items():
+            a_ += ["--set", f"{k_}={v_}"]
+        return a_ + (["--device", "cpu"] if dry else [])
+
+    size = DRY["data.image_size"] if dry else 224
+    smi = ("cpu dry run" if dry else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().replace("\n", "; "))
+    print(smi, flush=True)
+    out = {}
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) TP + FSDP over NCCL.
+        def vit_argv(wd, steps, extra=()):
+            return (["--config", "vit_b16", "--workdir", wd, "--steps", str(steps),
+                     "--set", "train.train_encoder=true", "--set", "mesh.model=2",
+                     "--set", "mesh.fsdp=true",
+                     "--set", f"data.num_synthetic_images={cs.VIT_IMAGES}",
+                     "--set", "train.log_every=1", "--set", "train.checkpoint_every=1",
+                     *extra] + sets(DRY_VIT))
+
+        wd_a, out_a = os.path.join(tmp, "wd_a"), os.path.join(tmp, "out_a")
+        argv_a = vit_argv(wd_a, STEPS)
+        t0 = time.perf_counter()
+        recs, text = cs.dp_launch(out_a, argv_a, 4, env_extra={"SGG_SMOKE_FIRST": "1"})
+        lines = [r_ for r_ in cs.read_metric_lines(wd_a) if "d_loss" in r_]
+        want = {"flash_attention": 72, "flash_attention_bwd_dq": 60,
+                "flash_attention_bwd_dkv": 60}
+        if not dry and any([{k_: v_ for k_, v_ in c_.items() if v_} for c_ in x_["per_step"]]
+                           != [want] * STEPS for x_ in recs):
+            bad.append(f"(a) launches {[x_['per_step'] for x_ in recs]}")
+        if any(x_["global_digests"] != recs[0]["global_digests"] for x_ in recs):
+            bad.append("(a) the ranks gathered different global states")
+        sd = torch.load(os.path.join(wd_a, "checkpoints", str(STEPS), "state.pt"),
+                        map_location="cpu", weights_only=True)
+        if cs.digest(cs.tree_tensors(sd)) != recs[0]["global_digests"]:
+            bad.append("(a) the checkpoint is not the gathered global state")
+        if any(x_["backend"] != ("gloo" if dry else "nccl") for x_ in recs):
+            bad.append(f"(a) backends {[x_['backend'] for x_ in recs]}")
+        # Its first step again in float32 (library routes), against one
+        # process at the global batch on card 0.
+        wd_f, out_f = os.path.join(tmp, "wd_f"), os.path.join(tmp, "out_f")
+        cs.dp_launch(out_f, vit_argv(wd_f, 1, ("--set", "model.compute_dtype=float32",
+                                               "--set", "model.use_pallas=false",
+                                               "--set", "train.n_critic=1")), 4,
+                     env_extra={"SGG_SMOKE_FIRST": "1"})
+        dev = torch.device("cpu" if dry else "cuda")
+        ok_c, hold = cs.world_one_hold(dev, wd_f, out_f, 2, 2,
+                                       ("g_params", "d_params", "enc_params"))
+        if not ok_c:
+            bad.append(f"(a) against one process: {hold['bad']}")
+        out["tp_fsdp"] = {"s": time.perf_counter() - t0,
+                          "s_per_step": 1 / lines[-1]["steps_per_sec"],
+                          "images_per_s": lines[-1]["images_per_sec"],
+                          "coll_ms": [x_["coll_ms"][1:] for x_ in recs],
+                          "state_bytes": [x_["state_bytes"] for x_ in recs],
+                          "peak_gb": [x_["peak_gb"] for x_ in recs],
+                          "hold": hold}
+        print(f"[four_cards] (a) TP+FSDP vit_b16 train_encoder, data 2 x model 2 over NCCL: "
+              f"{json.dumps(out['tp_fsdp'])} [{smi}]", flush=True)
+
+        # (b) v4_32 at world 4 over NCCL.
+        vg_dir = os.path.join(tmp, "vg")
+        cs.vg_corpus(vg_dir, V4_IMAGES)
+        wd_b, out_b = os.path.join(tmp, "wd_b"), os.path.join(tmp, "out_b")
+        argv_b = ["--config", "v4_32", "--workdir", wd_b, "--steps", str(STEPS),
+                  "--set", f"data.data_dir={vg_dir}", "--set", "train.log_every=1"]
+        argv_b += sets(DRY_V4)
+        t0 = time.perf_counter()
+        recs, text = cs.dp_launch(out_b, argv_b, 4)
+        lines = [r_ for r_ in cs.read_metric_lines(wd_b) if "d_loss" in r_]
+        ok_b, bad_b = cs.dp_holds(recs, None, None if dry else {"conv_direct": 96})
+        if not ok_b:
+            bad.append(f"(b) {bad_b}")
+        if any(x_["backend"] != ("gloo" if dry else "nccl") for x_ in recs):
+            bad.append(f"(b) backends {[x_['backend'] for x_ in recs]}")
+        out["v4_32"] = {"s": time.perf_counter() - t0,
+                        "s_per_step": 1 / lines[-1]["steps_per_sec"],
+                        "images_per_s": lines[-1]["images_per_sec"],
+                        "allreduce_ms_step": [x_["allreduce_ms_step"] for x_ in recs],
+                        "peak_gb": [x_["peak_gb"] for x_ in recs]}
+        print(f"[four_cards] (b) v4_32 over 4 ranks, NCCL: {json.dumps(out['v4_32'])} [{smi}]",
+              flush=True)
+
+        # (c) serve --dp 4 on (b)'s workdir.
+        from sgg_torch.serve import encode_binary_request
+        from sgg_torch.train.checkpoint import load_workdir
+
+        _, vocab = load_workdir(wd_b)
+        log_path = os.path.join(tmp, "serve.log")
+        argv_c = ["timeout", "-k", "5", str(cs.CLI_BOUND_S), sys.executable, "-m",
+                  "sgg_torch.cli.serve", "--workdir", wd_b, "--dp", "4", "--port", "0",
+                  "--batch-size", str(REQUEST_IMAGES)] + (["--device", "cpu"] if dry else [])
+        t0 = time.perf_counter()
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(argv_c, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        try:
+            deadline, url = time.monotonic() + cs.CLI_READY_S, None
+            while url is None and time.monotonic() < deadline and proc.poll() is None:
+                time.sleep(0.2)
+                with open(log_path) as f:
+                    ready = [ln for ln in f if "ready on http://" in ln]
+                if ready:
+                    url = ready[0].split("ready on ")[1].split()[0]
+            ready_s = time.perf_counter() - t0
+            if url is None:
+                with open(log_path) as f:
+                    raise AssertionError(f"serve --dp 4 printed no ready line:\n{f.read()}")
+            rs = np.random.RandomState(0)
+            latencies = []
+            for _ in range(REQUESTS):
+                im = rs.randint(0, 256, (REQUEST_IMAGES, size, size, 3), dtype=np.uint8)
+                t_r = time.perf_counter()
+                status, resp = cs.http(url + "/v1/generate", encode_binary_request(im),
+                                       "application/octet-stream")
+                latencies.append(time.perf_counter() - t_r)
+                if status != 200 or len(resp["scene_graphs"]) != REQUEST_IMAGES:
+                    raise AssertionError(f"serve --dp 4: status {status} {resp}")
+                cs.legal_graphs(resp["scene_graphs"], vocab, 50, "serve --dp 4")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=cs.CLI_EXIT_S)
+            with open(log_path) as f:
+                printed = f.read()
+            if rc != 0:
+                bad.append(f"(c) serve exited {rc}:\n{printed[-2000:]}")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+        out["serve"] = {"ready_s": ready_s, "latency_s": latencies,
+                        "images_per_s": REQUEST_IMAGES * len(latencies) / sum(latencies),
+                        "printed": [ln for ln in printed.splitlines() if "[sgg.serve]" in ln][:3]}
+        print(f"[four_cards] (c) serve --dp 4: {json.dumps(out['serve'])} [{smi}]", flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "four_cards.json"), "w") as f:
+        json.dump({"smi": smi, **out, "bad": bad}, f, indent=1)
+    print(f"[four_cards] holds: {'ok' if not bad else 'FAILED: ' + '; '.join(bad)}", flush=True)
+    return 0 if not bad else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

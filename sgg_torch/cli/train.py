@@ -103,10 +103,34 @@ one step per dispatch with the reference's line:
   python -m sgg_torch.cli.train --config pipeline_v4 --workdir W \
       --set data.data_dir=SHARDS --set data.loader=grain --set data.grain_workers=2
 
+Tensor parallelism over the vocabulary and FSDP/ZeRO over ``'data'``
+(``sgg/cli/train.py:116-130``): ``mesh.model`` = M ranks to a model group,
+``mesh.fsdp`` shards every large leaf over the data axis, and the route is
+the reference's rule (:func:`gspmd_route`: ``mesh.partition='gspmd'``, or
+``'auto'`` with M > 1 or fsdp, on more than one rank). On it the state is
+placed over the mesh (``sgg_torch.dist.sharding``) and trained by the gspmd
+step (``make_step_fn(mesh=...)``), with the reference's line and each rank's
+state bytes beside data parallelism's:
+
+  torchrun --nproc_per_node 2 -m sgg_torch.cli.train --config resnet50 \
+      --set mesh.model=2 --workdir W
+  torchrun --nproc_per_node 2 -m sgg_torch.cli.train --config vit_b16 \
+      --set train.train_encoder=true --set mesh.fsdp=true --workdir W
+  torchrun --nproc_per_node 4 -m sgg_torch.cli.train --config smoke --device cpu \
+      --set mesh.model=2 --set mesh.fsdp=true --workdir W
+
+The ranks of one model group draw the same rows (the data shard is the
+data coordinate's). Checkpoints stay global, in the single-process format:
+every rank gathers the state and rank 0 writes it, so ``evaluate``,
+``generate`` and ``serve`` read the workdir as any other; a resumed run reads
+the global state and places it again. ``mesh.partition='shard_map'`` with
+M > 1 trains data parallel over the data axis, each model group's ranks
+alike, as the reference's shard_map step replicates over ``'model'``.
+
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
 there. A resumed run's host iterator continues the draws at the restored
-step. Not ported yet: TP, FSDP, sequence, pipeline and expert parallelism
-(ROADMAP A8b–A8e).
+step. Not ported yet: sequence, pipeline and expert parallelism (ROADMAP
+A8c–A8e).
 """
 
 from __future__ import annotations
@@ -139,6 +163,8 @@ from sgg_torch.dist import (
     process_shard_info,
     replicated_sharding,
 )
+from sgg_torch.dist.multihost import ProcessShard
+from sgg_torch.dist.sharding import gather_state, place_state, state_bytes, state_sharding
 from sgg_torch.data.pipeline import (
     RotatingDeviceIterator,
     data_store,
@@ -163,6 +189,16 @@ def _refusal(cfg: Config) -> str | None:
     except (NotImplementedError, ValueError) as e:
         return str(e)
     return None
+
+
+def gspmd_route(mesh_cfg, world: int) -> bool:
+    """The reference's rule (``sgg/cli/train.py:116-119``): the gspmd step
+    when there is a mesh (more than one rank, as the reference's takes more
+    than one device) and ``mesh.partition`` is ``'gspmd'``, or ``'auto'``
+    with a model axis or FSDP."""
+    return world > 1 and (
+        mesh_cfg.partition == "gspmd"
+        or (mesh_cfg.partition == "auto" and (mesh_cfg.model > 1 or mesh_cfg.fsdp)))
 
 
 def data_route(cfg: Config, ds, processes: int = 1) -> tuple[str, int, bool]:
@@ -342,11 +378,17 @@ def main(argv=None) -> int:
         print(f"[sgg.train] {e}", file=sys.stderr)
         return 2
     group, lead = mesh.group, shard.index == 0
+    everyone = dist.group.WORLD if dist.is_initialized() else None
+    gspmd = gspmd_route(cfg.mesh, shard.count)
+    # The data shard is the data coordinate's: a model group's ranks draw alike.
+    data_shard = ProcessShard(index=mesh.rank, count=mesh.data)
 
     ds, vocab = load_dataset(cfg)
     cfg.model.vocab_size = len(vocab)
     print(f"[sgg.train] config={cfg.name} images={len(ds)} vocab={len(vocab)} "
-          f"devices={mesh.data} processes={shard.count} device={device}", flush=True)
+          f"devices={shard.count} processes={shard.count} device={device}", flush=True)
+    if shard.count > 1:
+        print(f"[sgg.train] mesh={mesh.shape}", flush=True)
     if cfg.data.predicate_balance > 0 and hasattr(ds, "set_predicate_balance"):
         ds.set_predicate_balance(cfg.data.predicate_balance)
         print(f"[sgg.train] predicate-balanced triple sampling "
@@ -386,8 +428,18 @@ def main(argv=None) -> int:
     print(f"[sgg.train] params: G={param_count(state.generator):,} "
           f"D={param_count(state.critic):,}{enc_n}", flush=True)
 
-    step_fn = (make_step_fn(cfg, step_mask=vocab.step_mask()) if group is None
-               else make_step_fn(cfg, step_mask=vocab.step_mask(), group=group))
+    if gspmd:
+        tp, fsdp = cfg.mesh.model > 1, bool(cfg.mesh.fsdp)
+        whole = state_bytes(state)
+        place_state(state, state_sharding(state, mesh, tp=tp, fsdp=fsdp), mesh)
+        print(f"[sgg.train] gspmd partition: tp={tp} fsdp={fsdp}", flush=True)
+        print(f"[sgg.train] state bytes on this rank: {state_bytes(state):,} (data parallel: "
+              f"{whole:,})", flush=True)
+        step_fn = make_step_fn(cfg, step_mask=vocab.step_mask(), mesh=mesh)
+    elif group is None:
+        step_fn = make_step_fn(cfg, step_mask=vocab.step_mask())
+    else:
+        step_fn = make_step_fn(cfg, step_mask=vocab.step_mask(), group=group)
     if args.debug_nans:
         step_fn = enable_nan_checks(step_fn)
     t = cfg.train
@@ -399,7 +451,7 @@ def main(argv=None) -> int:
                                             seed=t.seed, device=device, int8_store=int8)
         how = _resident(nbytes, device, ", int8+scale" if int8 else "")
     else:
-        it, how = _batches(cfg, ds, device, route, nbytes, int8, shard, state.step)
+        it, how = _batches(cfg, ds, device, route, nbytes, int8, data_shard, state.step)
     grain_it = it if isinstance(it, GrainTrainIterator) else None
     # Every rank reads rank 0's sidecar: the state is the same on each.
     data_state = ckpt.restore_data_state() if grain_it is not None and resumed else None
@@ -410,8 +462,8 @@ def main(argv=None) -> int:
     for line in notes:
         print(line, flush=True)
     logger = MetricLogger(cfg.workdir, write=lead, chips=shard.count)
-    # Images a step over every process, as the reference counts them.
-    images_per_step = t.batch_size * (t.n_critic + 1) * shard.count
+    # Images a step over the data axis, as the reference counts them.
+    images_per_step = t.batch_size * (t.n_critic + 1) * mesh.data
     probe = None
     if t.eval_every > 0 and shard.count > 1:
         print("[sgg.train] train.eval_every: in-loop probe is single-process only — "
@@ -442,19 +494,22 @@ def main(argv=None) -> int:
             pass  # not the main thread
 
     def save() -> None:
-        """Rank 0 writes the checkpoint; every rank waits for it."""
+        """Rank 0 writes the checkpoint (a placed state's gathered by every
+        rank first); every rank waits for it."""
+        sd = None if state.placement is None else gather_state(state)
         if lead:
-            ckpt.save(state, data_state=None if grain_it is None else grain_it.get_state())
-        if group is not None:
-            dist.barrier(group)
+            ckpt.save(state, data_state=None if grain_it is None else grain_it.get_state(),
+                      sd=sd)
+        if everyone is not None:
+            dist.barrier(everyone)
 
     def any_rank(flag: bool) -> bool:
         """Whether ``flag`` holds on any rank (this rank's own in one
         process), so that every rank acts at the same step."""
-        if group is None:
+        if everyone is None:
             return flag
         x = torch.tensor([float(flag)], device=device)
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, group=everyone)
         return bool(x.item() > 0)
 
     # Progress is stamped at every log boundary, probe and checkpoint.

@@ -1,10 +1,13 @@
-"""sgg_torch.dist — the data-parallel tier of ``sgg/dist/`` on ``torch.distributed``.
+"""sgg_torch.dist — ``sgg/dist/``'s data parallelism, tensor parallelism and
+FSDP on ``torch.distributed``.
 
-Meshes over the world of ranks or a process's devices (:mod:`.mesh`), and the
+Meshes over the world of ranks or a process's devices (:mod:`.mesh`); the
 multi-process runtime: torchrun's process group, per-process data shards, the
-broadcast of a replicated state and the gradients' mean (:mod:`.multihost`).
-TP, FSDP, sequence, pipeline and expert parallelism are still to port
-(ROADMAP A8b–A8e).
+broadcast of a replicated state, the gradients' mean and the subgroup
+collectives (:mod:`.multihost`); the train state's placement over a
+``('data', 'model')`` mesh, TP over the vocabulary and FSDP/ZeRO over 'data'
+(:mod:`.sharding`). Sequence, pipeline and expert parallelism are still to
+port (ROADMAP A8c–A8e).
 """
 
 from sgg_torch.dist.mesh import (

@@ -11,7 +11,9 @@ Compute runs in the model dtype over float32 parameters, as flax's. Parameter
 names and layouts are the flax module's (``token_embedding`` [V, E],
 ``query_proj``, ``key_proj`` and ``score`` without bias, ``trunk_{i}``,
 ``ln_{i}``, ``head``; Dense kernels [in, out]), so the flax tree converts leaf
-by leaf.
+by leaf. Under tensor parallelism (``vocab_shard``) the embedding holds this
+rank's rows of V and the triple's embedding sums this rank's part of the
+product over the model group.
 """
 
 from __future__ import annotations
@@ -50,7 +52,11 @@ class TripleCritic(nn.Module):
         """feats [B, R, F], triple [B, 3, V] (rows on the simplex) → float32 [B]."""
         dt = self.dtype
         feats, triple = feats.to(dt), triple.to(dt)
-        emb = torch.einsum("btv,ve->bte", triple, self.token_embedding.to(dt))
+        vs = getattr(self, "vocab_shard", None)
+        if vs is None:
+            emb = torch.einsum("btv,ve->bte", triple, self.token_embedding.to(dt))
+        else:
+            emb = vs.embed(triple, self.token_embedding, dt)
         triple_vec = emb.reshape(emb.shape[0], -1)  # [B, 3E]
 
         # Triple-conditioned attention pooling of the image regions.

@@ -15,6 +15,13 @@ reference's: ``sample_temp`` (scalar or per row) and ``sample_top_k`` /
 untempered joint log-probability in float32. ``forced_steps`` clamp steps to
 ``forced_tokens`` (the PredCls scorer's conditional decode): a forced step's
 one-hot feeds back through the embedding, so later steps condition on it.
+
+Under tensor parallelism (``vocab_shard``, set by
+``sgg_torch.dist.sharding.place_state``) the embedding and ``vocab_proj``
+hold this rank's slice of V: ``vocab_proj`` computes this rank's logits and
+all-gathers them, and the fed-back token's embedding sums this rank's part of
+``y @ embedding`` over the model group (``VocabShard``). Without one the
+module runs whole.
 """
 
 from __future__ import annotations
@@ -116,6 +123,7 @@ class AttentionLSTMGenerator(nn.Module):
         z = z.to(dt)
         B = feats.shape[0]
         embedding = self.token_embedding.to(dt)
+        vs = getattr(self, "vocab_shard", None)
 
         # Show-Attend-Tell init: LSTM state from the mean image feature.
         mean_feat = feats.mean(dim=1)
@@ -133,7 +141,10 @@ class AttentionLSTMGenerator(nn.Module):
             x = torch.cat([ctx, prev_emb, z], dim=-1)
             (c, h), _ = self.cell((c, h), x)
             dec = torch.tanh(dense(self.deep_out, torch.cat([h, ctx], dim=-1), dt))
-            logits = dense(self.vocab_proj, dec, dt)
+            if vs is None:
+                logits = dense(self.vocab_proj, dec, dt)
+            else:
+                logits = vs.logits(lambda x: dense(self.vocab_proj, x, dt), dec)
             if step_mask is not None:
                 logits = torch.where(
                     step_mask[t][None, :], logits,
@@ -153,7 +164,7 @@ class AttentionLSTMGenerator(nn.Module):
                 logp_steps.append(token_log_prob(logits32, idx))
             else:
                 y = gumbel_softmax(samp32, gumbel[:, t, :].float(), tau=tau, hard=hard).to(dt)
-            prev_emb = y @ embedding
+            prev_emb = y @ embedding if vs is None else vs.embed(y, self.token_embedding, dt)
             soft_steps.append(y)
             logit_steps.append(logits)
             attn_steps.append(alpha)

@@ -20,7 +20,9 @@ Parameter names and layouts are the flax module's (``feat_proj``,
 ``slot_embed``, ``noise_proj``, ``ln_self{i}``, ``self_qkv{i}``,
 ``self_out{i}``, ``ln_cross{i}``, ``cross{i}.{q,k,v,out}``, ``ln_mlp{i}``,
 ``mlp1_{i}``, ``mlp2_{i}``, ``ln_out``, ``vocab_proj``), Dense kernels
-[in, out].
+[in, out]. Under tensor parallelism (``vocab_shard``) ``vocab_proj`` holds
+this rank's columns of V and its logits are all-gathered over the model
+group; the decoder has no token embedding.
 """
 
 from __future__ import annotations
@@ -150,7 +152,11 @@ class TransformerTripleGenerator(nn.Module):
             y = getattr(self, f"ln_mlp{i}")(x)
             x = x + getattr(self, f"mlp2_{i}")(gelu(getattr(self, f"mlp1_{i}")(y)))
 
-        logits = self.vocab_proj(self.ln_out(x))  # [B, 3, V]
+        vs = getattr(self, "vocab_shard", None)
+        if vs is None:
+            logits = self.vocab_proj(self.ln_out(x))  # [B, 3, V]
+        else:
+            logits = vs.logits(self.vocab_proj, self.ln_out(x))
         if step_mask is not None:
             m = step_mask.to(device=logits.device, dtype=torch.bool)[None]
             logits = torch.where(

@@ -112,13 +112,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, state, data_state: bytes | None = None) -> None:
+    def save(self, state, data_state: bytes | None = None, sd: dict | None = None) -> None:
         """Write ``state`` at its step (and ``data_state`` as its sidecar),
         prune both to ``max_to_keep``, and rewrite ``generator.pt`` for
-        generate."""
+        generate. ``sd``: the state's global ``state_dict`` when the state
+        is placed over a mesh (``sgg_torch.dist.sharding.gather_state``),
+        so that a TP or FSDP run writes what a single process writes."""
+        sd = state.state_dict() if sd is None else sd
         step_dir = os.path.join(self.ckpt_dir, str(state.step))
         os.makedirs(step_dir, exist_ok=True)
-        _save_atomic(state.state_dict(), os.path.join(step_dir, STATE_FILE))
+        _save_atomic(sd, os.path.join(step_dir, STATE_FILE))
         if data_state is not None:
             path = self._data_state_path(state.step)
             with open(path + ".tmp", "wb") as f:
@@ -131,8 +134,7 @@ class CheckpointManager:
             if (name.startswith("data_iter_") and name.endswith(".bin")
                     and int(name[len("data_iter_"):-len(".bin")]) not in keep):
                 os.remove(os.path.join(self.ckpt_dir, name))
-        save_generator(self.workdir, state.generator.state_dict(), state.g_ema, state.step,
-                       None if state.encoder is None else state.encoder.state_dict())
+        save_generator(self.workdir, sd["g_params"], sd["g_ema"], state.step, sd["enc_params"])
 
     def _data_state_path(self, step: int) -> str:
         return os.path.join(self.ckpt_dir, f"data_iter_{step}.bin")

@@ -82,15 +82,31 @@ def lr_schedule_fn(cfg: Config, peak: float, updates_per_step: int
     return sched
 
 
-def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """‖g‖ over all tensors, in float32 (``optax.global_norm``)."""
-    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+def global_norm(grads: list[torch.Tensor], groups: list | None = None) -> torch.Tensor:
+    """‖g‖ over all tensors, in float32 (``optax.global_norm``). With
+    ``groups`` (one per tensor: the process group over whose ranks that
+    tensor is split, or None where it is whole on every rank), each split
+    tensor's squares are summed over its group, so every part counts once."""
+    if groups is None or not any(g is not None for g in groups):
+        return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    from sgg_torch.dist.multihost import sum_tensor
+
+    by_group: dict = {}
+    for g, group in zip(grads, groups, strict=True):
+        by_group.setdefault(group, []).append((g.float() ** 2).sum())
+    total = sum(sum(sq) for group, sq in by_group.items() if group is None)
+    for group, sq in by_group.items():
+        if group is not None:
+            total = total + sum_tensor(torch.stack(sq).sum(), group)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
+                        groups: list | None = None) -> list[torch.Tensor]:
     """``optax.clip_by_global_norm``: the gradients as they are when
-    ‖g‖ < max_norm, else each scaled by max_norm / ‖g‖."""
-    norm = global_norm(grads)
+    ‖g‖ < max_norm, else each scaled by max_norm / ‖g‖ (``groups`` as
+    :func:`global_norm` takes them)."""
+    norm = global_norm(grads, groups)
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
 
@@ -105,7 +121,11 @@ class Adam:
     p -= lr·mû / (√nû + eps). The count lives on the device, and a scheduled
     lr is read at it from a device table of the
     schedule's float32 values, so the update reads nothing from the host and
-    runs alike eagerly and inside a captured CUDA graph."""
+    runs alike eagerly and inside a captured CUDA graph. On a placed state
+    (``sgg_torch.dist.sharding.place_state``) ``params`` holds each FSDP
+    leaf's slice in place of the parameter, the moments hold the same parts
+    as their leaves, ``specs`` their specs and ``norm_groups`` the groups
+    that the clip's global norm sums each split leaf over."""
 
     def __init__(self, module: nn.Module, peak: float, cfg: Config | None,
                  updates_per_step: int = 1):
@@ -122,6 +142,7 @@ class Adam:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self._count = torch.zeros((), dtype=torch.int64, device=dev)
         self.lr = peak
+        self.specs = self.norm_groups = None
         self._lr_table = None
         if sched is not None:
             self._lr_table = torch.from_numpy(sched(np.arange(sched.horizon))).to(dev)
@@ -134,7 +155,7 @@ class Adam:
     @torch.no_grad()
     def update(self, grads: list[torch.Tensor]) -> None:
         if self.clip > 0:
-            grads = clip_by_global_norm(grads, self.clip)
+            grads = clip_by_global_norm(grads, self.clip, self.norm_groups)
         grads = [g.to(p.dtype) for p, g in zip(self.params, grads, strict=True)]
         lr = self.lr
         if self._lr_table is not None:
@@ -202,6 +223,10 @@ class GANTrainState:
     enc_tx: Adam | None = None
     # EMA of the generator's state_dict (train.ema_decay > 0).
     g_ema: dict[str, torch.Tensor] | None = None
+    # Set by sgg_torch.dist.sharding.place_state: the state is this rank's
+    # part of a global one (its state_dict() the parts; gather_state the
+    # global one).
+    placement: object = None
 
     def state_dict(self) -> dict:
         def opt(tx):

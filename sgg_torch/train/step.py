@@ -44,10 +44,26 @@ generator's, and the metrics (``sgg_torch.dist.pmean``: one bucket each).
 The noise is per rank, as the reference folds the shard's index into its key:
 rank r's generator seed adds ``r · RANK_SEED_STRIDE``, so rank 0, and a world
 of one, draws what the single-device step draws.
+
+The gspmd step (``mesh``, ``make_train_step_gspmd``'s counterpart) runs on a
+state placed over a ``('data', 'model')`` mesh by
+``sgg_torch.dist.sharding.place_state``. Its body is the single-device step
+on global arrays: the noise is the single-device step's draw at the global
+batch B · data (no rank in the seed), and each rank takes its data
+coordinate's rows of it and of the batch (the ranks of one model group take
+the same rows). Under TP the generator and critic compute over the
+vocabulary in parallel (``VocabShard``). Each update all-gathers the FSDP
+leaves of the modules that it runs before its forward
+(``Placement.gathered``) and drops the full copies after it; its gradients
+are averaged over the data axis, an FSDP leaf's reduce-scattered to this
+rank's slice, and Adam runs on the slices. A TP leaf's gradient is this
+rank's slice already. The clip's global norm and ``enc_gnorm`` sum a split
+leaf's squares over its axis's group. The EMA updates the stored parts.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
@@ -158,12 +174,32 @@ def draw_noise(cfg: Config, B: int, generator: torch.Generator, device) -> dict:
     return out
 
 
-def make_step_fn(cfg: Config, step_mask=None, group=None) -> Callable[..., dict]:
+def _whole(*modules):
+    """Off a placed state every module is whole already."""
+    return contextlib.nullcontext()
+
+
+def local_rows(cfg: Config, noise: dict, B: int, index: int) -> dict:
+    """Rows ``index · B`` to ``(index + 1) · B`` of one step's noise drawn at
+    a global batch (``noise_shapes``' layout, its batch axes flattened in
+    order): this data coordinate's noise, in the layout of batch B."""
+    out = {k: v for k, v in noise.items() if k == "tau"}
+    for name, shape in noise_shapes(cfg, B).items():
+        lead = 0 if name.startswith("gen_") else 1
+        rows = noise[name].flatten(lead, lead + 1).narrow(lead, index * B, B)
+        out[name] = rows.unflatten(lead, shape[lead:lead + 2])
+    return out
+
+
+def make_step_fn(cfg: Config, step_mask=None, group=None, mesh=None) -> Callable[..., dict]:
     """Build ``step(state, batch, noise=None) → metrics``, with
     ``step.inputs(step, B, device)``: the noise and ``tau`` that the step
     draws at ``step`` when it is given none. With ``group`` (a process
     group; every rank of it calls the step alike) the step is data parallel
-    over its ranks, ``batch`` this rank's rows.
+    over its ranks, ``batch`` this rank's rows. With ``mesh`` (a training
+    mesh; the state placed over it) the step is the gspmd step, ``batch``
+    this data coordinate's rows, ``noise`` (and ``step.inputs``) the global
+    batch's.
 
     ``batch``: ``features`` [n_critic+1, B, R, F] (or ``images`` uint8
     [n_critic+1, B, H, W, 3] for pixels-in configs) and ``triples`` int
@@ -180,7 +216,11 @@ def make_step_fn(cfg: Config, step_mask=None, group=None) -> Callable[..., dict]
     moe_on = m.moe_experts > 0
     reinforce = t.estimator == "reinforce"
     masks: dict = {}  # the step mask on each device, copied there once
-    rank = 0 if group is None else torch.distributed.get_rank(group)
+    gspmd = mesh is not None
+    if gspmd:
+        group = mesh.group  # the data axis's (None on a data axis of one)
+    n_data = mesh.data if gspmd else 1
+    rank = 0 if gspmd or group is None else torch.distributed.get_rank(group)
 
     def maybe_pmean(tensors: list) -> list:
         return tensors if group is None else pmean(list(tensors), group)
@@ -190,10 +230,11 @@ def make_step_fn(cfg: Config, step_mask=None, group=None) -> Callable[..., dict]
 
     def inputs(step: int, B: int, device) -> dict:
         """The noise and tau of ``step``: its noise from a ``torch.Generator``
-        seeded ``train.seed``·1,000,003 + step (+ rank · RANK_SEED_STRIDE)."""
+        seeded ``train.seed``·1,000,003 + step (+ rank · RANK_SEED_STRIDE;
+        on the gspmd step, drawn at the global batch B · data)."""
         seed = int(t.seed) * 1_000_003 + step + rank * RANK_SEED_STRIDE
         generator = torch.Generator(device=device).manual_seed(seed)
-        return {**draw_noise(cfg, B, generator, device), "tau": tau_at(step, device)}
+        return {**draw_noise(cfg, B * n_data, generator, device), "tau": tau_at(step, device)}
 
     def step_fn(state: GANTrainState, batch: dict, noise: dict | None = None) -> dict:
         gen, critic, encoder = state.generator, state.critic, state.encoder
@@ -204,11 +245,18 @@ def make_step_fn(cfg: Config, step_mask=None, group=None) -> Callable[..., dict]
             raise ValueError(f"train.grad_accum={accum} must divide the batch ({B})")
         if noise is None:
             noise = inputs(state.step, B, dev)
+        if gspmd:
+            noise = local_rows(cfg, noise, B, mesh.rank)
         noise = {k: v.to(dev) for k, v in noise.items()}
         tau = noise["tau"] if "tau" in noise else tau_at(state.step, dev)
         if mask is not None and dev not in masks:
             masks[dev] = mask.to(dev)
         step_mask_d = None if mask is None else masks[dev]
+        pl = state.placement
+        full = _whole if pl is None else pl.gathered
+
+        def reduce(tx, grads: list) -> list:
+            return maybe_pmean(grads) if pl is None else pl.reduce(tx, grads)
 
         def sample_fake(feats, z, g):
             return gen(feats, z, g, tau=tau, hard=t.hard, step_mask=step_mask_d)["soft"]
@@ -227,16 +275,7 @@ def make_step_fn(cfg: Config, step_mask=None, group=None) -> Callable[..., dict]
             return critic_loss(critic, feats, real, fake, eps, gp_lambda=t.gp_lambda,
                                drift=t.drift)
 
-        # ---- n_critic critic updates ----
-        d_aux = None
-        if encoder is None:
-            with torch.no_grad():
-                fakes = sample_fake(
-                    data[:nc].reshape(nc * B, *data.shape[2:]),
-                    noise["fake_z"].reshape(nc * B, -1),
-                    noise["fake_gumbel"].reshape(nc * B, TRIPLE_LEN, V),
-                ).reshape(nc, B, TRIPLE_LEN, V)
-        for i in range(nc):
+        def critic_update(i: int, fakes) -> dict:
             eps = noise["gp_eps"][i]
             if train_enc:
                 enc_params = list(encoder.parameters())
@@ -257,12 +296,16 @@ def make_step_fn(cfg: Config, step_mask=None, group=None) -> Callable[..., dict]
                     return loss, aux, torch.autograd.grad(loss, d_params + enc_params)
 
                 _, d_aux, grads = _accum_vg(vg, (data[i], triples[i]), accum)
-                grads = maybe_pmean(grads)
-                d_grads, enc_grads = grads[:len(d_params)], grads[len(d_params):]
-                d_aux["enc_gnorm"] = global_norm(enc_grads)
+                if pl is None:
+                    grads = maybe_pmean(grads)
+                    d_grads, enc_grads = grads[:len(d_params)], grads[len(d_params):]
+                else:
+                    d_grads = reduce(state.d_tx, grads[:len(d_params)])
+                    enc_grads = reduce(state.enc_tx, grads[len(d_params):])
+                d_aux["enc_gnorm"] = global_norm(enc_grads, state.enc_tx.norm_groups)
                 state.d_tx.update(d_grads)
                 state.enc_tx.update(enc_grads)
-                continue
+                return d_aux
             if encoder is None:
                 feats, fake = data[i], fakes[i]
             else:
@@ -275,38 +318,61 @@ def make_step_fn(cfg: Config, step_mask=None, group=None) -> Callable[..., dict]
                 return loss, aux, torch.autograd.grad(loss, d_params)
 
             _, d_aux, d_grads = _accum_vg(vg, (feats, triples[i], fake), accum)
-            state.d_tx.update(maybe_pmean(d_grads))
+            state.d_tx.update(reduce(state.d_tx, d_grads))
+            return d_aux
+
+        def generator_update() -> dict:
+            if encoder is None:
+                feats_g = data[nc]
+            else:  # the updated encoder with train_encoder, without gradient
+                with torch.no_grad():
+                    feats_g = enc_feats(data[nc])
+            g_params = list(gen.parameters())
+
+            def g_vg(mb, k):
+                if reinforce:
+                    out = gen(mb[0], noise["gen_z"][k], noise["gen_gumbel"][k], tau=tau,
+                              hard=True, step_mask=step_mask_d, detach_sample=True)
+                    loss, aux = reinforce_generator_loss(critic, mb[0], out["soft"],
+                                                         out["log_prob"], logits=out["logits"],
+                                                         entropy_coef=t.rl_entropy)
+                else:
+                    fake = sample_fake(mb[0], noise["gen_z"][k], noise["gen_gumbel"][k])
+                    loss, aux = generator_loss(critic, mb[0], fake)
+                grads = torch.autograd.grad(loss, g_params, allow_unused=True)
+                return loss, aux, [torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(g_params, grads)]
+
+            _, g_aux, g_grads = _accum_vg(g_vg, (feats_g,), accum)
+            state.g_tx.update(reduce(state.g_tx, g_grads))
+            return g_aux
+
+        # ---- n_critic critic updates ----
+        # The generator (and a frozen encoder) only runs forward here; the
+        # critic (and a trained encoder) is gathered anew for each update.
+        with full(gen, None if train_enc else encoder):
+            fakes = None
+            if encoder is None:
+                with torch.no_grad():
+                    fakes = sample_fake(
+                        data[:nc].reshape(nc * B, *data.shape[2:]),
+                        noise["fake_z"].reshape(nc * B, -1),
+                        noise["fake_gumbel"].reshape(nc * B, TRIPLE_LEN, V),
+                    ).reshape(nc, B, TRIPLE_LEN, V)
+            for i in range(nc):
+                with full(critic, encoder if train_enc else None):
+                    d_aux = critic_update(i, fakes)
 
         # ---- one generator update on the last sub-batch ----
-        if encoder is None:
-            feats_g = data[nc]
-        else:  # the updated encoder with train_encoder, without gradient
-            with torch.no_grad():
-                feats_g = enc_feats(data[nc])
-        g_params = list(gen.parameters())
-
-        def g_vg(mb, k):
-            if reinforce:
-                out = gen(mb[0], noise["gen_z"][k], noise["gen_gumbel"][k], tau=tau, hard=True,
-                          step_mask=step_mask_d, detach_sample=True)
-                loss, aux = reinforce_generator_loss(critic, mb[0], out["soft"],
-                                                     out["log_prob"], logits=out["logits"],
-                                                     entropy_coef=t.rl_entropy)
-            else:
-                fake = sample_fake(mb[0], noise["gen_z"][k], noise["gen_gumbel"][k])
-                loss, aux = generator_loss(critic, mb[0], fake)
-            grads = torch.autograd.grad(loss, g_params, allow_unused=True)
-            return loss, aux, [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(g_params, grads)]
-
-        _, g_aux, g_grads = _accum_vg(g_vg, (feats_g,), accum)
-        state.g_tx.update(maybe_pmean(g_grads))
+        with full(gen, critic, encoder):
+            g_aux = generator_update()
 
         if t.ema_decay > 0:
             d = np.float32(t.ema_decay)
             keep, take = float(d), float(np.float32(1.0) - d)
+            held = gen.state_dict() if pl is None else pl.stored(gen)
             with torch.no_grad():
-                for k, p in gen.state_dict().items():
+                for k, p in held.items():
                     e = state.g_ema[k]
                     e.copy_((e * keep + p * take).to(e.dtype))
 

@@ -88,12 +88,26 @@ STEPS = 2
 V = 24
 
 
-def _start_ranks(argv, world=2):
+def _free_ports(n):
+    """n distinct free ports: their sockets are all bound at once, since a
+    port just closed may be handed out again."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _start_ranks(argv, world=2, port=None):
     """Start one process per rank (python arguments ``argv``) with the
-    environment torchrun gives its ranks."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    environment torchrun gives its ranks; ``port``: the rendezvous port
+    (default: a free one; give each of several worlds started together its
+    own from :func:`_free_ports`)."""
+    if port is None:
+        (port,) = _free_ports(1)
     base = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return [subprocess.Popen(
         [sys.executable, *argv], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -303,15 +317,22 @@ def test_one_process_runtime_and_refused_meshes(monkeypatch):
         make_mesh(MeshSpec(data=5), devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="do not divide"):
         make_mesh(MeshSpec(model=3), devices=["cpu"] * 4)
-    for spec, slice_ in ((MeshSpec(model=2), "A8b"), (MeshSpec(seq=2), "A8c"),
-                         (MeshSpec(expert=2), "A8e")):
+    for spec, slice_ in ((MeshSpec(seq=2), "A8c"), (MeshSpec(expert=2), "A8e")):
         with pytest.raises(NotImplementedError, match=slice_):
             make_mesh(spec, devices=["cpu"] * 4)
-    for sets, slice_ in ((["mesh.fsdp=true"], "A8b"), (["mesh.partition=gspmd"], "A8b")):
-        with pytest.raises(NotImplementedError, match=slice_):
+    # A model axis (A8b): the data axis drives the first device of each model
+    # group, as jax.make_mesh keeps the trailing axis on adjacent devices.
+    tp = make_mesh(MeshSpec(model=2), devices=[f"cuda:{i}" for i in range(4)])
+    assert tp.shape == {"data": 2, "model": 2}
+    assert tp.devices == (torch.device("cuda:0"), torch.device("cuda:2"))
+    # FSDP and gspmd partitioning (A8b) take a world of one as it is.
+    for sets in (["mesh.fsdp=true"], ["mesh.partition=gspmd"]):
+        mesh = mesh_from_config(get_config("smoke").override(sets).mesh, "cpu")
+        assert mesh.shape == {"data": 1, "model": 1} and mesh.model_group is None
+    for sets, match in ((["mesh.data=2"], "needs more than 1"),
+                        (["mesh.model=2"], "do not divide device count 1")):
+        with pytest.raises(ValueError, match=match):
             mesh_from_config(get_config("smoke").override(sets).mesh, "cpu")
-    with pytest.raises(ValueError, match="needs more than 1"):
-        mesh_from_config(get_config("smoke").override(["mesh.data=2"]).mesh, "cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="WORLD_SIZE=2"):
         process_shard_info()
@@ -377,10 +398,12 @@ def test_two_rank_cli_shards_logs_once_and_resumes_bit_for_bit(tmp_path):
     run's rank 1 alone reads its host RSS over the limit at step 1 (C2): both
     ranks checkpoint the same step and exit 0, then 75."""
     whole, cut, rss = tmp_path / "whole", tmp_path / "cut", tmp_path / "rss"
-    first = [_start_ranks(_cli_argvs(whole, 4)),
-             _start_ranks(["-c", ONE_RANK_HOOK, "sigterm", "2", *_cli_argvs(cut, 4)[2:]]),
+    ports = _free_ports(3)
+    first = [_start_ranks(_cli_argvs(whole, 4), port=ports[0]),
+             _start_ranks(["-c", ONE_RANK_HOOK, "sigterm", "2", *_cli_argvs(cut, 4)[2:]],
+                          port=ports[1]),
              _start_ranks(["-c", ONE_RANK_HOOK, "rss", "1", *_cli_argvs(rss, 4)[2:],
-                           "--set", "train.host_rss_exit_gb=1000"])]
+                           "--set", "train.host_rss_exit_gb=1000"], port=ports[2])]
     runs = [_wait_ranks(procs, code=code) for procs, code in zip(first, (0, 0, 75))]
     for out, _ in runs[1]:
         assert "[sgg.train] preemption signal: checkpointing at step 2 and exiting" in out

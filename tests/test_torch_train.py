@@ -517,10 +517,13 @@ def test_noise_layout_and_refusals():
     # So does MoE on one device (tests/test_torch_moe.py); its expert-parallel
     # form over a mesh stays refused.
     assert callable(make_step_fn(_configs("smoke", {"model.moe_experts": 4})[1]))
+    # FSDP and TP, refused before they were ported, build a step too
+    # (tests/test_torch_tp_fsdp.py holds the gspmd step against the reference).
+    assert callable(make_step_fn(_configs("smoke", {"mesh.fsdp": True, "mesh.model": 2})[1]))
     for sets, err, match in (
             ({"model.pp_microbatches": 2}, NotImplementedError, "A8"),
             ({"train.estimator": "ppo"}, ValueError, "estimator"),
-            ({"mesh.fsdp": True}, NotImplementedError, "mesh"),
+            ({"mesh.seq": 2}, NotImplementedError, "mesh"),
             ({"model.sp_mode": "ring"}, NotImplementedError, "A8"),
             ({"model.moe_experts": 4, "mesh.expert": 2}, NotImplementedError, "A8"),
             ({"train.train_encoder": True}, ValueError, "end-to-end")):
