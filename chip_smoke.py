@@ -2,11 +2,20 @@
 """Chip smoke for the PyTorch/CUDA port (``sgg_torch``) on one NVIDIA H100.
 
   python3 chip_smoke.py
-  python3 chip_smoke.py --phases 25        (or 21,22,24,25: those phases alone)
+  python3 chip_smoke.py --phases 27        (or 21,22,24,25,26,27: those phases alone)
 
-With no argument every phase runs, in one process; ``--phases`` runs the
-device check, the build and then each phase named (one of those that build
-their own inputs), and ends with the device line naming them. In one process. Phases 1-17 open no socket, and their only threads are
+With no argument every phase runs: phases 1-16 (the holds and the timed
+kernels) alone on the card, then phases 17-20 and 23 in this process beside
+two others (``side_start``: this script with ``--phases 27,22,26,24`` and
+with ``--phases 21,25``), each started in a session of its own, ended with
+this one (``side_stop``) and read at the end (``side_finish``: its output
+echoed, its summary lines and launches taken into the last lines). Each of
+those phases leaves the card idle most of the time, so the three share it;
+the times they print are taken beside each other, their times alone come
+from ``--phases``. ``--phases`` runs the device check, the build and then each
+phase named (one of those that build their own inputs), and ends with the
+device line naming them, or with ``--results`` writes their summary lines
+and launches to a JSON file instead. Phases 1-17 open no socket, and their only threads are
 the train CLI's stall watchdog and phase 17's upload thread, each stopped and
 joined when its run ends; phase 18 opens an
 HTTP server on 127.0.0.1 with its handler threads, a batcher's worker thread,
@@ -378,6 +387,21 @@ one subprocess under a timeout, which it waits for:
      backend line naming gloo's host staging; (c) each again for one float32
      step at n_critic 1 against one process at the global batch
      (``world_one_hold``).
+ 27. A8c, ring and Ulysses sequence parallelism over the ViT's patch axis
+     (``sp_phase``), two ranks sharing the card over gloo: (a) the attention
+     alone at [32, 12, 196, 64] (``sp_attention_run``'s ranks, a 'seq' axis
+     of both), float32 and bfloat16, forward and backward on the CUDA flash
+     kernels with exact launches (ring 2/2/2 a call, Ulysses 1/1/1), held
+     against the plain full attention (float32) and the plain versions of
+     the same arithmetic (bfloat16, ``sp_ring_plain``); (b) ``--config
+     vit_b16 --set train.train_encoder=true --set model.sp_mode=ring --set
+     mesh.seq=2 --set mesh.partition=gspmd`` 3 steps, 144/120/120 flash
+     launches a step on each rank; (c) ``--set model.sp_mode=ulysses --set
+     mesh.model=2`` (TP over the vocabulary on the same group) 3 steps,
+     72/60/60; (d) each again for one float32 step at n_critic 1 against one
+     process (``world_one_hold``). Prints s/step, the collectives' ms a
+     step, peak memory, and the bytes saved for the backward per rank
+     against data parallelism's (``sp_saved_bytes``).
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -389,8 +413,9 @@ phase 15 for the three flash kernels), plus phase 22's launches of each
 --quant int8`` runs, counted from 0: fused_decode and flash_attention; the
 exported artifact launches none), phase 24's (every rank of its four
 runs, each counted from 0 in its process), phase 25's (its CLI runs, each
-counted from 0) and phase 26's (every rank of its runs and its generate,
-each counted from 0), and
+counted from 0), phase 26's (every rank of its runs and its generate,
+each counted from 0) and phase 27's (every rank of its training runs, each
+counted from 0; (a)'s holds do not count), and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
 bound ms. Phase 18's serving launch counts and phase 19's are printed on lines of
 their own before it. The last two lines are that
@@ -416,7 +441,8 @@ import sys
 import tempfile
 import time
 
-WATCHDOG_SECONDS = 1100
+WATCHDOG_SECONDS = 1150
+SIDE_MARGIN_S = 30  # the side process's watchdog fires this long before this one's
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAINED_RUN = os.path.join(ROOT, "results", "run_v3_bal0.7_ckpt")
 SEED = 0
@@ -469,11 +495,16 @@ GR_JPEG_MEAN_D, GR_HOLD_BATCH = 8.0, 4
 # replays for each int8 and bf16 time.
 P23_GRAPH_CALLS, P23_GRAPH_REPS = 10, 3
 # Phase 24, the data-parallel tier: v4_32's steps (the profile window is
-# step 3) and vit_b16's with train_encoder.
-DP_STEPS, DP_VIT_STEPS = 6, 3
+# step 3; s/step is read after it) and vit_b16's with train_encoder (6 and 3
+# before phase 27 came: the smoke's time).
+DP_STEPS, DP_VIT_STEPS = 5, 2
 # Phase 26, TP and FSDP: the VG-shaped corpus's ids and the vocab (resnet50's
-# V), the steps of each run, and generate's images and draws on the TP run.
-P26_IMAGES, P26_VOCAB, P26_STEPS, P26_GEN_IMAGES, P26_K = 512, 8192, 3, 64, 8
+# V), the steps of each run (3 before phase 27 came), and generate's images
+# and draws on the TP run.
+P26_IMAGES, P26_VOCAB, P26_STEPS, P26_GEN_IMAGES, P26_K = 512, 8192, 2, 64, 8
+# Phase 27, sequence parallelism: the attention holds' [B, H, S, D] (ViT-B/16
+# at 224 px, B 32) and the steps of each training run.
+SP_SHAPE, P27_STEPS = (32, 12, 196, 64), 3
 # Phase 25, convert and the grain loader: the committed TensorFlow-written
 # checkpoint; the converted vocab's size and the images generated from it;
 # pipeline_v4's corpus, its unbroken steps (the profile window is steps
@@ -484,7 +515,11 @@ P25_V4_IMAGES, P25_V4_STEPS, P25_V4_CUT = 2048, 15, 10
 P25_VG_IMAGES, P25_VG_STEPS, P25_WORKERS = 2048, 2, 2
 # Phases that build their own inputs after the device and the build, so that
 # ``--phases`` can run them alone.
-SELECTABLE_PHASES = (21, 22, 24, 25, 26)
+SELECTABLE_PHASES = (21, 22, 24, 25, 26, 27)
+# Those that the full run hands to its two side processes, in this order:
+# phase 27 (four ranks, 43 GB) first, while this process holds least of the
+# card, and phase 22 (its MoE ViT 28 GB) after it in the same process.
+SIDE_PHASES = ((27, 22, 26, 24), (21, 25))
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -3190,11 +3225,12 @@ def rank_run(args):
     tensor of ``state.tensors()``), the step's buckets and the all-reduce's
     ms a step, the peak device memory and the state's bytes on the rank; for
     a state placed over a mesh (phase 26) the digests of the global state
-    that every rank gathers. With ``SGG_SMOKE_FIRST`` set (phase 26) it also
-    saves the first step's batch (this rank's rows) and noise to
-    ``OUT/first_rank<r>.pt`` and times every collective of the sharding
-    tier on the host clock, synchronized around each call, per step.
-    Returns the CLI's exit code."""
+    that every rank gathers. With ``SGG_SMOKE_FIRST`` set (phases 26 and 27)
+    it also saves the first step's batch (this rank's rows) and noise to
+    ``OUT/first_rank<r>.pt`` and times every collective of the sharding and
+    sequence-parallel tiers on the host clock, synchronized around each
+    call, per step; with ``SGG_SMOKE_ACT`` (phase 27) it records
+    ``sp_saved_bytes`` after the run. Returns the CLI's exit code."""
     t_start = time.time()
     out, root, window = args[0], args[1], args[2]
     argv = args[args.index("--") + 1:]
@@ -3237,10 +3273,12 @@ def rank_run(args):
         return run
 
     if first_out:
-        for name_ in ("gather_tensor", "scatter_mean_tensor", "sum_tensor", "pmean"):
+        for name_ in ("gather_tensor", "scatter_mean_tensor", "sum_tensor", "pmean",
+                      "shift_tensors", "all_to_all_tensor"):
             setattr(mh, name_, timed(getattr(mh, name_)))
 
     def counting(cfg_, step_mask=None, **kw):
+        held["cfg"] = cfg_
         fn = make(cfg_, step_mask, **kw)
 
         @functools.wraps(fn)
@@ -3301,6 +3339,9 @@ def rank_run(args):
             ms += (time.perf_counter() - t0) * 1e3 / 3 * sizes.count(n_)
         rec["t"]["allreduce_timing"] = time.time() - t_start
     rank = dist.get_rank() if on else 0
+    if os.environ.get("SGG_SMOKE_ACT") and state.placement is not None:
+        rec["saved_bytes"] = sp_saved_bytes(held["cfg"], state)
+        rec["t"]["saved_bytes"] = time.time() - t_start
     if state.placement is not None:
         rec["global_digests"] = digest(tree_tensors(gather_state(state)))
     rec["state_bytes"] = state_bytes(state)
@@ -3321,18 +3362,20 @@ def rank_run(args):
 
 
 def dp_launch(out, train_argv, nproc=None, root=ROOT, window=(3, 1), timeout=600,
-              torchrun=True, env_extra=None):
+              torchrun=True, env_extra=None, entry=None):
     """Run ``rank_run`` over ``nproc`` ranks and return each rank's record:
     under torchrun, or with ``torchrun=False`` one process per rank started
     here with the environment torchrun gives its ranks (RANK, LOCAL_RANK,
     WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT; no launcher's
-    start-up); ``nproc`` None: one plain process. Raises if a rank or the
-    launcher fails."""
+    start-up); ``nproc`` None: one plain process. ``entry``: this script's
+    arguments for another rank function that writes ``OUT/rank<r>.json``
+    (phase 27's ``--sp-attention-run``). Raises if a rank or the launcher
+    fails."""
     import socket
 
     os.makedirs(out, exist_ok=True)
-    me = [os.path.abspath(__file__), "--rank-run", out, root, f"{window[0]},{window[1]}",
-          "--", *train_argv]
+    me = [os.path.abspath(__file__), *(entry or ["--rank-run", out, root,
+                                                 f"{window[0]},{window[1]}", "--", *train_argv])]
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root, **(env_extra or {}))
     if nproc and torchrun:
         cmds = [([sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -3817,6 +3860,367 @@ def tp_fsdp_phase(dev, smi, sizes=None, extra_sets=None, vit_sets=None):
     return out
 
 
+def sp_saved_bytes(cfg, state, seed=SEED):
+    """Phase 27: (bytes that autograd saves for the backward in one forward
+    of the state's encoder on this rank's batch of 224 px images, with its
+    attention sequence parallel as the gspmd step runs it; the same with the
+    attention whole, as data parallelism runs it). Each tensor's storage
+    counts once. Every rank of the axis calls it alike."""
+    import torch
+
+    from sgg_torch.dist.mesh import MODEL_AXIS, SEQ_AXIS
+    from sgg_torch.dist.sequence_parallel import make_sp_attention, sp_encoder
+    from sgg_torch.models.encoders import normalize_for
+
+    enc, mesh = state.encoder, state.placement.mesh
+    dev = next(enc.parameters()).device
+    size = cfg.data.image_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = normalize_for(cfg.model.encoder, torch.randint(
+        0, 256, (cfg.train.batch_size, size, size, 3), generator=gen, device=dev,
+        dtype=torch.uint8))
+    attn = make_sp_attention(mesh, cfg.model.sp_mode,
+                             SEQ_AXIS if SEQ_AXIS in mesh.axis_names else MODEL_AXIS)
+
+    def saved():
+        seen = {}
+
+        def pack(t_):
+            st = t_.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+            return t_
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t_: t_):
+            y = enc(x)
+        del y
+        return sum(seen.values())
+
+    with sp_encoder(enc, attn):
+        sp = saved()
+    return sp, saved()
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp of each value of x, float32 (0 where x is 0)."""
+    import torch
+
+    x = x.float()
+    ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x.abs())[1] - 8)
+    return torch.where(x == 0, torch.zeros_like(ulp), ulp)
+
+
+def sp_ring_plain(q, k, v, g, n, o_fwd=None, scale=None):
+    """Phase 27: the ring over n ranks as ``RingFlashAttention`` computes it,
+    emulated on the global tensors with the kernels' plain versions: each
+    rank's q rows against the k/v shards in the ring's order, the partials
+    rounded to q's dtype and merged in float32, then the reverse ring's dq,
+    dk, dv summed in float32 in the hops' order (against ``o_fwd``, the
+    kernel path's output, when given: the backward kernels are held on the
+    forward they were fed) → ([o, dq, dk, dv], [their bounds]), global. A
+    bound is phase 9's and 13's gate (one bf16 ulp of the plain value plus
+    1e-4 × its max) on each kernel output that the ring combines, carried
+    through the exact float32 combination (o: each partial's weighted by its
+    softmax share), plus one ulp of the final cast."""
+    import torch
+
+    from sgg_torch.dist.sequence_parallel import _merge
+    from sgg_torch.kernels.flash_attention import flash_attention_plain
+    from sgg_torch.kernels.flash_attention_bwd import flash_attention_bwd_plain
+
+    s_ = q.shape[-1] ** -0.5 if scale is None else scale
+    rows = q.shape[2] // n
+
+    def shard(t_, i):
+        return t_[:, :, i * rows:(i + 1) * rows].contiguous()
+
+    def gate(x_):
+        return bf16_ulp(x_) + 1e-4 * x_.float().abs().max()
+
+    qs, ks, vs, gs = ([shard(t_, i) for i in range(n)] for t_ in (q, k, v, g))
+    os_, lses, o_bounds = [], [], []
+    for r_ in range(n):
+        parts = [flash_attention_plain(qs[r_], ks[(r_ - j) % n], vs[(r_ - j) % n], s_,
+                                       return_lse=True) for j in range(n)]
+        o_, lse = parts[0][0].float(), parts[0][1]
+        for o_i, lse_i in parts[1:]:
+            o_, lse = _merge(o_, lse, o_i, lse_i)
+        os_.append(o_.to(q.dtype))
+        lses.append(lse)
+        o_bounds.append(sum(torch.exp(lse_i - lse)[..., None] * gate(o_i)
+                            for o_i, lse_i in parts) + bf16_ulp(os_[-1]))
+    o_bwd = os_ if o_fwd is None else [shard(o_fwd, i) for i in range(n)]
+    acc = {w_: [torch.zeros(qs[0].shape, dtype=torch.float32, device=q.device)
+                for _ in range(n)] for w_ in ("dq", "dk", "dv", "bq", "bk", "bv")}
+    for j in range(n):
+        for r_ in range(n):
+            src = (r_ - j) % n
+            a_, b_, c_ = flash_attention_bwd_plain(qs[r_], ks[src], vs[src], o_bwd[r_],
+                                                   lses[r_], gs[r_], s_)
+            for w_, i_, x_ in (("dq", r_, a_), ("dk", src, b_), ("dv", src, c_)):
+                acc[w_][i_] += x_.float()
+                acc["b" + w_[1]][i_] += gate(x_)
+    got = [torch.cat(os_, 2)] + [torch.cat(acc[w_], 2).to(q.dtype) for w_ in ("dq", "dk", "dv")]
+    bounds = [torch.cat(o_bounds, 2)] + [torch.cat(acc[b_], 2) for b_ in ("bq", "bk", "bv")]
+    return got, [b_ + bf16_ulp(x_) if i_ else b_ for i_, (b_, x_) in enumerate(zip(bounds, got))]
+
+
+def sp_attention_run(args):
+    """Phase 27 (a)'s rank: ``chip_smoke.py --sp-attention-run OUT ROOT
+    DEVICE SHAPE`` (SHAPE ``B,H,S,D``), one process per rank with torchrun's
+    environment (two ranks share the card over gloo). For ring and Ulysses
+    over a 'seq' axis of the world (``mesh.seq`` = world,
+    ``make_sp_attention`` as the gspmd step builds it), in float32 and
+    bfloat16, at SHAPE (``SP_SHAPE``: ViT-B/16's attention, B 32): q, k, v
+    and the upstream gradient g seeded alike on every rank; the launches of one forward and its backward (counts set to 0 just
+    before, read just after); the output and dq, dk, dv (all-gathered,
+    global) against the plain versions on the same inputs: the plain full
+    attention and its backward, and ``sp_ring_plain`` for the ring (for
+    Ulysses the full attention is its emulation: heads are independent).
+    Writes ``OUT/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    out, root, device = args[0], args[1], args[2]
+    shape = tuple(int(x_) for x_ in args[3].split(","))
+    sys.path.insert(0, root)
+    from sgg_torch.config import get_config
+    from sgg_torch.dist import initialize_multihost, mesh_from_config
+    from sgg_torch.dist.sequence_parallel import make_sp_attention
+    from sgg_torch.kernels.flash_attention import flash_attention_plain
+    from sgg_torch.kernels.flash_attention_bwd import flash_attention_bwd_plain
+
+    dev = initialize_multihost(device, log=lambda m_: None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    n, rank = dist.get_world_size(), dist.get_rank()
+    mesh = mesh_from_config(get_config("vit_b16").override([f"mesh.seq={n}"]).mesh, dev)
+    rec = {"rank": rank, "world": n, "backend": dist.get_backend(), "cases": {}}
+
+    def rel_l2(a_, b_):
+        return float((a_.double() - b_.double()).norm() / b_.double().norm())
+
+    for mode in ("ring", "ulysses"):
+        sp = make_sp_attention(mesh, mode, "seq")
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                          for _ in range(4))
+            qg, kg, vg = (t_.clone().requires_grad_() for t_ in (q, k, v))
+            sync()
+            zero_counts()
+            o = sp(qg, kg, vg)
+            o.backward(g)
+            sync()
+            counts = {k_: v_ for k_, v_ in kernel_counts().items() if v_}
+            got = [o.detach(), qg.grad, kg.grad, vg.grad]
+            with torch.no_grad():
+                fo, flse = flash_attention_plain(q, k, v, return_lse=True)
+                full = [fo, *flash_attention_bwd_plain(q, k, v, fo, flse, g)]
+                if mode == "ring":
+                    emul, bounds = sp_ring_plain(q, k, v, g, n, o_fwd=got[0])
+                else:  # heads are independent: full attention is Ulysses' arithmetic
+                    emul = full
+                    bounds = [bf16_ulp(e_) + 1e-4 * e_.float().abs().max() for e_ in full]
+                f32 = [q.float(), k.float(), v.float()]
+                fo32, flse32 = flash_attention_plain(*f32, return_lse=True)
+                full32 = [fo32, *flash_attention_bwd_plain(*f32, fo32, flse32, g.float())]
+            case = {"launches": counts, "tensors": {}}
+            for name_, a_, f_, e_, w32, b_ in zip(("o", "dq", "dk", "dv"), got, full, emul,
+                                                 full32, bounds):
+                top = float(f_.float().abs().max())
+                d_full = float((a_.float() - f_.float()).abs().max())
+                t_ = {"max": top, "full_err": d_full / top,
+                      "rel_l2_vs_f32": rel_l2(a_, w32), "plain_rel_l2_vs_f32": rel_l2(f_, w32)}
+                if dt == torch.float32:
+                    t_["ok"] = d_full <= 1e-4 * top
+                else:
+                    diff = (a_.float() - e_.float()).abs()
+                    t_["emul_err"] = float(diff.max()) / float(e_.float().abs().max())
+                    t_["share"] = float((diff > 0).float().mean())
+                    t_["margin"] = float((b_ - diff).min() / e_.float().abs().max())
+                    t_["ok"] = bool((diff <= b_).all()) and t_["share"] <= 0.01
+                case["tensors"][name_] = t_
+            rec["cases"][f"{mode} {str(dt).split('.')[1]}"] = case
+            del q, k, v, g, qg, kg, vg, o, got, full, emul, full32, bounds
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sp_phase(dev, smi, sizes=None, extra_sets=None):
+    """Phase 27, A8c: ring and Ulysses sequence parallelism over the ViT's
+    patch axis, two ranks sharing the card over gloo. (a) The attention
+    alone (``sp_attention_run``'s ranks): ring and Ulysses at ``SP_SHAPE``
+    in float32 and bfloat16, forward and backward on the CUDA flash kernels
+    (the ring: 2 flash, 2 dq and 2 dk/dv launches a call on each rank, n
+    hops; Ulysses 1/1/1 on H/2 heads), float32 within 1e-4 × max of the
+    plain full attention and its backward, bfloat16 against the plain
+    versions of the same arithmetic (``sp_ring_plain`` for the ring's
+    rounded partials; full attention for Ulysses) within the phase 9 and 13
+    gate (one bf16 ulp plus 1e-4 × max) on each kernel output, carried
+    through the ring's float32 combination, with at most 1 % of the
+    elements differing; each one's relative L2 distance to float32 full
+    attention printed beside the plain bf16 full attention's. (b) ``--config vit_b16 --set
+    train.train_encoder=true --set model.sp_mode=ring --set mesh.seq=2 --set
+    mesh.partition=gspmd``, B 32, 3 steps: 144/120/120 flash, dq and dk/dv
+    launches a step on each rank (each of the 72/60/60 attention calls of a
+    step runs 2 hops); (c) ``--set model.sp_mode=ulysses --set
+    mesh.model=2``: Ulysses and TP over the vocabulary on one group, 3
+    steps, 72/60/60 a step on each rank; both: every rank gathers the same
+    global state, equal to the checkpoint. (d) each of (b) and (c) again for
+    one float32 step at n_critic 1, both at once, against one process at the
+    global batch (``world_one_hold``). (b) and (c) run side by side, four
+    ranks on the card; (a) beside (d). Prints, for (b) and (c), s/step, the
+    collectives' ms a step (host clock), the launches a step per rank, peak
+    memory per rank and the bytes each rank saves for the backward in one
+    encoder forward against data parallelism's (``sp_saved_bytes``).
+    ``sizes`` and ``extra_sets`` shrink it for a dry run on the CPU (the
+    attention holds and launch counts then not run or held). Returns the
+    numbers."""
+    import torch
+
+    z_ = {"steps": P27_STEPS, "images": VIT_IMAGES, "sp_shape": SP_SHAPE, **(sizes or {})}
+    on_card = torch.device(dev).type == "cuda"
+    out = {"launches": {k_: 0 for k_ in kernel_counts()}}
+    bad = []
+
+    def argv(wd, sets, steps=z_["steps"]):
+        a_ = ["--config", "vit_b16", "--workdir", wd, "--steps", str(steps)]
+        for k_, v_ in sets.items():
+            a_ += ["--set", f"{k_}={v_}"]
+        return a_ + ([] if on_card else ["--device", "cpu"])
+
+    def add_launches(recs):
+        for x_ in recs:
+            for c_ in x_["per_step"]:
+                for k_, v_ in c_.items():
+                    out["launches"][k_] += v_
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) ring over 'seq', (c) Ulysses over 'model' with TP.
+        env = {"SGG_SMOKE_FIRST": "1", "SGG_SMOKE_ACT": "1"}
+        base = {"train.train_encoder": "true", "data.num_synthetic_images": z_["images"],
+                "train.log_every": 1, **(extra_sets or {})}
+        runs = {"b": ("ring over mesh.seq=2", {"model.sp_mode": "ring", "mesh.seq": 2,
+                                               "mesh.partition": "gspmd"}, 2),
+                "c": ("ulysses over mesh.model=2 with TP", {"model.sp_mode": "ulysses",
+                                                           "mesh.model": 2}, 1)}
+        # (b) and (c) side by side: four ranks on the card.
+        done, wall = in_threads(lambda k_: dp_launch(
+            os.path.join(tmp, f"out_{k_}"),
+            argv(os.path.join(tmp, f"wd_{k_}"), {**base, **runs[k_][1]}), 2, torchrun=False,
+            env_extra=env), [("b",), ("c",)])
+        for (key, (label, sets, hops)), (recs, _) in zip(runs.items(), done):
+            wd = os.path.join(tmp, f"wd_{key}")
+            lines = [r_ for r_ in read_metric_lines(wd) if "d_loss" in r_]
+            r_ = {"s": wall, "s_per_step": 1 / lines[-1]["steps_per_sec"],
+                  "coll_ms": [x_["coll_ms"][1:] for x_ in recs],
+                  "peak_gb": [x_["peak_gb"] for x_ in recs],
+                  "saved_bytes": [x_["saved_bytes"] for x_ in recs],
+                  "per_step": [x_["per_step"] for x_ in recs],
+                  "finite": all(math.isfinite(l_["d_loss"]) and math.isfinite(l_["g_loss"])
+                                for l_ in lines)}
+            add_launches(recs)
+            want_step = {"flash_attention": 72 * hops, "flash_attention_bwd_dq": 60 * hops,
+                         "flash_attention_bwd_dkv": 60 * hops}
+            sd = torch.load(os.path.join(wd, "checkpoints", str(z_["steps"]), "state.pt"),
+                            map_location="cpu", weights_only=True)
+            held = []
+            if on_card and any([{k_: v_ for k_, v_ in c_.items() if v_} for c_ in x_["per_step"]]
+                               != [want_step] * len(x_["per_step"]) for x_ in recs):
+                held.append(f"launches {r_['per_step']} (expected {want_step} a step)")
+            if any(x_["global_digests"] != recs[0]["global_digests"] for x_ in recs) or \
+                    digest(tree_tensors(sd)) != recs[0]["global_digests"]:
+                held.append("the ranks' gathered states differ, or differ from the checkpoint")
+            if not r_["finite"]:
+                held.append("a loss is not finite")
+            log(f"phase 27 ({key}) {label}, vit_b16 train_encoder, 2 ranks (beside the other "
+                f"run's two): "
+                f"{r_['s_per_step']:.4f} s/step; collectives ms a step per rank (host clock, "
+                f"after the first) {r_['coll_ms']}; launches a step per rank "
+                f"{[x_['per_step'][-1] for x_ in recs]} (expected {want_step}); peak GB per "
+                f"rank {r_['peak_gb']}; bytes saved for the backward in one encoder forward "
+                f"per rank (SP, DP) {r_['saved_bytes']}; {r_['s']:.3f} s [{smi}]: "
+                f"{'ok' if not held else 'FAILED: ' + '; '.join(held)}")
+            bad += [f"({key}) {h_}" for h_ in held]
+            out[key] = r_
+
+        # (d) each for one float32 step at n_critic 1, against one process.
+        f32 = {"model.compute_dtype": "float32", "model.use_pallas": "false",
+               "train.checkpoint_every": 1, "train.n_critic": 1}
+        # and (a) the attention alone, beside them.
+        t_d = time.perf_counter()
+        out_a = os.path.join(tmp, "out_a")
+
+        def launch(k_):
+            if k_ == "a":
+                return dp_launch(out_a, [], 2, torchrun=False, entry=[
+                    "--sp-attention-run", out_a, ROOT, "cuda" if on_card else "cpu",
+                    ",".join(map(str, z_["sp_shape"]))])
+            return dp_launch(
+                os.path.join(tmp, f"out_d{k_}"),
+                argv(os.path.join(tmp, f"wd_d{k_}"), {**base, **runs[k_][1], **f32}, steps=1),
+                2, torchrun=False, env_extra={"SGG_SMOKE_FIRST": "1"})
+
+        (recs_a, _), *done = in_threads(launch, [("a",), ("b",), ("c",)])[0]
+        for recs_d, _ in done:
+            add_launches(recs_d)
+        want = {"ring": {"flash_attention": 2, "flash_attention_bwd_dq": 2,
+                         "flash_attention_bwd_dkv": 2},
+                "ulysses": {"flash_attention": 1, "flash_attention_bwd_dq": 1,
+                            "flash_attention_bwd_dkv": 1}}
+        for rec in recs_a:
+            for label, case in rec["cases"].items():
+                ok = ((case["launches"] == want[label.split()[0]] or not on_card)
+                      and all(t_["ok"] for t_ in case["tensors"].values()))
+                if rec["rank"] == 0 or not ok:
+                    log(f"phase 27 (a) rank {rec['rank']} {label} {z_['sp_shape']} over "
+                        f"{rec['world']} ranks ({rec['backend']}): launches "
+                        f"{case['launches']}, "
+                        + "; ".join(f"{n_} {json.dumps(t_)}"
+                                    for n_, t_ in case["tensors"].items())
+                        + f": {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    bad.append(f"(a) rank {rec['rank']} {label}")
+        out["a"] = {label: {n_: {k_: t_[k_] for k_ in t_ if k_ != "ok"}
+                            for n_, t_ in case["tensors"].items()}
+                    for label, case in recs_a[0]["cases"].items()}
+
+        out["d"] = {}
+        for k_ in ("b", "c"):
+            ok_d, hold = world_one_hold(dev, os.path.join(tmp, f"wd_d{k_}"),
+                                        os.path.join(tmp, f"out_d{k_}"), 1, 2,
+                                        ("g_params", "d_params", "enc_params"))
+            log(f"phase 27 (d) float32, {runs[k_][0]} against one process: "
+                f"{'ok' if ok_d else 'FAILED'} {hold}")
+            out["d"][k_] = hold
+            if not ok_d:
+                bad.append(f"(d) {k_}: {hold['bad']}")
+        out["d_s"] = time.perf_counter() - t_d
+    if bad:
+        raise AssertionError(f"phase 27: {'; '.join(bad)}")
+    return out
+
+
+def phase27_line(v27, smi):
+    def coll(r_):  # each rank's mean ms a step after the first
+        return [round(sum(x_) / max(len(x_), 1), 3) for x_ in r_["coll_ms"]]
+
+    b_, c_ = v27["b"], v27["c"]
+    return (f"phase 27: ring over mesh.seq=2 {b_['s_per_step']:.4f} s/step, collectives "
+            f"{coll(b_)} ms a step, peak GB {b_['peak_gb']}, saved bytes (SP, DP) "
+            f"{b_['saved_bytes']}; ulysses over mesh.model=2 with TP {c_['s_per_step']:.4f} "
+            f"s/step, collectives {coll(c_)} ms a step, peak GB {c_['peak_gb']}, saved bytes "
+            f"{c_['saved_bytes']}; the attention and float32 holds {v27['d_s']:.3f} s; "
+            f"launches {v27['launches']} [{smi}]")
+
+
 def zero_counts():
     """Set every kernel wrapper's launch count to 0."""
     from sgg_torch.kernels import conv_direct as cd
@@ -4109,7 +4513,7 @@ def convert_grain_phase(dev, smi, sizes=None, extra_sets=None, v4_sets=None, vg_
         fell_back = "falling back to per-step dispatch" in whole_txt
         e20 = before.get("v20")
         beside = (f"phase 20's eager run {e20['s_per_step']:.4f} s/step, idle {e20['idle']}"
-                  if e20 else "phase 20 did not run in this call (PERF.md: eager 0.3497-0.3546 "
+                  if e20 else "phase 20 did not run in this process (PERF.md: eager 0.3497-0.3546 "
                   "s/step, idle 0.91-0.93)")
         log(f"phase 25 (c) train pipeline_v4 --set data.loader=grain data.grain_workers="
             f"{z_['workers']}: corpus {z_['v4_images']} images in {corpus_s:.3f} s; unbroken "
@@ -4161,7 +4565,7 @@ def convert_grain_phase(dev, smi, sizes=None, extra_sets=None, v4_sets=None, vg_
                 and [r_["step"] for r_ in vg_lines] == list(range(1, z_["vg_steps"] + 1)))
         h21 = (before.get("v21") or {}).get("train", {}).get("host")
         beside = (f"phase 21's host-prefetch {h21['decode_s_per_step']} s a step" if h21 else
-                  "phase 21 did not run in this call (PERF.md: host-prefetch 0.50-0.54 s a "
+                  "phase 21 did not run in this process (PERF.md: host-prefetch 0.50-0.54 s a "
                   "step)")
         log(f"phase 25 (d) train vg_full --set data.loader=grain data.grain_workers="
             f"{z_['workers']}: {z_['vg_steps']} steps in {vg_s:.3f} s in process, last step "
@@ -4206,35 +4610,170 @@ def phase26_line(v26, smi):
             f"--decode fused {v26['generate']['s']:.3f} s; launches {v26['launches']} [{smi}]")
 
 
-def run_phases(chosen, dev, smi):
+def phase21_line(v21):
+    ld, tr = v21["loader"], v21["train"]
+    return (f"phase 21: loader {ld['route']} (build {ld['build_s']:.3f} s, mean |d| "
+            f"{ld['mean']:.4f}, max {ld['max']}, {ld['images_per_s']:.1f} images/s in "
+            f"{ld['threads']} threads); extraction " + ", ".join(
+                f"{s_['images_per_sec']} images/s (decode-wait {s_['decode_wait_frac']})"
+                for s_ in v21["extract"]["stats"]) + "; vg_full " + "; ".join(
+                f"{k_} {r_['s_per_step']:.4f} s/step, {r_['images_per_s']:.1f} images/s, idle "
+                f"{r_['idle']}, peak {r_['peak_gb']:.3f} GB" for k_, r_ in tr.items())
+            + f"; generate {v21['infer']['generate_tps']:.1f} and evaluate "
+            f"{v21['infer']['evaluate_tps']:.1f} triples/s")
+
+
+def phase22_line(v22):
+    c22, p22, m22 = v22["corpus"], v22["pretrain"], v22["moe"]
+    return (f"phase 22: corpus {c22['images_per_s']:.1f} images/s ({c22['route']}, "
+            f"{c22['mb']:.2f} MB, mean |d| {c22['mean_d'][0]:.4f}-{c22['mean_d'][1]:.4f}); "
+            f"pretrain vgg19 {p22['s_per_step']:.4f} s/step, {p22['images_per_s']:.1f} "
+            f"images/s, idle {p22['idle']}, peak {p22['peak_gb']:.3f} GB, loss "
+            f"{p22['first']:.4f} -> {p22['last']:.4f}, held-out presence_recall "
+            f"{p22['seeded']['presence_recall']:.4f} -> "
+            f"{p22['held_out']['presence_recall']:.4f}, precision_at_k "
+            f"{p22['seeded']['precision_at_k']:.4f} -> {p22['held_out']['precision_at_k']:.4f}, "
+            f"cell_acc {p22['seeded'].get('cell_acc')} -> {p22['held_out'].get('cell_acc')}; "
+            f"vit_b16 MoE {m22['s_per_step']:.4f} s/step, peak {m22['peak_gb']:.3f} GB, aux "
+            f"{m22['aux']:.6f}, dropped in training {m22['dropped']:.4f}; extraction "
+            f"{v22['rest']['stats'][0]['images_per_sec']} images/s; launches {v22['launches']}")
+
+
+def phase24_line(v24, smi):
+    return (f"phase 24: v4_32 over 2 ranks (gloo) {v24['a']['s_per_step']:.4f} s/step, "
+            f"{v24['a']['images_per_s']:.1f} images/s over both, all-reduce "
+            f"{max(v24['allreduce_ms_step']):.3f} ms a step, idle per rank {v24['a']['idle']}, "
+            f"card {v24['a']['card_idle']}; world 1 (NCCL) {v24['b']['s_per_step']:.4f}, plain "
+            f"{v24['plain']['s_per_step']:.4f} s/step; vit_b16 over 2 ranks "
+            f"{v24['vit']['s_per_step']:.4f} s/step; launches {v24['launches']} [{smi}]")
+
+
+def run_phases(chosen, dev, smi, results=None):
     """``--phases``: each chosen phase alone, in the order given, after the
-    device and the build; prints its launches, the card's line and a last
-    line that names the phases run."""
+    device and the build; prints its launches and its summary line, then the
+    card's line and a last line that names the phases run. With ``results``
+    (a path) those two lines are not printed: the summary lines and the
+    launches go to that JSON file instead, for ``side_finish``."""
     import torch
 
-    results = {}
+    done, lines = {}, {}
     for n_ in chosen:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         if n_ == 21:
-            results[n_] = vg_full_phase(dev, run_cli, kernel_counts)
+            done[n_] = vg_full_phase(dev, run_cli, kernel_counts)
+            lines[n_] = phase21_line(done[n_])
         elif n_ == 22:
-            results[n_] = grounded_recipe_phase(dev, run_cli, kernel_counts)
+            done[n_] = grounded_recipe_phase(dev, run_cli, kernel_counts)
+            lines[n_] = phase22_line(done[n_])
         elif n_ == 24:
-            results[n_] = dp_phase(dev, smi)
+            done[n_] = dp_phase(dev, smi)
+            lines[n_] = phase24_line(done[n_], smi)
         elif n_ == 26:
-            results[n_] = tp_fsdp_phase(dev, smi)
-            log(phase26_line(results[n_], smi))
+            done[n_] = tp_fsdp_phase(dev, smi)
+            lines[n_] = phase26_line(done[n_], smi)
+        elif n_ == 27:
+            done[n_] = sp_phase(dev, smi)
+            lines[n_] = phase27_line(done[n_], smi)
         else:
-            results[n_] = convert_grain_phase(dev, smi, before={"v21": results.get(21)})
-            log(phase25_line(results[n_], smi))
+            done[n_] = convert_grain_phase(dev, smi, before={"v21": done.get(21)})
+            lines[n_] = phase25_line(done[n_], smi)
+        log(lines[n_])
         phase(str(n_), t0)
-        log(f"phase {n_} launches: {results[n_].get('launches')}")
+        log(f"phase {n_} launches: {done[n_].get('launches')}")
     faulthandler.cancel_dump_traceback_later()
+    if results:
+        with open(results, "w") as f:
+            json.dump({"lines": {str(n_): lines[n_] for n_ in chosen},
+                       "launches": {str(n_): done[n_].get("launches") for n_ in chosen}},
+                      f)
+        return
     print(smi, flush=True)
     print(json.dumps({"ok": True, "phases": chosen, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def side_start(phases, deadline):
+    """Start this script with ``--phases`` on ``phases`` in a session of its
+    own, its output to a file and its watchdog set to fire ``SIDE_MARGIN_S``
+    before ``deadline`` (this process's, on the monotonic clock);
+    ``side_stop`` ends it if this process exits first. → the handle that
+    ``side_finish`` takes."""
+    import atexit
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_side_")
+    left = int(deadline - time.monotonic() - SIDE_MARGIN_S)
+    argv = [sys.executable, os.path.abspath(__file__), "--phases", ",".join(map(str, phases)),
+            "--results", os.path.join(out, "results.json"), "--watchdog", str(left)]
+    with open(os.path.join(out, "log.txt"), "w") as log_f:
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, SGG_SMOKE_SIDE=str(os.getpid())),
+                                start_new_session=True)
+    atexit.register(side_stop, proc)
+    log(f"side process {proc.pid}: phases {', '.join(map(str, phases))} beside phases 17-20 "
+        f"and 23, watchdog {left} s")
+    return {"proc": proc, "dir": out, "phases": phases, "deadline": deadline,
+            "t0": time.perf_counter()}
+
+
+def side_stop(proc):
+    """End the side process's session if it is still running: SIGTERM (on
+    which it kills its ranks' process groups as it unwinds), then SIGKILL."""
+    if proc.poll() is not None:
+        return
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGTERM)
+    try:
+        proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def side_finish(side):
+    """Wait for the side process (its own watchdog ends it in time), echo
+    its output, raise if it failed → {"lines": {phase: summary line},
+    "launches": {phase: {kernel: launches}}}."""
+    proc = side["proc"]
+    waited = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, side["deadline"] - time.monotonic() - 5))
+    except subprocess.TimeoutExpired:
+        rc = "timeout"
+    side_stop(proc)
+    with open(os.path.join(side["dir"], "log.txt")) as f:
+        text = f.read()
+    print(f"[chip_smoke] ---- the side process's output (phases "
+          f"{', '.join(map(str, side['phases']))}) ----", flush=True)
+    print(text, end="" if text.endswith("\n") else "\n", flush=True)
+    print("[chip_smoke] ---- end of the side process's output ----", flush=True)
+    if rc != 0:
+        raise AssertionError(f"the side process (phases {side['phases']}) exited {rc}:\n"
+                             f"{text[-4000:]}")
+    with open(os.path.join(side["dir"], "results.json")) as f:
+        got = json.load(f)
+    shutil.rmtree(side["dir"], ignore_errors=True)
+    log(f"side process: {time.perf_counter() - side['t0']:.3f} s from its start, "
+        f"{time.perf_counter() - waited:.3f} s of it waited for here")
+    return got
+
+
+def side_process_setup():
+    """In the side process: receive SIGTERM when the process that started it
+    exits (as on that one's watchdog), and turn SIGTERM into SystemExit, so
+    that the ``finally`` clauses kill the ranks it started."""
+    import ctypes
+
+    def on_term(signum, frame):
+        raise SystemExit(128 + signum)
+
+    signal.signal(signal.SIGTERM, on_term)
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG
+    if str(os.getppid()) != os.environ.get("SGG_SMOKE_SIDE"):
+        raise SystemExit("chip_smoke: the process that started this side run is gone")
 
 
 def main(argv=None):
@@ -4244,6 +4783,11 @@ def main(argv=None):
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone after the device and the build, "
                          f"of {', '.join(map(str, SELECTABLE_PHASES))} (default: every phase)")
+    ap.add_argument("--results", default=None,
+                    help="with --phases: write the phases' summary lines and launches to this "
+                         "JSON file instead of the last two lines (the full run's side process)")
+    ap.add_argument("--watchdog", type=int, default=WATCHDOG_SECONDS,
+                    help=f"seconds before a stack trace and exit 1 (default {WATCHDOG_SECONDS})")
     args = ap.parse_args(argv)
     chosen = None
     if args.phases:
@@ -4251,7 +4795,12 @@ def main(argv=None):
         if not set(chosen) <= set(SELECTABLE_PHASES):
             ap.error(f"--phases takes {SELECTABLE_PHASES}; the others share the full run's "
                      "state")
-    faulthandler.dump_traceback_later(WATCHDOG_SECONDS, exit=True)
+    if args.results and not chosen:
+        ap.error("--results goes with --phases")
+    faulthandler.dump_traceback_later(args.watchdog, exit=True)
+    deadline = time.monotonic() + args.watchdog
+    if os.environ.get("SGG_SMOKE_SIDE"):
+        side_process_setup()
     import torch
 
     if not torch.cuda.is_available():
@@ -4345,12 +4894,6 @@ def main(argv=None):
         p2 = time_ms(plain)
         return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
 
-    def bf16_ulp(want):
-        """One bfloat16 ulp of each value (0 where the value is 0)."""
-        w = want.float()
-        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
-        return torch.where(w == 0, torch.zeros_like(ulp), ulp)
-
     def one_ulp_gate(got, want, f32_tol):
         """bf16 kernel vs plain: within one bf16 ulp of the plain value plus
         the float32 gate (both round float32 sums taken in another order)."""
@@ -4400,7 +4943,7 @@ def main(argv=None):
     lib = build.load_library()
     phase("build", t0)
     if chosen is not None:
-        run_phases(chosen, dev, smi)
+        run_phases(chosen, dev, smi, args.results)
         return
 
     # 3. fused_decode vs plain, at the trained run's widths and at resnet50's.
@@ -5636,6 +6179,11 @@ def main(argv=None):
         add(name, k_ms, p_ms, l_ms, b_s, b_by, 60)
     phase("timing_backward", t0)
 
+    # The side processes: phases 27, 22, 26, 24 and 21, 25 from here on,
+    # beside phases 17-20 and 23 (every kernel's time is taken by now).
+    torch.cuda.empty_cache()
+    sides = [side_start(g_, deadline) for g_ in SIDE_PHASES]
+
     # 17. Main path, pipeline_v4: a seeded corpus, the train CLI at full
     # widths (balance, int8, rotating subsets, the probe, --profile), the
     # gather's holds, then evaluate with its recipe and on fused_decode.
@@ -5706,24 +6254,13 @@ def main(argv=None):
     v19["preprocess"] = preprocess_phase(dev, run_cli)
     phase("preprocess and train on its shards", t0)
 
-    # 21. vg_full from JPEGs: the loader, extraction on the conv kernel, the
-    # train CLI on both image routes with the pixels-in probe, and inference
-    # on the path-backed held-out split.
-    t0 = time.perf_counter()
-    v21 = vg_full_phase(dev, run_cli, read_counts)
-    phase("vg_full from JPEGs (phase 21)", t0)
-
-    # 22. The grounded recipe from nothing: the corpus, pretraining (VGG-19, and
-    # ViT-B/16 with MoE blocks), the holds, then extraction through the
-    # pretrained encoder, training on its shards and evaluation.
-    t0 = time.perf_counter()
-    v22 = grounded_recipe_phase(dev, run_cli, read_counts)
-    phase("grounded recipe (phase 22)", t0)
+    # 21 and 22 run in the side processes.
 
     # 23. The deployment tier: the encoders' int8 PTQ (the holds at full width,
     # the cosine contract, generate and serve --quant int8) and the exported
     # sampler (cli.export --check, serve --artifact, the bare artifact).
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
     with open(os.path.join(TRAINED_RUN, "config.json")) as f:
         v1k_cfg = Config.from_dict(json.load(f))
     v1k_cfg.model.vocab_size = len(vocab)
@@ -5734,24 +6271,15 @@ def main(argv=None):
         lambda fn: graph_ms(fn, n=P23_GRAPH_CALLS, reps=P23_GRAPH_REPS))
     phase("deployment tier (phase 23)", t0)
 
-    # 24. The data-parallel tier: v4_32 over two ranks that share the card
-    # (gloo), at world 1 (NCCL) and alone, and vit_b16 with train_encoder
-    # over two ranks; each rank a process of its own.
+    # 27, 22, 26, 24 and 21, 25 ran in the side processes: their output,
+    # summary lines and launches.
     t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    v24 = dp_phase(dev, smi)
-    phase("data-parallel tier (phase 24)", t0)
-
-    # 25. A9's rest: the TF1 checkpoint reader and convert at vg1k widths
-    # (then generate on fused_decode), and the grain loader on pipeline_v4
-    # (cut and resumed) and on vg_full (spawned workers decoding JPEGs).
-    t0 = time.perf_counter()
-    v25 = convert_grain_phase(dev, smi, before={"v20": v20.get("eager"), "v21": v21})
-    phase("convert and the grain loader (phase 25)", t0)
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    v26 = tp_fsdp_phase(dev, smi)
-    phase("TP and FSDP (phase 26)", t0)
+    side = {"lines": {}, "launches": {}}
+    for s_ in sides:
+        got = side_finish(s_)
+        for k_ in side:
+            side[k_].update(got[k_])
+    phase("the side processes' phases", t0)
     log(f"phase 19 launches: flash_attention {vrl_counts['flash_attention']}, dq "
         f"{vrl_counts['flash_attention_bwd_dq']}, dk/dv {vrl_counts['flash_attention_bwd_dkv']} "
         f"({VIT_RL_STEPS} REINFORCE steps on vit_b16); none on PredCls, REINFORCE on "
@@ -5763,28 +6291,8 @@ def main(argv=None):
         f"peak {f20['peak_gb']:.3f} GB, capture {f20['capture_s']} s and {f20['capture_gb']} "
         f"GB; {e20['s_per_step'] / f20['s_per_step']:.2f}x; holds bit for bit: pipeline_v4 "
         f"{v20['hold_v4']['equal']}, vit_b16 {v20['hold_vit']['equal']}")
-    ld, tr = v21["loader"], v21["train"]
-    log(f"phase 21: loader {ld['route']} (build {ld['build_s']:.3f} s, mean |d| "
-        f"{ld['mean']:.4f}, max {ld['max']}, {ld['images_per_s']:.1f} images/s in "
-        f"{ld['threads']} threads); extraction " + ", ".join(
-            f"{s_['images_per_sec']} images/s (decode-wait {s_['decode_wait_frac']})"
-            for s_ in v21["extract"]["stats"]) + "; vg_full " + "; ".join(
-            f"{k_} {r_['s_per_step']:.4f} s/step, {r_['images_per_s']:.1f} images/s, idle "
-            f"{r_['idle']}, peak {r_['peak_gb']:.3f} GB" for k_, r_ in tr.items())
-        + f"; generate {v21['infer']['generate_tps']:.1f} and evaluate "
-        f"{v21['infer']['evaluate_tps']:.1f} triples/s")
-    c22, p22, m22 = v22["corpus"], v22["pretrain"], v22["moe"]
-    log(f"phase 22: corpus {c22['images_per_s']:.1f} images/s ({c22['route']}, {c22['mb']:.2f} "
-        f"MB, mean |d| {c22['mean_d'][0]:.4f}-{c22['mean_d'][1]:.4f}); pretrain vgg19 "
-        f"{p22['s_per_step']:.4f} s/step, {p22['images_per_s']:.1f} images/s, idle "
-        f"{p22['idle']}, peak {p22['peak_gb']:.3f} GB, loss {p22['first']:.4f} -> "
-        f"{p22['last']:.4f}, held-out presence_recall {p22['seeded']['presence_recall']:.4f} "
-        f"-> {p22['held_out']['presence_recall']:.4f}, precision_at_k "
-        f"{p22['seeded']['precision_at_k']:.4f} -> {p22['held_out']['precision_at_k']:.4f}, "
-        f"cell_acc {p22['seeded'].get('cell_acc')} -> {p22['held_out'].get('cell_acc')}; "
-        f"vit_b16 MoE {m22['s_per_step']:.4f} s/step, peak {m22['peak_gb']:.3f} GB, aux "
-        f"{m22['aux']:.6f}, dropped in training {m22['dropped']:.4f}; extraction "
-        f"{v22['rest']['stats'][0]['images_per_sec']} images/s; launches {v22['launches']}")
+    for n_ in (21, 22):
+        log(side["lines"][str(n_)])
     g23 = v23["generate"]
     log(f"phase 23: {len(v23['holds'])} int8 shapes bit for bit; cosine medians "
         + ", ".join(f"{k_} {v_:.5f}" for k_, v_ in v23["cosine"].items())
@@ -5794,14 +6302,8 @@ def main(argv=None):
         + "; export --check " + ", ".join(f"{k_} {v_['s']:.3f} s ({v_['mb']:.1f} MB)"
                                           for k_, v_ in v23["export"].items())
         + f"; launches {v23['launches']} [{smi}]")
-    log(f"phase 24: v4_32 over 2 ranks (gloo) {v24['a']['s_per_step']:.4f} s/step, "
-        f"{v24['a']['images_per_s']:.1f} images/s over both, all-reduce "
-        f"{max(v24['allreduce_ms_step']):.3f} ms a step, idle per rank {v24['a']['idle']}, card "
-        f"{v24['a']['card_idle']}; world 1 (NCCL) {v24['b']['s_per_step']:.4f}, plain "
-        f"{v24['plain']['s_per_step']:.4f} s/step; vit_b16 over 2 ranks "
-        f"{v24['vit']['s_per_step']:.4f} s/step; launches {v24['launches']} [{smi}]")
-    log(phase25_line(v25, smi))
-    log(phase26_line(v26, smi))
+    for n_ in (24, 25, 26, 27):
+        log(side["lines"][str(n_)])
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
     sources = {"fused_decode": ("sgg_torch/kernels/csrc/fused_decode.cu",
@@ -5827,16 +6329,13 @@ def main(argv=None):
     path_counts = dict(pix_counts, **{k_: train_counts[k_] for k_ in (
         "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
     path_counts["fused_decode"] = v4_fused_counts["fused_decode"]
-    for k_, v_ in v22["launches"].items():  # phase 22's paths, each counted from 0
-        path_counts[k_] += v_
     for k_, v_ in v23["launches"].items():  # phase 23's int8 generate runs, from 0
         path_counts[k_] += v_
-    for k_, v_ in v24["launches"].items():  # phase 24's runs, every rank's, from 0
-        path_counts[k_] += v_
-    for k_, v_ in v25["launches"].items():  # phase 25's CLI runs, each from 0
-        path_counts[k_] += v_
-    for k_, v_ in v26["launches"].items():  # phase 26's runs, every rank's, from 0
-        path_counts[k_] += v_
+    # The side processes' runs (phase 22's paths, phase 25's CLI runs, every
+    # rank of 24, 26 and 27), each counted from 0; phase 21 adds none.
+    for n_ in (22, 24, 25, 26, 27):
+        for k_, v_ in side["launches"][str(n_)].items():
+            path_counts[k_] += v_
     kernels = []
     for name, (src, replaces) in sources.items():
         r_ = records[name]
@@ -5858,4 +6357,6 @@ def main(argv=None):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-run"]:
         sys.exit(rank_run(sys.argv[2:]))
+    if sys.argv[1:2] == ["--sp-attention-run"]:
+        sys.exit(sp_attention_run(sys.argv[2:]))
     main()

@@ -19,10 +19,19 @@ through the port's own entry points, one process per card over NCCL:
     a step on each rank, the ranks' states equal bit for bit;
 (c) ``python -m sgg_torch.cli.serve --workdir <(b)'s> --dp 4 --port 0``:
     its ready line, four binary requests of 32 images (each answered with
-    32 type-legal graphs), exit 0 after SIGTERM.
+    32 type-legal graphs), exit 0 after SIGTERM;
+(d) sequence parallelism over ``mesh.seq=4`` (``--set model.sp_mode=ring``
+    and ``ulysses``, ``mesh.partition=gspmd``) on vit_b16 with
+    ``train_encoder``, B 32, 2 steps each: the ring's 4 hops on S/4 = 49
+    patch rows a rank (288/240/240 flash, dq and dk/dv launches a step on
+    each rank), Ulysses on 3 heads a rank (72/60/60); every rank gathering
+    the same global state (the checkpoint); each again for one step in
+    float32 with n_critic 1, held against one process at the global batch
+    on card 0 (``chip_smoke.world_one_hold``).
 Prints each run's s/step, images/s, the collectives' ms a step, state bytes
-and peak memory per rank, the request latencies, and the cards' names and
-power limits; exits non-zero if a hold fails, and with 2 if fewer than four
+and peak memory per rank (for (d) the bytes saved for the backward in one
+encoder forward against data parallelism's), the request latencies, and the
+cards' names and power limits; exits non-zero if a hold fails, and with 2 if fewer than four
 cards are visible. ``--dry-run`` runs the same on the CPU (four gloo ranks,
 ``serve --dp 4`` over four CPU devices) at small widths, the launch counts
 not held.
@@ -41,7 +50,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-STEPS, V4_IMAGES, REQUESTS, REQUEST_IMAGES = 3, 1024, 4, 32
+STEPS, V4_IMAGES, REQUESTS, REQUEST_IMAGES, SP_STEPS = 3, 1024, 4, 32, 2
 # --dry-run: small widths on the CPU.
 DRY = {"model.hidden": 32, "model.embed_dim": 16, "model.attn_dim": 16, "model.noise_dim": 8,
        "model.critic_hidden": 32, "model.compute_dtype": "float32", "train.batch_size": 4,
@@ -50,6 +59,59 @@ DRY_VIT = {**DRY, "data.regions": 16, "data.feat_dim": 64, "model.vit_dim": 64,
            "model.vit_layers": 2, "model.vit_heads": 4, "model.num_heads": 4,
            "model.num_layers": 2}
 DRY_V4 = {**DRY, "data.regions": 16, "data.feat_dim": 512}
+
+
+def sp_cards(tmp, dry, sets, smi, out, bad):
+    """(d): ring and Ulysses over ``mesh.seq=4`` on vit_b16 with
+    ``train_encoder`` over NCCL, then each one's float32 step at n_critic 1
+    against one process at the global batch."""
+    import torch
+
+    hops = {"ring": 4, "ulysses": 1}
+    for mode, n_hops in hops.items():
+        def argv(wd, steps, extra=()):
+            return (["--config", "vit_b16", "--workdir", wd, "--steps", str(steps),
+                     "--set", "train.train_encoder=true", "--set", f"model.sp_mode={mode}",
+                     "--set", "mesh.seq=4", "--set", "mesh.partition=gspmd",
+                     "--set", f"data.num_synthetic_images={cs.VIT_IMAGES}",
+                     "--set", "train.log_every=1", *extra] + sets(DRY_VIT))
+
+        wd, o_ = os.path.join(tmp, f"wd_{mode}"), os.path.join(tmp, f"out_{mode}")
+        t0 = time.perf_counter()
+        recs, _ = cs.dp_launch(o_, argv(wd, SP_STEPS), 4,
+                               env_extra={"SGG_SMOKE_FIRST": "1", "SGG_SMOKE_ACT": "1"})
+        lines = [r_ for r_ in cs.read_metric_lines(wd) if "d_loss" in r_]
+        want = {"flash_attention": 72 * n_hops, "flash_attention_bwd_dq": 60 * n_hops,
+                "flash_attention_bwd_dkv": 60 * n_hops}
+        if not dry and any([{k_: v_ for k_, v_ in c_.items() if v_} for c_ in x_["per_step"]]
+                           != [want] * SP_STEPS for x_ in recs):
+            bad.append(f"(d) {mode} launches {[x_['per_step'] for x_ in recs]}")
+        sd = torch.load(os.path.join(wd, "checkpoints", str(SP_STEPS), "state.pt"),
+                        map_location="cpu", weights_only=True)
+        if any(x_["global_digests"] != recs[0]["global_digests"] for x_ in recs) or \
+                cs.digest(cs.tree_tensors(sd)) != recs[0]["global_digests"]:
+            bad.append(f"(d) {mode}: the gathered states differ, or differ from the checkpoint")
+        if any(x_["backend"] != ("gloo" if dry else "nccl") for x_ in recs):
+            bad.append(f"(d) {mode} backends {[x_['backend'] for x_ in recs]}")
+        wd_f, out_f = os.path.join(tmp, f"wd_{mode}_f"), os.path.join(tmp, f"out_{mode}_f")
+        cs.dp_launch(out_f, argv(wd_f, 1, ("--set", "model.compute_dtype=float32",
+                                           "--set", "model.use_pallas=false",
+                                           "--set", "train.n_critic=1",
+                                           "--set", "train.checkpoint_every=1")), 4,
+                     env_extra={"SGG_SMOKE_FIRST": "1"})
+        dev = torch.device("cpu" if dry else "cuda")
+        ok, hold = cs.world_one_hold(dev, wd_f, out_f, 1, 4,
+                                     ("g_params", "d_params", "enc_params"))
+        if not ok:
+            bad.append(f"(d) {mode} against one process: {hold['bad']}")
+        out[f"sp_{mode}"] = {"s": time.perf_counter() - t0,
+                             "s_per_step": 1 / lines[-1]["steps_per_sec"],
+                             "coll_ms": [x_["coll_ms"][1:] for x_ in recs],
+                             "peak_gb": [x_["peak_gb"] for x_ in recs],
+                             "saved_bytes": [x_["saved_bytes"] for x_ in recs],
+                             "launches": recs[0]["per_step"][-1], "hold": hold}
+        print(f"[four_cards] (d) {mode} over mesh.seq=4, vit_b16 train_encoder, "
+              f"{'gloo' if dry else 'NCCL'}: {json.dumps(out[f'sp_{mode}'])} [{smi}]", flush=True)
 
 
 def main(argv=None) -> int:
@@ -203,6 +265,9 @@ def main(argv=None) -> int:
                         "images_per_s": REQUEST_IMAGES * len(latencies) / sum(latencies),
                         "printed": [ln for ln in printed.splitlines() if "[sgg.serve]" in ln][:3]}
         print(f"[four_cards] (c) serve --dp 4: {json.dumps(out['serve'])} [{smi}]", flush=True)
+
+        # (d) ring and Ulysses over mesh.seq=4.
+        sp_cards(tmp, dry, sets, smi, out, bad)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "four_cards.json"), "w") as f:
         json.dump({"smi": smi, **out, "bad": bad}, f, indent=1)

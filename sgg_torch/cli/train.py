@@ -127,10 +127,27 @@ the global state and places it again. ``mesh.partition='shard_map'`` with
 M > 1 trains data parallel over the data axis, each model group's ranks
 alike, as the reference's shard_map step replicates over ``'model'``.
 
+Sequence parallelism over the ViT's patch axis (``sgg/train/step.py:112-144``):
+on the gspmd route, ``model.sp_mode=ring`` or ``ulysses`` runs vit_b16's
+attention on S/n patch rows a rank over ``mesh.seq`` (a 'seq' axis between
+'data' and 'model'), or over the model axis when ``mesh.seq`` is 1, beside
+TP over the vocabulary on the same group; the ranks of the axis take the
+same rows:
+
+  torchrun --nproc_per_node 2 -m sgg_torch.cli.train --config vit_b16 \
+      --set train.train_encoder=true --set model.sp_mode=ring --set mesh.seq=2 \
+      --set mesh.partition=gspmd --workdir W
+  torchrun --nproc_per_node 2 -m sgg_torch.cli.train --config vit_b16 \
+      --set train.train_encoder=true --set model.sp_mode=ulysses --set mesh.model=2 \
+      --workdir W
+
+On one rank, and on the data-parallel route, ``sp_mode`` is ignored as the
+reference ignores it (a 'seq' axis then carries ranks that take the same
+rows).
+
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
 there. A resumed run's host iterator continues the draws at the restored
-step. Not ported yet: sequence, pipeline and expert parallelism (ROADMAP
-A8c–A8e).
+step. Not ported yet: pipeline and expert parallelism (ROADMAP A8d, A8e).
 """
 
 from __future__ import annotations

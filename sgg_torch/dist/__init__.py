@@ -5,9 +5,10 @@ Meshes over the world of ranks or a process's devices (:mod:`.mesh`); the
 multi-process runtime: torchrun's process group, per-process data shards, the
 broadcast of a replicated state, the gradients' mean and the subgroup
 collectives (:mod:`.multihost`); the train state's placement over a
-``('data', 'model')`` mesh, TP over the vocabulary and FSDP/ZeRO over 'data'
-(:mod:`.sharding`). Sequence, pipeline and expert parallelism are still to
-port (ROADMAP A8c–A8e).
+``('data'[, 'seq'], 'model')`` mesh, TP over the vocabulary and FSDP/ZeRO over
+'data' (:mod:`.sharding`); ring and Ulysses sequence parallelism over the
+ViT's patch axis (:mod:`.sequence_parallel`). Pipeline and expert
+parallelism are still to port (ROADMAP A8d, A8e).
 """
 
 from sgg_torch.dist.mesh import (

@@ -30,6 +30,19 @@ else), and a reduce-scatter is an all-reduce followed by taking this rank's
 slice (gloo's reduce-scatter is missing in some torch releases); the backend
 line says so. NCCL runs ``all_gather`` and ``reduce_scatter_tensor``
 themselves.
+
+Sequence parallelism (``sgg_torch.dist.sequence_parallel``) adds two
+collectives over a group, each a Function whose backward applies its dual:
+:func:`ring_shift`, the reference's ``ppermute`` of rank i's tensor to rank
+i + shift (``dist.batch_isend_irecv``), whose dual is the opposite shift; and
+:func:`all_to_all`, the reference's tiled ``all_to_all`` (rank j's slice j of
+the split dimension, concatenated in rank order along another), whose dual
+is the inverse all-to-all; and :func:`split_many`, :func:`split` of several
+tensors whose gradients are gathered in one bucket. Collectives that move
+data and sum nothing (the all-gathers, the shifts, the all-to-alls) carry a
+16-bit float as its float16 bit pattern (exact; every gloo release knows
+float16) and anything else as float32, and on gloo a CUDA tensor stages
+through pinned host memory.
 A replicated state is made equal on every rank by a broadcast from rank 0
 (:func:`host_local_to_global`), and gradients and metrics are averaged by
 :func:`pmean`: one flattened float32 bucket, summed, then multiplied by
@@ -179,10 +192,9 @@ def host_local_to_global(tree, sharding):
     every rank's, in place, for a train state (its tensors and step), a
     module, or a dict or list of tensors. Split over 'data': each rank's
     data are its own shard already, returned as they are."""
-    # Replicated over a mesh with a model axis: over every rank.
-    group = sharding.mesh.group if sharding.mesh.model == 1 else dist.group.WORLD
     if sharding.dim is not None or not is_multiprocess():
         return tree
+    group = dist.group.WORLD  # replicated over the mesh: over every rank
     if hasattr(tree, "tensors"):  # a GANTrainState: its tensors, then its step
         step = torch.tensor([int(tree.step)], device=sharding.mesh.device)
         broadcast_tensors(tree.tensors() + [step], group)
@@ -205,8 +217,36 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
     return (x if x.dtype == torch.float64 else x.float()).contiguous()
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
 def _gloo_on_cuda(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _carried(x: torch.Tensor, group) -> torch.Tensor:
+    """x as a collective that moves data and sums nothing sends it over
+    ``group``, contiguous: a 16-bit float as its float16 bit pattern, anything
+    else as :func:`_wire` gives it; on gloo, a CUDA tensor staged in pinned
+    host memory."""
+    x = x.detach()
+    w = x.contiguous().view(torch.float16) if x.dtype in _HALF else _wire(x)
+    if _gloo_on_cuda(w, group):
+        host = torch.empty(w.shape, dtype=w.dtype, pin_memory=True)
+        return host.copy_(w)
+    return w
+
+
+def _receiver(w: torch.Tensor, shape=None) -> torch.Tensor:
+    """An empty tensor like the carried ``w`` (of ``shape``), pinned as it is."""
+    return torch.empty(w.shape if shape is None else shape, dtype=w.dtype, device=w.device,
+                       pin_memory=w.is_pinned())
+
+
+def _landed(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A carried tensor back in ``like``'s dtype, on its device."""
+    w = w.to(like.device)
+    return w.view(like.dtype) if like.dtype in _HALF else w.to(like.dtype)
 
 
 def gather_tensor(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -215,13 +255,10 @@ def gather_tensor(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     n = group_size(group)
     if n == 1:
         return x
-    w = _wire(x.detach())
-    staged = _gloo_on_cuda(w, group)
-    if staged:
-        w = w.cpu()
-    parts = [torch.empty_like(w) for _ in range(n)]
-    dist.all_gather(parts, w, group=group)
-    return torch.cat(parts, dim).to(device=x.device, dtype=x.dtype)
+    w = _carried(x, group)
+    out = _receiver(w, (n, *w.shape))
+    dist.all_gather(list(out.unbind(0)), w, group=group)
+    return torch.cat(_landed(out, x).unbind(0), dim)
 
 
 def scatter_mean_tensor(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -354,12 +391,14 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 def gather_tensors(xs: list[torch.Tensor], dims: list[int], group) -> list[torch.Tensor]:
     """:func:`gather_tensor` of each of ``xs`` along its dim in ``dims``, in
     one collective: each tensor is moved to put its dim first and the parts
-    travel as one flat float32 bucket."""
+    travel as one flat bucket, float32 (in their dtype when all share one
+    16-bit dtype)."""
     if group_size(group) == 1 or not xs:
         return list(xs)
     n = group_size(group)
     moved = [x.detach().movedim(d, 0) for x, d in zip(xs, dims)]
-    flat = torch.cat([_wire(m).reshape(-1) for m in moved])
+    half = len({x.dtype for x in xs}) == 1 and xs[0].dtype in _HALF
+    flat = torch.cat([(m if half else _wire(m)).reshape(-1) for m in moved])
     parts = gather_tensor(flat, group, 0).view(n, -1)
     out, at = [], 0
     for x, m, d in zip(xs, moved, dims):
@@ -389,3 +428,106 @@ def scatter_mean_tensors(xs: list[torch.Tensor], dims: list[int], group) -> list
         out.append(mine[at:at + k].reshape(shape).movedim(0, d).contiguous().to(x.dtype))
         at += k
     return out
+
+
+# ------------------------------------------- sequence-parallel collectives
+
+def shift_tensors(xs: list[torch.Tensor], group, shift: int = 1) -> list[torch.Tensor]:
+    """Each of ``xs`` from the rank ``shift`` places behind in ``group``'s
+    ring: rank i's tensors go to rank (i + shift) mod n, in one
+    ``batch_isend_irecv``. Shapes and dtypes are the same on every rank; the
+    results are new contiguous tensors in each input's dtype, on its device.
+    No gradient. A group of one returns ``xs``."""
+    n = group_size(group)
+    if n == 1 or shift % n == 0:
+        return list(xs)
+    me = dist.get_rank(group)
+    to = dist.get_global_rank(group, (me + shift) % n)
+    frm = dist.get_global_rank(group, (me - shift) % n)
+    sends = [_carried(x, group) for x in xs]
+    recvs = [_receiver(w) for w in sends]
+    ops = [dist.P2POp(dist.isend, w, to, group) for w in sends]
+    ops += [dist.P2POp(dist.irecv, r, frm, group) for r in recvs]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [_landed(r, x) for r, x in zip(recvs, xs)]
+
+
+def all_to_all_tensor(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all over ``group``: x's ``split_dim`` cut into n equal
+    slices, slice j sent to rank j, and the slices that arrive concatenated
+    along ``concat_dim`` in rank order (``jax.lax.all_to_all(..., tiled=
+    True)``). No gradient. A group of one returns x."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not split over {n} ranks")
+    w = _carried(torch.stack(x.detach().chunk(n, split_dim)), group)  # slice j for rank j
+    out = _receiver(w)
+    dist.all_to_all_single(out, w, group=group)
+    return torch.cat(_landed(out, x).unbind(0), concat_dim)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return shift_tensors([x], group, shift)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _RingShift.apply(g, ctx.group, -ctx.shift), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return all_to_all_tensor(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _AllToAll.apply(g, ctx.group, concat_dim, split_dim), None, None, None
+
+
+def ring_shift(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Rank i's ``x`` on rank (i + shift) mod n of ``group`` (the reference's
+    ``ppermute`` over ``[(i, (i + shift) % n)]``); its gradient travels back,
+    the opposite shift."""
+    return _RingShift.apply(x, group, shift)
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all (:func:`all_to_all_tensor`); its gradient is the
+    inverse all-to-all, ``split_dim`` and ``concat_dim`` swapped."""
+    return _AllToAll.apply(x, group, split_dim % x.dim(), concat_dim % x.dim())
+
+
+class _SplitMany(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, dim, *xs):
+        ctx.group, ctx.dim = group, dim
+        return tuple(slice_of(x, group, dim) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *_AllGatherMany.apply(ctx.group, ctx.dim, *gs))
+
+
+class _AllGatherMany(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, dim, *xs):
+        ctx.group, ctx.dim = group, dim
+        return tuple(gather_tensors(list(xs), [dim] * len(xs), group))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *_SplitMany.apply(ctx.group, ctx.dim, *gs))
+
+
+def split_many(xs: list[torch.Tensor], group, dim: int) -> list[torch.Tensor]:
+    """:func:`split` of each of ``xs`` (all of one rank, ``dim`` >= 0); their
+    gradients are all-gathered in one bucket (:func:`gather_tensors`)."""
+    return list(_SplitMany.apply(group, dim, *xs))

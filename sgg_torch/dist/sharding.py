@@ -170,9 +170,7 @@ class VocabShard:
 def axis_group(mesh: Mesh, spec: LeafSpec):
     """The process group over which a leaf of ``spec`` is split (None when
     it is replicated)."""
-    if spec.axis is None:
-        return None
-    return mesh.model_group if spec.axis == MODEL_AXIS else mesh.group
+    return None if spec.axis is None else mesh.axis_group(spec.axis)
 
 
 def _set_tensor(module: nn.Module, key: str, value: torch.Tensor) -> None:

@@ -46,12 +46,12 @@ rank r's generator seed adds ``r · RANK_SEED_STRIDE``, so rank 0, and a world
 of one, draws what the single-device step draws.
 
 The gspmd step (``mesh``, ``make_train_step_gspmd``'s counterpart) runs on a
-state placed over a ``('data', 'model')`` mesh by
+state placed over a ``('data'[, 'seq'], 'model')`` mesh by
 ``sgg_torch.dist.sharding.place_state``. Its body is the single-device step
 on global arrays: the noise is the single-device step's draw at the global
 batch B · data (no rank in the seed), and each rank takes its data
-coordinate's rows of it and of the batch (the ranks of one model group take
-the same rows). Under TP the generator and critic compute over the
+coordinate's rows of it and of the batch (the ranks that share a data
+coordinate take the same rows). Under TP the generator and critic compute over the
 vocabulary in parallel (``VocabShard``). Each update all-gathers the FSDP
 leaves of the modules that it runs before its forward
 (``Placement.gathered``) and drops the full copies after it; its gradients
@@ -59,6 +59,17 @@ are averaged over the data axis, an FSDP leaf's reduce-scattered to this
 rank's slice, and Adam runs on the slices. A TP leaf's gradient is this
 rank's slice already. The clip's global norm and ``enc_gnorm`` sum a split
 leaf's squares over its axis's group. The EMA updates the stored parts.
+
+Sequence parallelism (``model.sp_mode`` 'ring' or 'ulysses', ``sgg/train/
+step.py:112-144``) acts on the gspmd step of a vit_b16 encoder: the ViT's
+attention layers attend through ``sgg_torch.dist.sequence_parallel.
+make_sp_attention`` over the mesh's 'seq' axis, or its 'model' axis when the
+mesh has none (there it shares the group of TP over the vocabulary). The
+ranks of the axis take the same rows; each runs the attention on its S/n
+patch rows and everything else on all of them, so the gradients stay equal
+over the axis and are reduced over 'data' alone. Without a mesh, and on the
+data-parallel step, ``sp_mode`` is ignored, as the reference's ``sp_mesh``
+is None there.
 """
 
 from __future__ import annotations
@@ -71,8 +82,9 @@ import torch
 import torch.nn.functional as F
 
 from sgg_torch.config import Config
-from sgg_torch.dist.mesh import refuse_unported_mesh
+from sgg_torch.dist.mesh import MODEL_AXIS, SEQ_AXIS, refuse_unported_mesh
 from sgg_torch.dist.multihost import pmean
+from sgg_torch.dist.sequence_parallel import make_sp_attention, sp_encoder
 from sgg_torch.models.encoders import features_and_aux, normalize_for
 from sgg_torch.models.generator import TRIPLE_LEN
 from sgg_torch.train.losses import critic_loss, generator_loss, reinforce_generator_loss
@@ -91,9 +103,6 @@ def refuse_unported(cfg: Config) -> None:
     if t.estimator not in ("gumbel", "reinforce"):
         raise ValueError(f"unknown train.estimator {t.estimator!r} (expected 'gumbel' or "
                          "'reinforce')")
-    if m.sp_mode:
-        raise NotImplementedError(f"sequence parallelism (model.sp_mode) {_LATER} "
-                                  "(ROADMAP A8c)")
     if m.pp_microbatches:
         raise NotImplementedError(f"pipeline parallelism (model.pp_microbatches) {_LATER} "
                                   "(ROADMAP A8d)")
@@ -207,8 +216,18 @@ def make_step_fn(cfg: Config, step_mask=None, group=None, mesh=None) -> Callable
     the critic updates, the last one the generator update. The state is
     updated in place; the metrics (0-dim tensors) are the last critic
     iteration's aux values, the generator's and ``tau``."""
-    refuse_unported(cfg)
     t, m = cfg.train, cfg.model
+    sp_on = mesh is not None and bool(m.sp_mode) and m.encoder == "vit_b16"
+    if sp_on and m.pp_microbatches and SEQ_AXIS not in mesh.axis_names:
+        raise ValueError(
+            "sp_mode and pp_microbatches both set on a mesh without a 'seq' axis: they would "
+            "contend for the single 'model' axis. Set mesh.seq > 1 (MeshSpec.seq) to compose "
+            "DP×SP×PP on a ('data','seq','model') mesh.")
+    refuse_unported(cfg)
+    sp_attn = None
+    if sp_on:
+        sp_attn = make_sp_attention(
+            mesh, m.sp_mode, SEQ_AXIS if SEQ_AXIS in mesh.axis_names else MODEL_AXIS)
     V, nc, dtype = m.vocab_size, t.n_critic, m.dtype
     accum = max(1, int(t.grad_accum))
     mask = None if step_mask is None else torch.as_tensor(np.asarray(step_mask), dtype=torch.bool)
@@ -237,6 +256,10 @@ def make_step_fn(cfg: Config, step_mask=None, group=None, mesh=None) -> Callable
         return {**draw_noise(cfg, B * n_data, generator, device), "tau": tau_at(step, device)}
 
     def step_fn(state: GANTrainState, batch: dict, noise: dict | None = None) -> dict:
+        with sp_encoder(state.encoder, sp_attn):
+            return one_step(state, batch, noise)
+
+    def one_step(state: GANTrainState, batch: dict, noise: dict | None) -> dict:
         gen, critic, encoder = state.generator, state.critic, state.encoder
         data = batch["features"] if encoder is None else batch["images"]
         triples = batch["triples"].long()

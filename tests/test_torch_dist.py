@@ -317,9 +317,13 @@ def test_one_process_runtime_and_refused_meshes(monkeypatch):
         make_mesh(MeshSpec(data=5), devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="do not divide"):
         make_mesh(MeshSpec(model=3), devices=["cpu"] * 4)
-    for spec, slice_ in ((MeshSpec(seq=2), "A8c"), (MeshSpec(expert=2), "A8e")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            make_mesh(spec, devices=["cpu"] * 4)
+    # A 'seq' axis (A8c) between 'data' and 'model', as the reference's;
+    # the expert axis stays refused (A8e).
+    sp = make_mesh(MeshSpec(seq=2), devices=[f"cuda:{i}" for i in range(4)])
+    assert sp.shape == {"data": 2, "seq": 2, "model": 1} and sp.axis_names[1] == "seq"
+    assert sp.devices == (torch.device("cuda:0"), torch.device("cuda:2"))
+    with pytest.raises(NotImplementedError, match="A8e"):
+        make_mesh(MeshSpec(expert=2), devices=["cpu"] * 4)
     # A model axis (A8b): the data axis drives the first device of each model
     # group, as jax.make_mesh keeps the trailing axis on adjacent devices.
     tp = make_mesh(MeshSpec(model=2), devices=[f"cuda:{i}" for i in range(4)])
@@ -330,7 +334,8 @@ def test_one_process_runtime_and_refused_meshes(monkeypatch):
         mesh = mesh_from_config(get_config("smoke").override(sets).mesh, "cpu")
         assert mesh.shape == {"data": 1, "model": 1} and mesh.model_group is None
     for sets, match in ((["mesh.data=2"], "needs more than 1"),
-                        (["mesh.model=2"], "do not divide device count 1")):
+                        (["mesh.model=2"], "do not divide device count 1"),
+                        (["mesh.seq=2"], "do not divide device count 1")):
         with pytest.raises(ValueError, match=match):
             mesh_from_config(get_config("smoke").override(sets).mesh, "cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")

@@ -39,6 +39,7 @@ from sgg_torch.data.shards import shard_name
 from sgg_torch.train.checkpoint import CheckpointManager
 from sgg_torch.train.eval_probe import EvalProbe
 from sgg_torch.train.state import create_train_state
+from test_torch_jpeg import reference_native  # noqa: F401  (sgg's JPEG loader, private)
 
 torch.set_num_threads(1)
 

@@ -27,6 +27,7 @@ from sgg.train.pretrain import load_params_npz as jax_load_params_npz
 from sgg_torch.cli import preprocess
 from sgg_torch.convert_flax import encoder_flax_to_state_dict, load_params_npz
 from sgg_torch.data import extract, list_shards, read_feature_shard
+from test_torch_jpeg import reference_native  # noqa: F401  (sgg's JPEG loader, private)
 
 torch.set_num_threads(1)
 

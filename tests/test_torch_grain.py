@@ -35,6 +35,7 @@ from sgg_torch.data import ImageTripleDataset, TripleDataset
 from sgg_torch.data.grain_pipeline import make_grain_iterator, shard_bounds
 from sgg_torch.train.checkpoint import CheckpointManager
 from sgg_torch.train.state import create_train_state
+from test_torch_jpeg import reference_native  # noqa: F401  (sgg's JPEG loader, private)
 
 torch.set_num_threads(1)
 

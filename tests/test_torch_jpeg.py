@@ -31,6 +31,27 @@ FIXTURE_JPEGS = sorted(os.path.join(FIXTURE, "images", f)
 SIZES = [224, 128, 99]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def reference_native(tmp_path_factory):
+    """``sgg.native``'s JPEG loader built into a library of this module's own.
+    The reference builds ``libsggjpeg.so`` beside its source with no lock, so
+    test processes that start together race to write one file, and a process
+    that loads it half-written keeps the failure and decodes with PIL. Here
+    its loader builds a private copy, and a build that fails fails the module
+    with the compiler's message. Every test module that compares decoded
+    pixels with ``sgg``'s imports this fixture."""
+    from sgg.native import loader as ref_loader
+
+    saved = ref_loader._SO, ref_loader._lib, ref_loader._error
+    ref_loader._SO = str(tmp_path_factory.mktemp("sggjpeg") / "libsggjpeg.so")
+    ref_loader._lib = ref_loader._error = None
+    try:
+        assert jax_native.native_available(), ref_loader._error
+        yield
+    finally:
+        ref_loader._SO, ref_loader._lib, ref_loader._error = saved
+
+
 @pytest.fixture(scope="module")
 def smooth_jpegs(tmp_path_factory):
     """The reference test's smooth images (``tests/unit/test_native_loader.py``)."""

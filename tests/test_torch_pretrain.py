@@ -60,6 +60,7 @@ from sgg_torch.data.extract import load_batch
 from sgg_torch.train import pretrain as pp
 
 from test_torch_train import _assert_params_close
+from test_torch_jpeg import reference_native  # noqa: F401  (sgg's JPEG loader, private)
 
 torch.set_num_threads(1)
 

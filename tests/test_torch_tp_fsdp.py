@@ -30,8 +30,8 @@ train CLI's gspmd route) against ``sgg``'s on the CPU.
   by SIGTERM on one rank after step 1 and resumed, equal to the unbroken run
   bit for bit; its global checkpoint is read by ``sgg_torch.cli.evaluate``.
 - The route rule against ``sgg/cli/train.py:116-119`` (the expression read
-  from the reference's source) for every ``partition``, ``model`` and
-  ``fsdp``, on one rank and on four; the port reproduces every case, so
+  from the reference's source) for every ``partition``, ``model``, ``fsdp``,
+  ``seq`` and ``sp_mode``, on one rank and on four; the port reproduces every case, so
   none is refused. On one rank, as the reference's has no mesh on one
   device, ``mesh.fsdp`` trains the single-device step and a model axis
   larger than the world is refused.
@@ -40,6 +40,7 @@ The three worker worlds (8 processes) run while the reference compiles.
 """
 
 import inspect
+import itertools
 import os
 import re
 
@@ -470,16 +471,16 @@ def _reference_route():
 @pytest.mark.parametrize("world", [1, 4])
 def test_route_rule_matches_the_reference(world):
     rule = _reference_route()
-    for partition in ("auto", "shard_map", "gspmd"):
-        for model in (1, 2):
-            for fsdp in (False, True):
-                sets = [f"mesh.partition={partition}", f"mesh.model={model}",
-                        f"mesh.fsdp={str(fsdp).lower()}"]
-                jcfg = jax_get_config("smoke")
-                jcfg.mesh.partition, jcfg.mesh.model, jcfg.mesh.fsdp = partition, model, fsdp
-                cfg = get_config("smoke").override(sets)
-                want = rule(None if world == 1 else object(), jcfg)
-                assert train_cli.gspmd_route(cfg.mesh, world) == want, sets
+    for partition, model, fsdp, seq, sp in itertools.product(
+            ("auto", "shard_map", "gspmd"), (1, 2), (False, True), (1, 2), ("", "ring")):
+        sets = [f"mesh.partition={partition}", f"mesh.model={model}",
+                f"mesh.fsdp={str(fsdp).lower()}", f"mesh.seq={seq}", f"model.sp_mode={sp}"]
+        jcfg = jax_get_config("smoke")
+        jcfg.mesh.partition, jcfg.mesh.model, jcfg.mesh.fsdp = partition, model, fsdp
+        jcfg.mesh.seq, jcfg.model.sp_mode = seq, sp
+        cfg = get_config("smoke").override(sets)
+        want = rule(None if world == 1 else object(), jcfg)
+        assert train_cli.gspmd_route(cfg.mesh, world) == want, sets
 
 
 def test_world_of_one_trains_fsdp_plainly_and_refuses_a_model_axis(tmp_path, capsys):

@@ -520,11 +520,22 @@ def test_noise_layout_and_refusals():
     # FSDP and TP, refused before they were ported, build a step too
     # (tests/test_torch_tp_fsdp.py holds the gspmd step against the reference).
     assert callable(make_step_fn(_configs("smoke", {"mesh.fsdp": True, "mesh.model": 2})[1]))
+    # A 'seq' axis and sp_mode (A8c) build a step too; without a mesh the
+    # step ignores sp_mode, as the reference's step has no sp_mesh
+    # (tests/test_torch_sp.py holds the gspmd step with SP).
+    assert callable(make_step_fn(_configs("smoke", {"mesh.seq": 2})[1]))
+    r = np.random.RandomState(0)
+    batch = {"images": torch.from_numpy(r.randint(0, 256, (3, 4, 64, 64, 3), dtype=np.uint8)),
+             "triples": torch.from_numpy(r.randint(2, 26, (3, 4, 3)))}
+    metrics = []
+    for sp in ("", "ring"):
+        cfg = _configs("vit_b16", {**VIT_SETS, "train.train_encoder": True,
+                                   "model.vocab_size": 26, "model.sp_mode": sp})[1]
+        metrics.append(make_step_fn(cfg)(tstate.create_train_state(cfg, 0), batch))
+    assert metrics[0] == metrics[1]
     for sets, err, match in (
             ({"model.pp_microbatches": 2}, NotImplementedError, "A8"),
             ({"train.estimator": "ppo"}, ValueError, "estimator"),
-            ({"mesh.seq": 2}, NotImplementedError, "mesh"),
-            ({"model.sp_mode": "ring"}, NotImplementedError, "A8"),
             ({"model.moe_experts": 4, "mesh.expert": 2}, NotImplementedError, "A8"),
             ({"train.train_encoder": True}, ValueError, "end-to-end")):
         with pytest.raises(err, match=match):

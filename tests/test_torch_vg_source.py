@@ -24,6 +24,7 @@ from sgg_torch.config import Config as PortConfig
 from sgg_torch.config import get_config
 from sgg_torch.data import ArrayImageTripleDataset, ImageTripleDataset
 from sgg_torch.data.pipeline import make_train_iterator
+from test_torch_jpeg import reference_native  # noqa: F401  (sgg's JPEG loader, private)
 
 torch.set_num_threads(1)
 
