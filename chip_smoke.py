@@ -2,12 +2,12 @@
 """Chip smoke for the PyTorch/CUDA port (``sgg_torch``) on one NVIDIA H100.
 
   python3 chip_smoke.py
-  python3 chip_smoke.py --phases 27        (or 21,22,24,25,26,27: those phases alone)
+  python3 chip_smoke.py --phases 28        (or 21,22,24,25,26,27,28: those phases alone)
 
 With no argument every phase runs: phases 1-16 (the holds and the timed
 kernels) alone on the card, then phases 17-20 and 23 in this process beside
 two others (``side_start``: this script with ``--phases 27,22,26,24`` and
-with ``--phases 21,25``), each started in a session of its own, ended with
+with ``--phases 21,25,28``), each started in a session of its own, ended with
 this one (``side_stop``) and read at the end (``side_finish``: its output
 echoed, its summary lines and launches taken into the last lines). Each of
 those phases leaves the card idle most of the time, so the three share it;
@@ -402,6 +402,23 @@ one subprocess under a timeout, which it waits for:
      process (``world_one_hold``). Prints s/step, the collectives' ms a
      step, peak memory, and the bytes saved for the backward per rank
      against data parallelism's (``sp_saved_bytes``).
+ 28. A8d and A8e, pipeline and expert parallelism (``pp_ep_phase``), two
+     ranks sharing the card over gloo: (a) ``--config vit_b16 --set
+     mesh.model=2 --set model.pp_microbatches=4 --set mesh.partition=gspmd``
+     (the frozen ViT's 12 blocks in 2 stages, TP over the vocabulary on the
+     same group) 2 steps, 144 flash launches a step on each rank; (b)
+     ``--set train.train_encoder=true --set model.moe_experts=8 --set
+     model.moe_top_k=2 --set mesh.expert=2 --set mesh.partition=gspmd`` 2
+     steps, 72/60/60 a step on each rank, each rank's state bytes below
+     data parallelism's; both: every rank gathers the same global state,
+     equal to the checkpoint, which restores in one process; ``generate``
+     on (b)'s checkpoint; (c) each again for one float32 step at n_critic 1
+     (EP's at 4 of the 12 blocks) against one process (``world_one_hold``); before
+     them the flash forward at the pipeline's shapes against its plain
+     version (``pp_flash_holds``: a microbatch of 8 and of 4, and the ring's
+     98-row shards under DP×SP×PP against ``sp_ring_plain``). Prints
+     s/step, the shifts' and the all-to-alls' ms a step, peak memory, state
+     bytes, the share of routing choices dropped and each part's seconds.
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -414,8 +431,9 @@ phase 15 for the three flash kernels), plus phase 22's launches of each
 exported artifact launches none), phase 24's (every rank of its four
 runs, each counted from 0 in its process), phase 25's (its CLI runs, each
 counted from 0), phase 26's (every rank of its runs and its generate,
-each counted from 0) and phase 27's (every rank of its training runs, each
-counted from 0; (a)'s holds do not count), and
+each counted from 0), phase 27's (every rank of its training runs, each
+counted from 0; (a)'s holds do not count) and phase 28's (every rank of its
+training runs and its generate, each counted from 0), and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
 bound ms. Phase 18's serving launch counts and phase 19's are printed on lines of
 their own before it. The last two lines are that
@@ -505,6 +523,19 @@ P26_IMAGES, P26_VOCAB, P26_STEPS, P26_GEN_IMAGES, P26_K = 512, 8192, 2, 64, 8
 # Phase 27, sequence parallelism: the attention holds' [B, H, S, D] (ViT-B/16
 # at 224 px, B 32) and the steps of each training run.
 SP_SHAPE, P27_STEPS = (32, 12, 196, 64), 3
+# Phase 28, pipeline and expert parallelism: the steps of each training run,
+# the PP run's microbatches, the MoE's experts and top-k, and generate's
+# images and draws on the EP checkpoint.
+P28_STEPS, P28_MICRO, P28_EXPERTS, P28_TOP_K, P28_GEN_IMAGES, P28_K = 2, 4, 8, 2, 64, 8
+# Its float32 EP hold's depth (the full widths, 4 of the 12 blocks: the
+# 8-expert MoE's float32 state crosses gloo's host staging at each broadcast,
+# gather and save; PP's hold keeps all 12, its frozen encoder's state is
+# small), and the [B, H, S, D] at which the pipeline runs the flash
+# forward: a microbatch of 8 (B 32 in 4) and of 4 (B 32 in 8 over four
+# stages), and the ring's 2 shards of 98 patch rows under DP×SP×PP.
+P28_HOLD_LAYERS = 4
+P28_FLASH_SHAPES, P28_RING_SHAPE, P28_RING_N = [(8, 12, 196, 64), (4, 12, 196, 64)], \
+    (8, 12, 196, 64), 2
 # Phase 25, convert and the grain loader: the committed TensorFlow-written
 # checkpoint; the converted vocab's size and the images generated from it;
 # pipeline_v4's corpus, its unbroken steps (the profile window is steps
@@ -515,11 +546,12 @@ P25_V4_IMAGES, P25_V4_STEPS, P25_V4_CUT = 2048, 15, 10
 P25_VG_IMAGES, P25_VG_STEPS, P25_WORKERS = 2048, 2, 2
 # Phases that build their own inputs after the device and the build, so that
 # ``--phases`` can run them alone.
-SELECTABLE_PHASES = (21, 22, 24, 25, 26, 27)
+SELECTABLE_PHASES = (21, 22, 24, 25, 26, 27, 28)
 # Those that the full run hands to its two side processes, in this order:
 # phase 27 (four ranks, 43 GB) first, while this process holds least of the
-# card, and phase 22 (its MoE ViT 28 GB) after it in the same process.
-SIDE_PHASES = ((27, 22, 26, 24), (21, 25))
+# card, and phase 22 (its MoE ViT 28 GB) after it in the same process; phase
+# 28 (its EP ranks about 20 GB) last in the other, once phase 27 is done.
+SIDE_PHASES = ((27, 22, 26, 24), (21, 25, 28))
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -3224,13 +3256,16 @@ def rank_run(args):
     digests (sha256 of every
     tensor of ``state.tensors()``), the step's buckets and the all-reduce's
     ms a step, the peak device memory and the state's bytes on the rank; for
-    a state placed over a mesh (phase 26) the digests of the global state
-    that every rank gathers. With ``SGG_SMOKE_FIRST`` set (phases 26 and 27)
+    a state placed over a mesh (phases 26-28) the digests of the global
+    state that every rank gathers (its last checkpoint's, as the CLI
+    gathered it) in place of its own. With ``SGG_SMOKE_FIRST`` set (phases 26 and 27)
     it also saves the first step's batch (this rank's rows) and noise to
     ``OUT/first_rank<r>.pt`` and times every collective of the sharding and
     sequence-parallel tiers on the host clock, synchronized around each
-    call, per step; with ``SGG_SMOKE_ACT`` (phase 27) it records
-    ``sp_saved_bytes`` after the run. Returns the CLI's exit code."""
+    call, per step, in all and by collective; with ``SGG_SMOKE_ACT`` (phase
+    27) it records ``sp_saved_bytes`` after the run; with ``SGG_SMOKE_MOE``
+    (phase 28) the share of the expert-parallel MoE layers' routing choices
+    that their capacity dropped over the run. Returns the CLI's exit code."""
     t_start = time.time()
     out, root, window = args[0], args[1], args[2]
     argv = args[args.index("--") + 1:]
@@ -3248,16 +3283,18 @@ def rank_run(args):
     from sgg_torch.dist.sharding import gather_state, state_bytes
 
     rec = {"per_step": [], "noise": None, "buckets": [], "t": {"imports": time.time() - t_start},
-           "coll_ms": []}
+           "coll_ms": [], "coll_by": []}
     held = {}
     make, create, pmean = train_cli.make_step_fn, train_cli.create_train_state, step_mod.pmean
     first_out = os.environ.get("SGG_SMOKE_FIRST")
-    coll = {"ms": 0.0}
+    coll = {"ms": 0.0, "by": {}}
 
     def rank_of():
         return dist.get_rank() if dist.is_initialized() else 0
 
-    def timed(fn):
+    def timed(fn, name_=None):
+        name_ = name_ or fn.__name__
+
         @functools.wraps(fn)
         def run(*a, **k):
             on = torch.cuda.is_available()
@@ -3267,15 +3304,30 @@ def rank_run(args):
             r_ = fn(*a, **k)
             if on:
                 torch.cuda.synchronize()
-            coll["ms"] += (time.perf_counter() - t0) * 1e3
+            ms_ = (time.perf_counter() - t0) * 1e3
+            coll["ms"] += ms_
+            coll["by"][name_] = coll["by"].get(name_, 0.0) + ms_
             return r_
 
         return run
 
     if first_out:
         for name_ in ("gather_tensor", "scatter_mean_tensor", "sum_tensor", "pmean",
-                      "shift_tensors", "all_to_all_tensor"):
+                      "shift_tensors", "all_to_all_tensor", "broadcast_tensor"):
             setattr(mh, name_, timed(getattr(mh, name_)))
+    moe_count = {"kept": [], "choices": 0}
+    if os.environ.get("SGG_SMOKE_MOE"):  # the EP layers' routing choices, kept and made
+        import sgg_torch.dist.expert_parallel as ep_mod
+
+        routing = ep_mod.moe_routing
+
+        def counting_routing(logits, top_k, capacity):
+            combine, aux_ = routing(logits, top_k, capacity)
+            moe_count["kept"].append((combine > 0).sum())
+            moe_count["choices"] += logits.shape[0] * logits.shape[1] * top_k
+            return combine, aux_
+
+        ep_mod.moe_routing = counting_routing
 
     def counting(cfg_, step_mask=None, **kw):
         held["cfg"] = cfg_
@@ -3293,9 +3345,10 @@ def rank_run(args):
                                os.path.join(out, f"first_rank{rank_of()}.pt"))
             before, n_buckets = kernel_counts(), len(rec["buckets"])
             rec["t"].setdefault("first_step_start", time.time() - t_start)
-            coll["ms"] = 0.0
+            coll["ms"], coll["by"] = 0.0, {}
             r_ = fn(state, batch, *a, **k)
             rec["coll_ms"].append(coll["ms"])
+            rec["coll_by"].append(dict(coll["by"]))
             after = kernel_counts()
             rec["t"].setdefault("first_step_end", time.time() - t_start)
             rec["per_step"].append({k_: after[k_] - before[k_] for k_ in after})
@@ -3308,6 +3361,12 @@ def rank_run(args):
         held["state"] = create(*a, **k)
         return held["state"]
 
+    gather = train_cli.gather_state
+
+    def gathering(state_):  # the CLI's save gathers the global state: keep the last
+        held["gathered"] = gather(state_)
+        return held["gathered"]
+
     def bucketed(tensors, group=None):
         tensors = list(tensors)
         rec["buckets"].append(sum(t_.numel() for t_ in tensors))
@@ -3315,7 +3374,8 @@ def rank_run(args):
 
     first, n_win = (int(v_) for v_ in window.split(","))
     train_cli.make_step_fn, train_cli.create_train_state = counting, creating
-    step_mod.pmean = timed(bucketed) if first_out else bucketed
+    train_cli.gather_state = gathering
+    step_mod.pmean = timed(bucketed, "pmean") if first_out else bucketed
     train_cli.StepProfiler = lambda logdir, start_step: StepProfiler(
         logdir, start_step - 10 + first, num_steps=n_win)
     rc = train_cli.main(argv)
@@ -3339,18 +3399,27 @@ def rank_run(args):
             ms += (time.perf_counter() - t0) * 1e3 / 3 * sizes.count(n_)
         rec["t"]["allreduce_timing"] = time.time() - t_start
     rank = dist.get_rank() if on else 0
+    if moe_count["kept"]:
+        rec["moe_dropped"] = 1.0 - float(torch.stack(moe_count["kept"]).sum()) / \
+            moe_count["choices"]
     if os.environ.get("SGG_SMOKE_ACT") and state.placement is not None:
         rec["saved_bytes"] = sp_saved_bytes(held["cfg"], state)
         rec["t"]["saved_bytes"] = time.time() - t_start
-    if state.placement is not None:
-        rec["global_digests"] = digest(tree_tensors(gather_state(state)))
+    if state.placement is not None and not os.environ.get("SGG_SMOKE_NO_DIGESTS"):
+        # The CLI's last save gathered the final state; gathered anew if none.
+        sd_ = held.pop("gathered", None)
+        sd_ = gather_state(state) if sd_ is None or sd_["step"] != state.step else sd_
+        rec["global_digests"] = digest(tree_tensors(sd_))
+        del sd_
+    held.pop("gathered", None)
     rec["state_bytes"] = state_bytes(state)
     rec["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
                       else None)
     rec.update({"rc": rc, "rank": rank, "world": dist.get_world_size() if on else 1,
                 "backend": dist.get_backend() if on else None, "device": str(dev),
                 "allreduce_ms_step": ms, "step": state.step,
-                "digests": digest(state.tensors())})
+                "digests": (None if os.environ.get("SGG_SMOKE_NO_DIGESTS")
+                            or state.placement is not None else digest(state.tensors()))})
     rec["t"]["digests"] = time.time() - t_start
     rec.pop("buckets")
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
@@ -3615,7 +3684,7 @@ def adam_step_bound(b1, b2, updates):
     return total
 
 
-def world_one_hold(dev, wd, out, data, model, trained):
+def world_one_hold(dev, wd, out, data, model, trained, moe_shards=1):
     """Phase 26 (c): the first step of a TP or FSDP run in float32 with
     n_critic 1 (its ranks' records in ``out``, its workdir ``wd``, one
     step) against one process at the global batch on the same state and
@@ -3638,7 +3707,19 @@ def world_one_hold(dev, wd, out, data, model, trained):
         most that the module's u Adam updates of the step move an element,
         both runs from one state).
     A shard left out, a gradient not reduced or noise from the wrong rows
-    moves every metric and most elements by far more. Returns (ok,
+    moves every metric and most elements by far more. ``model``: the ranks
+    of one data coordinate (its first holds the coordinate's rows).
+    ``moe_shards``: the token shards of an expert-parallel run (data ×
+    expert), whose MoE load-balance term is the mean of the shards' terms,
+    each over its contiguous 1/n of the batch's groups (``sgg/dist/
+    expert_parallel.py:62``), not the whole batch's: the one process's MoE
+    layers then compute the layer shard by shard as the EP ranks do
+    (``shard_forward``), so that ``moe_aux``, the router's gradient and every
+    later update take the same term, and each shard's router logits come
+    from a product of the EP rank's own shape: at another shape the GEMM
+    rounds otherwise, and an ulp can move a top-k choice at a near tie, a
+    step in the function (four cards, EP over 4: 1.8 % of the generator's
+    elements at Adam's sign bound when the logits came whole). Returns (ok,
     numbers)."""
     import torch
 
@@ -3656,13 +3737,37 @@ def world_one_hold(dev, wd, out, data, model, trained):
     with open(os.path.join(wd, "metrics.jsonl")) as f:
         m_ranks = next(json.loads(l_) for l_ in f if '"d_loss"' in l_)
     want = torch.load(os.path.join(wd, "checkpoints", "1", "state.pt"), map_location="cpu",
-                      weights_only=True)
+                      weights_only=True, mmap=True)  # read leaf by leaf, as compared
     c_ = Config.from_json(cfg.to_json()).override(
-        [f"train.batch_size={B}", "mesh.model=1", "mesh.fsdp=false"])
+        [f"train.batch_size={B}", "mesh.model=1", "mesh.fsdp=false", "mesh.expert=1",
+         "model.pp_microbatches=0"])
     c_.model.vocab_size = cfg.model.vocab_size
     st = create_train_state(c_, c_.train.seed, device=dev)
-    m1 = make_step_fn(c_, vocab.step_mask())(
-        st, batch, {k_: v_.to(dev) for k_, v_ in firsts[0]["noise"].items()})
+    from sgg_torch.models import moe as moe_mod
+
+    forward = moe_mod.moe_forward
+
+    def shard_forward(params, x, top_k, capacity):
+        """The MoE layer as the EP ranks compute it: each shard's router
+        logits from its own groups (one product of the EP rank's shape), its
+        routing and its load-balance term, the terms' mean; the dispatch,
+        the experts and the combine over every group at once."""
+        dt = x.dtype
+        parts = [moe_mod.moe_routing(torch.einsum("gsm,me->gse", c_.float(),
+                                                  params["router"].float()), top_k, capacity)
+                 for c_ in x.chunk(moe_shards, 0)]
+        combine = torch.cat([p_[0] for p_ in parts])
+        xe = torch.einsum("gsec,gsm->egcm", (combine > 0).to(dt), x)
+        ye = moe_mod.moe_expert_ffn(params["wi"].to(dt), params["wo"].to(dt), xe)
+        y = torch.einsum("gsec,egcm->gsm", combine.to(dt), ye)
+        return y.to(dt), sum(p_[1] for p_ in parts) / moe_shards
+
+    moe_mod.moe_forward = shard_forward if moe_shards > 1 else forward
+    try:
+        m1 = make_step_fn(c_, vocab.step_mask())(
+            st, batch, {k_: v_.to(dev) for k_, v_ in firsts[0]["noise"].items()})
+    finally:
+        moe_mod.moe_forward = forward
     m1 = {k_: float(v_) for k_, v_ in m1.items()}
     got = {"g_params": st.generator.state_dict(), "d_params": st.critic.state_dict(),
            "enc_params": None if st.encoder is None else st.encoder.state_dict()}
@@ -3681,9 +3786,10 @@ def world_one_hold(dev, wd, out, data, model, trained):
         step_bound = 2 * lr * adam_step_bound(float(t_.beta1), float(t_.beta2), u) + 1e-6
         n_far = n_all = 0
         worst = 0.0
-        for k_, w_ in want[tree].items():
-            w_ = w_.float()
-            d_ = (got[tree][k_].detach().float().cpu() - w_).abs()
+        for k_, w_ in want[tree].items():  # on the device of the one process's state
+            g_ = got[tree][k_].detach().float()
+            w_ = w_.to(g_.device).float()
+            d_ = (g_ - w_).abs()
             far = d_ > 1e-6 + 1e-5 * w_.abs()
             n_far += int(far.sum())
             n_all += w_.numel()
@@ -4221,6 +4327,298 @@ def phase27_line(v27, smi):
             f"launches {v27['launches']} [{smi}]")
 
 
+def pp_flash_holds(dev, smi):
+    """Phase 28: the flash forward at the shapes that the pipeline gives it,
+    bfloat16 on the card, held with phase 9's gate (within one bf16 ulp of
+    the plain value + 1e-4 × max, at most 1 % of the outputs differing, the
+    lse within 1e-5 relative, o with lse equal to o without): a PP
+    microbatch at each ``P28_FLASH_SHAPES``; under DP×SP×PP the ring over
+    ``P28_RING_N`` ranks on ``P28_RING_SHAPE``'s shards, emulated in this
+    process as ``RingFlashAttention``'s forward computes it (each rank's
+    partials from the kernel, merged in float32), each partial held at the
+    shard's shape and the merged output against ``sp_ring_plain`` within its
+    bound. These launches count nowhere. Returns the worst relative errors."""
+    import torch
+
+    from sgg_torch.dist.sequence_parallel import _merge
+    from sgg_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    bad, worst = [], {}
+
+    def hold(name, q, k, v):
+        o, lse = fa.flash_attention_with_lse(q, k, v)
+        o_only = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want, want_lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+        diff = (o.float() - want.float()).abs()
+        top = want.float().abs().max().item()
+        share = (diff > 0).float().mean().item()
+        lse_rel = ((lse - want_lse).abs() / want_lse.abs()).max().item()
+        in_ulp = bool((diff <= bf16_ulp(want) + 1e-4 * top).all())
+        ok = (in_ulp and share <= 1e-2 and lse_rel <= 1e-5 and torch.equal(o, o_only)
+              and bool(torch.isfinite(o.float()).all()))
+        log(f"phase 28 flash_attention vs plain bf16 {name} {list(q.shape)}: max_abs_err "
+            f"{diff.max().item():.3e}, max|plain| {top:.3e}, within 1 bf16 ulp + 1e-4 x max "
+            f"{in_ulp}, share differing {share:.3e}, lse max rel err {lse_rel:.3e}: "
+            f"{'ok' if ok else 'FAILED'}")
+        worst[name] = max(worst.get(name, 0.0), diff.max().item() / top)
+        if not ok:
+            bad.append(f"flash_attention {name} {list(q.shape)}")
+        return o, lse
+
+    def randn(shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for shape in P28_FLASH_SHAPES:
+        hold("PP microbatch", *(randn(shape) for _ in range(3)))
+    n = P28_RING_N
+    q, k, v, g = (randn(P28_RING_SHAPE) for _ in range(4))
+    qs, ks, vs = ([t_.chunk(n, 2)[i].contiguous() for i in range(n)] for t_ in (q, k, v))
+    os_ = []
+    for r_ in range(n):  # rank r's hops: its own k/v shard, then r - 1, ...
+        o_, lse = hold("ring hop", qs[r_], ks[r_], vs[r_])
+        o_ = o_.float()
+        for j in range(1, n):
+            o_, lse = _merge(o_, lse, *hold("ring hop", qs[r_], ks[(r_ - j) % n],
+                                            vs[(r_ - j) % n]))
+        os_.append(o_.to(q.dtype))
+    got = torch.cat(os_, 2)
+    with torch.no_grad():
+        emul, bounds = sp_ring_plain(q, k, v, g, n, o_fwd=got)
+    diff = (got.float() - emul[0].float()).abs()
+    share = float((diff > 0).float().mean())
+    ok = bool((diff <= bounds[0]).all()) and share <= 0.01
+    worst["ring"] = float(diff.max()) / float(emul[0].float().abs().max())
+    log(f"phase 28 ring over {n} ranks of {list(P28_RING_SHAPE)} ({list(qs[0].shape)} a rank) "
+        f"vs sp_ring_plain: rel err {worst['ring']:.3e}, share differing {share:.3e}, "
+        f"within its bound {bool((diff <= bounds[0]).all())} [{smi}]: "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        bad.append("the ring's merged output")
+    return worst, bad
+
+
+def pp_ep_phase(dev, smi, sizes=None, extra_sets=None):
+    """Phase 28, A8d and A8e: the GPipe pipeline over the ViT's block stack
+    and the expert-parallel MoE, each through ``sgg_torch.cli.train`` on the
+    gspmd route, two ranks sharing the card over gloo. (a) PP: ``--config
+    vit_b16 --set mesh.model=2 --set model.pp_microbatches=4 --set
+    mesh.partition=gspmd`` (the frozen encoder at 768 x 12 x 12, 224 px, B 32,
+    bf16, n_critic 5; TP over the vocabulary on the same group), 2 steps: 6
+    blocks a stage, each rank's stage computing only the ticks where it holds
+    a microbatch, so (n_critic + 1) encoder passes × 6 blocks × 4
+    microbatches = 144 flash launches a step on each rank, exactly. (b) EP:
+    ``--config vit_b16 --set train.train_encoder=true --set
+    model.moe_experts=8 --set model.moe_top_k=2 --set mesh.expert=2 --set
+    mesh.partition=gspmd`` (4 experts a rank), B 32, 2 steps: 72/60/60 flash,
+    dq and dk/dv launches a step on each rank, exactly; each rank's state
+    bytes below data parallelism's. Both: every rank gathers the same global
+    state, equal to the checkpoint; the losses are finite; (a)'s and (b)'s
+    checkpoints each restore into one process's state on the card, equal to
+    the gathered global state, and ``sgg_torch.cli.generate`` runs on (b)'s
+    workdir (the MoE ViT whole on one card: 12 flash launches a batch). (c)
+    each of (a) and (b) again for one float32 step at n_critic 1 on the
+    library routes (EP's at ``P28_HOLD_LAYERS`` of the 12 blocks), against
+    one process at the global batch
+    (``world_one_hold``; for (b) the one process's MoE term is the mean of
+    the two shards' terms, as the EP term is). (a), (b) and (c)'s PP run run
+    side by side, then (c)'s EP run beside the restores, generate and (c)'s
+    PP hold. On the card :func:`pp_flash_holds` runs first.
+    Prints s/step, the collectives' ms a step by kind
+    (the pipeline's shifts and broadcast, EP's all-to-alls), the launches a
+    step per rank, peak memory and state bytes per rank, and the share of
+    (b)'s routing choices that capacity dropped. ``sizes`` and
+    ``extra_sets`` shrink it for a dry run on the CPU (launch counts then
+    printed, not held). Returns the numbers."""
+    import torch
+
+    from sgg_torch.cli import generate
+    from sgg_torch.train.checkpoint import CheckpointManager, load_workdir
+    from sgg_torch.train.state import create_train_state
+
+    z_ = {"steps": P28_STEPS, "images": VIT_IMAGES, "gen_images": P28_GEN_IMAGES, "k": P28_K,
+          **(sizes or {})}
+    on_card = torch.device(dev).type == "cuda"
+    out = {"launches": {k_: 0 for k_ in kernel_counts()}}
+    bad = []
+    base = {"data.num_synthetic_images": z_["images"], "train.log_every": 1,
+            **(extra_sets or {})}
+    nc, layers = int(base.get("train.n_critic", 5)), int(base.get("model.vit_layers", 12))
+    runs = {"a": (f"PP over mesh.model=2, {P28_MICRO} microbatches, frozen encoder",
+                  {"mesh.model": 2, "model.pp_microbatches": P28_MICRO,
+                   "mesh.partition": "gspmd"}, ("g_params", "d_params"),
+                  {"flash_attention": (nc + 1) * (layers // 2) * P28_MICRO}),
+            "b": (f"EP over mesh.expert=2, {P28_EXPERTS} experts top-{P28_TOP_K}, "
+                  "train_encoder",
+                  {"train.train_encoder": "true", "model.moe_experts": P28_EXPERTS,
+                   "model.moe_top_k": P28_TOP_K, "mesh.expert": 2,
+                   "mesh.partition": "gspmd"}, ("g_params", "d_params", "enc_params"),
+                  {"flash_attention": (nc + 1) * layers, "flash_attention_bwd_dq": nc * layers,
+                   "flash_attention_bwd_dkv": nc * layers})}
+
+    def argv(wd, sets, steps=z_["steps"]):
+        a_ = ["--config", "vit_b16", "--workdir", wd, "--steps", str(steps)]
+        for k_, v_ in sets.items():
+            a_ += ["--set", f"{k_}={v_}"]
+        return a_ + ([] if on_card else ["--device", "cpu"])
+
+    def add_launches(recs):
+        for x_ in recs:
+            for c_ in x_["per_step"]:
+                for k_, v_ in c_.items():
+                    out["launches"][k_] += v_
+
+    def per_step_ms(recs, names):  # each rank's mean ms a step after the first
+        return [round(sum(sum(c_.get(n_, 0.0) for n_ in names) for c_ in x_["coll_by"][1:])
+                      / max(len(x_["coll_by"]) - 1, 1), 3) for x_ in recs]
+
+    f32 = {"model.compute_dtype": "float32", "model.use_pallas": "false",
+           "train.checkpoint_every": 1, "train.n_critic": 1}
+    if on_card:
+        t_h = time.perf_counter()
+        out["flash_worst"], held = pp_flash_holds(dev, smi)
+        bad += held
+        out["flash_s"] = time.perf_counter() - t_h
+    parts = {}  # the wall seconds of each part
+    with tempfile.TemporaryDirectory() as tmp:
+        def launch(k_):  # (a), (b), or (c)'s float32 run of either ("ca", "cb")
+            if k_ in runs:
+                return dp_launch(os.path.join(tmp, f"out_{k_}"),
+                                 argv(os.path.join(tmp, f"wd_{k_}"), {**base, **runs[k_][1]}),
+                                 2, torchrun=False,
+                                 env_extra={"SGG_SMOKE_FIRST": "1", "SGG_SMOKE_MOE": "1"})
+            cut = {"model.vit_layers": min(P28_HOLD_LAYERS, layers)} if k_ == "cb" else {}
+            return dp_launch(os.path.join(tmp, f"out_{k_}"),
+                             argv(os.path.join(tmp, f"wd_{k_}"),
+                                  {**base, **runs[k_[1]][1], **f32, **cut}, steps=1),
+                             2, torchrun=False,
+                             env_extra={"SGG_SMOKE_FIRST": "1", "SGG_SMOKE_NO_DIGESTS": "1"})
+
+        # (a) beside (b), and (c)'s float32 PP run beside both (it is small).
+        t_c = time.perf_counter()
+        (*done, done_ca), wall = in_threads(launch, [("a",), ("b",), ("ca",)])
+        parts["(a), (b) and (c)'s PP run"] = wall
+        for (key, (label, _, _, want_step)), (recs, text) in zip(runs.items(), done):
+            wd = os.path.join(tmp, f"wd_{key}")
+            lines = [r_ for r_ in read_metric_lines(wd) if "d_loss" in r_]
+            whole = re.findall(r"state bytes on this rank: ([\d,]+) \(data parallel: ([\d,]+)\)",
+                               text)
+            r_ = {"s": wall, "s_per_step": 1 / lines[-1]["steps_per_sec"],
+                  "coll_ms": [x_["coll_ms"][1:] for x_ in recs],
+                  "shift_ms": per_step_ms(recs, ("shift_tensors", "broadcast_tensor")),
+                  "a2a_ms": per_step_ms(recs, ("all_to_all_tensor",)),
+                  "peak_gb": [x_["peak_gb"] for x_ in recs],
+                  "state_bytes": [x_["state_bytes"] for x_ in recs],
+                  "dp_bytes": int(whole[0][1].replace(",", "")),
+                  "dropped": [x_.get("moe_dropped") for x_ in recs],
+                  "per_step": [x_["per_step"] for x_ in recs],
+                  "finite": all(math.isfinite(l_["d_loss"]) and math.isfinite(l_["g_loss"])
+                                for l_ in lines)}
+            add_launches(recs)
+            sd = torch.load(os.path.join(wd, "checkpoints", str(z_["steps"]), "state.pt"),
+                            map_location="cpu", weights_only=True)
+            held = []
+            if on_card and any([{k_: v_ for k_, v_ in c_.items() if v_} for c_ in x_["per_step"]]
+                               != [want_step] * len(x_["per_step"]) for x_ in recs):
+                held.append(f"launches {r_['per_step']} (expected {want_step} a step)")
+            if any(x_["global_digests"] != recs[0]["global_digests"] for x_ in recs) or \
+                    digest(tree_tensors(sd)) != recs[0]["global_digests"]:
+                held.append("the ranks' gathered states differ, or differ from the checkpoint")
+            if not r_["finite"]:
+                held.append("a loss is not finite")
+            if key == "b" and not all(b_ < r_["dp_bytes"] for b_ in r_["state_bytes"]):
+                held.append("a rank holds no less than data parallelism")
+            del sd
+            log(f"phase 28 ({key}) {label}, vit_b16, 2 ranks (beside the other run's two and "
+                f"(c)'s PP run): {r_['s_per_step']:.4f} s/step; collectives ms a step per rank "
+                f"(host clock, after the first) {r_['coll_ms']}, of them the pipeline's shifts "
+                f"and broadcast {r_['shift_ms']}, EP's all-to-alls {r_['a2a_ms']}; launches a "
+                f"step per rank {[x_['per_step'][-1] for x_ in recs]} (expected {want_step}); "
+                f"peak GB per rank {r_['peak_gb']}; state bytes per rank {r_['state_bytes']} "
+                f"(data parallel {r_['dp_bytes']}); routing choices dropped per rank "
+                f"{r_['dropped']}; {r_['s']:.3f} s [{smi}]: "
+                f"{'ok' if not held else 'FAILED: ' + '; '.join(held)}")
+            bad += [f"({key}) {h_}" for h_ in held]
+            out[key] = r_
+
+        def restores():
+            """Each checkpoint restored into one process's state on the card,
+            then generate on (b)'s: the MoE ViT whole on one card."""
+            t_r = time.perf_counter()
+            for key, (recs, _) in zip(runs, done):
+                wd = os.path.join(tmp, f"wd_{key}")
+                cfg_r, _ = load_workdir(wd)
+                st = create_train_state(cfg_r, cfg_r.train.seed, device=dev)
+                ok_r = (CheckpointManager(wd, None).restore(st) is not None
+                        and digest(tree_tensors(st.state_dict())) == recs[0]["global_digests"])
+                log(f"phase 28 ({key}) its checkpoint restored in one process: "
+                    f"{'ok' if ok_r else 'FAILED'}")
+                if not ok_r:
+                    bad.append(f"({key}) the checkpoint did not restore the gathered state")
+                del st
+            gen_out = os.path.join(tmp, "graphs_b.json")
+            gen_s, gen_counts = run_cli(generate.main, [
+                "--workdir", os.path.join(tmp, "wd_b"), "--out", gen_out, "--split", "train",
+                "--num-images", str(z_["gen_images"]), "--batch-size", "32",
+                "--num-samples", str(z_["k"]), "--seed", str(SEED)]
+                + ([] if on_card else ["--device", "cpu"]), "sgg_torch.cli.generate")
+            want_gen = {k_: 0 for k_ in kernel_counts()}
+            want_gen["flash_attention"] = math.ceil(z_["gen_images"] / 32) * layers
+            with open(gen_out) as f:
+                graphs = json.load(f)["scene_graphs"]
+            parts["the restores and generate"] = time.perf_counter() - t_r
+            log(f"phase 28 (b) generate on the EP checkpoint: {gen_s:.3f} s, {len(graphs)} "
+                f"graphs, launches {gen_counts} (expected {want_gen}); the restores and it "
+                f"{parts['the restores and generate']:.3f} s")
+            for k_, v_ in gen_counts.items():
+                out["launches"][k_] += v_
+            if len(graphs) != z_["gen_images"] or (on_card and gen_counts != want_gen):
+                bad.append("(b) generate on the EP checkpoint")
+            if on_card:
+                torch.cuda.empty_cache()
+            hold_c("a")  # in this thread: create_train_state seeds the global generator
+
+        out["c"] = {}
+
+        def hold_c(key):
+            label, _, trained, _ = runs[key]
+            t_w = time.perf_counter()
+            ok_c, hold = world_one_hold(dev, os.path.join(tmp, f"wd_c{key}"),
+                                        os.path.join(tmp, f"out_c{key}"), 1, 2, trained,
+                                        moe_shards=2 if key == "b" else 1)
+            log(f"phase 28 (c) float32, {label}, against one process: "
+                f"{'ok' if ok_c else 'FAILED'} {hold}")
+            out["c"][key] = hold
+            parts[f"(c) {key}'s one process"] = time.perf_counter() - t_w
+            if not ok_c:
+                bad.append(f"(c) {key}: {hold['bad']}")
+
+        # (c)'s float32 EP run beside the restores, generate and (c)'s PP hold.
+        (done_cb, _), parts["(c)'s EP run beside the restores"] = in_threads(
+            lambda k_: launch(k_) if k_ == "cb" else restores(), [("cb",), ("restores",)])
+        for recs_c, _ in (done_ca, done_cb):
+            add_launches(recs_c)
+        hold_c("b")
+        out["c_s"] = time.perf_counter() - t_c
+        out["parts"] = {k_: round(v_, 3) for k_, v_ in parts.items()}
+    if bad:
+        raise AssertionError(f"phase 28: {'; '.join(bad)}")
+    return out
+
+
+def phase28_line(v28, smi):
+    a_, b_ = v28["a"], v28["b"]
+    return (f"phase 28: PP over mesh.model=2 {a_['s_per_step']:.4f} s/step, shifts and "
+            f"broadcast {a_['shift_ms']} ms a step, peak GB {a_['peak_gb']}, state bytes "
+            f"{a_['state_bytes']} (DP {a_['dp_bytes']}); EP over mesh.expert=2 "
+            f"{b_['s_per_step']:.4f} s/step, all-to-alls {b_['a2a_ms']} ms a step, peak GB "
+            f"{b_['peak_gb']}, state bytes {b_['state_bytes']} (DP {b_['dp_bytes']}), dropped "
+            f"{b_['dropped']}; all of it with the float32 holds {v28['c_s']:.3f} s (of it "
+            f"{v28['parts']}; the flash holds before it {v28.get('flash_s', 0.0):.3f} s); "
+            f"launches {v28['launches']} [{smi}]")
+
+
 def zero_counts():
     """Set every kernel wrapper's launch count to 0."""
     from sgg_torch.kernels import conv_direct as cd
@@ -4675,6 +5073,9 @@ def run_phases(chosen, dev, smi, results=None):
         elif n_ == 27:
             done[n_] = sp_phase(dev, smi)
             lines[n_] = phase27_line(done[n_], smi)
+        elif n_ == 28:
+            done[n_] = pp_ep_phase(dev, smi)
+            lines[n_] = phase28_line(done[n_], smi)
         else:
             done[n_] = convert_grain_phase(dev, smi, before={"v21": done.get(21)})
             lines[n_] = phase25_line(done[n_], smi)
@@ -6179,9 +6580,11 @@ def main(argv=None):
         add(name, k_ms, p_ms, l_ms, b_s, b_by, 60)
     phase("timing_backward", t0)
 
-    # The side processes: phases 27, 22, 26, 24 and 21, 25 from here on,
+    # The side processes: phases 27, 22, 26, 24 and 21, 25, 28 from here on,
     # beside phases 17-20 and 23 (every kernel's time is taken by now).
     torch.cuda.empty_cache()
+    log(f"phases 1-16: {time.perf_counter() - t_all:.3f} s (the time by which to scale a slower "
+        "machine's run)")
     sides = [side_start(g_, deadline) for g_ in SIDE_PHASES]
 
     # 17. Main path, pipeline_v4: a seeded corpus, the train CLI at full
@@ -6271,7 +6674,7 @@ def main(argv=None):
         lambda fn: graph_ms(fn, n=P23_GRAPH_CALLS, reps=P23_GRAPH_REPS))
     phase("deployment tier (phase 23)", t0)
 
-    # 27, 22, 26, 24 and 21, 25 ran in the side processes: their output,
+    # 27, 22, 26, 24 and 21, 25, 28 ran in the side processes: their output,
     # summary lines and launches.
     t0 = time.perf_counter()
     side = {"lines": {}, "launches": {}}
@@ -6302,7 +6705,7 @@ def main(argv=None):
         + "; export --check " + ", ".join(f"{k_} {v_['s']:.3f} s ({v_['mb']:.1f} MB)"
                                           for k_, v_ in v23["export"].items())
         + f"; launches {v23['launches']} [{smi}]")
-    for n_ in (24, 25, 26, 27):
+    for n_ in (24, 25, 26, 27, 28):
         log(side["lines"][str(n_)])
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
@@ -6332,8 +6735,9 @@ def main(argv=None):
     for k_, v_ in v23["launches"].items():  # phase 23's int8 generate runs, from 0
         path_counts[k_] += v_
     # The side processes' runs (phase 22's paths, phase 25's CLI runs, every
-    # rank of 24, 26 and 27), each counted from 0; phase 21 adds none.
-    for n_ in (22, 24, 25, 26, 27):
+    # rank of 24, 26, 27 and 28, and 28's generate), each counted from 0;
+    # phase 21 adds none.
+    for n_ in (22, 24, 25, 26, 27, 28):
         for k_, v_ in side["launches"][str(n_)].items():
             path_counts[k_] += v_
     kernels = []

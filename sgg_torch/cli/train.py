@@ -145,9 +145,26 @@ On one rank, and on the data-parallel route, ``sp_mode`` is ignored as the
 reference ignores it (a 'seq' axis then carries ranks that take the same
 rows).
 
+Pipeline parallelism (``sgg/train/step.py:116-142``): on the gspmd route,
+``model.pp_microbatches=N`` pipelines a frozen vit_b16's block stack over
+``mesh.model`` stages (L/n blocks each, N microbatches of a rank's rows), and
+with ``mesh.seq`` and ``model.sp_mode`` each seq rank carries its S/n patch
+rows through the stages (DP×SP×PP). Expert parallelism
+(``sgg/train/step.py:144-170``): ``mesh.expert=N`` with ``model.moe_experts``
+splits the MoE ViT's experts over an 'expert' axis between 'seq' and
+'model', tokens exchanged by all-to-all. ``torchrun --nproc_per_node`` must
+be ``data × seq × expert × model``:
+
+  torchrun --nproc_per_node 2 -m sgg_torch.cli.train --config vit_b16 \
+      --set mesh.model=2 --set model.pp_microbatches=4 --set mesh.partition=gspmd \
+      --workdir W
+  torchrun --nproc_per_node 2 -m sgg_torch.cli.train --config vit_b16 \
+      --set train.train_encoder=true --set model.moe_experts=8 --set mesh.expert=2 \
+      --set mesh.partition=gspmd --workdir W
+
 It runs on CUDA unless ``--device cpu`` is given, and raises if CUDA is not
 there. A resumed run's host iterator continues the draws at the restored
-step. Not ported yet: pipeline and expert parallelism (ROADMAP A8d, A8e).
+step.
 """
 
 from __future__ import annotations

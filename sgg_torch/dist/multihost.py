@@ -38,7 +38,10 @@ i + shift (``dist.batch_isend_irecv``), whose dual is the opposite shift; and
 :func:`all_to_all`, the reference's tiled ``all_to_all`` (rank j's slice j of
 the split dimension, concatenated in rank order along another), whose dual
 is the inverse all-to-all; and :func:`split_many`, :func:`split` of several
-tensors whose gradients are gathered in one bucket. Collectives that move
+tensors whose gradients are gathered in one bucket. Pipeline parallelism
+(``sgg_torch.dist.pipeline_parallel``) hops its stages' activations with
+:func:`shift_tensors` and hands the last stage's output to every stage with
+:func:`broadcast_tensor`, both without gradient. Collectives that move
 data and sum nothing (the all-gathers, the shifts, the all-to-alls) carry a
 16-bit float as its float16 bit pattern (exact; every gloo release knows
 float16) and anything else as float32, and on gloo a CUDA tensor stages
@@ -388,13 +391,32 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return _ReduceScatter.apply(x, group, dim % x.dim())
 
 
+# The most bytes (as sent) that one bucket of gather_tensors carries: a larger
+# list goes in several, so that the bucket's gathered copies (n times it, on
+# the host and the device) stay small beside a training step's memory.
+BUCKET_BYTES = 1 << 28
+
+
 def gather_tensors(xs: list[torch.Tensor], dims: list[int], group) -> list[torch.Tensor]:
     """:func:`gather_tensor` of each of ``xs`` along its dim in ``dims``, in
-    one collective: each tensor is moved to put its dim first and the parts
-    travel as one flat bucket, float32 (in their dtype when all share one
-    16-bit dtype)."""
+    one collective for each run of consecutive tensors that fills at most
+    ``BUCKET_BYTES`` (a larger tensor alone): each tensor is moved to put its
+    dim first and the parts travel as one flat bucket, float32 (in their
+    dtype when all share one 16-bit dtype)."""
     if group_size(group) == 1 or not xs:
         return list(xs)
+    out, run, size = [], [], 0
+    for i, x in enumerate(xs):
+        b = x.numel() * max(x.element_size(), 4)
+        if run and size + b > BUCKET_BYTES:
+            out += _gather_bucket([xs[j] for j in run], [dims[j] for j in run], group)
+            run, size = [], 0
+        run.append(i)
+        size += b
+    return out + _gather_bucket([xs[j] for j in run], [dims[j] for j in run], group)
+
+
+def _gather_bucket(xs: list[torch.Tensor], dims: list[int], group) -> list[torch.Tensor]:
     n = group_size(group)
     moved = [x.detach().movedim(d, 0) for x, d in zip(xs, dims)]
     half = len({x.dtype for x in xs}) == 1 and xs[0].dtype in _HALF
@@ -467,6 +489,19 @@ def all_to_all_tensor(x: torch.Tensor, group, split_dim: int, concat_dim: int) -
     out = _receiver(w)
     dist.all_to_all_single(out, w, group=group)
     return torch.cat(_landed(out, x).unbind(0), concat_dim)
+
+
+def broadcast_tensor(x: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Rank ``src`` (of ``group``)'s ``x`` on every rank of ``group``, a new
+    tensor in x's dtype on its device; the other ranks' ``x`` gives only the
+    shape and dtype. No gradient. A group of one returns x."""
+    if group_size(group) == 1:
+        return x
+    w = _carried(x, group)
+    if not w.is_pinned():  # NCCL broadcasts in place: never into the caller's x
+        w = w.clone()
+    dist.broadcast(w, dist.get_global_rank(group, src), group=group)
+    return _landed(w, x)
 
 
 class _RingShift(torch.autograd.Function):

@@ -1,8 +1,11 @@
-"""The train state's placement over a mesh: TP over ``'model'`` and FSDP/ZeRO
-over ``'data'``, from ``sgg/dist/sharding.py``.
+"""The train state's placement over a mesh: the experts over ``'expert'``, TP
+over ``'model'`` and FSDP/ZeRO over ``'data'``, from ``sgg/dist/sharding.py``.
 
 The rule is the reference's, path-based over the whole train state
 (parameters, both Adam moments, the EMA), in this order (:func:`state_sharding`):
+  - EP: whenever the mesh has an 'expert' axis, the ``wi`` and ``wo`` of
+    every ``moe`` layer ([E, ...]) split dim 0 over ``'expert'`` (the
+    router stays replicated), whatever the TP and FSDP switches;
   - TP: a leaf whose path holds ``token_embedding`` ([V, E]) splits dim 0
     over ``'model'``; ``vocab_proj``'s kernel ([E, V]) splits dim 1 and its
     bias [V] dim 0; a dimension that ``'model'`` does not divide stays
@@ -15,8 +18,7 @@ The rule reads the flax layout: a torch ``nn.Linear`` weight is ``[out, in]``
 where flax's kernel is ``[in, out]`` (the attention-LSTM's Linears,
 ``sgg_torch.convert_flax``), so its dimension and tie-break are taken on the
 transposed shape and mapped back. Every other module of the port keeps the
-flax layout. Expert parallelism (the reference's ``_ep_spec``) is not ported:
-the port refuses ``mesh.expert > 1``.
+flax layout.
 
 XLA inserts the reference's collectives; here they are explicit.
 :func:`place_state` turns a global state (the same on every rank) into this
@@ -24,6 +26,11 @@ rank's part of it:
   - a TP leaf keeps this rank's slice as the module's own parameter, and the
     module computes over the vocabulary in parallel (:class:`VocabShard`:
     the logits all-gathered, the embedding's partial products all-reduced);
+  - an expert leaf keeps this rank's experts as the MoE layer's own
+    parameter, and the layer runs expert parallel (its ``ep_mesh`` set:
+    ``sgg_torch.dist.expert_parallel``); its gradient is this rank's
+    experts' whole, reduced over 'data' alone, and the clip's global norm
+    sums its squares over the expert group;
   - an FSDP leaf keeps this rank's slice apart (:attr:`Placement.shards`)
     and the module's parameter empty between updates; the step all-gathers
     it before an update's forward (:meth:`Placement.gathered`), reduces the
@@ -44,7 +51,7 @@ import torch
 from torch import nn
 
 from sgg_torch.dist import multihost as mh
-from sgg_torch.dist.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from sgg_torch.dist.mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, Mesh
 
 # Parameter-name fragments that carry a vocabulary dimension: TP targets.
 _TP_VOCAB_ROWS = ("token_embedding",)  # [V, E]: dim 0
@@ -83,6 +90,14 @@ def _tp_dim(names: list[str], shape: tuple, n_model: int) -> int | None:
     return None
 
 
+def _ep_dim(names: list[str], shape: tuple, n_expert: int) -> int | None:
+    if n_expert <= 1 or "moe" not in names:
+        return None
+    if names[-1] in ("wi", "wo") and shape and shape[0] % n_expert == 0:
+        return 0
+    return None
+
+
 def _fsdp_dim(shape: tuple, n_data: int, min_size: int) -> int | None:
     if n_data <= 1 or int(np.prod(shape)) < min_size:
         return None
@@ -107,8 +122,9 @@ def module_sharding(module: nn.Module, mesh: Mesh, tp: bool = False, fsdp: bool 
     for key, t in module.state_dict().items():
         transposed = key in linear
         shape = tuple(t.shape)[::-1] if transposed else tuple(t.shape)
-        axis, fdim = None, None
-        if tp:
+        fdim = _ep_dim(key.split("."), shape, mesh.expert)
+        axis = None if fdim is None else EXPERT_AXIS
+        if axis is None and tp:
             fdim = _tp_dim(key.split("."), shape, mesh.model)
             axis = None if fdim is None else MODEL_AXIS
         if axis is None and fsdp:
@@ -271,6 +287,9 @@ def place_state(state, specs: dict, mesh: Mesh):
                 _set_tensor(module, key, part)
         if any(s.axis == MODEL_AXIS for s in mp.specs.values()):
             module.vocab_shard = VocabShard(mesh.model_group)
+        for key, spec in mp.specs.items():  # the MoE layers that hold this rank's experts
+            if spec.axis == EXPERT_AXIS:
+                module.get_submodule(key.rsplit(".", 1)[0]).ep_mesh = mesh
         if tx is not None:
             names = [n for n, _ in module.named_parameters()]
             tx.specs = [mp.specs[n] for n in names]
@@ -296,7 +315,7 @@ def place_state(state, specs: dict, mesh: Mesh):
 def _gather_dict(tensors: dict, specs: dict, mesh: Mesh) -> dict:
     """{key: the global tensor}: each axis's slices gathered in one bucket."""
     out = dict(tensors)
-    for axis in (MODEL_AXIS, DATA_AXIS):
+    for axis in (EXPERT_AXIS, MODEL_AXIS, DATA_AXIS):
         keys = [k for k in tensors if specs[k].axis == axis]
         if keys:
             fulls = mh.gather_tensors([tensors[k] for k in keys], [specs[k].dim for k in keys],

@@ -18,8 +18,12 @@ a float32 [G, S, E, C] combine tensor built from one-hots, no sort.
 
 :class:`MoEMLP` is the module face: float32 parameters ``router`` [M, E],
 ``wi`` [E, M, H] and ``wo`` [E, H, M] (the flax names and layouts), cast to
-the compute dtype at the call; its forward returns (y, aux). The reference's
-expert-parallel route over a mesh (``ep_mesh``) is not ported.
+the compute dtype at the call; its forward returns (y, aux). With its
+``ep_mesh`` set (a mesh with an 'expert' axis) the layer runs expert parallel
+(:func:`sgg_torch.dist.expert_parallel.moe_forward_ep`): its ``wi`` and ``wo``
+are then this rank's experts. ``sgg_torch.dist.sharding.place_state`` alone
+sets it, when it leaves the layer this rank's experts; the names and layouts
+stay the global ones, so that one checkpoint serves with or without EP.
 """
 
 from __future__ import annotations
@@ -109,7 +113,7 @@ class MoEMLP(nn.Module):
         super().__init__()
         M, H = embed_dim, embed_dim * mlp_ratio
         self.num_experts, self.top_k, self.capacity_factor = num_experts, top_k, capacity_factor
-        self.dtype = dtype
+        self.dtype, self.ep_mesh = dtype, None  # set by place_state under EP
         self.router = nn.Parameter(0.02 * torch.randn(M, num_experts))
         self.wi = nn.Parameter(he_normal((num_experts, M, H)))
         self.wo = nn.Parameter(he_normal((num_experts, H, M)))
@@ -118,4 +122,8 @@ class MoEMLP(nn.Module):
         cap = moe_capacity(self.num_experts, self.top_k, x.shape[1], self.capacity_factor)
         dt = self.dtype
         params = {"router": self.router.to(dt), "wi": self.wi.to(dt), "wo": self.wo.to(dt)}
+        if self.ep_mesh is not None:
+            from sgg_torch.dist.expert_parallel import moe_forward_ep
+
+            return moe_forward_ep(params, x.to(dt), self.ep_mesh, self.top_k, cap)
         return moe_forward(params, x.to(dt), self.top_k, cap)

@@ -46,7 +46,7 @@ rank r's generator seed adds ``r · RANK_SEED_STRIDE``, so rank 0, and a world
 of one, draws what the single-device step draws.
 
 The gspmd step (``mesh``, ``make_train_step_gspmd``'s counterpart) runs on a
-state placed over a ``('data'[, 'seq'], 'model')`` mesh by
+state placed over a ``('data'[, 'seq'][, 'expert'], 'model')`` mesh by
 ``sgg_torch.dist.sharding.place_state``. Its body is the single-device step
 on global arrays: the noise is the single-device step's draw at the global
 batch B · data (no rank in the seed), and each rank takes its data
@@ -70,6 +70,25 @@ patch rows and everything else on all of them, so the gradients stay equal
 over the axis and are reduced over 'data' alone. Without a mesh, and on the
 data-parallel step, ``sp_mode`` is ignored, as the reference's ``sp_mesh``
 is None there.
+
+Pipeline parallelism (``model.pp_microbatches``, ``sgg/train/step.py:116-
+142``) acts on the gspmd step of a frozen vit_b16 encoder: its features come
+from ``sgg_torch.dist.pipeline_parallel.pipeline_vit_features``, the block
+stack in stages over the mesh's 'model' axis, without gradient; with a 'seq'
+axis and ``sp_mode`` each seq rank carries its S/n patch rows through the
+stages and the blocks attend by the ring or Ulysses over 'seq' (DP×SP×PP).
+The reference's refusals stand: ``sp_mode`` with PP on a mesh without
+'seq', PP with expert-parallel MoE, and ``train.train_encoder`` with PP.
+
+Expert parallelism (``mesh.expert`` > 1 with ``model.moe_experts``,
+``sgg/train/step.py:144-170``) is on whenever the mesh has an 'expert' axis
+and the encoder has MoE layers: the step refuses experts that the axis does
+not divide (the reference's message) and a state whose MoE layers were not
+placed over the axis. ``place_state`` leaves each MoE layer this rank's
+experts and sets it to run ``sgg_torch.dist.expert_parallel.moe_forward_ep``
+over the 'expert' axis, whose ranks take the same rows; an expert's gradient
+is complete on its rank and, like every other gradient, is averaged over
+'data' alone; ``moe_aux`` is the reference's EP term.
 """
 
 from __future__ import annotations
@@ -82,11 +101,13 @@ import torch
 import torch.nn.functional as F
 
 from sgg_torch.config import Config
-from sgg_torch.dist.mesh import MODEL_AXIS, SEQ_AXIS, refuse_unported_mesh
+from sgg_torch.dist.mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS
 from sgg_torch.dist.multihost import pmean
+from sgg_torch.dist.pipeline_parallel import pipeline_vit_features
 from sgg_torch.dist.sequence_parallel import make_sp_attention, sp_encoder
 from sgg_torch.models.encoders import features_and_aux, normalize_for
 from sgg_torch.models.generator import TRIPLE_LEN
+from sgg_torch.models.moe import MoEMLP
 from sgg_torch.train.losses import critic_loss, generator_loss, reinforce_generator_loss
 from sgg_torch.train.state import GANTrainState, global_norm
 from sgg_torch.utils.gumbel import sample_gumbel
@@ -103,14 +124,6 @@ def refuse_unported(cfg: Config) -> None:
     if t.estimator not in ("gumbel", "reinforce"):
         raise ValueError(f"unknown train.estimator {t.estimator!r} (expected 'gumbel' or "
                          "'reinforce')")
-    if m.pp_microbatches:
-        raise NotImplementedError(f"pipeline parallelism (model.pp_microbatches) {_LATER} "
-                                  "(ROADMAP A8d)")
-    if m.moe_experts and mesh.expert > 1:
-        raise NotImplementedError(
-            f"expert-parallel MoE (model.moe_experts over mesh.expert > 1) {_LATER} "
-            "(ROADMAP A8e); MoE trains data parallel")
-    refuse_unported_mesh(mesh)
     if t.train_encoder:
         if m.encoder == "precomputed":
             raise ValueError("train.train_encoder requires an end-to-end encoder config "
@@ -218,14 +231,28 @@ def make_step_fn(cfg: Config, step_mask=None, group=None, mesh=None) -> Callable
     iteration's aux values, the generator's and ``tau``."""
     t, m = cfg.train, cfg.model
     sp_on = mesh is not None and bool(m.sp_mode) and m.encoder == "vit_b16"
-    if sp_on and m.pp_microbatches and SEQ_AXIS not in mesh.axis_names:
+    pp_on = mesh is not None and bool(m.pp_microbatches) and m.encoder == "vit_b16"
+    if sp_on and pp_on and SEQ_AXIS not in mesh.axis_names:
         raise ValueError(
             "sp_mode and pp_microbatches both set on a mesh without a 'seq' axis: they would "
             "contend for the single 'model' axis. Set mesh.seq > 1 (MeshSpec.seq) to compose "
             "DP×SP×PP on a ('data','seq','model') mesh.")
+    ep_on = mesh is not None and m.moe_experts > 0 and EXPERT_AXIS in mesh.axis_names
+    if pp_on and ep_on:
+        raise ValueError(
+            "pp_microbatches with expert-parallel MoE is unsupported: the pipeline's shard_map "
+            "cannot nest the expert-exchange shard_map. Drop the 'expert' mesh axis (experts "
+            "then run data-parallel, replicated) or disable PP.")
+    if ep_on and m.moe_experts % mesh.expert:
+        raise ValueError(f"num_experts {m.moe_experts} not divisible by '{EXPERT_AXIS}' axis "
+                         f"size {mesh.expert}")
     refuse_unported(cfg)
+    if pp_on and t.train_encoder:
+        raise ValueError(
+            "train.train_encoder is incompatible with model.pp_microbatches: the pipeline path "
+            "bakes a stop_gradient at the encoder stage boundary")
     sp_attn = None
-    if sp_on:
+    if sp_on and not pp_on:
         sp_attn = make_sp_attention(
             mesh, m.sp_mode, SEQ_AXIS if SEQ_AXIS in mesh.axis_names else MODEL_AXIS)
     V, nc, dtype = m.vocab_size, t.n_critic, m.dtype
@@ -256,6 +283,11 @@ def make_step_fn(cfg: Config, step_mask=None, group=None, mesh=None) -> Callable
         return {**draw_noise(cfg, B * n_data, generator, device), "tau": tau_at(step, device)}
 
     def step_fn(state: GANTrainState, batch: dict, noise: dict | None = None) -> dict:
+        if ep_on and state.encoder is not None and any(
+                isinstance(x, MoEMLP) and x.ep_mesh is None for x in state.encoder.modules()):
+            raise ValueError(f"the mesh has an '{EXPERT_AXIS}' axis but the MoE layers do not "
+                             "hold their experts over it: place the state with "
+                             "sgg_torch.dist.sharding.place_state first")
         with sp_encoder(state.encoder, sp_attn):
             return one_step(state, batch, noise)
 
@@ -285,7 +317,12 @@ def make_step_fn(cfg: Config, step_mask=None, group=None, mesh=None) -> Callable
             return gen(feats, z, g, tau=tau, hard=t.hard, step_mask=step_mask_d)["soft"]
 
         def enc_feats(images):
-            return encoder(normalize_for(m.encoder, images)).to(dtype)
+            x = normalize_for(m.encoder, images)
+            if pp_on:  # the block stack pipelined over 'model', without gradient
+                return pipeline_vit_features(
+                    encoder, x, mesh, num_microbatches=m.pp_microbatches, batch_axis=DATA_AXIS,
+                    seq_axis=SEQ_AXIS if sp_on else None, sp_mode=m.sp_mode or "ring").to(dtype)
+            return encoder(x).to(dtype)
 
         def enc_feats_aux(images):
             feats, aux = features_and_aux(encoder, normalize_for(m.encoder, images))

@@ -67,7 +67,7 @@ from sgg_torch.dist import (
     pmean,
     process_shard_info,
 )
-from sgg_torch.dist.mesh import Mesh
+from sgg_torch.dist.mesh import Mesh, axis_groups, coords
 from sgg_torch.eval.sampler import draw_noise, make_dp_sampler, make_sampler
 from sgg_torch.serve import InferenceEngine, ServeWeights
 from sgg_torch.train.checkpoint import save_generator
@@ -317,13 +317,23 @@ def test_one_process_runtime_and_refused_meshes(monkeypatch):
         make_mesh(MeshSpec(data=5), devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="do not divide"):
         make_mesh(MeshSpec(model=3), devices=["cpu"] * 4)
-    # A 'seq' axis (A8c) between 'data' and 'model', as the reference's;
-    # the expert axis stays refused (A8e).
+    # A 'seq' axis (A8c) between 'data' and 'model', as the reference's, and
+    # an 'expert' axis (A8e) after it; ranks ((d·seq + s)·expert + e)·model + m.
     sp = make_mesh(MeshSpec(seq=2), devices=[f"cuda:{i}" for i in range(4)])
     assert sp.shape == {"data": 2, "seq": 2, "model": 1} and sp.axis_names[1] == "seq"
     assert sp.devices == (torch.device("cuda:0"), torch.device("cuda:2"))
-    with pytest.raises(NotImplementedError, match="A8e"):
-        make_mesh(MeshSpec(expert=2), devices=["cpu"] * 4)
+    ep = make_mesh(MeshSpec(expert=2), devices=["cpu"] * 4)
+    assert ep.axis_names == ("data", "expert", "model")
+    assert ep.shape == {"data": 2, "expert": 2, "model": 1}
+    monkeypatch.setattr(torch.distributed, "new_group", lambda ranks: tuple(ranks))
+    groups = axis_groups(8, model=2, seq=1, expert=2)
+    assert groups["model"] == [(0, 1), (2, 3), (4, 5), (6, 7)]
+    assert groups["expert"] == [(0, 2), (1, 3), (4, 6), (5, 7)]
+    assert groups["data"] == [(0, 4), (1, 5), (2, 6), (3, 7)]
+    assert groups["seq"] == [None] * 8
+    assert [coords(r, 2, 1, 2) for r in (0, 3, 5)] == [
+        {"data": d, "seq": 0, "expert": e, "model": m} for d, e, m in ((0, 0, 0), (0, 1, 1),
+                                                                     (1, 0, 1))]
     # A model axis (A8b): the data axis drives the first device of each model
     # group, as jax.make_mesh keeps the trailing axis on adjacent devices.
     tp = make_mesh(MeshSpec(model=2), devices=[f"cuda:{i}" for i in range(4)])

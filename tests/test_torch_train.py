@@ -514,9 +514,14 @@ def test_noise_layout_and_refusals():
     # REINFORCE, refused before it was ported, builds a step
     # (tests/test_torch_reinforce.py holds it against the reference).
     assert callable(make_step_fn(_configs("smoke", {"train.estimator": "reinforce"})[1]))
-    # So does MoE on one device (tests/test_torch_moe.py); its expert-parallel
-    # form over a mesh stays refused.
+    # So does MoE on one device (tests/test_torch_moe.py). Without a mesh an
+    # 'expert' axis and pp_microbatches build a plain step too, as the
+    # reference's step has no sp_mesh (tests/test_torch_ep.py and
+    # tests/test_torch_pp.py hold the gspmd step with EP and with PP).
     assert callable(make_step_fn(_configs("smoke", {"model.moe_experts": 4})[1]))
+    assert callable(make_step_fn(_configs("smoke", {"model.moe_experts": 4,
+                                                    "mesh.expert": 2})[1]))
+    assert callable(make_step_fn(_configs("vit_b16", {"model.pp_microbatches": 2})[1]))
     # FSDP and TP, refused before they were ported, build a step too
     # (tests/test_torch_tp_fsdp.py holds the gspmd step against the reference).
     assert callable(make_step_fn(_configs("smoke", {"mesh.fsdp": True, "mesh.model": 2})[1]))
@@ -534,9 +539,7 @@ def test_noise_layout_and_refusals():
         metrics.append(make_step_fn(cfg)(tstate.create_train_state(cfg, 0), batch))
     assert metrics[0] == metrics[1]
     for sets, err, match in (
-            ({"model.pp_microbatches": 2}, NotImplementedError, "A8"),
             ({"train.estimator": "ppo"}, ValueError, "estimator"),
-            ({"model.moe_experts": 4, "mesh.expert": 2}, NotImplementedError, "A8"),
             ({"train.train_encoder": True}, ValueError, "end-to-end")):
         with pytest.raises(err, match=match):
             make_step_fn(_configs("smoke", sets)[1])

@@ -145,23 +145,24 @@ def test_cuda_is_the_default_device(tmp_path, monkeypatch):
     ["--set", "train.train_encoder=true", "--set", "model.encoder=vgg19", "--set",
      "model.use_pallas=true"],
     ["--set", "model.moe_experts=4", "--set", "mesh.expert=2"], ["--set", "model.sp_mode=ring"],
-    # TP, FSDP and gspmd partitioning are ported (tests/test_torch_tp_fsdp.py);
-    # each stays refused beside an axis that is not.
+    # TP, FSDP, gspmd partitioning and EP are ported (tests/test_torch_tp_fsdp.py,
+    # tests/test_torch_ep.py); an axis larger than the world is refused.
     ["--set", "mesh.fsdp=true", "--set", "mesh.expert=2"],
     ["--set", "mesh.partition=gspmd", "--set", "mesh.seq=2"], ["--set", "mesh.seq=2"],
     ["--set", "mesh.model=2", "--set", "model.sp_mode=ring"]])
 def test_unported_options_are_refused(tmp_path, capsys, extra):
     argv = ["--config", "smoke", "--device", "cpu", "--workdir", str(tmp_path), *extra]
-    seq = "mesh.seq=2" in extra
-    if "model.sp_mode=ring" in extra and not seq and "mesh.model=2" not in extra:
-        # Sequence parallelism is ported (tests/test_torch_sp.py); on one
-        # rank the reference has no mesh, so sp_mode alone trains plainly.
+    axis = any(a in extra for a in ("mesh.seq=2", "mesh.model=2", "mesh.expert=2"))
+    if ("model.sp_mode=ring" in extra or "model.pp_microbatches=2" in extra) and not axis:
+        # Sequence and pipeline parallelism are ported (tests/test_torch_sp.py,
+        # tests/test_torch_pp.py); on one rank the reference has no mesh, so
+        # sp_mode or pp_microbatches alone trains plainly.
         assert train.main(argv + ["--steps", "1"]) == 0
         assert "done at step 1" in capsys.readouterr().out
         return
     assert train.main(argv) == 2
     err = capsys.readouterr().err
-    if seq or "mesh.model=2" in extra:  # an axis larger than the world: the mesh's refusal
+    if axis:  # an axis larger than the world: the mesh's refusal
         assert "do not divide device count 1" in err and "not ported yet" not in err
     else:
         assert "not ported yet" in err
