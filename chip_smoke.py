@@ -2,12 +2,12 @@
 """Chip smoke for the PyTorch/CUDA port (``sgg_torch``) on one NVIDIA H100.
 
   python3 chip_smoke.py
-  python3 chip_smoke.py --phases 28        (or 21,22,24,25,26,27,28: those phases alone)
+  python3 chip_smoke.py --phases 29        (or 21,22,24,25,26,27,28,29: those phases alone)
 
 With no argument every phase runs: phases 1-16 (the holds and the timed
 kernels) alone on the card, then phases 17-20 and 23 in this process beside
 two others (``side_start``: this script with ``--phases 27,22,26,24`` and
-with ``--phases 21,25,28``), each started in a session of its own, ended with
+with ``--phases 21,25,28,29``), each started in a session of its own, ended with
 this one (``side_stop``) and read at the end (``side_finish``: its output
 echoed, its summary lines and launches taken into the last lines). Each of
 those phases leaves the card idle most of the time, so the three share it;
@@ -419,6 +419,27 @@ one subprocess under a timeout, which it waits for:
      98-row shards under DP×SP×PP against ``sp_ring_plain``). Prints
      s/step, the shifts' and the all-to-alls' ms a step, peak memory, state
      bytes, the share of routing choices dropped and each part's seconds.
+ 29. CNN encoders trained end to end on the configs that set
+     ``model.use_pallas`` (``cnn_train_phase``): the step trains VGG-19 or
+     ResNet-50 on the library conv, the probe and generate run the conv
+     kernels. (d) ``train --config vg_full`` with a seeded VGG-19 on a
+     VG-shaped corpus of 512 ids (materialized), frozen, 1 step (96
+     conv_direct launches), its workdir then resumed with
+     ``train.train_encoder=true --set train.grad_accum=4`` (the restore's
+     fallback line; the encoder's optimizer at zero when its first step
+     begins); (a) that run's 3 steps at full width (VGG-19 at 224 px, bf16,
+     B 256, n_critic 5): s/step, peak memory, enc_gnorm, no kernel launch in
+     a step, 16 conv_direct launches for the probe's held-out batch of 64,
+     every encoder tensor moved; (b) ``train --config resnet50 --set
+     train.train_encoder=true`` (V 8,192, B 32) 2 steps, then ``generate
+     --decode fused`` on its checkpoint, exactly 13 conv_direct, 36
+     fused_matmul and 8 fused_decode launches a batch of 32; (c)
+     ``cnn_hold``: one float32 step at n_critic 1, card against CPU
+     (``world_one_hold``'s bound, in its docstring); (e) ``conv2d_direct``
+     and ``fused_matmul`` refuse operands that need a gradient, launching
+     nothing; (f) ``torchrun`` of ``train --config v4_32 --set
+     train.train_encoder=true`` over two ranks sharing the card (B 128 a
+     rank, grad_accum 2), 2 steps, held by ``dp_holds``.
 Phase 15 trains vit_b16 for 16 steps with ``--profile`` (the window is steps
 10-14) and prints its table.
 
@@ -432,8 +453,9 @@ exported artifact launches none), phase 24's (every rank of its four
 runs, each counted from 0 in its process), phase 25's (its CLI runs, each
 counted from 0), phase 26's (every rank of its runs and its generate,
 each counted from 0), phase 27's (every rank of its training runs, each
-counted from 0; (a)'s holds do not count) and phase 28's (every rank of its
-training runs and its generate, each counted from 0), and
+counted from 0; (a)'s holds do not count), phase 28's (every rank of its
+training runs and its generate, each counted from 0) and phase 29's (its CLI
+runs, each counted from 0), and
 launch-weighted means over that path's shapes of ms, plain ms, library ms and
 bound ms. Phase 18's serving launch counts and phase 19's are printed on lines of
 their own before it. The last two lines are that
@@ -544,14 +566,26 @@ TF1_FIXTURE = os.path.join(ROOT, "tests", "fixtures_torch", "tf1_ckpt")
 P25_VOCAB, P25_GEN_IMAGES = 1024, 256
 P25_V4_IMAGES, P25_V4_STEPS, P25_V4_CUT = 2048, 15, 10
 P25_VG_IMAGES, P25_VG_STEPS, P25_WORKERS = 2048, 2, 2
+# Phase 29, CNN encoders trained end to end: the VG-shaped corpus's ids; the
+# frozen vg_full run's steps and the train_encoder steps that resume it, at
+# train.grad_accum 4 (B 256 in microbatches of 64; part (a) prints the
+# step's peak memory); the probe's held-out images; resnet50's
+# steps, batch and vocab; generate's images and draws on its checkpoint; the
+# float32 hold's batch.
+P29_IMAGES, P29_FROZEN_STEPS, P29_STEPS, P29_ACCUM, P29_PROBE = 512, 1, 3, 4, 64
+P29_R50_STEPS, P29_R50_BATCH, P29_R50_VOCAB, P29_GEN_IMAGES, P29_K = 2, 32, 8192, 64, 8
+P29_HOLD_BATCH = 4
+# ... and v4_32's steps over two ranks and its grad_accum (B 128 a rank).
+P29_V4_STEPS, P29_V4_ACCUM = 2, 2
 # Phases that build their own inputs after the device and the build, so that
 # ``--phases`` can run them alone.
-SELECTABLE_PHASES = (21, 22, 24, 25, 26, 27, 28)
+SELECTABLE_PHASES = (21, 22, 24, 25, 26, 27, 28, 29)
 # Those that the full run hands to its two side processes, in this order:
 # phase 27 (four ranks, 43 GB) first, while this process holds least of the
 # card, and phase 22 (its MoE ViT 28 GB) after it in the same process; phase
-# 28 (its EP ranks about 20 GB) last in the other, once phase 27 is done.
-SIDE_PHASES = ((27, 22, 26, 24), (21, 25, 28))
+# 28 (its EP ranks about 20 GB) in the other, once phase 27 is done, and
+# phase 29 (12.3 GB) after it.
+SIDE_PHASES = ((27, 22, 26, 24), (21, 25, 28, 29))
 # [B, H, S, D] of the ViT-B/16 self-attention at 224 px (the main path) and
 # 384 px, and a ragged S.
 FLASH_SHAPES = [(32, 12, 196, 64), (32, 12, 576, 64), (32, 12, 100, 64)]
@@ -4550,7 +4584,7 @@ def pp_ep_phase(dev, smi, sizes=None, extra_sets=None):
                 wd = os.path.join(tmp, f"wd_{key}")
                 cfg_r, _ = load_workdir(wd)
                 st = create_train_state(cfg_r, cfg_r.train.seed, device=dev)
-                ok_r = (CheckpointManager(wd, None).restore(st) is not None
+                ok_r = (CheckpointManager(wd, None).restore(st, lenient=False) is not None
                         and digest(tree_tensors(st.state_dict())) == recs[0]["global_digests"])
                 log(f"phase 28 ({key}) its checkpoint restored in one process: "
                     f"{'ok' if ok_r else 'FAILED'}")
@@ -4983,6 +5017,351 @@ def convert_grain_phase(dev, smi, sizes=None, extra_sets=None, v4_sets=None, vg_
     return out
 
 
+def cnn_hold(dev, seed=SEED, batch=P29_HOLD_BATCH, size=224, extra_sets=None):
+    """Phase 29 (c): one ``vg_full`` step with ``train.train_encoder`` in
+    float32 at n_critic 1 on the card against the same step on the CPU, from
+    one seeded state, batch and noise; a throwaway step on the card first
+    (C3: the process's first card step sums in another order). The two
+    compute one function; they differ in float32 sums (cuDNN's conv against
+    the CPU's, TF32 never: float32 operands). n_critic 1 makes the metrics
+    the critic update's, from the common state. The bound is
+    ``world_one_hold``'s:
+      - each metric within 1e-4 relative plus 1e-6;
+      - each module's parameters after the step (generator, critic,
+        encoder): every element within 1e-6 + 1e-5 |p|, except at most 1 %
+        of the module's elements, those within Adam's largest move, 2 lr C_1
+        (``adam_step_bound``).
+    The critic's and the encoder's gradients of the update are printed (the
+    largest distance over a module's tensors, relative to the tensor's
+    largest element), not held: at initialization the critic scores real
+    and fake triples nearly alike (w_dist about 1e-5 of the scores at 224
+    px), so those gradients are differences of nearly equal terms, and the
+    two devices' float32 rounding reaches a share of their small elements;
+    Adam's step takes each element's sign, so an element whose gradient lies
+    within that rounding of 0 moves by ±lr on either side, which the 1 %
+    counts.
+    Returns (ok, numbers)."""
+    import numpy as np
+    import torch
+
+    from sgg_torch.config import get_config
+    from sgg_torch.train.state import create_train_state
+    from sgg_torch.train.step import draw_noise, make_step_fn
+
+    sets = {"train.train_encoder": "true", "model.compute_dtype": "float32",
+            "train.n_critic": 1, "train.batch_size": batch, "data.image_size": size,
+            "model.vocab_size": 80, **(extra_sets or {})}
+    cfg = get_config("vg_full").override([f"{k_}={v_}" for k_, v_ in sets.items()])
+    V, t_ = cfg.model.vocab_size, cfg.train
+    r = np.random.RandomState(seed + 291)
+    data = {"images": r.randint(0, 256, (2, batch, size, size, 3), dtype=np.uint8),
+            "triples": r.randint(2, V, (2, batch, 3))}
+    noise = draw_noise(cfg, batch, torch.Generator().manual_seed(seed + 292), "cpu")
+
+    def run(device):
+        st = create_train_state(cfg, seed, device=device)
+        rec = {}
+        for key, tx in (("d", st.d_tx), ("enc", st.enc_tx)):
+            update = tx.update
+            tx.update = lambda g_, _u=update, _k=key: (
+                rec.setdefault(_k, [x_.detach().float().cpu() for x_ in g_]), _u(g_))[1]
+        m_ = make_step_fn(cfg)(st, {k_: torch.from_numpy(v_).to(device)
+                                     for k_, v_ in data.items()},
+                               {k_: v_.to(device) for k_, v_ in noise.items()})
+        params = {"g_params": st.generator, "d_params": st.critic, "enc_params": st.encoder}
+        return ({k_: float(v_) for k_, v_ in m_.items()}, rec,
+                {k_: {n_: v_.detach().float().cpu() for n_, v_ in mod.state_dict().items()}
+                 for k_, mod in params.items()})
+
+    if torch.device(dev).type == "cuda":
+        run(dev)
+    card, cpu = run(dev), run("cpu")
+    bad, nums = [], {"metrics": {}, "grads": {}, "params": {}}
+    for k_, v_ in cpu[0].items():
+        d_ = abs(card[0][k_] - v_)
+        nums["metrics"][k_] = (card[0][k_], v_, d_)
+        if not d_ <= 1e-6 + 1e-4 * abs(v_):
+            bad.append(f"{k_}: {card[0][k_]} against {v_}")
+    for key in ("d", "enc"):
+        nums["grads"][key] = max(float((a_ - b_).abs().max() / b_.abs().max().clamp_min(1e-30))
+                                 for a_, b_ in zip(card[1][key], cpu[1][key]))
+    move = 2 * adam_step_bound(float(t_.beta1), float(t_.beta2), 1)
+    for tree, lr in (("g_params", t_.g_lr), ("d_params", t_.d_lr), ("enc_params", t_.enc_lr)):
+        n_far = n_all = 0
+        worst = 0.0
+        for k_, w_ in cpu[2][tree].items():
+            d_ = (card[2][tree][k_] - w_).abs()
+            n_far += int((d_ > 1e-6 + 1e-5 * w_.abs()).sum())
+            n_all += w_.numel()
+            worst = max(worst, float(d_.max()))
+        nums["params"][tree] = (n_far / n_all, worst, lr * move + 1e-6)
+        if worst > lr * move + 1e-6 or n_far > 0.01 * n_all:
+            bad.append(f"{tree}: {n_far} of {n_all} elements beyond 1e-6 + 1e-5 |p|, max |d| "
+                       f"{worst:.3g} (bound {lr * move + 1e-6:.3g})")
+    return not bad, {**nums, "bad": bad}
+
+
+def cnn_train_phase(dev, smi, sizes=None, extra_sets=None, r50_sets=None, hold_sets=None):
+    """Phase 29, CNN encoders trained end to end on the configs that set
+    ``model.use_pallas`` (the step's encoder on the library conv, the probe
+    and generate on the kernels): (d) + (a) ``train --config vg_full`` on a
+    VG-shaped corpus of 512 ids cycling the committed fixture (materialized),
+    the frozen encoder (a seeded VGG-19 via ``--encoder-ckpt``) one step
+    (96 conv_direct launches), then the same workdir resumed with
+    ``train.train_encoder=true`` and ``train.grad_accum=4`` for 3 steps at
+    full width (VGG-19 at 224 px, bf16, B 256, n_critic 5): the checkpoint
+    restore's fallback line, the encoder's optimizer at zero when the first
+    step begins, no kernel launch in a step, 16 conv_direct launches for the
+    probe's one held-out batch of 64, every encoder tensor moved from the
+    seeded weights; s/step, peak memory, enc_gnorm; (b) ``train --config
+    resnet50 --set train.train_encoder=true`` (V 8,192 from ``vocab_of_size``,
+    B 32, 224 px, bf16) 2 steps, no kernel launch in a step, then ``generate
+    --decode fused`` on its checkpoint: exactly 13 conv_direct, 36
+    fused_matmul and K fused_decode launches a batch of 32; (c) ``cnn_hold``;
+    (e) the guard: ``conv2d_direct`` and ``fused_matmul`` raise on operands
+    that need a gradient and launch nothing; (f) ``train --config v4_32 --set
+    train.train_encoder=true`` under torchrun, two ranks sharing the card
+    over gloo (B 128 a rank, grad_accum 2), 2 steps: the ranks' states equal
+    bit for bit, their noise distinct, no kernel launch in a step
+    (``dp_holds``). ``sizes``, ``extra_sets``,
+    ``r50_sets`` and ``hold_sets`` shrink it for a dry run on the CPU
+    (launches printed, not held). Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from sgg_torch.cli import generate as generate_cli
+    from sgg_torch.cli import train as train_cli
+    from sgg_torch.convert_flax import encoder_state_dict_to_flax
+    from sgg_torch.kernels import conv_direct as cd
+    from sgg_torch.kernels import matmul as mm
+    from sgg_torch.models.encoders import make_encoder
+
+    z_ = {"images": P29_IMAGES, "frozen": P29_FROZEN_STEPS, "steps": P29_STEPS,
+          "accum": P29_ACCUM, "probe": P29_PROBE, "r50_steps": P29_R50_STEPS,
+          "r50_batch": P29_R50_BATCH, "vocab": P29_R50_VOCAB, "gen_images": P29_GEN_IMAGES,
+          "k": P29_K, "hold_batch": P29_HOLD_BATCH, "v4_steps": P29_V4_STEPS,
+          "v4_accum": P29_V4_ACCUM, "image_size": 224, **(sizes or {})}
+    on_card = torch.device(dev).type == "cuda"
+    S = z_["image_size"]
+    out = {"launches": {k_: 0 for k_ in kernel_counts()}}
+    fallback = "[sgg_torch.checkpoint] strict restore failed (ValueError); falling back"
+
+    def train(label, wd, config, steps, sets, extra=(), after=0):
+        argv = ["--config", config, "--workdir", wd, "--steps", str(steps), *extra]
+        for k_, v_ in sets.items():
+            argv += ["--set", f"{k_}={v_}"]
+        per_step, first = [], {}
+        make_step = train_cli.make_step_fn
+
+        def counting(*a, **k):
+            step_fn = make_step(*a, **k)
+
+            @functools.wraps(step_fn)
+            def counted(state, batch, *a2, **k2):
+                tx = state.enc_tx
+                if not first:
+                    first["enc_opt_zero"] = tx is not None and tx.count == 0 and not any(
+                        bool(t_.any()) for t_ in tx.mu + tx.nu)
+                before = kernel_counts()
+                r_ = step_fn(state, batch, *a2, **k2)
+                after = kernel_counts()
+                per_step.append({k_: after[k_] - before[k_] for k_ in after
+                                 if after[k_] != before[k_]})
+                return r_
+
+            return counted
+
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        printed, errs = io.StringIO(), io.StringIO()
+        train_cli.make_step_fn = counting
+        try:
+            with contextlib.redirect_stdout(Tee(sys.stdout, printed)), \
+                    contextlib.redirect_stderr(Tee(sys.stderr, errs)):
+                run_s, counts = run_cli(train_cli.main, argv + ([] if on_card else
+                                                                ["--device", "cpu"]),
+                                        f"sgg_torch.cli.train {config} {label}")
+        finally:
+            train_cli.make_step_fn = make_step
+        for k_, v_ in counts.items():
+            out["launches"][k_] += v_
+        logged = [r_ for r_ in read_metric_lines(wd) if "d_loss" in r_ and r_["step"] > after]
+        last = logged[-1]  # a run's first logged step carries no rate
+        r_ = {"s": run_s, "s_per_step": 1 / last["steps_per_sec"] if "steps_per_sec" in last
+              else None, "images_per_s": last.get("images_per_sec"),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan"),
+              "counts": counts, "per_step": per_step, "first": first, "logged": logged,
+              "out": printed.getvalue(), "err": errs.getvalue()}
+        if not all(math.isfinite(v_) for x_ in logged for v_ in x_.values()):
+            raise AssertionError(f"phase 29 {label}: metrics.jsonl {logged}")
+        return r_
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vg_dir, ckpt, wd = (os.path.join(tmp, d_) for d_ in ("vg", "ckpt", "wd_vg"))
+        vg_corpus(vg_dir, z_["images"])
+        torch.manual_seed(SEED + 290)
+        enc_sd = make_encoder("vgg19").state_dict()
+        os.makedirs(ckpt)
+        np.savez(os.path.join(ckpt, "encoder_params.npz"),
+                 **encoder_state_dict_to_flax(enc_sd, "vgg19")["params"])
+        with open(os.path.join(ckpt, "pretrain_meta.json"), "w") as f:
+            json.dump({"encoder": "vgg19", "image_size": S, "vit_dims": [768, 12, 12],
+                       "moe_experts": 0, "moe_top_k": 2}, f)
+
+        # (d) the frozen twin, then (a) its workdir resumed with train_encoder.
+        base = {**(extra_sets or {}), "data.data_dir": vg_dir, "train.log_every": 1,
+                "train.eval_images": z_["probe"], "train.eval_samples": 8}
+        t_d = time.perf_counter()
+        fz = train("frozen", wd, "vg_full", z_["frozen"], {
+            **base, "train.checkpoint_every": z_["frozen"], "train.eval_every": 0},
+            extra=("--encoder-ckpt", ckpt))
+        total = z_["frozen"] + z_["steps"]
+        resume = {"train.checkpoint_every": total, "train.eval_every": total,
+                     "train.train_encoder": "true", "train.grad_accum": z_["accum"]}
+        te = train("train_encoder", wd, "vg_full", total, {**base, **resume},
+                   extra=("--encoder-ckpt", ckpt), after=z_["frozen"])  # the checkpoint's win
+        nc = int((extra_sets or {}).get("train.n_critic", 5))
+        sd = torch.load(os.path.join(wd, "checkpoints", str(total), "state.pt"),
+                        map_location="cpu", weights_only=True)
+        moved = sum(not torch.equal(sd["enc_params"][k_].float(), v_.float())
+                    for k_, v_ in enc_sd.items())
+        step_counts = [c_.get("conv_direct", 0) for c_ in te["per_step"]]
+        probe = te["counts"]["conv_direct"] - sum(step_counts)
+        gnorms = [x_["enc_gnorm"] for x_ in te["logged"]]
+        a_ok = (fallback in te["err"] and f"resumed from step {z_['frozen']}" in te["out"]
+                and te["first"].get("enc_opt_zero") is True
+                and [x_["step"] for x_ in te["logged"]] == list(range(z_["frozen"] + 1,
+                                                                      total + 1))
+                and all(g_ > 0 for g_ in gnorms) and moved == len(enc_sd)
+                and sd["enc_opt"]["count"] == nc * z_["steps"]
+                and (not on_card or (fz["per_step"] == [{"conv_direct": 16 * (nc + 1)}]
+                                     * z_["frozen"]
+                                     and te["per_step"] == [{}] * z_["steps"]
+                                     and probe == 16 * math.ceil(z_["probe"] / 64))))
+        log(f"phase 29 (d) vg_full frozen {z_['frozen']} step ({fz['per_step']} launches), "
+            f"resumed with train_encoder: the fallback line {fallback in te['err']}, the "
+            f"encoder's optimizer at zero when its first step began "
+            f"{te['first'].get('enc_opt_zero')}, enc_opt count {sd['enc_opt']['count']} after "
+            f"{z_['steps']} steps; {time.perf_counter() - t_d:.3f} s for both runs")
+        log(f"phase 29 (a) vg_full train_encoder (VGG-19 {S} px, B "
+            f"{base.get('train.batch_size', 256)}, grad_accum {z_['accum']}): {z_['steps']} "
+            f"steps in {te['s']:.3f} s in process (set-up, probe and checkpoint included); "
+            f"s/step {[round(1 / x_['steps_per_sec'], 4) for x_ in te['logged'][1:]]} (the "
+            f"first step's time is its log interval's start), last {te['s_per_step']:.4f}, "
+            f"{te['images_per_s']:.1f} images/s; peak device memory {te['peak_gb']:.3f} GB; "
+            f"enc_gnorm {[round(g_, 4) for g_ in gnorms]}; launches per step {te['per_step']}, "
+            f"conv_direct in the probe {probe} ({z_['probe']} held-out images); encoder "
+            f"tensors moved {moved} of {len(enc_sd)}: {'ok' if a_ok else 'FAILED'} [{smi}]")
+        out["a"] = {k_: te[k_] for k_ in ("s", "s_per_step", "images_per_s", "peak_gb")}
+        out["a"].update(enc_gnorm=gnorms, probe=probe, moved=moved,
+                        B=int(base.get("train.batch_size", 256)))
+        out["d"] = {"frozen_s": fz["s"], "frozen_launches": fz["per_step"]}
+
+        # (b) resnet50 with train_encoder at V = 8,192, then generate --decode fused.
+        wd_b = os.path.join(tmp, "wd_r50")
+        sets_b = {"data.source": "vg", "data.data_dir": vg_dir,
+                  "data.vocab_path": vocab_of_size(vg_dir, z_["vocab"]),
+                  "train.batch_size": z_["r50_batch"], "train.train_encoder": "true",
+                  "train.log_every": 1, "train.checkpoint_every": z_["r50_steps"],
+                  "train.eval_every": 0, **(r50_sets or {})}
+        r50 = train("resnet50", wd_b, "resnet50", z_["r50_steps"], sets_b)
+        gen_out = os.path.join(tmp, "graphs_r50.json")
+        gen_s, gen_counts = run_cli(generate_cli.main, [
+            "--workdir", wd_b, "--out", gen_out, "--decode", "fused", "--split", "train",
+            "--num-images", str(z_["gen_images"]), "--batch-size", "32",
+            "--num-samples", str(z_["k"]), "--seed", str(SEED)]
+            + ([] if on_card else ["--device", "cpu"]), "sgg_torch.cli.generate resnet50")
+        for k_, v_ in gen_counts.items():
+            out["launches"][k_] += v_
+        n_b = math.ceil(z_["gen_images"] / 32)
+        want_gen = {"fused_decode": n_b * z_["k"], "fused_matmul": n_b * 36,
+                    "conv_direct": n_b * 13, "flash_attention": 0,
+                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+        with open(gen_out) as f:
+            graphs = json.load(f)["scene_graphs"]
+        b_ok = (len(graphs) == z_["gen_images"] and all(x_["enc_gnorm"] > 0
+                                                         for x_ in r50["logged"])
+                and (not on_card or (gen_counts == want_gen
+                                     and r50["per_step"] == [{}] * z_["r50_steps"])))
+        log(f"phase 29 (b) resnet50 train_encoder (V {z_['vocab']}, B {z_['r50_batch']}): "
+            f"{z_['r50_steps']} steps in {r50['s']:.3f} s, last {r50['s_per_step']:.4f} s/step, "
+            f"peak {r50['peak_gb']:.3f} GB, launches per step {r50['per_step']}; generate "
+            f"--decode fused on its checkpoint: {gen_s:.3f} s, {len(graphs)} graphs, launches "
+            f"{gen_counts} (expected {want_gen}): {'ok' if b_ok else 'FAILED'}")
+        out["b"] = {"s_per_step": r50["s_per_step"], "peak_gb": r50["peak_gb"],
+                    "B": z_["r50_batch"],
+                    "generate_s": gen_s, "generate": gen_counts}
+
+        # (f) v4_32 with train_encoder under torchrun, two ranks sharing the card.
+        wd_f = os.path.join(tmp, "wd_v4_32")
+        sets_f = {**(extra_sets or {}), "data.data_dir": vg_dir, "train.log_every": 1,
+                  "train.train_encoder": "true", "train.grad_accum": z_["v4_accum"],
+                  "train.eval_every": 0, "train.checkpoint_every": z_["v4_steps"]}
+        argv_f = ["--config", "v4_32", "--workdir", wd_f, "--steps", str(z_["v4_steps"])]
+        for k_, v_ in sets_f.items():
+            argv_f += ["--set", f"{k_}={v_}"]
+        t_f = time.perf_counter()
+        recs_f, _ = dp_launch(os.path.join(tmp, "out_v4_32"),
+                              argv_f + ([] if on_card else ["--device", "cpu"]), 2)
+        for x_ in recs_f:
+            for c_ in x_["per_step"]:
+                for k_, v_ in c_.items():
+                    out["launches"][k_] += v_
+        logged_f = [r_ for r_ in read_metric_lines(wd_f) if "d_loss" in r_]
+        f_ok, f_bad = dp_holds(recs_f, None, {} if on_card else None)
+        f_ok = f_ok and all(x_["enc_gnorm"] > 0 for x_ in logged_f)
+        out["f"] = {"s_per_step": 1 / logged_f[-1]["steps_per_sec"],
+                    "images_per_s": logged_f[-1]["images_per_sec"],
+                    "peak_gb": [x_["peak_gb"] for x_ in recs_f], "s": time.perf_counter() - t_f}
+        log(f"phase 29 (f) v4_32 train_encoder over 2 ranks (gloo, B "
+            f"{sets_f.get('train.batch_size', 128)} a rank, grad_accum {z_['v4_accum']}): "
+            f"{z_['v4_steps']} steps in {out['f']['s']:.3f} s (launch and set-up included), last "
+            f"{out['f']['s_per_step']:.4f} s/step, {out['f']['images_per_s']:.1f} images/s over "
+            f"both, peak GB per rank {out['f']['peak_gb']}, launches a step per rank "
+            f"{[x_['per_step'] for x_ in recs_f]}; the ranks' states equal, their noise "
+            f"distinct: {'ok' if f_ok else 'FAILED ' + '; '.join(f_bad)}")
+
+    # (c) the float32 hold, card against CPU.
+    t_c = time.perf_counter()
+    c_ok, c_nums = cnn_hold(dev, batch=z_["hold_batch"], size=S, extra_sets=hold_sets)
+    log(f"phase 29 (c) float32 vg_full train_encoder step, card against CPU "
+        f"(B {z_['hold_batch']}, n_critic 1): {'ok' if c_ok else 'FAILED'} {c_nums}; "
+        f"{time.perf_counter() - t_c:.3f} s")
+    out["c"] = c_nums
+
+    # (e) the guard, on the card: operands that need a gradient are refused.
+    e_ok = True
+    if on_card:
+        x = torch.randn(2, 14, 14, 64, device=dev)
+        w = torch.randn(3, 3, 64, 64, device=dev, requires_grad=True)
+        a = torch.randn(392, 64, device=dev, requires_grad=True)
+        before = (cd.launches, mm.launches)
+        for fn, args in ((cd.conv2d_direct, (x, w)), (mm.fused_matmul, (a, w.detach()[0, 0]))):
+            try:
+                fn(*args)
+                e_ok = False
+            except NotImplementedError:
+                pass
+        e_ok = e_ok and (cd.launches, mm.launches) == before
+    log(f"phase 29 (e) conv2d_direct and fused_matmul refuse operands that need a gradient: "
+        f"{'ok' if e_ok else 'FAILED'}")
+    if not (a_ok and b_ok and c_ok and e_ok and f_ok):
+        raise AssertionError("phase 29: a hold failed")
+    return out
+
+
+def phase29_line(v29, smi):
+    a_, b_, c_ = v29["a"], v29["b"], v29["c"]
+    return (f"phase 29: vg_full train_encoder (B {a_['B']}, grad_accum {P29_ACCUM}) "
+            f"{a_['s_per_step']:.4f} s/step, {a_['images_per_s']:.1f} images/s, peak "
+            f"{a_['peak_gb']:.3f} GB; resnet50 train_encoder (B {b_['B']}) {b_['s_per_step']:.4f} "
+            f"s/step, peak {b_['peak_gb']:.3f} GB; v4_32 train_encoder over 2 ranks "
+            f"{v29['f']['s_per_step']:.4f} s/step; float32 hold: shares beyond 1e-5 "
+            + ", ".join(f"{k_.split('_')[0]} {v_[0]:.5f}" for k_, v_ in c_["params"].items())
+            + f"; launches {v29['launches']} [{smi}]")
+
+
 def phase25_line(v25, smi):
     return (f"phase 25: convert --config vg1k {v25['convert_tf_s']:.3f} s from the bundle "
             f"({v25['mb']:.3f} MB, CRC32C {v25['crc_s']:.3f} s, read {v25['read_s']:.3f} s), "
@@ -5076,6 +5455,9 @@ def run_phases(chosen, dev, smi, results=None):
         elif n_ == 28:
             done[n_] = pp_ep_phase(dev, smi)
             lines[n_] = phase28_line(done[n_], smi)
+        elif n_ == 29:
+            done[n_] = cnn_train_phase(dev, smi)
+            lines[n_] = phase29_line(done[n_], smi)
         else:
             done[n_] = convert_grain_phase(dev, smi, before={"v21": done.get(21)})
             lines[n_] = phase25_line(done[n_], smi)
@@ -6486,7 +6868,7 @@ def main(argv=None):
         mgr = CheckpointManager(wd, train_cfg)
         fresh = create_train_state(train_cfg, train_cfg.train.seed, device=dev)
         initial = {k_: v_.clone() for k_, v_ in fresh.encoder.state_dict().items()}
-        if mgr.all_steps() != [VIT_TRAIN_STEPS] or mgr.restore(fresh) is None \
+        if mgr.all_steps() != [VIT_TRAIN_STEPS] or mgr.restore(fresh, lenient=False) is None \
                 or fresh.step != VIT_TRAIN_STEPS:
             raise AssertionError(f"checkpoint steps {mgr.all_steps()}, restored {fresh.step}")
         trained = fresh.encoder.state_dict()
@@ -6580,7 +6962,7 @@ def main(argv=None):
         add(name, k_ms, p_ms, l_ms, b_s, b_by, 60)
     phase("timing_backward", t0)
 
-    # The side processes: phases 27, 22, 26, 24 and 21, 25, 28 from here on,
+    # The side processes: phases 27, 22, 26, 24 and 21, 25, 28, 29 from here on,
     # beside phases 17-20 and 23 (every kernel's time is taken by now).
     torch.cuda.empty_cache()
     log(f"phases 1-16: {time.perf_counter() - t_all:.3f} s (the time by which to scale a slower "
@@ -6705,7 +7087,7 @@ def main(argv=None):
         + "; export --check " + ", ".join(f"{k_} {v_['s']:.3f} s ({v_['mb']:.1f} MB)"
                                           for k_, v_ in v23["export"].items())
         + f"; launches {v23['launches']} [{smi}]")
-    for n_ in (24, 25, 26, 27, 28):
+    for n_ in (24, 25, 26, 27, 28, 29):
         log(side["lines"][str(n_)])
     log(f"total: {time.perf_counter() - t_all:.3f} s")
 
@@ -6735,9 +7117,9 @@ def main(argv=None):
     for k_, v_ in v23["launches"].items():  # phase 23's int8 generate runs, from 0
         path_counts[k_] += v_
     # The side processes' runs (phase 22's paths, phase 25's CLI runs, every
-    # rank of 24, 26, 27 and 28, and 28's generate), each counted from 0;
-    # phase 21 adds none.
-    for n_ in (22, 24, 25, 26, 27, 28):
+    # rank of 24, 26, 27 and 28, 28's generate, and phase 29's CLI runs), each
+    # counted from 0; phase 21 adds none.
+    for n_ in (22, 24, 25, 26, 27, 28, 29):
         for k_, v_ in side["launches"][str(n_)].items():
             path_counts[k_] += v_
     kernels = []

@@ -6,6 +6,8 @@ Port of ``sgg/cli/train.py``:
   python -m sgg_torch.cli.train --config vg1k --workdir W --steps 2000
   python -m sgg_torch.cli.train --config vit_b16 --set train.train_encoder=true \\
       --steps N --workdir W
+  python -m sgg_torch.cli.train --config vg_full --set train.train_encoder=true \\
+      --set train.grad_accum=4 --set data.data_dir=VG --workdir W
   python -m sgg_torch.cli.train --config smoke --device cpu --steps 4 --workdir W
 
 Each step is ``n_critic`` critic updates and one generator update
@@ -24,7 +26,10 @@ recall@``train.eval_k`` and keeps ``W/best_eval.json``. The state is saved
 under ``W/checkpoints/<step>/`` every ``train.checkpoint_every`` steps and at
 the end (keeping ``train.max_checkpoints``), with ``W/generator.pt`` for
 ``sgg_torch.cli.generate`` and ``sgg_torch.cli.evaluate``; a second run on the
-same workdir resumes from the latest checkpoint. ``--profile`` traces steps
+same workdir resumes from the latest checkpoint, leniently across a change of
+config as the reference's (``sgg_torch.train.checkpoint.merge_checkpoint``: a
+frozen encoder's run resumed with ``train.train_encoder`` keeps its weights
+and starts the encoder's optimizer at zero). ``--profile`` traces steps
 10 to 14 of the run with ``torch.profiler`` into ``W/profile/`` (a trace and
 a table of the top device ops with the device's idle share). SIGTERM or
 SIGINT saves the state and exits. ``--debug-nans`` fails the run at the first

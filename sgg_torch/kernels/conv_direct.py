@@ -14,8 +14,9 @@ aligned) with its tile, channel-slice depth, ring depth, threads, shared
 memory and grid, or the "generic" one for everything else. The C entry takes
 the plan as it is.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
-runs :func:`conv2d_direct_plain`: explicit zero padding and a float32
+On a CUDA tensor the wrapper launches the kernel or raises (also under grad
+mode when an operand needs a gradient: the kernel has no backward); on a CPU
+tensor it runs :func:`conv2d_direct_plain`: explicit zero padding and a float32
 ``F.conv2d``, the same epilogue, NHWC in and out.
 """
 
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 from sgg_torch.kernels import build
 from sgg_torch.kernels.matmul import (DTYPE_CODES, GENERIC_THREADS, GENERIC_TILE, SMS,
                                       GemmPlan, aligned, epilogue, epilogue_vectors,
-                                      sm_count, tiled_smem)
+                                      refuse_grad, sm_count, tiled_smem)
 
 # Kernel launches in this process; the wrapper adds one per launch.
 launches = 0
@@ -178,13 +179,16 @@ def conv2d_direct(
     """relu(scale * conv_same_s1(x, w) + bias) → NHWC in x's dtype.
 
     x [B, H, W, C] and w [kh, kw, C, N] with odd kh and kw; w is cast to x's
-    dtype, as the reference casts it. CPU tensors take the plain version."""
+    dtype, as the reference casts it. CPU tensors take the plain version.
+    Forward only: on a CUDA tensor an operand that needs a gradient raises
+    (the library conv, ``conv2d_fused(impl='xla')``, carries the backward)."""
     global launches
     dev = x.device
     if dev.type == "cpu":
         return conv2d_direct_plain(x, w, bias, scale, relu, out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"conv2d_direct runs on cuda or cpu, not {dev}")
+    refuse_grad("conv2d_direct", x, w, bias, scale)
     _check(x, w)
     if (out_dtype or x.dtype) != x.dtype:
         raise TypeError(f"conv2d_direct writes x's dtype {x.dtype}, not {out_dtype}")

@@ -14,8 +14,10 @@ the engine of the 1x1 convolutions and of the im2col convolution route
 or the "generic" one for everything else. The C entry takes the plan as it
 is.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
-runs :func:`fused_matmul_plain`, the same arithmetic in PyTorch.
+On a CUDA tensor the wrapper launches the kernel or raises (also under grad
+mode when an operand needs a gradient: the kernel has no backward,
+:func:`refuse_grad`); on a CPU tensor it runs :func:`fused_matmul_plain`, the
+same arithmetic in PyTorch.
 """
 
 from __future__ import annotations
@@ -162,6 +164,17 @@ def epilogue_vectors(scale, bias, N, device):
     return out
 
 
+def refuse_grad(name: str, *operands) -> None:
+    """Raise when grad mode is on and an operand needs a gradient: the CUDA
+    kernel writes its output outside autograd, so the gradient would stop
+    there without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
+        raise NotImplementedError(
+            f"{name} is forward only on the card; an operand needs a gradient: train on the "
+            "library conv (conv2d_fused impl='xla', model.use_pallas=false), or run under "
+            "torch.no_grad()")
+
+
 def aligned(t: torch.Tensor) -> bool:
     """Whether the tensor's storage starts on a 16-byte boundary."""
     return t.data_ptr() % 16 == 0
@@ -174,7 +187,8 @@ def fused_matmul(
     """relu(scale * (a @ b) + bias) → [M, N] in ``out_dtype`` (default a's).
 
     ``a`` [M, K] and ``b`` [K, N] share a dtype, float32 or bfloat16; the
-    output is that dtype or float32. CPU tensors take the plain version."""
+    output is that dtype or float32. CPU tensors take the plain version.
+    Forward only: on a CUDA tensor an operand that needs a gradient raises."""
     global launches
     dev = a.device
     out_dtype = out_dtype or a.dtype
@@ -182,6 +196,7 @@ def fused_matmul(
         return fused_matmul_plain(a, b, bias, scale, relu, out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"fused_matmul runs on cuda or cpu, not {dev}")
+    refuse_grad("fused_matmul", a, b, bias, scale)
     _check_operands(a, b)
     if out_dtype not in (a.dtype, torch.float32):
         raise TypeError(f"fused_matmul writes {a.dtype} or float32, not {out_dtype}")

@@ -42,6 +42,15 @@ def normalize_for(name: str, images_u8: torch.Tensor,
     return (x - stats[0]) / stats[1]
 
 
+def train_route(encoder_name: str, use_pallas: bool = True) -> bool:
+    """``use_pallas`` for an encoder that trains: ``use_pallas`` for the ViT
+    (the flash kernels carry a backward), False for the CNNs, which train on
+    the library conv, the reference's ``'auto'`` route (the conv kernels have
+    no backward). Pretraining and the GAN step's encoder under
+    ``train.train_encoder`` both take it."""
+    return use_pallas and encoder_name == "vit_b16"
+
+
 def make_encoder(
     name: str, use_pallas: bool = False, dtype: torch.dtype = torch.float32,
     quant: str = "", image_size: int | None = None,
@@ -52,7 +61,9 @@ def make_encoder(
     parameters need no gradient) unless ``trainable``, as training with
     ``train.train_encoder`` asks. Either way in ``eval()`` mode: no module
     here behaves differently in training. The conv route (CNNs) and the
-    attention route (ViT) follow ``use_pallas``; the CNN modules take any route of
+    attention route (ViT) follow ``use_pallas``, a ``trainable`` encoder's
+    :func:`train_route` of it (a CNN's convs on the library conv, whatever
+    ``use_pallas`` says); the CNN modules take any route of
     ``sgg_torch.kernels.conv`` through their own ``conv_impl``, the ViT any
     attention through its ``attn_fn``. ViT only: ``image_size`` (default
     224) sizes ``pos_embed``; ``vit_dims`` is (embed_dim, num_layers,
@@ -71,6 +82,8 @@ def make_encoder(
         raise ValueError("an int8 encoder is for inference only: rounding has no gradient")
     if name == "precomputed":
         return None
+    if trainable:
+        use_pallas = train_route(name, use_pallas)
     conv_impl = "int8" if quant == "int8" else None
     if name == "vgg19":
         from sgg_torch.models.vgg import VGG19Features

@@ -14,18 +14,30 @@ latest's back (``sgg/train/checkpoint.py:113-140``); ``restore_averaged`` and
 :func:`restore_weights` read the mean of the last N. The reference's orbax
 checkpoints are not read here: ``sgg_torch.convert_flax`` turns restored flax
 trees into state_dicts.
+
+Restores are lenient by default, as the reference's
+(``sgg/train/checkpoint.py:57-95, 154-190``): a checkpoint whose tree differs
+from the state's (a precomputed run resumed as an end-to-end one, a frozen
+encoder's run resumed with ``train.train_encoder``, a grown vocabulary, EMA
+turned on) falls back to :func:`merge_checkpoint`, leaf by leaf. The state's
+tree flattens to paths such as ``g_params/<key>``, ``d_opt/mu/<key>``,
+``enc_opt/count`` and ``step``: an optimizer's moments, lists by position in
+the state, are keyed by their parameter's name, so each moment follows its
+parameter and a drifted module never hands one parameter's moments to
+another.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import sys
 
 import torch
 
 from sgg_torch.config import Config
 from sgg_torch.data.vocab import Vocab
-from sgg_torch.train.state import create_train_state
+from sgg_torch.train.state import Adam, create_train_state
 
 GENERATOR_FILE = "generator.pt"
 STATE_FILE = "state.pt"
@@ -82,6 +94,95 @@ def load_generator(workdir: str, decoder: str | None = None) -> dict | None:
         raise ValueError(f"{path} holds a {ckpt['decoder']!r} generator; the config's "
                          f"model.decoder is {decoder!r}")
     return ckpt
+
+
+_MODULES = {"g_opt": "g_params", "d_opt": "d_params", "enc_opt": "enc_params"}
+_OPTIMIZERS = {"g_opt": "g_tx", "d_opt": "d_tx", "enc_opt": "enc_tx"}
+
+
+def flatten_state(sd: dict) -> dict[tuple, object]:
+    """A train state's ``state_dict`` (``GANTrainState.state_dict``'s
+    layout, or a checkpoint's) → {path: leaf}, the reference's flattening of
+    its ``GANTrainState``: ``("step",)``, ``(tree, key)`` for the modules and
+    the EMA, ``(opt, "count")`` and ``(opt, "mu" | "nu", key)`` with ``key``
+    the parameter's name in its module's state_dict (the modules hold no
+    buffers, so the k-th moment is the k-th key's). None fields and leaves
+    are left out."""
+    out: dict = {}
+    for field, value in sd.items():
+        if value is None:
+            continue
+        if field == "step":
+            out[("step",)] = value
+        elif field in _MODULES:
+            names = list(sd[_MODULES[field]].keys())
+            mu, nu = Adam.moments_of(value, len(names))
+            out[(field, "count")] = value["count"]
+            for kind, moments in (("mu", mu), ("nu", nu)):
+                for name, t in zip(names, moments, strict=True):
+                    if t is not None:
+                        out[(field, kind, name)] = t
+        else:
+            for key, t in value.items():
+                out[(field, key)] = t
+    return out
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+
+
+def tree_mismatch(raw: dict, state) -> str | None:
+    """Why checkpoint ``raw`` cannot load strictly into ``state`` (missing or
+    unexpected leaves, or shapes that differ), or None when it can."""
+    live, got = flatten_state(state.state_dict()), flatten_state(raw)
+    missing = sorted("/".join(p) for p in live.keys() - got.keys())
+    extra = sorted("/".join(p) for p in got.keys() - live.keys())
+    shapes = sorted("/".join(p) for p in live.keys() & got.keys()
+                    if _shape(live[p]) != _shape(got[p]))
+    if not (missing or extra or shapes):
+        return None
+    return (f"missing {missing or '—'}; unexpected {extra or '—'}; shapes differ at "
+            f"{shapes or '—'}")
+
+
+def merge_checkpoint(raw: dict, state, verbose: bool = True) -> dict:
+    """Graft checkpoint ``raw`` (a state_dict as ``GANTrainState.state_dict``
+    writes it) onto ``state`` in place, leaf by leaf, the reference's
+    contract: a leaf in both with the same shape restores (its dtype cast to
+    the state's); a leaf only in the state (a field added since the
+    checkpoint was written, or a leaf whose shape changed) keeps its
+    initialized value; a leaf only in the checkpoint is ignored. ``step`` and
+    each optimizer's count restore as scalars. Returns the report
+    ``{"restored": n, "kept": [paths], "ignored": [paths]}``; with
+    ``verbose`` a line on stderr lists both."""
+    live = flatten_state(state.state_dict())
+    got = flatten_state(raw)
+    report = {"restored": 0, "kept": [], "ignored": []}
+    with torch.no_grad():
+        for path, leaf in live.items():
+            val = got.pop(path, None)
+            if val is None or _shape(val) != _shape(leaf):
+                report["kept"].append("/".join(path))
+                continue
+            if path == ("step",):
+                state.step = int(val)
+            elif path[-1] == "count" and path[0] in _OPTIMIZERS:
+                getattr(state, _OPTIMIZERS[path[0]])._count.fill_(int(val))
+            else:
+                leaf.copy_(val)
+            report["restored"] += 1
+    report["ignored"] = ["/".join(p) for p in got]
+    if verbose and (report["kept"] or report["ignored"]):
+        print(f"[sgg_torch.checkpoint] lenient restore: {report['restored']} leaves restored; "
+              f"kept initialized: {report['kept'] or '—'}; ignored from checkpoint: "
+              f"{report['ignored'] or '—'}", file=sys.stderr, flush=True)
+    return report
+
+
+def _fallback_line() -> None:
+    print("[sgg_torch.checkpoint] strict restore failed (ValueError); falling back to lenient "
+          "field-by-field restore", file=sys.stderr, flush=True)
 
 
 class CheckpointManager:
@@ -148,23 +249,40 @@ class CheckpointManager:
         with open(self._data_state_path(step), "rb") as f:
             return f.read()
 
-    def restore(self, state, step: int | None = None):
+    def restore(self, state, lenient: bool = True, step: int | None = None):
         """Load checkpoint ``step`` (default: the latest) into ``state`` in
-        place and return it, or None when there is none."""
+        place and return it, or None when there is none.
+
+        The strict restore first: the checkpoint's tree must be the state's,
+        leaf for leaf and shape for shape (:func:`tree_mismatch`), else it
+        raises ValueError before it touches the state. With ``lenient`` (the
+        default) that failure falls back, with the reference's line on
+        stderr, to :func:`merge_checkpoint`: leaves in both with the same
+        shape load, the state's other leaves keep their initialized values
+        (a missing ``g_ema`` the generator's initial copy, a missing
+        ``enc_opt`` its zeros), the checkpoint's others are ignored."""
         if step is None:
             step = self.latest_step()
         if step is None:
             return None
         # Loaded to the CPU: each module and optimizer moves its own tensors
         # to its parameters' device.
-        state.load_state_dict(self._load(step))
+        raw = self._load(step)
+        err = tree_mismatch(raw, state)
+        if err is None:
+            state.load_state_dict(raw)
+        elif not lenient:
+            raise ValueError(f"checkpoint {step} does not match the train state: {err}")
+        else:
+            _fallback_line()
+            merge_checkpoint(raw, state)
         return state
 
     def _load(self, step: int) -> dict:
         return torch.load(os.path.join(self.ckpt_dir, str(step), STATE_FILE),
                           map_location="cpu", weights_only=True)
 
-    def restore_averaged(self, state, last_n: int):
+    def restore_averaged(self, state, last_n: int, lenient: bool = True):
         """The latest checkpoint in ``state``, with the generator's weights
         (and their EMA, when tracked) replaced by their mean over the last
         ``last_n`` retained checkpoints; None when there is none.
@@ -173,11 +291,14 @@ class CheckpointManager:
         then the others oldest first, as the reference adds them; each mean
         is cast back to its tensor's dtype. Everything else (critic,
         optimizers, step, encoder) is the latest checkpoint's. One
-        checkpoint is read at a time."""
+        checkpoint is read at a time. The latest restores as :meth:`restore`
+        with ``lenient``; the others must match the state strictly (a
+        drifted one raises), as the reference's: a lenient fallback would
+        average initialized leaves into the weights."""
         steps = self.all_steps()[-max(1, int(last_n)):]
         if not steps:
             return None
-        self.restore(state, step=steps[-1])
+        self.restore(state, lenient, step=steps[-1])
         if len(steps) == 1:
             return state
 
@@ -189,6 +310,9 @@ class CheckpointManager:
         sum_e = None if state.g_ema is None else f32(state.g_ema)
         for s in steps[:-1]:
             sd = self._load(s)
+            err = tree_mismatch(sd, state)
+            if err is not None:
+                raise ValueError(f"checkpoint {s} does not match the train state: {err}")
             for k, v in sd["g_params"].items():
                 sum_g[k] += v.float()
             if sum_e is not None:
@@ -207,10 +331,19 @@ class CheckpointManager:
         return state
 
 
+_WEIGHT_FIELDS = ("step", "g_params", "g_ema", "enc_params")
+
+
 def restore_weights(workdir: str, cfg, avg_last: int, device):
     """(step, g_params, g_ema, enc_params, steps averaged) from the workdir:
     ``generator.pt``, or with ``avg_last > 1`` the mean over the last
-    retained checkpoints; None when there are no weights."""
+    retained checkpoints; None when there are no weights. As the reference's
+    generate and evaluate restore, the file's weights are checked against a
+    fresh state of the config (:func:`tree_mismatch`); weights that no
+    longer fit are grafted onto it (:func:`merge_checkpoint`, after the
+    fallback line). A field that the file lacks comes back None either way,
+    for the CLIs' own refusals (``--ema`` without EMA weights, a pixels-in
+    workdir without encoder weights)."""
     if avg_last > 1:
         mgr = CheckpointManager(workdir, None)
         steps = mgr.all_steps()[-avg_last:]
@@ -222,4 +355,14 @@ def restore_weights(workdir: str, cfg, avg_last: int, device):
     ckpt = load_generator(workdir, decoder=cfg.model.decoder)
     if ckpt is None:
         return None
+    state = create_train_state(cfg, cfg.train.seed)
+    # The file's fields over the fresh state's own: the rest matches as it is.
+    raw = {**state.state_dict(), **{k: ckpt[k] for k in _WEIGHT_FIELDS if ckpt[k] is not None}}
+    if tree_mismatch(raw, state) is not None:
+        _fallback_line()
+        merge_checkpoint(raw, state)
+        enc = None if state.encoder is None else state.encoder.state_dict()
+        merged = {"step": state.step, "g_params": state.generator.state_dict(),
+                  "g_ema": state.g_ema, "enc_params": enc}
+        ckpt = {k: None if ckpt[k] is None else merged[k] for k in _WEIGHT_FIELDS}
     return ckpt["step"], ckpt["g_params"], ckpt["g_ema"], ckpt["enc_params"], None

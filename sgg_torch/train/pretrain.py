@@ -14,9 +14,10 @@ seeded from ``seed`` and the step), runs the encoder and the presence head,
 the loss (sigmoid BCE mean; plus ``spatial_weight`` times the per-cell
 softmax CE over the head's pre-max region logits; plus 0.01 times the mean
 MoE load-balance term of a MoE ViT) and optax's ``adam(lr)`` update
-(``sgg_torch.train.state.Adam`` without a config). Routes: VGG-19 and
-ResNet-50 train on the library conv (``use_pallas`` off: the CUDA conv
-kernels have no backward; the reference trains through XLA's conv too), the
+(``sgg_torch.train.state.Adam`` without a config). Routes
+(``sgg_torch.models.encoders.train_route``): VGG-19 and ResNet-50 train on
+the library conv (``use_pallas`` off: the CUDA conv kernels have no
+backward; the reference trains through XLA's conv too), the
 ViT on the CUDA flash attention and its backward kernels;
 :func:`evaluate_presence` runs forward on the kernel route (``conv_direct``,
 and ``fused_matmul`` for ResNet-50). The library conv sets cuDNN's TF32 for
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sgg_torch.convert_flax import encoder_state_dict_to_flax
-from sgg_torch.models.encoders import features_and_aux, make_encoder, normalize_for
+from sgg_torch.models.encoders import features_and_aux, make_encoder, normalize_for, train_route
 from sgg_torch.models.layers import Dense
 from sgg_torch.train.state import Adam
 
@@ -131,12 +132,6 @@ def cell_labels(entities_per_image: Sequence[Sequence[tuple[str, tuple]]], vocab
             col = (cx >= x) & (cx < x + bw)
             labels[np.ix_(row, col)] = tid
     return out
-
-
-def train_route(encoder_name: str) -> bool:
-    """``use_pallas`` for training: the flash kernels for the ViT, the
-    library conv for the CNNs (the conv kernels have no backward)."""
-    return encoder_name == "vit_b16"
 
 
 def make_pretrain_state(encoder_name: str, vocab_size: int, image_size: int = 224,

@@ -179,18 +179,24 @@ class Adam:
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self.mu, "nu": self.nu}
 
+    @staticmethod
+    def moments_of(sd: dict, n: int) -> tuple[list, list]:
+        """(mu, nu) of a saved state of ``n`` parameters, lists by position.
+        Also reads the layout written before the update was spelled out
+        here, ``{"count", "adam": torch.optim.Adam.state_dict()}``, whose
+        ``exp_avg`` and ``exp_avg_sq`` are mu and nu (None where a
+        parameter had no state yet)."""
+        if "adam" not in sd:
+            return list(sd["mu"]), list(sd["nu"])
+        state = sd["adam"]["state"]
+        return ([state[i]["exp_avg"] if i in state else None for i in range(n)],
+                [state[i]["exp_avg_sq"] if i in state else None for i in range(n)])
+
     def load_state_dict(self, sd: dict) -> None:
         """Copies into the live tensors (a captured graph keeps reading
-        them). Also reads the layout written before the update was
-        spelled out here, ``{"count", "adam": torch.optim.Adam.state_dict()}``,
-        whose ``exp_avg`` and ``exp_avg_sq`` are mu and nu."""
+        them); a moment without state (:meth:`moments_of`) is zeroed."""
         self._count.fill_(int(sd["count"]))
-        if "adam" in sd:
-            state = sd["adam"]["state"]
-            mu = [state[i]["exp_avg"] if i in state else None for i in range(len(self.params))]
-            nu = [state[i]["exp_avg_sq"] if i in state else None for i in range(len(self.params))]
-        else:
-            mu, nu = sd["mu"], sd["nu"]
+        mu, nu = self.moments_of(sd, len(self.params))
         for dst, src in zip(self.mu + self.nu, mu + nu, strict=True):
             if src is None:
                 dst.zero_()
@@ -279,7 +285,12 @@ def create_train_state(cfg: Config, seed: int = 0, enc_params: dict | None = Non
     weights, else they are initialized too. The encoder is float whatever
     ``model.quant`` says, as the reference's (``sgg/train/state.py:161-166``):
     the step never trains through int8 rounding, which has no gradient; the
-    probe, generate and serve quantize their own copy."""
+    probe, generate and serve quantize their own copy. Under
+    ``train.train_encoder`` it is built ``trainable``, on
+    ``sgg_torch.models.encoders.train_route``: a CNN's convs on the library
+    conv, which carries the backward (the reference's ``'auto'`` route),
+    whatever ``model.use_pallas`` says; the probe, generate, evaluate and
+    serve build their own encoder on the kernel route with its weights."""
     from sgg_torch.models.encoders import make_encoder
 
     m = cfg.model

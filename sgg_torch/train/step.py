@@ -11,7 +11,10 @@ as in the reference:
     one batched forward over n_critic·B rows;
   - ``train.train_encoder``: each critic iteration differentiates the critic
     loss jointly with respect to the critic and the encoder (the ViT's
-    attention through ``flash_attention``'s backward; with MoE blocks,
+    attention through ``flash_attention``'s backward; VGG-19's and
+    ResNet-50's convs on the library conv, the state's encoder built on
+    ``train_route``, and ResNet-50's batch-norm parameters through
+    ``fold_batchnorm``; with MoE blocks,
     ``model.moe_experts``, plus ``train.moe_aux_coef`` times their mean
     load-balance term, reported as ``moe_aux``); the fake conditions on
     the features without gradient, and the generator update conditions on
@@ -112,27 +115,20 @@ from sgg_torch.train.losses import critic_loss, generator_loss, reinforce_genera
 from sgg_torch.train.state import GANTrainState, global_norm
 from sgg_torch.utils.gumbel import sample_gumbel
 
-_LATER = "is not ported yet; a later slice of the port brings it"
 # Rank r's noise seed is rank 0's plus r times this: below 2^32, as the CPU's
 # generator keeps only a seed's low 32 bits.
 RANK_SEED_STRIDE = 1_000_000_007
 
 
 def refuse_unported(cfg: Config) -> None:
-    """Raise for the training options that only a later slice brings."""
-    m, t, mesh = cfg.model, cfg.train, cfg.mesh
+    """Raise the reference's errors for training options that it refuses."""
+    m, t = cfg.model, cfg.train
     if t.estimator not in ("gumbel", "reinforce"):
         raise ValueError(f"unknown train.estimator {t.estimator!r} (expected 'gumbel' or "
                          "'reinforce')")
-    if t.train_encoder:
-        if m.encoder == "precomputed":
-            raise ValueError("train.train_encoder requires an end-to-end encoder config "
-                             "(model.encoder != 'precomputed')")
-        if m.encoder != "vit_b16" and m.use_pallas:
-            raise NotImplementedError(
-                f"train.train_encoder through the CNN conv kernels {_LATER} (ROADMAP A7: "
-                "they have no backward); set model.use_pallas=false for the library conv "
-                "route")
+    if t.train_encoder and m.encoder == "precomputed":
+        raise ValueError("train.train_encoder requires an end-to-end encoder config "
+                         "(model.encoder != 'precomputed')")
 
 
 def tau_schedule(cfg: Config, step: int) -> float:

@@ -31,7 +31,8 @@ moves about 41 %). The bf16 flash kernels' float32 results before the cast
 split cut to hi + mid moves them by 2.0e-6 to 2.5e-6). The float32 PredCls
 scorer and one REINFORCE generator gradient, card against CPU, at
 ``chip_smoke.py`` phase 19's tolerances (``predcls_hold``,
-``reinforce_grad_hold``). The fused stepper's CUDA-graph replays against the
+``reinforce_grad_hold``). conv2d_direct and fused_matmul refuse operands
+that need a gradient (they have no backward). The fused stepper's CUDA-graph replays against the
 eager steps, bit for bit, as ``chip_smoke.py`` phase 20 holds them
 (``fused_hold``).
 """
@@ -484,6 +485,36 @@ def test_flash_attention_matches_plain(shape, dtype):
         assert bool((diff <= _ulp(want) + tol).all())
         assert (diff > 0).float().mean().item() <= 1e-2
     assert ((lse - want_lse).abs() / want_lse.abs()).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_conv_kernels_refuse_operands_that_need_a_gradient():
+    """conv2d_direct and fused_matmul write their outputs outside autograd:
+    under grad mode an operand that needs a gradient raises (nothing is
+    launched), and under torch.no_grad the same call launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.randn(2, 8, 8, 16, device="cuda")
+    w = torch.randn(3, 3, 16, 16, device="cuda", requires_grad=True)
+    a = torch.randn(64, 16, device="cuda")
+    b = torch.randn(16, 16, device="cuda", requires_grad=True)
+    bias = torch.zeros(16, device="cuda", requires_grad=True)
+    before = (tcd.launches, tmm.launches)
+    for call in (lambda: tcd.conv2d_direct(x, w), lambda: tcd.conv2d_direct(x, w.detach(),
+                                                                              bias=bias),
+                 lambda: tcd.conv2d_direct(x.requires_grad_(), w.detach())):
+        with pytest.raises(NotImplementedError, match="forward only"):
+            call()
+        x = x.detach()
+    for call in (lambda: tmm.fused_matmul(a, b), lambda: tmm.fused_matmul(a, b.detach(),
+                                                                           scale=bias)):
+        with pytest.raises(NotImplementedError, match="forward only"):
+            call()
+    assert (tcd.launches, tmm.launches) == before
+    with torch.no_grad():
+        tcd.conv2d_direct(x, w, bias=bias)
+        tmm.fused_matmul(a, b, bias=bias)
+    assert (tcd.launches, tmm.launches) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda

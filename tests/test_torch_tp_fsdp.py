@@ -5,8 +5,9 @@ train CLI's gspmd route) against ``sgg``'s on the CPU.
 - The sharding rule: the port's ``state_sharding`` against
   ``sgg.dist.state_sharding`` on smoke-width states, leaf by leaf after the
   layout map (the same axis, the same flax dimension): TP at data 4 x model 2,
-  FSDP at data 8 with ``fsdp_min_size=64``, both, and the vit_b16 transformer
-  decoder with the critic (as ``tests/dist/test_tp_fsdp.py:45-83``).
+  FSDP at data 8 with ``fsdp_min_size=64``, both, the vit_b16 transformer
+  decoder with the critic (as ``tests/dist/test_tp_fsdp.py:45-83``), and a
+  trained VGG-19's conv kernels under FSDP.
 - Each collective Function (``all_gather``, ``split``, ``all_reduce``,
   ``copy_to``, ``reduce_scatter``) under ``gradcheck`` and ``gradgradcheck``
   in float64 over two gloo ranks: rank 0's input varies while rank 1 sends
@@ -22,7 +23,9 @@ train CLI's gspmd route) against ``sgg``'s on the CPU.
   two steps the metrics within the reference's own rtol 1e-4 and the
   parameters within ``test_torch_train._assert_params_close``'s bounds. TP
   alone (model 2) and FSDP alone (data 2, a small vit_b16 with
-  ``train_encoder``, a clip and the EMA), each two ranks, against the port's
+  ``train_encoder``, a clip and the EMA; and VGG-19 at 32 px with
+  ``train_encoder`` and ``use_pallas``, its HWIO kernels split, one step at
+  n_critic 1: ``CASE_STEPS``), each two ranks, against the port's
   single-device step at the global batch, within the same bounds; each
   rank's state bytes: every split leaf (and its moments and EMA) holds 1/n
   of its elements.
@@ -122,7 +125,9 @@ def _reference_leaves(sh, decoder):
         if rest and rest[0] == "params":
             rest = rest[1:]
         base = "g" if tree in ("g_params", "g_ema") else tree.split("_")[0]
-        key = lstm.get(tuple(rest), ".".join(rest)) if base == "g" else ".".join(rest)
+        # VGG-19's flat flax names ("conv1_1/kernel") are the port's dotted keys.
+        key = (lstm.get(tuple(rest), ".".join(rest)) if base == "g"
+               else ".".join(rest).replace("/", "."))
         out[(base, kind, key)] = _spec_of(leaf.spec)
 
     jax.tree_util.tree_map_with_path(visit, sh)
@@ -151,6 +156,10 @@ RULE_CASES = {
     "tp_fsdp": ("smoke", {"train.ema_decay": 0.99}, (4, 2), True, True, 64),
     "vit_transformer": ("vit_b16", {**VIT_SETS, "model.vocab_size": V}, (4, 2), True, True,
                         64),
+    # VGG-19's HWIO conv kernels, trained (their moments split with them).
+    "vgg_train_encoder": ("smoke", {"model.encoder": "vgg19", "data.image_size": 32,
+                                    "data.regions": 4, "data.feat_dim": 512,
+                                    "train.train_encoder": True}, (8, 1), False, True, 64),
 }
 
 
@@ -269,7 +278,20 @@ STEP_CASES = {
     "fsdp": ("vit_b16", {**VIT_SETS, "train.train_encoder": True, "model.use_pallas": False,
                          "train.grad_clip": 1.0, "train.ema_decay": 0.9, "mesh.fsdp": True},
              8, 64, 2, 1024),
+    # VGG-19 trained end to end on its kernel-route setting (the library conv),
+    # one step at n_critic 1 (CASE_STEPS).
+    "fsdp_vgg": ("smoke", {**SMOKE, "model.encoder": "vgg19", "model.use_pallas": True,
+                           "data.regions": 4, "data.feat_dim": 512, "train.train_encoder": True,
+                           "train.n_critic": 1, "train.grad_clip": 1.0, "mesh.fsdp": True},
+                 4, 32, 2, 1024),
 }
+
+# Steps of a case, where not STEPS: VGG-19's one step, since past an Adam
+# update the two runs part (the critic's and encoder's gradients are
+# differences of nearly equal terms at initialization, so a float32 sum in
+# another order moves Adam's sign at many elements;
+# tests/test_torch_train_encoder_cnn.py).
+CASE_STEPS = {"fsdp_vgg": 1}
 
 
 def _step_case(name):
@@ -279,7 +301,7 @@ def _step_case(name):
     r = np.random.RandomState(0)
     n_sub = jcfg.train.n_critic + 1
     batches = []
-    for _ in range(STEPS):
+    for _ in range(CASE_STEPS.get(name, STEPS)):
         if size is None:
             data = {"features": r.randn(n_sub, B, jcfg.data.regions,
                                         jcfg.data.feat_dim).astype(np.float32)}
@@ -290,7 +312,7 @@ def _step_case(name):
     st = _reference_state(jcfg, pcfg)
     port0 = train_state_from_flax(pcfg, st)
     noise_fn = reference_noise(jcfg, B)
-    noise = [noise_fn(st.rng, s) for s in range(STEPS)]
+    noise = [noise_fn(st.rng, s) for s in range(len(batches))]
     tensors = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
     inputs = {"cfg": pcfg.to_json(), "state": port0.state_dict(), "mask": mask,
               "batches": tensors, "noise": noise, "min_size": min_size,
@@ -364,7 +386,7 @@ def test_gspmd_step_on_2x2_matches_the_reference(gspmd):
             assert a["metrics"] == b["metrics"] and _same(a["state"], b["state"])
 
 
-@pytest.mark.parametrize("case", ["tp", "fsdp"])
+@pytest.mark.parametrize("case", ["tp", "fsdp", "fsdp_vgg"])
 def test_tp_alone_and_fsdp_alone_match_the_single_device_step(gspmd, case):
     cases, _, ranks = gspmd
     _, cfg, _, mask, _, tensors, noise, inputs = cases[case]

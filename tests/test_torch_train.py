@@ -10,7 +10,8 @@
   reference's own key sequence, :func:`reference_noise`). Configs: ``smoke``
   (precomputed features, attention-LSTM, float32) with ``grad_accum`` 1, and
   with ``grad_accum`` 2 and EMA; a small ``vit_b16`` (``vit_dims`` (64, 2,
-  4), 64 px, small decoder, float32) with ``train_encoder`` on, and off;
+  4), 64 px, small decoder, float32) with ``train_encoder`` on, and off
+  (VGG-19 with ``train_encoder``: ``tests/test_torch_train_encoder_cnn.py``);
 - the ViT's parameter gradients through ``flash_attention`` against
   ``jax.grad`` of flax ``ViTB16Features(attn_fn=flash_attention)`` (the
   Pallas backward in interpret mode);
@@ -159,9 +160,9 @@ def reference_noise(cfg, B):
 
 def _reference_grads(cfg, mask, st0, st1, batch, step=0):
     """The reference's gradients of the first critic update of ``step`` (and
-    the encoder's, with train_encoder) and of the generator update, from its
-    own modules, losses and ``_accum_vg``, along ``make_step_fn``'s branches;
-    compiled as one program."""
+    the encoder's, with train_encoder; its aux values as ``d_aux``) and of
+    the generator update, from its own modules, losses and ``_accum_vg``,
+    along ``make_step_fn``'s branches; compiled as one program."""
     gen, critic = jax_make_models(cfg)
     t, m = cfg.train, cfg.model
     nc, A, V = t.n_critic, max(1, int(t.grad_accum)), m.vocab_size
@@ -199,7 +200,8 @@ def _reference_grads(cfg, mask, st0, st1, batch, step=0):
         if encoder is None:
             flat = data[:nc].reshape(nc * data.shape[1], *data.shape[2:])
             fake = sample_fake(g0, flat, rng_fakes).reshape(nc, data.shape[1], 3, V)[0]
-            _, out["d"] = jax_accum_vg(d_vg, d0, (data[0], triples[0], fake), key, A)
+            (_, out["d_aux"]), out["d"] = jax_accum_vg(d_vg, d0, (data[0], triples[0], fake),
+                                                      key, A)
             feats_g = data[nc]
         elif t.train_encoder:
             def joint(p, mb, k):
@@ -212,14 +214,15 @@ def _reference_grads(cfg, mask, st0, st1, batch, step=0):
 
                 return jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(*p)
 
-            _, (out["d"], out["enc"]) = jax_accum_vg(joint, (d0, e0), (data[0], triples[0]),
-                                                     key, A)
+            (_, out["d_aux"]), (out["d"], out["enc"]) = jax_accum_vg(
+                joint, (d0, e0), (data[0], triples[0]), key, A)
             feats_g = enc_feats(e1, data[nc])
         else:
             key_f, key_gp = jax.random.split(key)
             feats = enc_feats(e0, data[0])
             fake = sample_fake(g0, feats, key_f)
-            _, out["d"] = jax_accum_vg(d_vg, d0, (feats, triples[0], fake), key_gp, A)
+            (_, out["d_aux"]), out["d"] = jax_accum_vg(d_vg, d0, (feats, triples[0], fake),
+                                                      key_gp, A)
             feats_g = enc_feats(e0, data[nc])
 
         def g_vg(p, mb, k):
@@ -543,8 +546,9 @@ def test_noise_layout_and_refusals():
             ({"train.train_encoder": True}, ValueError, "end-to-end")):
         with pytest.raises(err, match=match):
             make_step_fn(_configs("smoke", sets)[1])
-    with pytest.raises(NotImplementedError, match="conv kernels"):
-        make_step_fn(_configs("resnet50", {"train.train_encoder": True})[1])
+    # A CNN encoder trains on the kernel-route config too (its convs on the
+    # library conv; tests/test_torch_train_encoder_cnn.py).
+    assert callable(make_step_fn(_configs("resnet50", {"train.train_encoder": True})[1]))
     # Triple weights, which the iterators refused before predicate balance
     # was ported, are now drawn from (tests/test_torch_data_balance.py).
     data = jax_synthetic_dataset(num_images=8, regions=2, feat_dim=4, seed=0)

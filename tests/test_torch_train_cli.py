@@ -5,8 +5,9 @@ metrics (read from ``sgg.train.step.make_step_fn`` by ``jax.eval_shape``) and
 the logger's throughput; ``train.max_checkpoints`` prunes old checkpoints; a
 second run resumes at the saved step; SIGTERM saves and exits, and the signal
 handlers are put back; the host iterator's prefetch thread stops with the
-run; ``sgg_torch.cli.generate`` samples the trained workdir; options that a
-later slice brings are refused. ``pipeline_v4`` at smoke widths runs predicate
+run; ``sgg_torch.cli.generate`` samples the trained workdir; options that the
+reference refuses are refused, and a VGG-19 trained end to end on
+``use_pallas`` (once refused) moves its encoder. ``pipeline_v4`` at smoke widths runs predicate
 balance, the int8 store on rotating subsets, the held-out probe and
 ``--profile``. The two watchdogs, as the reference's: the host-RSS handover
 (checkpoint and exit 75 at a checkpoint or a log boundary, then a relaunch
@@ -33,6 +34,7 @@ from sgg.train.step import make_step_fn as jax_make_step_fn
 from sgg_torch.cli import generate
 from sgg_torch.cli import train
 from sgg_torch.train.checkpoint import CheckpointManager, load_generator, load_workdir
+from sgg_torch.train.state import create_train_state
 
 torch.set_num_threads(1)
 
@@ -143,7 +145,8 @@ def test_cuda_is_the_default_device(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra", [
     ["--set", "model.pp_microbatches=2"],
     ["--set", "train.train_encoder=true", "--set", "model.encoder=vgg19", "--set",
-     "model.use_pallas=true"],
+     "model.use_pallas=true", "--set", "data.image_size=32", "--set", "data.regions=4",
+     "--set", "data.feat_dim=512"],
     ["--set", "model.moe_experts=4", "--set", "mesh.expert=2"], ["--set", "model.sp_mode=ring"],
     # TP, FSDP, gspmd partitioning and EP are ported (tests/test_torch_tp_fsdp.py,
     # tests/test_torch_ep.py); an axis larger than the world is refused.
@@ -153,6 +156,18 @@ def test_cuda_is_the_default_device(tmp_path, monkeypatch):
 def test_unported_options_are_refused(tmp_path, capsys, extra):
     argv = ["--config", "smoke", "--device", "cpu", "--workdir", str(tmp_path), *extra]
     axis = any(a in extra for a in ("mesh.seq=2", "mesh.model=2", "mesh.expert=2"))
+    if "train.train_encoder=true" in extra:
+        # A CNN trained end to end on a kernel-route config (use_pallas), once
+        # refused: its convs train on the library conv and the encoder moves.
+        assert train.main(argv + ["--steps", "1", "--set", "train.checkpoint_every=1"]) == 0
+        assert "done at step 1" in capsys.readouterr().out
+        cfg, _ = load_workdir(tmp_path)
+        init = create_train_state(cfg, cfg.train.seed).encoder.state_dict()
+        sd = torch.load(os.path.join(tmp_path, "checkpoints", "1", "state.pt"),
+                        weights_only=True)
+        assert sd["enc_opt"]["count"] == cfg.train.n_critic
+        assert all(not torch.equal(sd["enc_params"][k], v) for k, v in init.items())
+        return
     if ("model.sp_mode=ring" in extra or "model.pp_microbatches=2" in extra) and not axis:
         # Sequence and pipeline parallelism are ported (tests/test_torch_sp.py,
         # tests/test_torch_pp.py); on one rank the reference has no mesh, so
@@ -160,12 +175,11 @@ def test_unported_options_are_refused(tmp_path, capsys, extra):
         assert train.main(argv + ["--steps", "1"]) == 0
         assert "done at step 1" in capsys.readouterr().out
         return
+    assert axis
     assert train.main(argv) == 2
     err = capsys.readouterr().err
-    if axis:  # an axis larger than the world: the mesh's refusal
-        assert "do not divide device count 1" in err and "not ported yet" not in err
-    else:
-        assert "not ported yet" in err
+    # An axis larger than the world: the mesh's refusal.
+    assert "do not divide device count 1" in err and "not ported yet" not in err
 
 
 def test_pipeline_v4_runs_balance_int8_rotation_probe_and_profile(tmp_path, capsys):
