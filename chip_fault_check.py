@@ -2,7 +2,10 @@
 """Seeded-fault check of the kernels' gates and of the pipeline_v4 gather's
 holds, on the card.
 
-  python3 chip_fault_check.py
+  python3 chip_fault_check.py [--only TEXT[,TEXT...]]
+
+``--only`` keeps the faults whose label holds one of the texts, and the
+baseline's holds that they reach (``--only TF32``: the CNN hold alone).
 
 The bf16 flash kernels run the products that take p or ds (P·V in the
 forward; ds·k in the dq kernel; dsᵀ·q_s and pᵀ·do in the dk/dv kernel) as
@@ -120,6 +123,14 @@ noise's seed (every rank draws rank 0's noise). Each is held to
 process, 4 steps: the ranks' states equal bit for bit, their noise distinct,
 rank 0's the plain run's.
 
+One fault is seeded into the library conv that a trainable CNN runs
+(``sgg_torch/kernels/conv_direct.py``, ``tf32_allowed``): cuDNN's TF32 left on
+for float32 operands. It is held to ``chip_smoke.py``'s phase-29 (c) hold
+(``cnn_hold``: a float32 VGG-19 ``train_encoder`` step at 224 px, B 4, on the
+card and on the CPU, whose first critic update's critic and encoder gradients
+must lie no farther from their float64 oracle on the card than ``c4_gate``
+allows beside the CPU's).
+
 The unmodified tree is held to
 the same gates as a baseline (it must pass them), and a variant that is not a
 fault is reported beside it: the hi, mid and lo products summed in one
@@ -130,7 +141,8 @@ Exits 0 when the baseline passes and every fault is refused at each of its
 shapes (both flash shapes; the four conv shapes; the matmul shapes it can
 reach; the decode batches or the tie case, whichever can see it; the gather
 and graph holds; the loader's gates; the MoE and pretrain holds; the int8
-holds and the export check; the data-parallel holds), 1 otherwise. The tree itself is not touched.
+holds and the export check; the data-parallel holds; the CNN hold), 1
+otherwise. The tree itself is not touched.
 """
 
 import json
@@ -280,11 +292,18 @@ STEP_SRC = "sgg_torch/train/step.py"
 # phase-24 faults: (source, sound text, faulty text, the hold that must refuse it).
 DP_FAULTS = {
     "the generator's gradients left unreduced":
-        (STEP_SRC, "        state.g_tx.update(maybe_pmean(g_grads))\n",
-         "        state.g_tx.update(g_grads)\n", "dp"),
+        (STEP_SRC, "            state.g_tx.update(reduce(state.g_tx, g_grads))\n",
+         "            state.g_tx.update(g_grads)\n", "dp"),
     "the rank dropped from the noise's seed":
         (STEP_SRC, "        seed = int(t.seed) * 1_000_003 + step + rank * RANK_SEED_STRIDE\n",
          "        seed = int(t.seed) * 1_000_003 + step\n", "dp"),
+}
+CONV_PY_SRC = "sgg_torch/kernels/conv_direct.py"
+# phase-29 fault: (source, sound text, faulty text, the hold that must refuse it).
+CNN_FAULTS = {
+    "cuDNN's TF32 left on for float32 convs":
+        (CONV_PY_SRC, "    return dtype in (torch.bfloat16, torch.float16)\n",
+         "    return dtype in (torch.bfloat16, torch.float16, torch.float32)\n", "cnn"),
 }
 DP_STEPS = 4
 GRAPH_IMAGES = 1024
@@ -368,7 +387,7 @@ def child(root, kernels, shapes):
     if not fb.__file__.startswith(root):
         raise SystemExit(f"chip_fault_check: imported {fb.__file__}, not the copy")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if set(kernels) - {"loader", "moe", "pretrain", "int8", "export", "dp"}:  # no CUDA kernel
+    if set(kernels) - {"loader", "moe", "pretrain", "int8", "export", "dp", "cnn"}:  # no kernel
         build.load_library()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -415,6 +434,8 @@ def child(root, kernels, shapes):
 
     if "int8" in kernels or "export" in kernels:
         deploy_rows(root, dev, kernels)
+    if "cnn" in kernels:
+        cnn_rows(root, dev)
     if "dp" in kernels:
         dp_rows(root)
 
@@ -560,6 +581,20 @@ def recipe_rows(root, dev, kernels):
                           "bf16_gate": h["ok"], "share": 0.0, "f32_err": None, "tol": None,
                           "f32_gate": True, "holds": {"loss": h["card"]["loss"],
                                                       "plain": h["plain_loss"]}}), flush=True)
+
+
+def cnn_rows(root, dev):
+    """``chip_smoke.cnn_hold`` on the copy (phase 29 (c)): one JSON line."""
+    import chip_smoke
+    from sgg_torch.kernels import conv_direct
+
+    if not conv_direct.__file__.startswith(root):
+        raise SystemExit(f"chip_fault_check: imported {conv_direct.__file__}, not the copy")
+    ok, nums = chip_smoke.cnn_hold(dev)
+    print(json.dumps({"shape": [chip_smoke.P29_HOLD_BATCH, 224, 224, 3], "output": "cnn",
+                      "bf16_gate": ok, "share": 0.0, "f32_err": None, "tol": None,
+                      "f32_gate": True, "holds": {"grads": nums["grads"], "bad": nums["bad"]}}),
+          flush=True)
 
 
 def deploy_rows(root, dev, kernels):
@@ -731,8 +766,9 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_fault_check: CUDA is not available; this script needs the card")
+    only = sys.argv[2].split(",") if len(sys.argv) > 2 and sys.argv[1] == "--only" else None
     runs = [("sound", [],
-             "fwd,dq,dkv,conv,mm,decode,gather,graph,loader,moe,pretrain,int8,export,dp",
+             "fwd,dq,dkv,conv,mm,decode,gather,graph,loader,moe,pretrain,int8,export,dp,cnn",
              VARIANT_SHAPES),
             ("one accumulator", [(s, replace_once(a, b)) for s, a, b in ONE_ACCUMULATOR],
              "fwd,dq,dkv", VARIANT_SHAPES)]
@@ -753,8 +789,12 @@ def main() -> int:
     for label, (sound, faulty) in LOADER_FAULTS.items():
         runs.append((label, [(LOADER_SRC, replace_once(sound, faulty))], "loader", []))
     for label, (src, sound, faulty, hold) in dict(RECIPE_FAULTS, **DEPLOY_FAULTS,
-                                                  **DP_FAULTS).items():
+                                                  **DP_FAULTS, **CNN_FAULTS).items():
         runs.append((label, [(src, replace_once(sound, faulty))], hold, []))
+    if only:
+        runs = [r for r in runs[2:] if any(t in r[0] for t in only)]
+        reach = sorted({k for r in runs for k in r[2].split(",")})
+        runs.insert(0, ("sound", [], ",".join(reach), VARIANT_SHAPES))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for i, (label, edits, kernels, shapes) in enumerate(runs):

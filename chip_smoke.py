@@ -158,7 +158,10 @@ one subprocess under a timeout, which it waits for:
      with its output read back; one step at V = 1024 through the same entry
      points (state, step, device iterator) with a seeded 1024-entry vocab and
      the same launch counts; and ``--config vg1k`` for 3 steps with no kernel
-     launch;
+     launch; the profiled window's regions (``read_regions``: each region's
+     calls, host ms and device ms, ``critic_update`` and ``encoder`` 5 a
+     step, ``generator_update`` 1) with every flash dq and dk/dv launch of the
+     window inside ``critic_update``, attributed by its launch;
  16. timing: the dq and the dk/dv kernels at [32, 12, 196, 64] bf16 beside
      their plain versions, the backward of ``scaled_dot_product_attention``
      (``torch.autograd.grad`` of its output; timed only) and the bound, with
@@ -175,7 +178,10 @@ one subprocess under a timeout, which it waits for:
      launch, at least one full rotation cycle, two probes, the kept
      checkpoints; s/step, images/s, peak device memory, the subsets' upload
      seconds and swaps, the probes' recall and seconds, the profile's top
-     device ops and idle share; the gather's holds on the card
+     device ops, idle share and regions (``sample_fakes_batched`` and
+     ``generator_update`` once a step, ``critic_update`` 5 times), what
+     ``annotate`` costs the host a region with no profiler open; the
+     gather's holds on the card
      (``gather_holds``: the batch equal to the CPU's and to the reference's
      formula in numpy, bit for bit, with ties on the CDF's steps; every
      dequantized value within half its region's scale plus one float16 ulp;
@@ -261,12 +267,9 @@ one subprocess under a timeout, which it waits for:
      last step's metrics. No op of either step accumulates with atomics
      (no index, gather or scatter backward; GEMMs and reductions keep their
      order on one stream), and a replay runs the kernels that the eager
-     step launches, in its order, on the same buffers. The process's first
-     train step is the exception, found on the card: it sums the critic's
-     first LayerNorm scale gradient in another order (one ulp in about half
-     its elements, the same in every process; one earlier forward and
-     backward of the critic, at any batch, takes the process past it), so
-     each hold first steps a state that it then drops.
+     step launches, in its order, on the same buffers. No step runs before
+     the holds' two runs: a process's first train step sums as later ones do
+     (C3, the step's ``warm_autograd``).
  21. ``vg_full`` from JPEGs (``vg_full_phase``): (a) the JPEG loader
      (``loader_phase``; ``loader_probe`` first prints what the machine has:
      libjpeg's headers, nvJPEG, g++, host cores): its build's wall time and
@@ -371,8 +374,8 @@ one subprocess under a timeout, which it waits for:
      ``generate --decode fused`` on it with exact launches and the fused
      sampler held against the CPU's plain decode; (c) pipeline_v4 on the
      grain loader with 2 spawned workers, 15 steps profiled, resumed without
-     workers from its step-10 checkpoint in a workdir of its own: bit for
-     bit; (d) ``vg_full``
+     workers from its step-10 checkpoint in a workdir of its own, by the
+     train CLI in a fresh process: bit for bit; (d) ``vg_full``
      on the grain loader, the workers decoding the JPEGs, 96 ``conv_direct``
      a step. Its training runs stop their worker processes when each
      returns.
@@ -427,15 +430,18 @@ one subprocess under a timeout, which it waits for:
      conv_direct launches), its workdir then resumed with
      ``train.train_encoder=true --set train.grad_accum=4`` (the restore's
      fallback line; the encoder's optimizer at zero when its first step
-     begins); (a) that run's 3 steps at full width (VGG-19 at 224 px, bf16,
+     begins); (a) that run's 4 steps at full width (VGG-19 at 224 px, bf16,
      B 256, n_critic 5): s/step, peak memory, enc_gnorm, no kernel launch in
      a step, 16 conv_direct launches for the probe's held-out batch of 64,
-     every encoder tensor moved; (b) ``train --config resnet50 --set
+     every encoder tensor moved, the last step profiled and split by
+     region; (b) ``train --config resnet50 --set
      train.train_encoder=true`` (V 8,192, B 32) 2 steps, then ``generate
      --decode fused`` on its checkpoint, exactly 13 conv_direct, 36
      fused_matmul and 8 fused_decode launches a batch of 32; (c)
      ``cnn_hold``: one float32 step at n_critic 1, card against CPU
-     (``world_one_hold``'s bound, in its docstring); (e) ``conv2d_direct``
+     (``world_one_hold``'s bound on metrics and parameters) and its first
+     critic update's gradients against their float64 oracle (``c4_gate``,
+     the bound in its docstring); (e) ``conv2d_direct``
      and ``fused_matmul`` refuse operands that need a gradient, launching
      nothing; (f) ``torchrun`` of ``train --config v4_32 --set
      train.train_encoder=true`` over two ranks sharing the card (B 128 a
@@ -566,15 +572,17 @@ TF1_FIXTURE = os.path.join(ROOT, "tests", "fixtures_torch", "tf1_ckpt")
 P25_VOCAB, P25_GEN_IMAGES = 1024, 256
 P25_V4_IMAGES, P25_V4_STEPS, P25_V4_CUT = 2048, 15, 10
 P25_VG_IMAGES, P25_VG_STEPS, P25_WORKERS = 2048, 2, 2
+P25_RESUME_TIMEOUT_S = 300  # (c)'s resume in a fresh process
 # Phase 29, CNN encoders trained end to end: the VG-shaped corpus's ids; the
 # frozen vg_full run's steps and the train_encoder steps that resume it, at
 # train.grad_accum 4 (B 256 in microbatches of 64; part (a) prints the
 # step's peak memory); the probe's held-out images; resnet50's
 # steps, batch and vocab; generate's images and draws on its checkpoint; the
 # float32 hold's batch.
-P29_IMAGES, P29_FROZEN_STEPS, P29_STEPS, P29_ACCUM, P29_PROBE = 512, 1, 3, 4, 64
+P29_IMAGES, P29_FROZEN_STEPS, P29_STEPS, P29_ACCUM, P29_PROBE = 512, 1, 4, 4, 64
 P29_R50_STEPS, P29_R50_BATCH, P29_R50_VOCAB, P29_GEN_IMAGES, P29_K = 2, 32, 8192, 64, 8
 P29_HOLD_BATCH = 4
+C4_FACTOR, C4_FLOOR = 8.0, 1e-6  # cnn_hold's gradient gate (c4_gate)
 # ... and v4_32's steps over two ranks and its grad_accum (B 128 a rank).
 P29_V4_STEPS, P29_V4_ACCUM = 2, 2
 # Phases that build their own inputs after the device and the build, so that
@@ -836,6 +844,58 @@ def read_profile(wd, what):
     return idle, table
 
 
+@functools.cache
+def device_line():
+    """The card's name and power limit as nvidia-smi gives them ("no card" on
+    a dry run without one)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "no card"
+
+
+def read_regions(wd, what, n_critic, encoder_calls=0, precomputed=True, smi="",
+                 logdir="profile"):
+    """The train step's regions in the --profile trace the train CLI wrote
+    (``sgg_torch.utils.profiling.region_split``), logged: each region's
+    calls, host ms and device ms (inclusive: ``encoder`` also counts in
+    ``critic_update``). Holds each expected region to its calls over the
+    window's steps: ``sample_fakes_batched`` once a step on precomputed
+    features, ``critic_update`` ``n_critic`` times, ``encoder``
+    ``encoder_calls`` times a step, ``generator_update`` once; on the card
+    every region has device time. Returns the split."""
+    import torch
+
+    from sgg_torch.utils.profiling import region_split
+
+    base = os.path.join(wd, logdir)
+    with open(os.path.join(base, "top_ops.txt")) as f:
+        steps = int(re.match(r"steps \d+-\d+ \((\d+) steps\)", f.readline()).group(1))
+    split = region_split(os.path.join(base, "trace.json"))
+    regions = split["regions"] or {}
+    for name, r_ in regions.items():
+        dev_ms = "not measured" if r_["device_ms"] is None else f"{r_['device_ms']:.3f} ms"
+        log(f"regions {what}: {name}: {r_['calls']} calls over {steps} steps, host "
+            f"{r_['host_ms']:.3f} ms, device {dev_ms} [{smi}]")
+    want = {"critic_update": n_critic * steps, "generator_update": steps}
+    if precomputed:
+        want["sample_fakes_batched"] = steps
+    if encoder_calls:
+        want["encoder"] = encoder_calls * steps
+    got = {k_: r_["calls"] for k_, r_ in regions.items()}
+    on_card = torch.cuda.is_available() and torch.cuda.is_initialized()
+    if got != want or split["graph_launches"] or (on_card and not all(
+            r_["device_ms"] > 0 for r_ in regions.values())):
+        raise AssertionError(f"{what}: regions {got} (expected {want}), graph launches "
+                             f"{split['graph_launches']}")
+    if split["unattributed"]:
+        log(f"regions {what}: {split['unattributed']} device events without their launch")
+    return {**split, "steps": steps}
+
+
 def pipeline_v4_phase(dev, vocab, run_cli, sizes=None, extra_sets=None, on_workdir=None):
     """Phase 17: the pipeline_v4 corpus (``vocab``'s tokens), the train CLI
     with ``--profile``, the gather's holds, evaluate with the recipe and on
@@ -932,6 +992,7 @@ def pipeline_v4_phase(dev, vocab, run_cli, sizes=None, extra_sets=None, on_workd
         step_lines = [r_ for r_ in losses if "steps_per_sec" in r_]
         s_per_step = [1 / r_["steps_per_sec"] for r_ in step_lines]
         v4_idle, _ = read_profile(wd, "pipeline_v4")
+        read_regions(wd, "pipeline_v4", v4_cfg.train.n_critic, smi=device_line())
         log(f"train pipeline_v4: {STEPS_} steps in {v4_s:.3f} s in process (set-up "
             f"included), launches {v4_counts} (none expected); widths R {v4_cfg.data.regions}, "
             f"F {v4_cfg.data.feat_dim}, H {v4_cfg.model.hidden}, E {v4_cfg.model.embed_dim}, "
@@ -942,6 +1003,19 @@ def pipeline_v4_phase(dev, vocab, run_cli, sizes=None, extra_sets=None, on_workd
             f"{', '.join(f'{x_:.4f}' for x_ in s_per_step)}; last "
             f"{s_per_step[-1]:.4f} s/step, {step_lines[-1]['images_per_sec']:.1f} images/s; "
             f"peak device memory {v4_peak:.3f} GB")
+        # What the step's regions cost the host with no profiler open.
+        from sgg_torch.utils.profiling import annotate
+
+        n_reg = 10_000
+        t_a = time.perf_counter()
+        for _ in range(n_reg):
+            with annotate("critic_update"):
+                pass
+        reg_us = (time.perf_counter() - t_a) / n_reg * 1e6
+        per_step = v4_cfg.train.n_critic + 2
+        log(f"annotate with no profiler open: {reg_us:.2f} us a region, {per_step} regions a "
+            f"pipeline_v4 step: {reg_us * per_step / 1e3:.4f} ms of its last "
+            f"{s_per_step[-1] * 1e3:.1f} ms [{device_line()}]")
         log(f"rotation: {n_subsets} subsets, {len(uploads)} uploads ({swaps} swaps, {cycles} "
             f"full cycles, at most {alive} subsets alive), host gather {host_s:.3f} s and "
             f"device copy {copy_s:.3f} s in all")
@@ -1682,9 +1756,10 @@ def fused_hold(dev, cfg, ds, vocab, steps, n_steps, int8=False, read_counts=None
     runs them with ``steps_per_dispatch`` = 1), and from the same seeded
     state through ``make_fused_device_stepper`` at ``n_steps`` per dispatch
     (on the card: warm-up, capture, replays), with the same draws (each the
-    default generator seeded ``train.seed``) and the same step noise, after
-    one step on a dropped state (the process's first step differs, below).
-    Returns
+    default generator seeded ``train.seed``) and the same step noise. No step
+    runs before them: in a fresh process (``chip_fault_check.py``) the eager
+    run's first step is the process's first, which sums as later steps do
+    (C3, the step's ``warm_autograd``). Returns
     ``equal`` (every tensor of ``state_tensors`` bit for bit), ``metrics_equal``
     (the last step's metrics bit for bit), the tensors and metrics that differ
     with their largest difference, the capture's seconds and reserved bytes,
@@ -1708,14 +1783,6 @@ def fused_hold(dev, cfg, ds, vocab, steps, n_steps, int8=False, read_counts=None
             torch.cuda.synchronize()
 
     step_fn = make_step_fn(cfg, step_mask=vocab.step_mask())
-    it = make_device_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed, device=dev,
-                                    int8_store=int8)
-    # The first train step of a process sums one gradient in another order
-    # (on the card: the critic's first LayerNorm scale, one ulp in about half
-    # its elements, the same in every process; one earlier forward and
-    # backward of the critic, at any batch, takes the process past it). One
-    # step on a state that is then dropped takes both runs past it.
-    step_fn(create_train_state(cfg, t.seed, device=dev), next(it))
     eager = create_train_state(cfg, t.seed, device=dev)
     it = make_device_train_iterator(ds, t.batch_size, t.n_critic, seed=t.seed, device=dev,
                                     int8_store=int8)
@@ -1822,10 +1889,19 @@ def fused_dispatch_phase(dev, data_dir, vocab, run_cli, read_counts, sizes=None,
                 f"{idle}, host syncs {syncs} a step; peak device memory {peak:.3f} GB; "
                 f"capture {r_['capture_s']} s, {r_['capture_gb']} GB reserved; launches "
                 f"{counts} (none expected)")
+            # A window of graph replays has no host ranges: no region split.
+            rows = table.splitlines()
+            regions = rows[next(i_ for i_, ln in enumerate(rows) if ln.startswith("regions")):]
+            for ln in regions:
+                log(f"phase 20 ({'a' if n == 1 else 'b'}) {label} top_ops.txt: {ln}")
+            graph_ok = not (n > 1 and on_card) or (
+                len(regions) == 1 and "replays a CUDA graph" in regions[0])
             if (any(counts.values()) or not first.startswith(want_first)
-                    or fused_line != (n > 1) or (n > 1 and on_card and cap is None)):
+                    or fused_line != (n > 1) or (n > 1 and on_card and cap is None)
+                    or not graph_ok):
                 raise AssertionError(f"phase 20 ({label}): launches {counts}, window "
-                                     f"{first!r}, fused line {fused_line}, capture {cap}")
+                                     f"{first!r}, fused line {fused_line}, capture {cap}, "
+                                     f"regions {regions}")
 
     # (c) The hold at pipeline_v4's widths, on the first images of the corpus.
     full = TripleDataset.from_shards(list_shards(data_dir))
@@ -4712,8 +4788,10 @@ def convert_grain_phase(dev, smi, sizes=None, extra_sets=None, v4_sets=None, vg_
     --config pipeline_v4 --set data.loader=grain data.grain_workers=2`` on a
     seeded corpus, 15 steps with ``--profile`` unbroken, then
     resumed without workers from the unbroken run's checkpoint at step 10
-    (state and sidecar, copied to a workdir of its own): its state at 15
-    equals the unbroken run's bit for bit;
+    (state and sidecar, copied to a workdir of its own) by ``python -m
+    sgg_torch.cli.train`` in a fresh process (whose first step is the
+    process's first; the step launches no kernel): its state at 15 equals
+    the unbroken run's bit for bit;
     (d) ``train --config vg_full`` on the host route with the grain loader's
     two spawned workers decoding the fixture's JPEGs (nvJPEG on the card's
     machine), 2 steps, 96 ``conv_direct`` launches a step. ``before`` holds phase 20's
@@ -4908,9 +4986,8 @@ def convert_grain_phase(dev, smi, sizes=None, extra_sets=None, v4_sets=None, vg_
 
         whole_wd, whole_s, whole_txt = v4_run("whole", z_["v4_steps"], profile=True)
         # The cut: the unbroken run's checkpoint at v4_cut (state and
-        # sidecar), in a workdir of its own, resumed to the end in this
-        # process without workers (the batches do not depend on their
-        # number; no second start-up of the workers).
+        # sidecar), in a workdir of its own, resumed to the end without
+        # workers (the batches do not depend on their number).
         cut_wd, cut_at = os.path.join(root, "v4_cut"), str(z_["v4_cut"])
         os.makedirs(os.path.join(cut_wd, "checkpoints"))
         for f_ in ("config.json", "vocab.json"):
@@ -4919,7 +4996,18 @@ def convert_grain_phase(dev, smi, sizes=None, extra_sets=None, v4_sets=None, vg_
                         os.path.join(cut_wd, "checkpoints", cut_at))
         shutil.copy(os.path.join(whole_wd, "checkpoints", f"data_iter_{cut_at}.bin"),
                     os.path.join(cut_wd, "checkpoints"))
-        _, res_s, res_txt = v4_run("cut", z_["v4_steps"], workers=0)
+        # The resume runs in a fresh process: its first step is the one
+        # under test (C3, a process's first step summing as later ones do).
+        t_r = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sgg_torch.cli.train", *argv_of(
+                ["--config", "pipeline_v4", "--workdir", cut_wd, "--steps",
+                 str(z_["v4_steps"])], {**sets4, "data.grain_workers": 0})],
+            cwd=ROOT, capture_output=True, text=True, timeout=P25_RESUME_TIMEOUT_S)
+        res_s, res_txt = time.perf_counter() - t_r, proc.stdout
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 25 (c): the resumed run exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
         ref = torch.load(os.path.join(whole_wd, "checkpoints", str(z_["v4_steps"]), "state.pt"),
                          weights_only=True)
         got4 = torch.load(os.path.join(cut_wd, "checkpoints", str(z_["v4_steps"]), "state.pt"),
@@ -4952,7 +5040,8 @@ def convert_grain_phase(dev, smi, sizes=None, extra_sets=None, v4_sets=None, vg_
             f"{z_['v4_steps']} steps in {whole_s:.3f} s in process, median {s_per_step:.4f} "
             f"s/step, idle share {idle}, {wait.group(2) if wait else None} s waiting for "
             f"{wait.group(1) if wait else None} super-batches; its checkpoint at "
-            f"{z_['v4_cut']} resumed to {z_['v4_steps']} without workers ({res_s:.3f} s): "
+            f"{z_['v4_cut']} resumed to {z_['v4_steps']} without workers in a fresh process "
+            f"({res_s:.3f} s, start-up included): "
             f"restored line "
             f"{restored}, "
             f"{len(differ)} of {len(fa_)} state tensors differ from the unbroken run's; "
@@ -5017,74 +5106,174 @@ def convert_grain_phase(dev, smi, sizes=None, extra_sets=None, v4_sets=None, vg_
     return out
 
 
-def cnn_hold(dev, seed=SEED, batch=P29_HOLD_BATCH, size=224, extra_sets=None):
-    """Phase 29 (c): one ``vg_full`` step with ``train.train_encoder`` in
-    float32 at n_critic 1 on the card against the same step on the CPU, from
-    one seeded state, batch and noise; a throwaway step on the card first
-    (C3: the process's first card step sums in another order). The two
-    compute one function; they differ in float32 sums (cuDNN's conv against
-    the CPU's, TF32 never: float32 operands). n_critic 1 makes the metrics
-    the critic update's, from the common state. The bound is
-    ``world_one_hold``'s:
-      - each metric within 1e-4 relative plus 1e-6;
-      - each module's parameters after the step (generator, critic,
-        encoder): every element within 1e-6 + 1e-5 |p|, except at most 1 %
-        of the module's elements, those within Adam's largest move, 2 lr C_1
-        (``adam_step_bound``).
-    The critic's and the encoder's gradients of the update are printed (the
-    largest distance over a module's tensors, relative to the tensor's
-    largest element), not held: at initialization the critic scores real
-    and fake triples nearly alike (w_dist about 1e-5 of the scores at 224
-    px), so those gradients are differences of nearly equal terms, and the
-    two devices' float32 rounding reaches a share of their small elements;
-    Adam's step takes each element's sign, so an element whose gradient lies
-    within that rounding of 0 moves by ±lr on either side, which the 1 %
-    counts.
-    Returns (ok, numbers)."""
+def float64_mode():
+    """A ``TorchFunctionMode`` under which the port's float32 code computes in
+    float64: ``Tensor.float()``, a cast to ``torch.float32`` and a factory
+    asked for ``dtype=torch.float32`` give float64, and the default dtype is
+    float64 while the mode is on."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    f32, f64 = torch.float32, torch.float64
+
+    class Float64(TorchFunctionMode):
+        def __enter__(self):
+            self._default = torch.get_default_dtype()
+            torch.set_default_dtype(f64)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            torch.set_default_dtype(self._default)
+            return super().__exit__(*exc)
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.float:
+                return args[0].to(f64)
+            kwargs = {k_: f64 if v_ is f32 else v_ for k_, v_ in (kwargs or {}).items()}
+            return func(*(f64 if a_ is f32 else a_ for a_ in args), **kwargs)
+
+    return Float64()
+
+
+class _Recorded(Exception):
+    """Raised once a step's first critic update has handed its gradients over."""
+
+
+def first_update_grads(cfg, seed, data, noise, device, float64=False):
+    """One ``train_encoder`` step of ``make_step_fn(cfg)`` on ``device`` from
+    ``create_train_state(cfg, seed)``: (the metrics, the first critic update's
+    gradients {"d": critic, "enc": encoder} as CPU tensors, the modules'
+    parameters after the step). With ``float64`` the state is cast to float64
+    and the step runs under ``float64_mode`` up to that update's gradients
+    (the critic loss and the joint encoder path, ``torch.autograd.grad``),
+    then stops: (None, the gradients, None)."""
+    import torch
+
+    from sgg_torch.train.state import create_train_state
+    from sgg_torch.train.step import make_step_fn
+
+    st = create_train_state(cfg, seed, device=device)
+    rec = {}
+    for key, tx in (("d", st.d_tx), ("enc", st.enc_tx)):
+        update = tx.update
+
+        def recording(g_, _u=update, _k=key):
+            rec.setdefault(_k, [x_.detach().cpu() for x_ in g_])
+            if float64 and _k == "enc":
+                raise _Recorded
+            return _u(g_)
+
+        tx.update = recording
+    batch = {k_: torch.from_numpy(v_).to(device) for k_, v_ in data.items()}
+    noise = {k_: v_.to(device) for k_, v_ in noise.items()}
+    if not float64:
+        m_ = make_step_fn(cfg)(st, batch, noise)
+        params = {"g_params": st.generator, "d_params": st.critic, "enc_params": st.encoder}
+        return ({k_: float(v_) for k_, v_ in m_.items()}, rec,
+                {k_: {n_: v_.detach().float().cpu() for n_, v_ in mod.state_dict().items()}
+                 for k_, mod in params.items()})
+    for mod in (st.generator, st.critic, st.encoder):
+        mod.double()
+    noise = {k_: v_.double() if v_.is_floating_point() else v_ for k_, v_ in noise.items()}
+    try:
+        with float64_mode():
+            make_step_fn(cfg)(st, batch, noise)
+    except _Recorded:
+        return None, rec, None
+    raise AssertionError("the float64 step ran past its first critic update")
+
+
+def oracle_distance(grads, oracle):
+    """The largest distance of ``grads`` from ``oracle`` over a module's
+    tensors, each relative to the oracle tensor's largest element; and each
+    tensor's."""
+    per = [float((a_.double() - b_).abs().max() / b_.abs().max().clamp_min(1e-300))
+           for a_, b_ in zip(grads, oracle)]
+    return max(per), per
+
+
+def cnn_hold_inputs(seed, batch, size, extra_sets=None):
+    """``cnn_hold``'s config (``vg_full``, ``train_encoder``, float32, n_critic
+    1, V 80), seeded batch (uint8 images and triples, numpy) and noise."""
     import numpy as np
     import torch
 
     from sgg_torch.config import get_config
-    from sgg_torch.train.state import create_train_state
-    from sgg_torch.train.step import draw_noise, make_step_fn
+    from sgg_torch.train.step import draw_noise
 
     sets = {"train.train_encoder": "true", "model.compute_dtype": "float32",
             "train.n_critic": 1, "train.batch_size": batch, "data.image_size": size,
             "model.vocab_size": 80, **(extra_sets or {})}
     cfg = get_config("vg_full").override([f"{k_}={v_}" for k_, v_ in sets.items()])
-    V, t_ = cfg.model.vocab_size, cfg.train
     r = np.random.RandomState(seed + 291)
     data = {"images": r.randint(0, 256, (2, batch, size, size, 3), dtype=np.uint8),
-            "triples": r.randint(2, V, (2, batch, 3))}
+            "triples": r.randint(2, cfg.model.vocab_size, (2, batch, 3))}
     noise = draw_noise(cfg, batch, torch.Generator().manual_seed(seed + 292), "cpu")
+    return cfg, data, noise
 
-    def run(device):
-        st = create_train_state(cfg, seed, device=device)
-        rec = {}
-        for key, tx in (("d", st.d_tx), ("enc", st.enc_tx)):
-            update = tx.update
-            tx.update = lambda g_, _u=update, _k=key: (
-                rec.setdefault(_k, [x_.detach().float().cpu() for x_ in g_]), _u(g_))[1]
-        m_ = make_step_fn(cfg)(st, {k_: torch.from_numpy(v_).to(device)
-                                     for k_, v_ in data.items()},
-                               {k_: v_.to(device) for k_, v_ in noise.items()})
-        params = {"g_params": st.generator, "d_params": st.critic, "enc_params": st.encoder}
-        return ({k_: float(v_) for k_, v_ in m_.items()}, rec,
-                {k_: {n_: v_.detach().float().cpu() for n_, v_ in mod.state_dict().items()}
-                 for k_, mod in params.items()})
 
-    if torch.device(dev).type == "cuda":
-        run(dev)
-    card, cpu = run(dev), run("cpu")
-    bad, nums = [], {"metrics": {}, "grads": {}, "params": {}}
+def cnn_hold(dev, seed=SEED, batch=P29_HOLD_BATCH, size=224, extra_sets=None,
+             second_oracle=None):
+    """Phase 29 (c): one ``vg_full`` step with ``train.train_encoder`` in
+    float32 at n_critic 1 on the card and on the CPU, from one seeded state,
+    batch and noise, and its first critic update's gradients in float64 (the
+    oracle: the port's modules cast to float64 on a CPU copy of the state,
+    under ``float64_mode``, ``first_update_grads``). The two float32
+    runs compute one function; they differ in float32 sums (cuDNN's conv
+    against the CPU's, TF32 never: float32 operands). n_critic 1 makes the
+    metrics the critic update's, from the common state. The bounds:
+      - each metric within 1e-4 relative plus 1e-6 (``world_one_hold``'s);
+      - each module's parameters after the step (generator, critic,
+        encoder): every element within 1e-6 + 1e-5 |p|, except at most 1 %
+        of the module's elements, those within Adam's largest move, 2 lr C_1
+        (``adam_step_bound``);
+      - the critic's and the encoder's gradients: the card's distance from
+        the oracle (the largest over a module's tensors, each relative to the
+        oracle tensor's largest element, ``oracle_distance``) at most
+        ``C4_FACTOR`` times the CPU's distance in the same run plus
+        ``C4_FLOOR`` (``c4_gate``).
+    With ``second_oracle`` (a device) the oracle is also computed there and
+    the numbers say how far the two sit apart (``oracles_apart``).
+    At initialization the critic scores real and fake triples nearly alike,
+    so these gradients are differences of nearly equal terms and float32's
+    rounding reaches a share of their elements on both devices; the gate
+    asks that the card round no worse than the CPU.
+    Returns (ok, numbers)."""
+    import numpy as np
+
+    cfg, data, noise = cnn_hold_inputs(seed, batch, size, extra_sets)
+    t_ = cfg.train
+    times = {}
+
+    def timed(label, *a, **k):
+        t0 = time.perf_counter()
+        r_ = first_update_grads(cfg, seed, data, noise, *a, **k)
+        times[label] = time.perf_counter() - t0
+        return r_
+
+    card, cpu = timed("card", dev), timed("cpu", "cpu")
+    oracle = timed("oracle", "cpu", float64=True)[1]
+    bad, nums = [], {"metrics": {}, "grads": {}, "params": {}, "seconds": times}
+    if second_oracle is not None:
+        other = timed("second_oracle", second_oracle, float64=True)[1]
+        nums["oracles_apart"] = {k_: oracle_distance(other[k_], oracle[k_])[0] for k_ in oracle}
     for k_, v_ in cpu[0].items():
         d_ = abs(card[0][k_] - v_)
         nums["metrics"][k_] = (card[0][k_], v_, d_)
         if not d_ <= 1e-6 + 1e-4 * abs(v_):
             bad.append(f"{k_}: {card[0][k_]} against {v_}")
     for key in ("d", "enc"):
-        nums["grads"][key] = max(float((a_ - b_).abs().max() / b_.abs().max().clamp_min(1e-30))
-                                 for a_, b_ in zip(card[1][key], cpu[1][key]))
+        (c_far, c_per), (p_far, p_per) = (oracle_distance(x_[1][key], oracle[key])
+                                          for x_ in (card, cpu))
+        ok, limit = c4_gate(c_far, p_far)
+        worst = int(np.argmax(c_per))
+        nums["grads"][key] = {"card": c_far, "cpu": p_far, "limit": limit,
+                              "card_cpu": oracle_distance(card[1][key], cpu[1][key])[0],
+                              "worst_tensor": worst, "cpu_at_worst": p_per[worst],
+                              "per_tensor": list(zip(c_per, p_per))}
+        if not ok:
+            bad.append(f"{key} gradients: the card {c_far:.3e} from the float64 oracle, the "
+                       f"CPU {p_far:.3e} (limit {limit:.3e})")
     move = 2 * adam_step_bound(float(t_.beta1), float(t_.beta2), 1)
     for tree, lr in (("g_params", t_.g_lr), ("d_params", t_.d_lr), ("enc_params", t_.enc_lr)):
         n_far = n_all = 0
@@ -5101,6 +5290,23 @@ def cnn_hold(dev, seed=SEED, batch=P29_HOLD_BATCH, size=224, extra_sets=None):
     return not bad, {**nums, "bad": bad}
 
 
+def c4_gate(card, cpu):
+    """(whether the card's distance from the float64 oracle is at most
+    ``C4_FACTOR`` times the CPU's plus ``C4_FLOOR``, that limit).
+
+    The spread it comes from (``scripts/cnn_grad_spread.py``, seeds 0, 1, 2,
+    an NVIDIA H100 80GB HBM3 at 700.00 W): the card's distance over the CPU's
+    was 1.139, 0.705 and 5.427 for the critic and 1.048, 0.942 and 1.297 for
+    the encoder, each distance 5.5e-4 to 1.3e-2 of the max; the two float64
+    oracles, card and CPU, 1.3e-12 to 3.6e-12 apart. With cuDNN's TF32 on
+    for the float32 convs (seed 0) the ratios were 561.2 and 33.4. The
+    factor, 8, is about 1.5 times the largest sound ratio and a quarter of
+    the smallest faulty one; the floor, 1e-6, keeps a CPU distance of 0
+    from refusing a card at rounding."""
+    limit = C4_FACTOR * cpu + C4_FLOOR
+    return card <= limit, limit
+
+
 def cnn_train_phase(dev, smi, sizes=None, extra_sets=None, r50_sets=None, hold_sets=None):
     """Phase 29, CNN encoders trained end to end on the configs that set
     ``model.use_pallas`` (the step's encoder on the library conv, the probe
@@ -5108,12 +5314,14 @@ def cnn_train_phase(dev, smi, sizes=None, extra_sets=None, r50_sets=None, hold_s
     VG-shaped corpus of 512 ids cycling the committed fixture (materialized),
     the frozen encoder (a seeded VGG-19 via ``--encoder-ckpt``) one step
     (96 conv_direct launches), then the same workdir resumed with
-    ``train.train_encoder=true`` and ``train.grad_accum=4`` for 3 steps at
+    ``train.train_encoder=true`` and ``train.grad_accum=4`` for 4 steps at
     full width (VGG-19 at 224 px, bf16, B 256, n_critic 5): the checkpoint
     restore's fallback line, the encoder's optimizer at zero when the first
     step begins, no kernel launch in a step, 16 conv_direct launches for the
     probe's one held-out batch of 64, every encoder tensor moved from the
-    seeded weights; s/step, peak memory, enc_gnorm; (b) ``train --config
+    seeded weights; s/step, peak memory, enc_gnorm; the last step traced
+    (``--profile``, its window moved onto it) and split by the step's regions
+    (``read_regions``); (b) ``train --config
     resnet50 --set train.train_encoder=true`` (V 8,192 from ``vocab_of_size``,
     B 32, 224 px, bf16) 2 steps, no kernel launch in a step, then ``generate
     --decode fused`` on its checkpoint: exactly 13 conv_direct, 36
@@ -5135,6 +5343,7 @@ def cnn_train_phase(dev, smi, sizes=None, extra_sets=None, r50_sets=None, hold_s
     from sgg_torch.kernels import conv_direct as cd
     from sgg_torch.kernels import matmul as mm
     from sgg_torch.models.encoders import make_encoder
+    from sgg_torch.utils.profiling import StepProfiler
 
     z_ = {"images": P29_IMAGES, "frozen": P29_FROZEN_STEPS, "steps": P29_STEPS,
           "accum": P29_ACCUM, "probe": P29_PROBE, "r50_steps": P29_R50_STEPS,
@@ -5146,8 +5355,11 @@ def cnn_train_phase(dev, smi, sizes=None, extra_sets=None, r50_sets=None, hold_s
     out = {"launches": {k_: 0 for k_ in kernel_counts()}}
     fallback = "[sgg_torch.checkpoint] strict restore failed (ValueError); falling back"
 
-    def train(label, wd, config, steps, sets, extra=(), after=0):
+    def train(label, wd, config, steps, sets, extra=(), after=0, profile_at=None):
+        """``profile_at``: the run's step (counted from its first) whose
+        window of one step ``--profile`` traces."""
         argv = ["--config", config, "--workdir", wd, "--steps", str(steps), *extra]
+        argv += [] if profile_at is None else ["--profile"]
         for k_, v_ in sets.items():
             argv += ["--set", f"{k_}={v_}"]
         per_step, first = [], {}
@@ -5176,6 +5388,9 @@ def cnn_train_phase(dev, smi, sizes=None, extra_sets=None, r50_sets=None, hold_s
             torch.cuda.reset_peak_memory_stats()
         printed, errs = io.StringIO(), io.StringIO()
         train_cli.make_step_fn = counting
+        if profile_at is not None:  # the CLI's window opens 10 steps after its first
+            train_cli.StepProfiler = lambda logdir, start_step: StepProfiler(
+                logdir, start_step - 10 + profile_at, num_steps=1)
         try:
             with contextlib.redirect_stdout(Tee(sys.stdout, printed)), \
                     contextlib.redirect_stderr(Tee(sys.stderr, errs)):
@@ -5183,7 +5398,7 @@ def cnn_train_phase(dev, smi, sizes=None, extra_sets=None, r50_sets=None, hold_s
                                                                 ["--device", "cpu"]),
                                         f"sgg_torch.cli.train {config} {label}")
         finally:
-            train_cli.make_step_fn = make_step
+            train_cli.make_step_fn, train_cli.StepProfiler = make_step, StepProfiler
         for k_, v_ in counts.items():
             out["launches"][k_] += v_
         logged = [r_ for r_ in read_metric_lines(wd) if "d_loss" in r_ and r_["step"] > after]
@@ -5220,7 +5435,8 @@ def cnn_train_phase(dev, smi, sizes=None, extra_sets=None, r50_sets=None, hold_s
         resume = {"train.checkpoint_every": total, "train.eval_every": total,
                      "train.train_encoder": "true", "train.grad_accum": z_["accum"]}
         te = train("train_encoder", wd, "vg_full", total, {**base, **resume},
-                   extra=("--encoder-ckpt", ckpt), after=z_["frozen"])  # the checkpoint's win
+                   extra=("--encoder-ckpt", ckpt), after=z_["frozen"],  # the checkpoint's win
+                   profile_at=z_["steps"] - 1)  # the last step
         nc = int((extra_sets or {}).get("train.n_critic", 5))
         sd = torch.load(os.path.join(wd, "checkpoints", str(total), "state.pt"),
                         map_location="cpu", weights_only=True)
@@ -5244,18 +5460,38 @@ def cnn_train_phase(dev, smi, sizes=None, extra_sets=None, r50_sets=None, hold_s
             f"encoder's optimizer at zero when its first step began "
             f"{te['first'].get('enc_opt_zero')}, enc_opt count {sd['enc_opt']['count']} after "
             f"{z_['steps']} steps; {time.perf_counter() - t_d:.3f} s for both runs")
+        # The last step is profiled; the steps between the first and it are not.
+        clean = te["logged"][1:-1]
+        te["s_per_step"] = 1 / clean[-1]["steps_per_sec"]
+        te["images_per_s"] = clean[-1]["images_per_sec"]
         log(f"phase 29 (a) vg_full train_encoder (VGG-19 {S} px, B "
             f"{base.get('train.batch_size', 256)}, grad_accum {z_['accum']}): {z_['steps']} "
-            f"steps in {te['s']:.3f} s in process (set-up, probe and checkpoint included); "
-            f"s/step {[round(1 / x_['steps_per_sec'], 4) for x_ in te['logged'][1:]]} (the "
-            f"first step's time is its log interval's start), last {te['s_per_step']:.4f}, "
+            f"steps in {te['s']:.3f} s in process (set-up, probe, profile and checkpoint "
+            f"included); s/step {[round(1 / x_['steps_per_sec'], 4) for x_ in clean]} (the "
+            f"first step's time is its log interval's start; the last step, profiled, "
+            f"{1 / te['logged'][-1]['steps_per_sec']:.4f}), last unprofiled "
+            f"{te['s_per_step']:.4f}, "
             f"{te['images_per_s']:.1f} images/s; peak device memory {te['peak_gb']:.3f} GB; "
             f"enc_gnorm {[round(g_, 4) for g_ in gnorms]}; launches per step {te['per_step']}, "
             f"conv_direct in the probe {probe} ({z_['probe']} held-out images); encoder "
             f"tensors moved {moved} of {len(enc_sd)}: {'ok' if a_ok else 'FAILED'} [{smi}]")
+        # Where the step's time goes, by the step's regions (the profiled step).
+        read_profile(wd, "vg_full train_encoder")
+        split = read_regions(wd, "vg_full train_encoder", nc, nc * z_["accum"], False, smi)
+        reg = split["regions"]
+        busy = sum(reg[k_]["device_ms"] for k_ in ("critic_update", "generator_update")) \
+            if on_card else None
+        log(f"phase 29 (a) the profiled vg_full train_encoder step by region: "
+            + "; ".join(f"{k_} host {r_['host_ms']:.1f} ms, device "
+                        + (f"{r_['device_ms']:.1f} ms ({r_['device_ms'] / busy:.3f} of the "
+                           "critic and generator updates' device time)" if on_card
+                           else "not measured")
+                        for k_, r_ in reg.items()) + f" [{smi}]")
         out["a"] = {k_: te[k_] for k_ in ("s", "s_per_step", "images_per_s", "peak_gb")}
         out["a"].update(enc_gnorm=gnorms, probe=probe, moved=moved,
-                        B=int(base.get("train.batch_size", 256)))
+                        B=int(base.get("train.batch_size", 256)),
+                        regions={k_: {x_: r_[x_] for x_ in ("calls", "host_ms", "device_ms")}
+                                 for k_, r_ in reg.items()})
         out["d"] = {"frozen_s": fz["s"], "frozen_launches": fz["per_step"]}
 
         # (b) resnet50 with train_encoder at V = 8,192, then generate --decode fused.
@@ -5325,8 +5561,10 @@ def cnn_train_phase(dev, smi, sizes=None, extra_sets=None, r50_sets=None, hold_s
     # (c) the float32 hold, card against CPU.
     t_c = time.perf_counter()
     c_ok, c_nums = cnn_hold(dev, batch=z_["hold_batch"], size=S, extra_sets=hold_sets)
-    log(f"phase 29 (c) float32 vg_full train_encoder step, card against CPU "
-        f"(B {z_['hold_batch']}, n_critic 1): {'ok' if c_ok else 'FAILED'} {c_nums}; "
+    shown = {**c_nums, "grads": {k_: {x_: y_ for x_, y_ in g_.items() if x_ != "per_tensor"}
+                                 for k_, g_ in c_nums["grads"].items()}}
+    log(f"phase 29 (c) float32 vg_full train_encoder step, card against CPU and the float64 "
+        f"oracle (B {z_['hold_batch']}, n_critic 1): {'ok' if c_ok else 'FAILED'} {shown}; "
         f"{time.perf_counter() - t_c:.3f} s")
     out["c"] = c_nums
 
@@ -5359,6 +5597,12 @@ def phase29_line(v29, smi):
             f"s/step, peak {b_['peak_gb']:.3f} GB; v4_32 train_encoder over 2 ranks "
             f"{v29['f']['s_per_step']:.4f} s/step; float32 hold: shares beyond 1e-5 "
             + ", ".join(f"{k_.split('_')[0]} {v_[0]:.5f}" for k_, v_ in c_["params"].items())
+            + "; gradients from the float64 oracle (card, CPU) "
+            + ", ".join(f"{k_} ({g_['card']:.3e}, {g_['cpu']:.3e})"
+                        for k_, g_ in c_["grads"].items())
+            + "; the profiled step's device ms by region "
+            + ", ".join(f"{k_} {r_['device_ms']:.1f}" for k_, r_ in a_["regions"].items()
+                        if r_["device_ms"] is not None)
             + f"; launches {v29['launches']} [{smi}]")
 
 
@@ -6851,6 +7095,20 @@ def main(argv=None):
         vit_profile = read_profile(wd, "vit_b16 train_encoder")
         train_cfg, train_vocab = load_workdir(wd)
         train_cfg.model.vocab_size = len(train_vocab)
+        t_cfg = train_cfg.train
+        vit_regions = read_regions(wd, "vit_b16 train_encoder", t_cfg.n_critic,
+                                   t_cfg.n_critic * max(1, t_cfg.grad_accum), False, smi)
+        # Every flash backward launch of the window (the autograd engine's
+        # device thread launches them) lies inside critic_update.
+        crit = vit_regions["regions"]["critic_update"]["kernels"]
+        bwd = {k_: sum(n_ for name_, n_ in crit.items() if k_ in name_)
+               for k_ in ("flash_bwd_dq", "flash_bwd_dkv")}
+        want_bwd = {"flash_bwd_dq": vit_regions["steps"] * enc_counts["flash_attention_bwd_dq"],
+                    "flash_bwd_dkv": vit_regions["steps"] * enc_counts["flash_attention_bwd_dkv"]}
+        log(f"regions vit_b16 train_encoder: flash backward launches inside critic_update "
+            f"{bwd} (expected {want_bwd}, every one of the window's)")
+        if bwd != want_bwd:
+            raise AssertionError("the flash backward's launches fall outside critic_update")
         log(f"train vit_b16 train_encoder: {VIT_TRAIN_STEPS} steps in {train_s:.3f} s in process, "
             f"launches {train_counts} (expected {want_counts}); last step "
             f"{1 / lines[-1]['steps_per_sec']:.4f} s/step, {lines[-1]['images_per_sec']:.1f} "

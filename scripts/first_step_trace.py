@@ -1,7 +1,7 @@
 """Trace a process's first train step against the same step repeated, op by op.
 
   python3 scripts/first_step_trace.py [--config pipeline_v4] [--batch 256] [--no-trace]
-      [--warm] [--device cpu]
+      [--warm] [--cold] [--device cpu]
 
 On the card: builds a seeded train state and one seeded super-batch at the
 config's widths (float16 features, valid triples), runs one train step from
@@ -15,9 +15,12 @@ while its inputs agree, its neighbours, and how many operators differ (the
 two sequences aligned by operator and input shapes first; an operator only
 one step ran is printed). Each
 step's noise comes from its step counter, so the two steps are the same
-computation. ``--warm`` runs one tiny backward on the device first. Prints
-the card's name and power limit first (``--device cpu``,
-a dry run, prints none).
+computation. ``--warm`` runs one tiny backward on the device first.
+``--cold`` leaves out the step's own warm-up (``sgg_torch.train.step.
+warm_autograd``, which puts this thread's autograd sequence number above the
+device's autograd thread's), as the step ran before it had one. Prints the
+card's name and power limit first (``--device cpu``, a dry run, prints none),
+and the two threads' autograd sequence numbers before and after the steps.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ sys.path.insert(0, ROOT)
 from sgg_torch.config import get_config  # noqa: E402
 from sgg_torch.data import Vocab  # noqa: E402
 from sgg_torch.train.state import create_train_state  # noqa: E402
+from sgg_torch.train import step as step_mod  # noqa: E402
 from sgg_torch.train.step import make_step_fn  # noqa: E402
 
 _INT_OF = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -105,6 +109,14 @@ def tensors(state):
     return out
 
 
+def sequence_numbers(dev) -> tuple[int, int]:
+    """(this thread's next autograd sequence number, the one of ``dev``'s
+    autograd thread: a node its create_graph backward records)."""
+    x = torch.ones(1, device=dev, requires_grad=True)
+    (g,) = torch.autograd.grad((x * x).sum(), x, create_graph=True)
+    return (x * 1).grad_fn._sequence_nr(), g.grad_fn._sequence_nr()
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -114,7 +126,11 @@ def main() -> int:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--warm", action="store_true",
                    help="run one tiny backward on the device before the two steps")
+    p.add_argument("--cold", action="store_true",
+                   help="leave out the step's warm_autograd")
     args = p.parse_args()
+    if args.cold:
+        step_mod.warm_autograd = lambda device: 0
     dev = torch.device(args.device)
     if dev.type == "cuda":
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,6 +146,8 @@ def main() -> int:
     if args.warm:
         x = torch.ones(4, device=dev, requires_grad=True)
         (x * x).sum().backward()
+    print(f"autograd sequence numbers before the steps (this thread, the device's): "
+          f"{sequence_numbers(dev)}", flush=True)
     runs = []
     for i in range(2):
         state = create_train_state(cfg, cfg.train.seed, device=dev)
@@ -142,10 +160,13 @@ def main() -> int:
             step(state, batch)
         runs.append(rec.finish())
         print(f"step {i + 1}: {len(runs[-1])} operators recorded", flush=True)
+    print(f"autograd sequence numbers after the steps: {sequence_numbers(dev)}", flush=True)
     if args.no_trace:
         a, b = runs
         differ = [k for k in a if not torch.equal(a[k], b[k])]
-        print(f"{args.config} B = {cfg.train.batch_size}{' after a warm-up backward' if args.warm else ''}: "
+        how = (" after a tiny backward" if args.warm else "") + (
+            " without the step's warm-up" if args.cold else "")
+        print(f"{args.config} B = {cfg.train.batch_size}{how}: "
               f"{len(differ)} of {len(a)} state tensors differ between the first and the "
               "repeated step", flush=True)
         for k in differ:

@@ -26,8 +26,6 @@ from sgg_torch.data import (
 )
 from sgg_torch.data.extract import resolve_image_paths
 
-LATER = "is not ported yet; a later slice of the port brings it"
-
 
 def add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config", default="smoke", choices=sorted(CONFIGS),

@@ -114,10 +114,47 @@ from sgg_torch.models.moe import MoEMLP
 from sgg_torch.train.losses import critic_loss, generator_loss, reinforce_generator_loss
 from sgg_torch.train.state import GANTrainState, global_norm
 from sgg_torch.utils.gumbel import sample_gumbel
+from sgg_torch.utils.profiling import annotate
 
 # Rank r's noise seed is rank 0's plus r times this: below 2^32, as the CPU's
 # generator keeps only a seed's low 32 bits.
 RANK_SEED_STRIDE = 1_000_000_007
+# How far ``warm_autograd`` puts the calling thread's autograd sequence number
+# above the device thread's: more than the nodes one gradient penalty's
+# create_graph backward records there (138 for the critic of 3 layers).
+SEQUENCE_MARGIN = 1 << 14
+_warmed: set = set()  # the devices that warm_autograd has seen in this process
+
+
+def warm_autograd(device) -> int:
+    """Put the calling thread's autograd sequence number ``SEQUENCE_MARGIN``
+    above the one of ``device``'s autograd thread, once per device and
+    process; return how many nodes that took (0 when done before).
+
+    The engine runs a backward on a CUDA device in a thread of its own, and
+    the nodes that the gradient penalty's ``create_graph`` backward records
+    take their sequence numbers from that thread's counter, which starts at 0
+    in a new process, as the calling thread's does. Among the nodes that are
+    ready together the engine runs the higher number first, so in a process's
+    first critic update those nodes interleave with the forward's, and a
+    parameter whose gradient gathers terms from both (the critic's first
+    LayerNorm scale) sums them in another order than in every later update,
+    where the calling thread's numbers lie above. Nodes recorded here (a tiny
+    backward on the device, then views of a scalar on the CPU) touch no
+    tensor of the state. On the CPU the backward runs in the calling thread,
+    and nothing needs doing."""
+    device = torch.device(device)
+    if device in _warmed:
+        return 0
+    _warmed.add(device)
+    x = torch.ones(1, device=device, requires_grad=True)
+    (g,) = torch.autograd.grad((x * x).sum(), x, create_graph=True)
+    target = g.grad_fn._sequence_nr() + SEQUENCE_MARGIN  # numbered on the device's thread
+    z = torch.zeros((), requires_grad=True)
+    n = max(0, target - z.view(()).grad_fn._sequence_nr())
+    for _ in range(n):
+        z.view(())
+    return n
 
 
 def refuse_unported(cfg: Config) -> None:
@@ -292,6 +329,8 @@ def make_step_fn(cfg: Config, step_mask=None, group=None, mesh=None) -> Callable
         data = batch["features"] if encoder is None else batch["images"]
         triples = batch["triples"].long()
         dev, B = data.device, data.shape[1]
+        if dev.type == "cuda":
+            warm_autograd(dev)
         if accum > 1 and B % accum:
             raise ValueError(f"train.grad_accum={accum} must divide the batch ({B})")
         if noise is None:
@@ -338,10 +377,11 @@ def make_step_fn(cfg: Config, step_mask=None, group=None, mesh=None) -> Callable
 
                 def vg(mb, k):
                     raw_mb, real_mb = mb
-                    if moe_on:
-                        feats, moe_aux = enc_feats_aux(raw_mb)
-                    else:
-                        feats = enc_feats(raw_mb)
+                    with annotate("encoder"):
+                        if moe_on:
+                            feats, moe_aux = enc_feats_aux(raw_mb)
+                        else:
+                            feats = enc_feats(raw_mb)
                     with torch.no_grad():
                         fake = sample_fake(feats.detach(), noise["fake_z"][i, k],
                                            noise["fake_gumbel"][i, k])
@@ -366,7 +406,8 @@ def make_step_fn(cfg: Config, step_mask=None, group=None, mesh=None) -> Callable
                 feats, fake = data[i], fakes[i]
             else:
                 with torch.no_grad():
-                    feats = enc_feats(data[i])
+                    with annotate("encoder"):
+                        feats = enc_feats(data[i])
                     fake = sample_fake(feats, noise["fake_z"][i, 0], noise["fake_gumbel"][i, 0])
 
             def vg(mb, k):
@@ -406,21 +447,22 @@ def make_step_fn(cfg: Config, step_mask=None, group=None, mesh=None) -> Callable
         # ---- n_critic critic updates ----
         # The generator (and a frozen encoder) only runs forward here; the
         # critic (and a trained encoder) is gathered anew for each update.
+        # The regions carry the reference's scope names (``annotate``).
         with full(gen, None if train_enc else encoder):
             fakes = None
             if encoder is None:
-                with torch.no_grad():
+                with annotate("sample_fakes_batched"), torch.no_grad():
                     fakes = sample_fake(
                         data[:nc].reshape(nc * B, *data.shape[2:]),
                         noise["fake_z"].reshape(nc * B, -1),
                         noise["fake_gumbel"].reshape(nc * B, TRIPLE_LEN, V),
                     ).reshape(nc, B, TRIPLE_LEN, V)
             for i in range(nc):
-                with full(critic, encoder if train_enc else None):
+                with annotate("critic_update"), full(critic, encoder if train_enc else None):
                     d_aux = critic_update(i, fakes)
 
         # ---- one generator update on the last sub-batch ----
-        with full(gen, critic, encoder):
+        with annotate("generator_update"), full(gen, critic, encoder):
             g_aux = generator_update()
 
         if t.ema_decay > 0:

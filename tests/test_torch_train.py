@@ -15,7 +15,12 @@
 - the ViT's parameter gradients through ``flash_attention`` against
   ``jax.grad`` of flax ``ViTB16Features(attn_fn=flash_attention)`` (the
   Pallas backward in interpret mode);
-- the host iterator's batches against ``sgg``'s, and the refusals.
+- the host iterator's batches against ``sgg``'s, and the refusals;
+- ``warm_autograd``, the step's warm-up on a CUDA device (the calling
+  thread's autograd sequence number put above the device thread's): it runs
+  once per device, touches no tensor of the state, and a step after it equals
+  a step without it bit for bit (here on the CPU, where the step itself never
+  calls it).
 
 Tolerances (float32 throughout): metrics within 1e-5 relative plus 1e-6
 absolute (w_dist is a difference of two close means); the gradients of the
@@ -73,7 +78,9 @@ from sgg_torch.data import TripleDataset
 from sgg_torch.data.pipeline import make_device_train_iterator, make_train_iterator
 from sgg_torch.models.encoders import make_encoder
 from sgg_torch.train import state as tstate
+from sgg_torch.train import step as step_mod
 from sgg_torch.train.step import make_step_fn, noise_shapes, tau_schedule
+from sgg_torch.train.step import warm_autograd as step_warm
 
 torch.set_num_threads(1)
 
@@ -556,3 +563,30 @@ def test_noise_layout_and_refusals():
                         triple_weights=[np.ones(len(t)) / len(t) for t in data["triples"]])
     assert next(make_train_iterator(tds, 2, 1, prefetch=0))["triples"].shape == (2, 2, 3)
     assert next(make_device_train_iterator(tds, 2, 1, device="cpu"))["triples"].shape == (2, 2, 3)
+
+
+def test_warm_autograd_runs_once_per_device_and_touches_no_state(monkeypatch):
+    _, pcfg = _configs("smoke", {})
+    monkeypatch.setattr(step_mod, "_warmed", set())
+    calls = []
+    monkeypatch.setattr(step_mod, "warm_autograd", calls.append)
+    r = np.random.RandomState(0)
+    B, nc, V = pcfg.train.batch_size, pcfg.train.n_critic, pcfg.model.vocab_size
+    batch = {"features": torch.from_numpy(r.standard_normal(
+                 (nc + 1, B, pcfg.data.regions, pcfg.data.feat_dim)).astype(np.float32)),
+             "triples": torch.from_numpy(r.randint(2, V, (nc + 1, B, 3)))}
+    states = []
+    for warm in (False, True):
+        state = tstate.create_train_state(pcfg, 0)
+        if warm:
+            before = [t.clone() for t in state.tensors()]
+            seq = (torch.zeros((), requires_grad=True) * 1).grad_fn._sequence_nr()
+            assert step_warm(torch.device("cpu")) > 0
+            assert (torch.zeros((), requires_grad=True) * 1).grad_fn._sequence_nr() >= (
+                seq + step_mod.SEQUENCE_MARGIN)
+            assert step_warm("cpu") == 0 and step_warm(torch.device("cpu")) == 0
+            assert all(torch.equal(a, b) for a, b in zip(before, state.tensors(), strict=True))
+        make_step_fn(pcfg)(state, batch)
+        states.append(state.tensors())
+    assert calls == []  # a CPU step never calls it
+    assert all(torch.equal(a, b) for a, b in zip(*states, strict=True))

@@ -45,9 +45,17 @@ the CPU.
 - ``refuse_grad``, the conv kernels' guard: it raises under grad mode when
   an operand needs a gradient, and not otherwise (the wrappers call it only
   on CUDA tensors; ``tests/test_torch_kernels_cuda.py`` holds them there).
+- ``chip_smoke.py`` phase 29 (c)'s gradient gate (``c4_gate``) at 32 px,
+  B 2: the port's float32 CPU step's first critic update lies within the
+  gate of its float64 oracle (the port's modules in float64 under
+  ``chip_smoke.float64_mode``), and the same gradients with one seeded
+  error of 1e-2 x max in one tensor are refused; every fault that
+  ``chip_fault_check.py`` seeds still finds its sound text once in the
+  source.
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -76,6 +84,8 @@ from sgg_torch.train import step as step_mod
 from sgg_torch.train.state import create_train_state, global_norm
 from sgg_torch.train.step import make_step_fn
 from test_torch_train import STEPS, _assert_params_close, _reference_grads, _run
+import chip_fault_check
+import chip_smoke
 from sgg.train.state import make_encoder_optimizer as jax_make_encoder_optimizer
 from sgg.train.state import make_optimizers as jax_make_optimizers
 
@@ -362,3 +372,46 @@ def test_refuse_grad_raises_only_for_an_operand_that_needs_a_gradient():
         refuse_grad("conv2d_direct", a, None, w)
     with torch.no_grad():
         refuse_grad("conv2d_direct", a, w)
+
+
+C4_SMALL = {"model.hidden": 32, "model.embed_dim": 16, "model.attn_dim": 16,
+            "model.noise_dim": 8, "model.critic_hidden": 32, "data.regions": 4,
+            "data.feat_dim": 512}
+
+
+def test_c4_gate_passes_the_float32_step_and_refuses_a_seeded_error():
+    cfg, data, noise = chip_smoke.cnn_hold_inputs(0, 2, 32, C4_SMALL)
+    _, f32, _ = chip_smoke.first_update_grads(cfg, 0, data, noise, "cpu")
+    _, f64, _ = chip_smoke.first_update_grads(cfg, 0, data, noise, "cpu", float64=True)
+    for key in ("d", "enc"):
+        assert len(f32[key]) == len(f64[key]) and all(g.dtype == torch.float64 for g in f64[key])
+        far, _ = chip_smoke.oracle_distance(f32[key], f64[key])
+        assert 0 < far < 1e-3  # float32's rounding, not another function
+        assert chip_smoke.c4_gate(far, far)[0]
+        seeded = [g.contiguous() for g in f32[key]]
+        seeded[-2] = seeded[-2].clone()
+        seeded[-2].view(-1)[0] += 1e-2 * seeded[-2].abs().max()
+        bad, _ = chip_smoke.oracle_distance(seeded, f64[key])
+        assert not chip_smoke.c4_gate(bad, far)[0]
+
+
+def _fault_sources():
+    f = chip_fault_check
+    for name, src in (("CONV_FAULTS", f.CONV_SRC), ("MM_FAULTS", f.MM_SRC),
+                      ("DECODE_FAULTS", f.DECODE_SRC), ("GATHER_FAULTS", f.GATHER_SRC),
+                      ("GRAPH_FAULTS", f.GATHER_SRC), ("LOADER_FAULTS", f.LOADER_SRC)):
+        for label, v in getattr(f, name).items():
+            yield label, src, v[0]
+    for label, (src, sound, _, _) in dict(f.RECIPE_FAULTS, **f.DEPLOY_FAULTS, **f.DP_FAULTS,
+                                          **f.CNN_FAULTS).items():
+        yield label, src, sound
+    for src, sound, _ in f.ONE_ACCUMULATOR:
+        yield "one accumulator", src, sound
+
+
+@pytest.mark.parametrize("label,src,sound", list(_fault_sources()),
+                         ids=lambda x: x if isinstance(x, str) and len(x) < 40 else None)
+def test_every_seeded_fault_finds_its_sound_text_once(label, src, sound):
+    path = src if src.startswith("sgg_torch/") else os.path.join(chip_fault_check.CSRC, src)
+    with open(os.path.join(chip_fault_check.ROOT, path)) as f:
+        assert f.read().count(sound) == 1, label
